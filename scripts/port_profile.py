@@ -1,0 +1,116 @@
+#!/usr/bin/env python3
+"""Where a PH iteration of the PyTorch/CUDA port spends its time on the card.
+
+    python3 scripts/port_profile.py [--scens 1000] [--crops-multiplier 4]
+                                    [--warm-iters 20] [--iters 5]
+
+Runs farmer PH (float32, eps 1e-5) through ``tpusppy_torch`` on one CUDA
+device: Iter0 and ``--warm-iters`` iterations, then ``--iters`` iterations
+timed on the host clock, then ``--iters`` more under ``torch.profiler``.
+Prints one JSON line: the card, the untraced window's wall seconds per
+iteration, device-busy seconds per iteration in the traced window (the union
+of kernel intervals on the timeline), the idle share (busy against the
+UNTRACED wall, since the profiler slows the host), host syncs and kernel
+launches per iteration, and the top device kernels by time.  Imports nothing
+of JAX.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.dirname(HERE))
+
+
+def busy_seconds(events):
+    """Union length of [start, end) device intervals (microseconds in)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total * 1e-6
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--scens", type=int, default=1000)
+    ap.add_argument("--crops-multiplier", type=int, default=4)
+    ap.add_argument("--warm-iters", type=int, default=20)
+    ap.add_argument("--iters", type=int, default=5)
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpusppy_torch.models import farmer
+    from tpusppy_torch.obs import metrics
+    from tpusppy_torch.opt.ph import PH
+
+    if not torch.cuda.is_available():
+        print("FAIL: needs a CUDA device", flush=True)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S, cm = args.scens, args.crops_multiplier
+    ph = PH({"defaultPHrho": 1.0, "PHIterLimit": args.warm_iters,
+             "convthresh": 0.0,
+             "solver_options": {"dtype": "float32", "eps_abs": 1e-5,
+                                "eps_rel": 1e-5}},
+            farmer.scenario_names_creator(S), farmer.scenario_creator,
+            scenario_creator_kwargs={"num_scens": S, "crops_multiplier": cm})
+    ph.ph_main()
+    torch.cuda.synchronize()
+    n = args.iters
+
+    def run_iters():
+        for _ in range(n):
+            ph._iterk_one(ph._iter + 1, 0.0)
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    run_iters()
+    wall = (time.perf_counter() - t0) / n
+    with metrics.window() as win, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_iters()
+        traced_wall = (time.perf_counter() - t0) / n
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        print("FAIL: the profiler recorded no device kernels", flush=True)
+        return 1
+    busy = busy_seconds(dev) / n
+    by_name = {}
+    for e in dev:
+        name = e.name[:100]
+        by_name[name] = by_name.get(name, 0.0) + (
+            e.time_range.end - e.time_range.start) * 1e-6 / n
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(json.dumps({
+        "card": smi, "scens": S, "crops_multiplier": cm, "iters": n,
+        "wall_s_per_iter": wall, "traced_wall_s_per_iter": traced_wall,
+        "device_busy_s_per_iter": busy, "idle_share": 1.0 - busy / wall,
+        "device_kernels_per_iter": len(dev) / n,
+        "host_syncs_per_iter": (win.delta("host_sync.count")
+                                + win.delta("admm.loop_checks")) / n,
+        "loop_checks_per_iter": win.delta("admm.loop_checks") / n,
+        "top_kernels_s_per_iter": top}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

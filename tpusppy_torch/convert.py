@@ -1,0 +1,93 @@
+"""State carry-across: the reference package's state as the port's objects.
+
+The JAX package's arrays come in as numpy (``np.asarray`` of a device array,
+``dataclasses.asdict`` of a dataclass, ``NamedTuple._asdict()``), so nothing
+here imports the reference.  This is the system's analogue of loading
+weights: a scenario batch, a refresh solve's factors, or a PH hub's state
+carried over lets the port continue exactly where the reference stopped.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ir import ScenarioBatch
+from .scenario_tree import TreeInfo
+from .solvers.admm import Factors
+
+
+def tree_from_arrays(node_names, node_stage, scen_node_ids, nonant_stage,
+                     nonant_indices, node_prob, scen_prob) -> TreeInfo:
+    """A :class:`TreeInfo` from the reference's TreeInfo fields."""
+    return TreeInfo(
+        node_names=list(node_names),
+        node_stage=np.asarray(node_stage, dtype=np.int32),
+        scen_node_ids=np.asarray(scen_node_ids, dtype=np.int32),
+        nonant_stage=np.asarray(nonant_stage, dtype=np.int32),
+        nonant_indices=np.asarray(nonant_indices, dtype=np.int32),
+        node_prob=np.asarray(node_prob, dtype=np.float64),
+        scen_prob=np.asarray(scen_prob, dtype=np.float64))
+
+
+def batch_from_arrays(names, c, q2, A, cl, cu, lb, ub, is_int, const, tree,
+                      var_names=None, version=0, **_ignored) -> ScenarioBatch:
+    """A :class:`ScenarioBatch` from the reference's ScenarioBatch fields.
+    ``tree`` is a TreeInfo or a dict of its fields.  Fields the port's batch
+    does not have (``A_shared``, ``repair_fn``) are ignored; a shared A
+    arrives as its (S, m, n) view and is stored dense."""
+    if isinstance(tree, dict):
+        tree = tree_from_arrays(**tree)
+
+    def f(v):
+        return np.array(v, dtype=np.float64)
+
+    return ScenarioBatch(
+        names=list(names), c=f(c), q2=f(q2), A=f(A), cl=f(cl), cu=f(cu),
+        lb=f(lb), ub=f(ub), is_int=np.asarray(is_int, dtype=bool),
+        const=f(const), tree=tree,
+        var_names=None if var_names is None else list(var_names),
+        version=int(version))
+
+
+def factors_from_arrays(arrays: dict, device, dtype=torch.float64) -> Factors:
+    """:class:`Factors` from the reference's Factors as a dict of numpy
+    arrays (``{k: np.asarray(v) for k, v in factors._asdict().items()}``)."""
+    return Factors(**{
+        k: torch.tensor(np.asarray(arrays[k]), dtype=dtype, device=device)
+        for k in Factors._fields})
+
+
+def load_ph_state(ph, W, xbars, rho, warm, factors=None, factors_age=1,
+                  iteration=0):
+    """Seat a PH hub state in a port ``PH``/``PHBase`` object.
+
+    ``W``, ``xbars``, ``rho`` are (S, K); ``warm`` is the last solve's
+    (x, z, y, yx) (unscaled, as the reference's ``_warm``); ``factors`` is
+    an optional dict of the reference's refresh factors, valid for the
+    augmented objective at this ``rho``, with their age.  The next
+    ``_iterk_one(iteration + 1, ...)`` then repeats the reference's next
+    iteration: a frozen solve when factors came along and are not aged out,
+    else a refresh."""
+    S, K = ph.batch.num_scenarios, ph.nonant_length
+    for name, v in (("W", W), ("xbars", xbars), ("rho", rho)):
+        v = np.array(v, dtype=np.float64)
+        if v.shape != (S, K):
+            raise ValueError(f"{name} has shape {v.shape}, wanted {(S, K)}")
+        setattr(ph, name, v)
+    dt = ph.admm_settings.tdtype()
+    ph._warm = tuple(torch.tensor(np.asarray(v), dtype=dt, device=ph.device)
+                     for v in warm)
+    x = np.array(warm[0], dtype=np.float64)
+    ph.local_x = x
+    _, ph.xsqbars = ph._node_avgs(ph.nonants_of(x))
+    ph._iter = int(iteration)
+    if factors is None:
+        ph._factors = ph._factors_sig = None
+        ph._factors_age = 0
+        return ph
+    ph._factors = factors_from_arrays(factors, ph.device, dt)
+    ph._factors_sig = ph._solve_sig(ph._augmented_q2(), ph.batch.lb,
+                                    ph.batch.ub)
+    ph._factors_age = int(factors_age)
+    return ph

@@ -1,0 +1,92 @@
+"""SPBase: scenario ownership, probabilities, options — the runtime root.
+
+Port of ``tpusppy/spbase.py`` without mesh, bundling, bucketing, batch
+caching or canonical ingest: the whole scenario set is built as ONE
+:class:`~tpusppy_torch.ir.ScenarioBatch` and the node-grouping index arrays
+replace per-node communicators.  ``options["device"]`` picks the device the
+solves run on (CUDA unless ``"cpu"`` is asked for; see
+:func:`tpusppy_torch.resolve_device`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from . import global_toc, resolve_device
+from .ir import ScenarioBatch
+from .solvers.admm import ADMMSettings
+
+
+def build_batch(all_scenario_names, scenario_creator,
+                scenario_creator_kwargs=None):
+    """Model ingest -> one batched array family.  Returns
+    ``(batch, names)``."""
+    names = list(all_scenario_names)
+    problems = [
+        scenario_creator(name, **dict(scenario_creator_kwargs or {}))
+        for name in names
+    ]
+    return ScenarioBatch.from_problems(problems), names
+
+
+def make_admm_settings(options) -> ADMMSettings:
+    """``solver_options`` -> :class:`ADMMSettings`; keys the port's settings
+    do not have (e.g. the reference's ``megastep``) are ignored."""
+    so = dict(options.get("solver_options") or {})
+    allowed = {f.name for f in ADMMSettings.__dataclass_fields__.values()}
+    return ADMMSettings(**{k: v for k, v in so.items() if k in allowed})
+
+
+class SPBase:
+    """Base class for scenario-programming objects.
+
+    Args:
+      options: dict of options (reference option names honored:
+        ``defaultPHrho``, ``convthresh``, ``PHIterLimit``, ``verbose``,
+        ``display_progress``, ``solver_options`` ...; plus ``device``).
+      all_scenario_names: list of scenario names.
+      scenario_creator: callable(name, **kwargs) -> ScenarioProblem.
+      scenario_creator_kwargs: kwargs passed through.
+    """
+
+    def __init__(self, options, all_scenario_names, scenario_creator,
+                 scenario_creator_kwargs=None):
+        self.options = dict(options or {})
+        self.device = resolve_device(self.options.get("device"))
+        self.all_scenario_names = list(all_scenario_names)
+        self.scenario_creator = scenario_creator
+        self.scenario_creator_kwargs = dict(scenario_creator_kwargs or {})
+        self.verbose = self.options.get("verbose", False)
+
+        self.batch, self.all_scenario_names = build_batch(
+            self.all_scenario_names, scenario_creator,
+            self.scenario_creator_kwargs)
+        self.tree = self.batch.tree
+        global_toc(
+            f"Built scenario batch: {self.batch.num_scenarios} scenarios, "
+            f"{self.batch.num_vars} vars, {self.batch.num_rows} rows, "
+            f"{self.tree.num_nonants} nonants, {self.tree.num_stages} stages",
+            self.verbose,
+        )
+        # nid_sk[s, k] = node-id owning nonant slot k in scenario s
+        self.nid_sk = self.tree.nid_sk()
+        self.admm_settings = make_admm_settings(self.options)
+
+    def _options_check(self, required, options=None):
+        """Hard check for required options (spbase.py:524-531)."""
+        options = self.options if options is None else options
+        missing = [k for k in required if k not in options]
+        if missing:
+            raise RuntimeError(f"Missing required options: {missing}")
+
+    @property
+    def probs(self) -> np.ndarray:
+        return self.tree.scen_prob
+
+    @property
+    def nonant_length(self) -> int:
+        return self.tree.num_nonants
+
+    def nonants_of(self, x) -> np.ndarray:
+        """Gather packed nonant vector(s) (…, K) from full x (…, n)."""
+        return np.asarray(x)[..., self.tree.nonant_indices]

@@ -1,0 +1,376 @@
+"""SPOpt: batched subproblem solving and expectation reductions.
+
+Port of the host path of ``tpusppy/spopt.py``: the whole local batch is ONE
+batched ADMM call on the device, warm-started between calls, with the
+factorization amortized over ``solver_refresh_every`` calls (frozen solves in
+between) and a host-exact rescue of the scenarios a refresh leaves
+unconverged.  Expectations are probability-weighted contractions on the host.
+The megastep, bucketed and in-wheel methods are not part of this slice.
+"""
+
+from __future__ import annotations
+
+import itertools
+
+import numpy as np
+
+from . import global_toc
+from .obs import metrics as _metrics
+from .obs import trace as _trace
+from .spbase import SPBase
+from .solvers import admm, hostsync, segmented
+
+_BATCH_TOKENS = itertools.count(1)
+
+
+def _batch_token(b):
+    """Monotone identity token for cache keys (never reused, unlike id())."""
+    tok = getattr(b, "_sig_token", None)
+    if tok is None:
+        tok = next(_BATCH_TOKENS)
+        b._sig_token = tok
+    return tok
+
+
+def _np_dual_objective(q, A, cl, cu, lb, ub, y, x_hint, margin_scale=100.0):
+    """Single-scenario numpy twin of :func:`admm.dual_objective` (LP case),
+    used by the straggler rescue to validate host duals."""
+    base, _ = _np_dual_cut(q, A, cl, cu, lb, ub, y, x_hint,
+                           np.zeros(q.shape[0], dtype=bool), margin_scale)
+    return base
+
+
+def _np_dual_cut(q, A, cl, cu, lb, ub, y, x_hint, clamp_mask,
+                 margin_scale=100.0):
+    """Single-scenario numpy twin of :func:`admm.dual_cut` (LP case)."""
+    big = admm.BIG
+    cl = np.clip(np.nan_to_num(cl, nan=-big), -big, big)
+    cu = np.clip(np.nan_to_num(cu, nan=big), -big, big)
+    fin_cl, fin_cu = cl > -big / 2, cu < big / 2
+    fin_lb, fin_ub = lb > -big / 2, ub < big / 2
+    y = np.where(~fin_cu & (y > 0), 0.0, y)
+    y = np.where(~fin_cl & (y < 0), 0.0, y)
+    row = (-np.maximum(y, 0) * np.where(fin_cu, cu, 0.0)
+           - np.minimum(y, 0) * np.where(fin_cl, cl, 0.0)).sum()
+    X = margin_scale * (1.0 + np.abs(x_hint).max())
+    L = np.where(fin_lb, np.maximum(lb, -big), -X)
+    U = np.where(fin_ub, np.minimum(ub, big), X)
+    g = q + A.T @ y
+    term = g * np.where(g >= 0, L, U)
+    base = float(row + np.where(clamp_mask, 0.0, term).sum())
+    return base, g
+
+
+def _certified_dual_eval(args):
+    """(dvals, margin): the weak-duality bound with its X-cap margin, as ONE
+    device evaluation and ONE fetch."""
+    packed = np.asarray(
+        hostsync.fetch(admm.dual_objective_with_margin(*args)), dtype=float)
+    return packed[0], packed[1]
+
+
+def _pick_dual_sign(q, A, cl, cu, lb, ub, duals, x, obj):
+    """scipy's marginal sign convention is opposite ours and varies by
+    constraint shape: pick the sign whose dual objective is closest to the
+    primal optimum.  Returns y."""
+    best = None
+    for sign in (-1.0, 1.0):
+        ys = sign * duals
+        dval = _np_dual_objective(q, A, cl, cu, lb, ub, ys, x)
+        if best is None or abs(obj - dval) < abs(best[0]):
+            best = (obj - dval, ys)
+    return best[1]
+
+
+class SPOpt(SPBase):
+    """Adds solving to SPBase."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._warm = None            # (x, z, y, yx) of the last solve
+        self.local_x = None          # (S, n) last solution (host)
+        self.pri_res = None
+        self.dua_res = None
+        self._factors = None         # admm.Factors of the last refresh solve
+        self._factors_sig = None
+        self._factors_age = 0
+        self._n_div_prev = 0
+
+    def _device_consts(self, dt):
+        """Device-resident (A, cl, cu), cached on batch identity/version:
+        the (S, m, n) constraint tensor never changes between solves."""
+        b = self.batch
+        key = (_batch_token(b), getattr(b, "version", 0), dt)
+        cached = getattr(self, "_dev_consts", None)
+        if cached is None or cached[0] != key:
+            def t(v):
+                return admm._tensor(np.ascontiguousarray(v), dt, self.device)
+            cached = (key, (t(b.A), t(b.cl), t(b.cu)))
+            self._dev_consts = cached
+        return cached[1]
+
+    def _solve_sig(self, q2, lb, ub):
+        """Validity signature of cached Factors: (A, q2, rho patterns); rho
+        patterns depend only on which rows/columns are equalities, clamped
+        or finite — not on bound values."""
+        lb = np.asarray(lb)
+        ub = np.asarray(ub)
+        patt = ((np.abs(ub - lb) < 1e-10).astype(np.uint8)
+                + 2 * (lb > -admm.BIG / 2).astype(np.uint8)
+                + 4 * (ub < admm.BIG / 2).astype(np.uint8))
+        return (float(np.sum(np.asarray(q2))), hash(patt.tobytes()),
+                _batch_token(self.batch),
+                getattr(self.batch, "version", 0), self.admm_settings)
+
+    # ---- the hot loop -------------------------------------------------------
+    def solve_loop(self, q=None, q2=None, warm=True):
+        """Solve the whole local batch; returns (S, n) solutions (host).
+
+        ``q``/``q2`` override the objective (PH passes its augmented one).
+        Factorization-amortized: an adaptive "refresh" solve every
+        ``solver_refresh_every`` calls (and whenever the problem structure
+        changes) caches the factors; calls in between are sweep-only frozen
+        solves, accepted only when they converged (or sit inside the rescue
+        tolerance ladder), else re-solved adaptively."""
+        ext = getattr(self, "extobject", None)
+        if ext is not None:
+            ext.pre_solve()
+        b = self.batch
+        q = b.c if q is None else q
+        q2 = b.q2 if q2 is None else q2
+        A_d, cl_d, cu_d = self._device_consts(self.admm_settings.tdtype())
+        slot = {"warm": self._warm, "factors": self._factors,
+                "sig": self._factors_sig, "age": self._factors_age,
+                "n_div_prev": self._n_div_prev}
+        sol, meas = self._solve_amortized(
+            (q, q2, A_d, cl_d, cu_d, b.lb, b.ub), slot, warm)
+        self._warm = slot["warm"]
+        self._factors = slot["factors"]
+        self._factors_sig = slot["sig"]
+        self._factors_age = slot["age"]
+        self._n_div_prev = slot["n_div_prev"]
+        # everything the iteration reads came back in ONE packed fetch
+        self.local_x = meas["x"]
+        self.pri_res = meas["pri"]
+        self.dua_res = meas["dua"]
+        if ext is not None:
+            ext.post_solve()
+        return self.local_x
+
+    def _fetch_measure(self, sol):
+        """ONE device fetch of everything the host reads from a solve."""
+        S, n = sol.x.shape
+        return admm.measure_unpack(
+            hostsync.fetch(admm.measure_pack(sol)), S, n)
+
+    def _solve_amortized(self, args, slot: dict, warm: bool):
+        """Frozen attempt under a validity signature, else an adaptive
+        factored solve + straggler rescue.  ``slot`` carries
+        warm/factors/sig/age; ``args`` is (q, q2, A, cl, cu, lb, ub).
+        Returns ``(sol, meas)``."""
+        refresh_every = self._refresh_every()
+        sig = (self._solve_sig(args[1], args[5], args[6])
+               if refresh_every > 1 else None)
+        sol = meas = None
+        if (refresh_every > 1 and warm and slot.get("warm") is not None
+                and slot.get("factors") is not None
+                and slot.get("sig") == sig
+                and slot.get("age", 0) < refresh_every):
+            with _trace.span(None, "solve.frozen") as _sp:
+                cand = segmented.solve_frozen_segmented(
+                    admm.solve_batch_frozen, args, slot["factors"],
+                    self.admm_settings, warm=slot["warm"])
+                meas_c = self._fetch_measure(cand)
+                if _trace.enabled():
+                    _sp.add(iters=meas_c["iters"],
+                            all_done=meas_c["all_done"])
+            # accept when converged, or when every scenario already sits
+            # inside the rescue-tolerance ladder
+            tol_lp, tol_qp = self._straggler_tols()
+            tol_s = np.where(
+                np.any(np.asarray(args[1]) != 0.0, axis=-1), tol_qp, tol_lp)
+            if (meas_c["all_done"]
+                    or bool(np.all((meas_c["pri"] <= tol_s)
+                                   & (meas_c["dua"] <= tol_s)))):
+                sol, meas = cand, meas_c
+                slot["age"] = slot.get("age", 0) + 1
+        if sol is None:
+            with _trace.span(None, "solve.refresh"):
+                sol, factors = segmented.solve_factored_segmented(
+                    admm.solve_batch_factored, args, self.admm_settings,
+                    warm=slot.get("warm") if warm else None)
+                slot["factors"] = factors
+                slot["sig"] = sig
+                slot["age"] = 1
+                meas = self._fetch_measure(sol)
+            sol, meas = self._rescue_stragglers(
+                sol, args[0], args[1], args[5], args[6], meas=meas)
+        # divergence observability: billed on the increase only
+        n_div = int(np.count_nonzero(~np.isfinite(meas["pri"])))
+        new_div = n_div - slot.get("n_div_prev", 0)
+        slot["n_div_prev"] = n_div
+        if new_div > 0:
+            _metrics.inc("solve.divergence_freezes", new_div)
+        slot["warm"] = (sol.x, sol.z, sol.y, sol.yx)
+        return sol, meas
+
+    def _refresh_every(self) -> int:
+        """Frozen-factor refresh cadence."""
+        return int(self.options.get("solver_refresh_every", 16) or 0)
+
+    def _straggler_tols(self):
+        """(tol_lp, tol_qp) rescue-tolerance ladder: LP scenarios rescue at
+        ``straggler_tol`` (default 1e-4); QP (prox-on PH) scenarios only
+        past ``straggler_tol_qp`` (default 1e-2)."""
+        tol_lp = max(float(self.options.get("straggler_tol", 1e-4)),
+                     10.0 * self.admm_settings.eps_rel)
+        if "straggler_tol_qp" in self.options:
+            tol_qp = max(float(self.options["straggler_tol_qp"]),
+                         10.0 * self.admm_settings.eps_rel)
+        elif "straggler_tol" in self.options:
+            tol_qp = tol_lp
+        else:
+            tol_qp = max(1e-2, tol_lp)
+        return tol_lp, tol_qp
+
+    def _rescue_stragglers(self, sol, q, q2, lb, ub, meas=None):
+        """Host-exact re-solve of the scenarios batched ADMM left
+        unconverged: LPs through HiGHS (duals sign-voted), QPs through the
+        batched host IPM.  The aux state (z, y, yx, done) is fetched only
+        when stragglers exist.  Returns ``(sol, meas)``."""
+        if meas is None:
+            meas = self._fetch_measure(sol)
+        if not self.options.get("straggler_rescue", True):
+            return sol, meas
+        tol_lp, tol_qp = self._straggler_tols()
+        pri = meas["pri"]
+        dua = meas["dua"]
+        q2_np = np.asarray(q2)
+        is_qp = np.any(q2_np != 0.0, axis=-1)
+        tol_s = np.where(is_qp, tol_qp, tol_lp)
+        # negated <= so NaN residuals (diverged solves) are selected too
+        bad = np.flatnonzero(~(pri <= tol_s) | ~(dua <= tol_s))
+        if bad.size == 0:
+            return sol, meas
+        from .solvers import scipy_backend
+
+        b = self.batch
+        q = np.asarray(q, dtype=float)
+        q2 = np.asarray(q2, dtype=float)
+        lb = np.asarray(lb, dtype=float)
+        ub = np.asarray(ub, dtype=float)
+        x = np.array(meas["x"], copy=True)
+        z, y, yx = hostsync.fetch((sol.z, sol.y, sol.yx))
+        pri = pri.copy()
+        dua = dua.copy()
+        done = hostsync.fetch(sol.done)
+        n_resc = 0
+        qp_bad = bad[is_qp[bad]]
+        if qp_bad.size:
+            max_n = int(self.options.get("straggler_qp_max_n", 2000))
+            if b.num_vars > max_n:
+                if not getattr(self, "_qp_rescue_size_warned", False):
+                    self._qp_rescue_size_warned = True
+                    global_toc(
+                        f"straggler rescue: {qp_bad.size} stalled QP "
+                        f"scenario(s) left at batch accuracy (n="
+                        f"{b.num_vars} > straggler_qp_max_n={max_n})",
+                        True)
+                qp_bad = np.empty(0, dtype=int)
+            chunk = max(1, int(self.options.get("straggler_qp_chunk", 16)))
+            for lo in range(0, qp_bad.size, chunk):
+                sl = qp_bad[lo:lo + chunk]
+                xb, yb, feas = scipy_backend.solve_qp_batch_with_duals(
+                    q[sl], q2[sl], b.A[sl], b.cl[sl], b.cu[sl], lb[sl],
+                    ub[sl])
+                for j, s in enumerate(sl):
+                    if not feas[j]:
+                        continue    # genuine infeasibility: leave residuals
+                    xs, ys = xb[j], yb[j]
+                    yx[s] = -(q[s] + q2[s] * xs + b.A[s].T @ ys)
+                    x[s], y[s] = xs, ys
+                    z[s] = b.A[s] @ xs
+                    pri[s] = 0.0
+                    dua[s] = 0.0
+                    done[s] = True
+                    n_resc += 1
+        lp_bad = bad[~is_qp[bad]]
+        max_lp = int(self.options.get("straggler_lp_max", 64))
+        if lp_bad.size > max_lp:
+            worst = np.argsort(-np.maximum(pri[lp_bad], dua[lp_bad]))
+            lp_bad = lp_bad[worst[:max_lp]]
+        for s in lp_bad:
+            res = scipy_backend.solve_lp_with_duals(
+                q[s], b.A[s], b.cl[s], b.cu[s], lb[s], ub[s])
+            if not res.feasible or res.duals is None:
+                continue        # genuine infeasibility: leave residuals
+            xs = res.x
+            obj_s = float(q[s] @ xs)
+            ys = _pick_dual_sign(q[s], b.A[s], b.cl[s], b.cu[s],
+                                 lb[s], ub[s], res.duals, xs, obj_s)
+            yxs = -(q[s] + q2[s] * xs + b.A[s].T @ ys)
+            x[s], y[s], yx[s] = xs, ys, yxs
+            z[s] = b.A[s] @ xs
+            pri[s] = 0.0
+            dua[s] = 0.0
+            done[s] = True
+            n_resc += 1
+        if n_resc:
+            _metrics.inc("solve.rescued_scenarios", n_resc)
+            global_toc(
+                f"straggler rescue: {n_resc}/{b.num_scenarios} scenarios "
+                "re-solved host-exact", self.options.get("verbose", False))
+        meas = dict(meas, x=x, pri=pri, dua=dua, all_done=bool(done.all()))
+        return (sol._replace(x=x, z=z, y=y, yx=yx, pri_res=pri, dua_res=dua,
+                             done=done, raw=(x, z, y, yx)), meas)
+
+    # ---- expectations -------------------------------------------------------
+    def Eobjective(self, x=None) -> float:
+        """Probability-weighted expected objective (spopt.py:310-345)."""
+        x = self.local_x if x is None else np.asarray(x)
+        return float(self.probs @ self.batch.objective(x))
+
+    def Ebound(self, x=None) -> float:
+        """Expected bound from current subproblem objectives
+        (spopt.py:346-393)."""
+        x = self.local_x if x is None else np.asarray(x)
+        return float(self.probs @ self.batch.objective(x))
+
+    def Edualbound(self, q=None, q2=None) -> float:
+        """Expectation of :meth:`Edualbound_perscen`."""
+        return float(self.probs @ self.Edualbound_perscen(q, q2))
+
+    def Edualbound_perscen(self, q=None, q2=None) -> np.ndarray:
+        """CERTIFIED per-scenario outer bounds ((S,)) from the last solve's
+        row duals (weak duality: solver tolerance can only weaken the
+        bound, never invalidate it)."""
+        if self._warm is None:
+            raise RuntimeError("Edualbound requires a prior solve_loop")
+        b = self.batch
+        q = b.c if q is None else q
+        q2 = b.q2 if q2 is None else q2
+        x, _, y, _ = self._warm
+        dt = self.admm_settings.tdtype()
+        A_d, cl_d, cu_d = self._device_consts(dt)
+
+        def t(v):
+            return admm._tensor(v, dt, self.device)
+
+        args = (t(q), t(q2), A_d, cl_d, cu_d, t(b.lb), t(b.ub), t(y), t(x))
+        dvals, margin = _certified_dual_eval(args)
+        return dvals - margin + b.const
+
+    def _feas_tol(self) -> float:
+        """The feasibility-gate tolerance: option ``feas_tol`` floored at
+        10x the solver's own eps."""
+        return max(float(self.options.get("feas_tol", 1e-3)),
+                   10.0 * self.admm_settings.eps_rel)
+
+    def feas_prob(self, tol=None) -> float:
+        """Probability mass of scenarios whose ADMM primal residual is
+        within tolerance (spopt.py:394-433)."""
+        if tol is None:
+            tol = self._feas_tol()
+        if self.pri_res is None:
+            return 1.0
+        return float(self.probs @ (self.pri_res < tol))
