@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Where a PH iteration of the PyTorch/CUDA port spends its time on the card.
 
-    python3 scripts/port_profile.py [--scens 1000] [--crops-multiplier 4]
+    python3 scripts/port_profile.py [--model farmer|uc_lite] [--scens 1000]
+                                    [--crops-multiplier 4]
                                     [--warm-iters 20] [--iters 5]
 
-Runs farmer PH (float32, eps 1e-5) through ``tpusppy_torch`` on one CUDA
-device: Iter0 and ``--warm-iters`` iterations, then ``--iters`` iterations
-timed on the host clock, then ``--iters`` more under ``torch.profiler``.
+Runs PH (float32, eps 1e-5) through ``tpusppy_torch`` on one CUDA device,
+on farmer (``--crops-multiplier``; rho 1, the dense engine) or on uc_lite at
+its defaults (LP relaxation; rho 500, the shared-A engine): Iter0 and
+``--warm-iters`` iterations, then ``--iters`` iterations timed on the host
+clock, then ``--iters`` more under ``torch.profiler``.
 Prints one JSON line: the card, the untraced window's wall seconds per
 iteration, device-busy seconds per iteration in the traced window (the union
 of kernel intervals on the timeline), the idle share (busy against the
 UNTRACED wall, since the profiler slows the host), host syncs and kernel
-launches per iteration, and the top device kernels by time.  Imports nothing
-of JAX.
+launches per iteration (device kernels, and hand-written kernel launches in
+the traced window, which tell a frozen iteration from a refresh), and the top
+device kernels by time.  Imports nothing of JAX.
 """
 
 import argparse
@@ -44,6 +48,8 @@ def busy_seconds(events):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=("farmer", "uc_lite"),
+                    default="farmer")
     ap.add_argument("--scens", type=int, default=1000)
     ap.add_argument("--crops-multiplier", type=int, default=4)
     ap.add_argument("--warm-iters", type=int, default=20)
@@ -53,21 +59,28 @@ def main():
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from tpusppy_torch.models import farmer
+    from tpusppy_torch.models import farmer, uc_lite
     from tpusppy_torch.obs import metrics
     from tpusppy_torch.opt.ph import PH
+    from tpusppy_torch.solvers import cuda_kernels
 
     if not torch.cuda.is_available():
         print("FAIL: needs a CUDA device", flush=True)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     S, cm = args.scens, args.crops_multiplier
-    ph = PH({"defaultPHrho": 1.0, "PHIterLimit": args.warm_iters,
+    if args.model == "farmer":
+        model, rho = farmer, 1.0
+        kw = {"num_scens": S, "crops_multiplier": cm}
+    else:
+        model, rho = uc_lite, 500.0
+        kw = {"num_scens": S, "relax_integers": True}
+    ph = PH({"defaultPHrho": rho, "PHIterLimit": args.warm_iters,
              "convthresh": 0.0,
              "solver_options": {"dtype": "float32", "eps_abs": 1e-5,
                                 "eps_rel": 1e-5}},
-            farmer.scenario_names_creator(S), farmer.scenario_creator,
-            scenario_creator_kwargs={"num_scens": S, "crops_multiplier": cm})
+            model.scenario_names_creator(S), model.scenario_creator,
+            scenario_creator_kwargs=kw)
     ph.ph_main()
     torch.cuda.synchronize()
     n = args.iters
@@ -80,6 +93,7 @@ def main():
     t0 = time.perf_counter()
     run_iters()
     wall = (time.perf_counter() - t0) / n
+    cuda_kernels.reset_counts()
     with metrics.window() as win, profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -101,13 +115,17 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({
-        "card": smi, "scens": S, "crops_multiplier": cm, "iters": n,
+        "card": smi, "model": args.model, "scens": S,
+        "crops_multiplier": cm if args.model == "farmer" else None,
+        "iters": n,
         "wall_s_per_iter": wall, "traced_wall_s_per_iter": traced_wall,
         "device_busy_s_per_iter": busy, "idle_share": 1.0 - busy / wall,
         "device_kernels_per_iter": len(dev) / n,
         "host_syncs_per_iter": (win.delta("host_sync.count")
                                 + win.delta("admm.loop_checks")) / n,
         "loop_checks_per_iter": win.delta("admm.loop_checks") / n,
+        "kernel_launches_per_iter": {k: v / n for k, v in
+                                     cuda_kernels.launches.items()},
         "top_kernels_s_per_iter": top}), flush=True)
     return 0
 

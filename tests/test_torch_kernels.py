@@ -67,6 +67,13 @@ def _pallas(c, n_sweeps, n_refine, sigma, alpha):
     return [np.asarray(o).T for o in outs]
 
 
+def _max_err(a, b):
+    """Largest difference relative to the largest entry of ``b``, or
+    absolute where ``b`` is below 1 (a dual at roundoff level, say)."""
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1.0))
+
+
 def _torch_args(c, device="cpu", dtype=torch.float64):
     return [torch.as_tensor(c[k], dtype=dtype, device=device)
             for k in _ORDER]
@@ -137,3 +144,306 @@ def test_cuda_kernel_matches_plain(dtype, tol):
     want = cuda_kernels.fused_sweeps_plain(*args, 4, 2, sigma, 1.6)
     for g, w in zip(got, want):
         assert _max_rel(g.cpu().numpy(), w.cpu().numpy()) < tol
+
+
+# ---- fused_sweeps_shared ---------------------------------------------------
+
+_SHARED_ORDER = ("q", "A", "Kinv", "K", "cl", "cu", "lb", "ub", "rho_a",
+                 "rho_x", "dq2", "has", "gamma", "x", "z", "zx", "y", "yx",
+                 "Ax")
+
+
+def _shared_case(S, m, n, has, seed=3, a_scale=1.0, contract=None):
+    """Random shared-A sweep inputs as tests/test_pallas.py builds them: one
+    A, K = A' diag(rho_a) A + sigma I + diag(rho_x), gamma in [0.5, 1.5]
+    and dq2 ~ 0.1 |N(0, 1)| (zero when ``has`` is unset).
+
+    ``contract``: draw dq2 instead uniform in [0, contract * gamma * lo],
+    where lo = min(rho_x) + sigma bounds K's eigenvalues from below, so
+    each refinement pass shrinks the solve's error at least by that factor.
+    Without it, a wide n (K near rho_x I) lets dq2 pass gamma K, and the
+    passes then expand the error."""
+    rng = np.random.RandomState(seed)
+    sigma = 1e-6
+    A = rng.randn(m, n) * a_scale
+    q = rng.randn(S, n)
+    cl = -np.abs(rng.randn(S, m)) - 0.5
+    cu = np.abs(rng.randn(S, m)) + 0.5
+    lb = -np.ones((S, n)) * 2
+    ub = np.ones((S, n)) * 2
+    rho_a = np.full((1, m), 0.7)
+    rho_x = np.full((1, n), 0.4)
+    K = (A.T * rho_a) @ A + sigma * np.eye(n) + np.diag(rho_x[0])
+    Kinv = np.linalg.inv(K)
+    gamma = 0.5 + rng.rand(S, 1)
+    if contract is None:
+        dq2 = 0.1 * np.abs(rng.randn(S, n)) * has
+    else:
+        lo = rho_x.min() + sigma
+        dq2 = contract * gamma * lo * rng.rand(S, n) * has
+    x = rng.randn(S, n) * 0.1
+    z = np.clip(rng.randn(S, m), cl, cu)
+    zx = np.clip(x, lb, ub)
+    y = rng.randn(S, m) * 0.1
+    yx = rng.randn(S, n) * 0.1
+    return dict(q=q, A=A, Kinv=Kinv, K=K, cl=cl, cu=cu, lb=lb, ub=ub,
+                rho_a=rho_a, rho_x=rho_x, dq2=dq2,
+                has=np.full((1, 1), float(has)), gamma=gamma, x=x, z=z,
+                zx=zx, y=y, yx=yx, Ax=x @ A.T), sigma
+
+
+def _shared_args(c, device="cpu", dtype=torch.float64):
+    return [torch.as_tensor(c[k], dtype=dtype, device=device)
+            for k in _SHARED_ORDER]
+
+
+@pytest.mark.parametrize("has", [1, 0])
+@pytest.mark.parametrize("S,m,n", [
+    (16, 9, 5),            # tests/test_pallas.py's shape
+    (8, 50, 22),           # uc_lite 3 generators, 4 hours
+])
+def test_shared_plain_matches_pallas_interpret(S, m, n, has):
+    """The port's twin of tests/test_pallas.py::
+    test_fused_sweeps_shared_matches_xla at "highest", with the extra
+    refinement passes armed (has=1) and not (has=0)."""
+    c, sigma = _shared_case(S, m, n, has)
+    n_sweeps, n_refine, n_extra, alpha = 3, 2, 2, 1.6
+    ref = pallas_kernels.fused_sweeps_shared(
+        *(c[k] for k in _SHARED_ORDER), n_sweeps=n_sweeps,
+        n_refine=n_refine, n_extra=n_extra, sigma=sigma, alpha=alpha, bs=8,
+        precision="highest", interpret=True)
+    got = cuda_kernels.fused_sweeps_shared_plain(
+        *_shared_args(c), n_sweeps, n_refine, n_extra, sigma, alpha)
+    for name, g, r in zip(("x", "z", "zx", "y", "yx", "Ax"), got, ref):
+        assert g.shape == r.shape
+        assert _max_err(g.numpy(), r) < TOL_F64, name
+
+
+def test_shared_wrapper_on_cpu_runs_plain_and_launches_nothing():
+    c, sigma = _shared_case(5, 7, 4, 1)
+    cuda_kernels.reset_counts()
+    got = cuda_kernels.fused_sweeps_shared(*_shared_args(c), 2, 2, 2, sigma,
+                                           1.6)
+    want = cuda_kernels.fused_sweeps_shared_plain(*_shared_args(c), 2, 2, 2,
+                                                  sigma, 1.6)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert cuda_kernels.launches == {"fused_sweeps": 0,
+                                     "fused_sweeps_shared": 0}
+    assert cuda_kernels.plain_calls["fused_sweeps_shared"] == 2
+
+
+@pytest.mark.parametrize("precision", ["high", "default", "bf16"])
+def test_shared_wrapper_refuses_lowered_precision(precision):
+    c, sigma = _shared_case(4, 6, 5, 1)
+    for fn in (cuda_kernels.fused_sweeps_shared,
+               cuda_kernels.fused_sweeps_shared_plain):
+        with pytest.raises(ValueError, match="Queue 1 item 8"):
+            fn(*_shared_args(c), 2, 2, 2, sigma, 1.6, precision=precision)
+
+
+def test_usable_shared_takes_every_tpu_shape():
+    """Every (S, m, n) the TPU kernel takes (its 1.5 MB matrix budget, a
+    scenario block of at least 8 or all of S), the Hopper kernel takes in
+    f32 and f64, streaming the matrices; the main path's shape too."""
+    taken = 0
+    for n in (1, 5, 44, 132, 300, 443):
+        for m in (0, 1, 9, 242, 2000, 20000, 120000):
+            for S in (1, 7, 1000):
+                if pallas_kernels.usable_shared(S, m, n,
+                                                platform="tpu") is None:
+                    continue
+                taken += 1
+                for dt in (torch.float32, torch.float64):
+                    assert cuda_kernels.usable_shared(S, m, n, dt), \
+                        (S, m, n, dt)
+    assert taken > 40
+    # uc_lite's defaults: 8 scenarios a block, all 242 rows in one chunk,
+    # K^-1 and K in shared memory in f32, K^-1 alone in f64
+    assert cuda_kernels.usable_shared(1000, 242, 132, torch.float32) == 8
+    assert cuda_kernels.shared_layout(242, 132, 4) == (8, 242)
+    assert cuda_kernels.shared_layout(242, 132, 8) == (8, 242)
+    assert cuda_kernels.shared_smem_bytes(242, 132, 4, 8, 242) == (176224, 3)
+    assert cuda_kernels.shared_smem_bytes(242, 132, 8, 8, 242) == (213056, 1)
+    # wide n lowers the tile and streams the matrices; huge m is chunked
+    assert cuda_kernels.shared_layout(242, 2000, 8)[0] == 4
+    assert cuda_kernels.shared_layout(60, 3000, 8)[0] == 2
+    assert cuda_kernels.shared_smem_bytes(60, 3000, 8, 2, 60)[1] == 0
+    assert cuda_kernels.shared_layout(100000, 132, 8) == (8, 2723)
+    assert cuda_kernels.shared_smem_bytes(
+        100000, 132, 8, 8, 2723) == (cuda_kernels.SMEM_LIMIT, 0)
+    assert cuda_kernels.usable_shared(10, 5, 12000, torch.float64) is None
+    assert cuda_kernels.usable_shared(10, 5, 5, torch.float16) is None
+    assert cuda_kernels.usable_shared(0, 5, 5, torch.float32) is None
+
+
+_F32, _F64 = (torch.float32, 1e-5), (torch.float64, 1e-12)
+
+
+def _refinement_factor(c):
+    """An upper bound on how much one refinement pass scales the solve's
+    error: max dq2 / (gamma * lo), lo = min(rho_x) + sigma <= eig(K)."""
+    lo = float(c["rho_x"].min()) + 1e-6
+    return float(np.max(c["dq2"] / (c["gamma"] * lo)))
+
+
+def _shared_against_f64(c, sigma, n_sweeps=4, n_refine=2, n_extra=2):
+    """The f32 kernel and the f32 plain version, each against the f64 plain
+    version on the same (f32-rounded) inputs: (kernel-plain, kernel-f64,
+    plain-f64) errors, relative as in ``_max_err``."""
+    args = _shared_args(c, "cuda", torch.float32)
+    cuda_kernels.reset_counts()
+    got = cuda_kernels.fused_sweeps_shared(*args, n_sweeps, n_refine,
+                                           n_extra, sigma, 1.6)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launches["fused_sweeps_shared"] == 1
+    want = cuda_kernels.fused_sweeps_shared_plain(*args, n_sweeps, n_refine,
+                                                  n_extra, sigma, 1.6)
+    ref = cuda_kernels.fused_sweeps_shared_plain(
+        *(a.double() for a in args), n_sweeps, n_refine, n_extra, sigma,
+        1.6)
+    errs = []
+    for g, w, r in zip(got, want, ref):
+        assert torch.isfinite(g).all()
+        g, w, r = (t.cpu().double().numpy() for t in (g, w, r))
+        errs.append((_max_err(g, w), _max_err(g, r), _max_err(w, r)))
+    return tuple(max(e[i] for e in errs) for i in range(3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,m,n,dtype,tol", [
+    (1000, 242, 132, *_F32),   # uc_lite defaults: the main path
+    (1000, 242, 132, *_F64),
+    (1003, 50, 22, *_F32),     # a ragged last tile
+    (1003, 50, 22, *_F64),
+    (37, 3000, 132, *_F64),    # A' in two chunks
+    (5, 0, 7, *_F64),          # no constraint rows
+    (20, 60, 3000, *_F32),     # a tile of 2 scenarios; 3000-term sums
+    (20, 60, 3000, *_F64),
+])
+@pytest.mark.parametrize("has", [1, 0])
+def test_cuda_shared_kernel_matches_plain(S, m, n, dtype, tol, has):
+    """The hand-written shared kernel against its plain version on the card,
+    with A scaled by 1/sqrt(n), rho >= 0.4 and dq2 at most half of gamma K's
+    smallest eigenvalue, so K is well conditioned and the refinement
+    contracts, as on the engine's path (f32 tolerance for its rounding, f64
+    for summation order).  In f32 both are also held against the f64 plain
+    version: the kernel lies no further from it than the plain f32 does,
+    within a factor of 2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    c, sigma = _shared_case(S, m, n, has, a_scale=n ** -0.5, contract=0.5)
+    if dtype == torch.float32:
+        kp, kr, pr = _shared_against_f64(c, sigma)
+        print(f"shared f32 S={S} m={m} n={n} has={has} refinement factor "
+              f"<= {_refinement_factor(c):.3f}: kernel-plain {kp:.3e}, "
+              f"kernel-f64 {kr:.3e}, plain-f64 {pr:.3e}")
+        assert kp < tol
+        assert kr <= 2.0 * pr + 1e-7
+        return
+    args = _shared_args(c, "cuda", dtype)
+    cuda_kernels.reset_counts()
+    got = cuda_kernels.fused_sweeps_shared(*args, 4, 2, 2, sigma, 1.6)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launches["fused_sweeps_shared"] == 1
+    want = cuda_kernels.fused_sweeps_shared_plain(*args, 4, 2, 2, sigma,
+                                                  1.6)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        if g.numel():
+            assert _max_err(g.cpu().numpy(), w.cpu().numpy()) < tol
+
+
+@pytest.mark.cuda
+def test_cuda_shared_kernel_f32_where_refinement_expands():
+    """(S=20, m=60, n=3000) with tests/test_pallas.py's dq2 ~ 0.1 |N(0, 1)|:
+    K is near rho_x I, so dq2 passes gamma K for some entries and each
+    refinement pass expands the f32 rounding.  Kernel and plain f32 then
+    part by more than 1e-5, but both lie as far from the f64 plain version:
+    the kernel within a factor of 2 of the plain f32's distance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    c, sigma = _shared_case(20, 60, 3000, 1, a_scale=3000 ** -0.5)
+    factor = _refinement_factor(c)
+    kp, kr, pr = _shared_against_f64(c, sigma)
+    print(f"shared f32 S=20 m=60 n=3000 has=1 refinement factor <= "
+          f"{factor:.3f}: kernel-plain {kp:.3e}, kernel-f64 {kr:.3e}, "
+          f"plain-f64 {pr:.3e}")
+    assert factor > 1.0
+    assert kr <= 2.0 * pr
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_raise_on_shapes_they_do_not_take():
+    """No engine declines the kernel quietly: a CUDA shape a kernel does not
+    take raises, from its wrapper and from the engine that calls it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from tpusppy_torch.solvers import admm as tadmm
+
+    dev, f64 = "cuda", torch.float64
+    S, m, n = 10, 5, 12000
+    assert cuda_kernels.usable_shared(S, m, n, f64) is None
+
+    def e(*shape):
+        return torch.zeros(shape, dtype=f64, device=dev)
+
+    with pytest.raises(ValueError, match="not taken by the kernel"):
+        cuda_kernels.fused_sweeps_shared(
+            e(S, n), e(m, n), e(1, 1), e(1, 1), e(S, m), e(S, m), e(S, n),
+            e(S, n), e(1, m), e(1, n), e(S, n), e(1, 1), e(S, 1), e(S, n),
+            e(S, m), e(S, n), e(S, m), e(S, n), e(S, m), 4, 2, 2, 1e-6, 1.6)
+    c, _ = _case(2, 50, 120)
+    assert not cuda_kernels.usable(2, 50, 120, f64)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_kernels.fused_sweeps(*_torch_args(c, dev, f64), 4, 2, 1e-6, 1.6)
+    rng = np.random.RandomState(0)
+    A = rng.randn(2, 50, 120)
+    x0 = rng.rand(2, 120)
+    Ax = np.einsum("smn,sn->sm", A, x0)
+    with pytest.raises(ValueError, match="shared memory"):
+        tadmm.solve_batch(rng.randn(2, 120), np.zeros((2, 120)), A, Ax - 1,
+                          Ax + 1, np.zeros((2, 120)), np.ones((2, 120)),
+                          tadmm.ADMMSettings(max_iter=8), device=dev)
+
+
+@pytest.mark.parametrize("engine", ["dense", "shared"])
+def test_engines_send_every_shape_to_the_wrapper(engine, monkeypatch):
+    """The sweep blocks go to the kernel's wrapper whatever the shape (on the
+    card the wrapper launches or raises); only ``use_kernel=False`` calls
+    the plain version directly.  Here the shape gates refuse every shape
+    and the wrapper's calls are counted."""
+    from tpusppy_torch.solvers import admm as tadmm
+    from tpusppy_torch.solvers import shared_admm as tshared
+
+    monkeypatch.setattr(cuda_kernels, "usable", lambda *a: False)
+    monkeypatch.setattr(cuda_kernels, "usable_shared", lambda *a: None)
+    name = "fused_sweeps" if engine == "dense" else "fused_sweeps_shared"
+    wrapper = getattr(cuda_kernels, name)
+    calls = []
+
+    def counted(*a, **k):
+        calls.append(1)
+        return wrapper(*a, **k)
+
+    monkeypatch.setattr(cuda_kernels, name, counted)
+    rng = np.random.RandomState(1)
+    S, m, n = 3, 4, 6
+    A = rng.randn(m, n)
+    x0 = rng.rand(S, n)
+    Ax = x0 @ A.T
+    if engine == "dense":
+        A, solve = np.broadcast_to(A, (S, m, n)).copy(), tadmm.solve_batch
+    else:
+        solve = tshared.solve_shared
+    arrs = (rng.randn(S, n), np.zeros((S, n)), A, Ax - 1, Ax + 1,
+            np.zeros((S, n)), np.ones((S, n)))
+    for use_kernel in (True, False):
+        calls.clear()
+        cuda_kernels.reset_counts()
+        solve(*arrs, tadmm.ADMMSettings(max_iter=16, restarts=1,
+                                        use_kernel=use_kernel),
+              device="cpu")
+        assert bool(calls) == use_kernel
+        assert cuda_kernels.plain_calls[name] > 0
+        assert cuda_kernels.launches[name] == 0

@@ -15,6 +15,7 @@ import torch
 from .ir import ScenarioBatch
 from .scenario_tree import TreeInfo
 from .solvers.admm import Factors
+from .solvers.shared_admm import SharedFactors
 
 
 def tree_from_arrays(node_names, node_stage, scen_node_ids, nonant_stage,
@@ -31,23 +32,30 @@ def tree_from_arrays(node_names, node_stage, scen_node_ids, nonant_stage,
 
 
 def batch_from_arrays(names, c, q2, A, cl, cu, lb, ub, is_int, const, tree,
-                      var_names=None, version=0, **_ignored) -> ScenarioBatch:
+                      var_names=None, version=0, A_shared=None,
+                      **_ignored) -> ScenarioBatch:
     """A :class:`ScenarioBatch` from the reference's ScenarioBatch fields.
-    ``tree`` is a TreeInfo or a dict of its fields.  Fields the port's batch
-    does not have (``A_shared``, ``repair_fn``) are ignored; a shared A
-    arrives as its (S, m, n) view and is stored dense."""
+    ``tree`` is a TreeInfo or a dict of its fields.  A shared A stays ONE
+    (m, n) array in ``A_shared`` with ``A`` its zero-copy (S, m, n) view.
+    Fields the port's batch does not have (``repair_fn``) are ignored."""
     if isinstance(tree, dict):
         tree = tree_from_arrays(**tree)
 
     def f(v):
         return np.array(v, dtype=np.float64)
 
+    c = f(c)
+    if A_shared is not None:
+        A_shared = np.ascontiguousarray(f(A_shared))
+        A = np.broadcast_to(A_shared[None], (c.shape[0],) + A_shared.shape)
+    else:
+        A = f(A)
     return ScenarioBatch(
-        names=list(names), c=f(c), q2=f(q2), A=f(A), cl=f(cl), cu=f(cu),
+        names=list(names), c=c, q2=f(q2), A=A, cl=f(cl), cu=f(cu),
         lb=f(lb), ub=f(ub), is_int=np.asarray(is_int, dtype=bool),
         const=f(const), tree=tree,
         var_names=None if var_names is None else list(var_names),
-        version=int(version))
+        version=int(version), A_shared=A_shared)
 
 
 def factors_from_arrays(arrays: dict, device, dtype=torch.float64) -> Factors:
@@ -58,14 +66,30 @@ def factors_from_arrays(arrays: dict, device, dtype=torch.float64) -> Factors:
         for k in Factors._fields})
 
 
+def shared_factors_from_arrays(arrays: dict, device,
+                               dtype=torch.float64) -> SharedFactors:
+    """:class:`SharedFactors` from the reference's shared-A factors as a
+    dict of numpy arrays.  Factors without K (the reference's
+    ``factors_keep_K=False``) need matrix-free refinement, which the port
+    does not have yet (ROADMAP Queue 1 item 6)."""
+    if arrays.get("K") is None:
+        raise NotImplementedError(
+            "shared-A factors without K (factors_keep_K=False) need "
+            "matrix-free refinement, not ported yet (ROADMAP Queue 1 item 6)")
+    return SharedFactors(**{
+        k: torch.tensor(np.asarray(arrays[k]), dtype=dtype, device=device)
+        for k in SharedFactors._fields})
+
+
 def load_ph_state(ph, W, xbars, rho, warm, factors=None, factors_age=1,
                   iteration=0):
     """Seat a PH hub state in a port ``PH``/``PHBase`` object.
 
     ``W``, ``xbars``, ``rho`` are (S, K); ``warm`` is the last solve's
     (x, z, y, yx) (unscaled, as the reference's ``_warm``); ``factors`` is
-    an optional dict of the reference's refresh factors, valid for the
-    augmented objective at this ``rho``, with their age.  The next
+    an optional dict of the reference's refresh factors (``Factors``, or
+    ``SharedFactors`` on a shared-A batch), valid for the augmented
+    objective at this ``rho``, with their age.  The next
     ``_iterk_one(iteration + 1, ...)`` then repeats the reference's next
     iteration: a frozen solve when factors came along and are not aged out,
     else a refresh."""
@@ -86,7 +110,9 @@ def load_ph_state(ph, W, xbars, rho, warm, factors=None, factors_age=1,
         ph._factors = ph._factors_sig = None
         ph._factors_age = 0
         return ph
-    ph._factors = factors_from_arrays(factors, ph.device, dt)
+    load = (shared_factors_from_arrays if ph.batch.A_shared is not None
+            else factors_from_arrays)
+    ph._factors = load(factors, ph.device, dt)
     ph._factors_sig = ph._solve_sig(ph._augmented_q2(), ph.batch.lb,
                                     ph.batch.ub)
     ph._factors_age = int(factors_age)

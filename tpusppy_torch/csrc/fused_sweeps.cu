@@ -21,9 +21,10 @@
 // = 24.3 kflop per scenario, 97 MFLOP per call at S=1000.  The call must read
 // A, K^-1 and K once: (mn + 2n^2) * itemsize = 20.4 MB in f32 and 40.8 MB in
 // f64, plus ~3 MB (f32) of vectors.  At 3.35 TB/s that is ~7 us (f32) or
-// ~13 us (f64), far above the ~1.5 us (f32, 67 TFLOP/s) or ~3 us (f64,
-// 34 TFLOP/s) the arithmetic needs: the call is bound by memory (by L2 when
-// the matrices are still resident from the previous call).
+// ~13 us (f64), far above the ~1.5 us (67 TFLOP/s, the card's peak in f32
+// on CUDA cores and in f64 on tensor cores) the arithmetic needs: the call
+// is bound by memory (by L2 when the matrices are still resident from the
+// previous call).
 //
 // What the design does about that bound: every matrix byte crosses HBM once
 // per call (one coalesced load into shared memory), all n_sweeps sweeps then

@@ -11,9 +11,11 @@ canonical conic-box form of first-order LP/QP solvers (OSQP style):
                 x[i] integer for is_int[i]
 
 Equality rows are cl == cu; one-sided rows use +/-inf.  The batch is host
-numpy; the solvers move what they need to the device.  Shared-A detection and
-shape bucketing are not part of this slice: every batch carries its dense
-(S, m, n) constraint tensor.
+numpy; the solvers move what they need to the device.  A family whose
+scenarios all carry the SAME constraint-matrix object (uncertainty in costs,
+rhs and bounds only) is detected as shared: the batch keeps the one (m, n)
+matrix in ``A_shared`` and ``A`` is a zero-copy broadcast view of it.  Shape
+bucketing is not part of the port yet.
 """
 
 from __future__ import annotations
@@ -171,7 +173,7 @@ class ScenarioBatch:
     names: list
     c: np.ndarray          # (S, n)
     q2: np.ndarray         # (S, n)
-    A: np.ndarray          # (S, m, n)
+    A: np.ndarray          # (S, m, n) — a zero-copy broadcast view when shared
     cl: np.ndarray         # (S, m)
     cu: np.ndarray         # (S, m)
     lb: np.ndarray         # (S, n)
@@ -183,6 +185,12 @@ class ScenarioBatch:
     # mutation counter: bump after ANY in-place edit of the arrays above so
     # cached solver factorizations keyed on it (SPOpt._solve_sig) invalidate
     version: int = 0
+    # The shared constraint matrix (m, n), set when every scenario carries
+    # the SAME A object (model creators opt in by reusing one numpy array,
+    # as uc_lite's template cache does).  ``A`` is then a read-only
+    # broadcast view, and solves dispatch to the shared-A engine
+    # (tpusppy_torch.solvers.shared_admm) with ONE (n, n) factorization.
+    A_shared: np.ndarray | None = None
 
     @classmethod
     def from_problems(cls, problems: list[ScenarioProblem]) -> "ScenarioBatch":
@@ -197,6 +205,10 @@ class ScenarioBatch:
 
         n = max(p.num_vars for p in problems)
         m = max(p.num_rows for p in problems)
+        # identity-shared A, detected before padding (a shared family has
+        # one shape, so padding never applies to it)
+        A0 = problems[0].A
+        a_shared = all(p.A is A0 for p in problems)
         problems = [_pad_problem(p, n, m) for p in problems]
 
         tree = build_tree(problems)
@@ -208,11 +220,18 @@ class ScenarioBatch:
         var_names = problems[0].var_names
         if any(p.var_names != var_names for p in problems):
             var_names = None
+        if a_shared:
+            A_shared = np.ascontiguousarray(A0)
+            A = np.broadcast_to(A_shared[None], (len(problems), m, n))
+        else:
+            A_shared = None
+            A = np.stack([p.A for p in problems])
         return cls(
             names=[p.name for p in problems],
             c=np.stack([p.c for p in problems]),
             q2=np.stack([p.q2 for p in problems]),
-            A=np.stack([p.A for p in problems]),
+            A=A,
+            A_shared=A_shared,
             cl=np.stack([p.cl for p in problems]),
             cu=np.stack([p.cu for p in problems]),
             lb=np.stack([p.lb for p in problems]),

@@ -66,11 +66,12 @@ class ADMMSettings:
     polish: bool = True           # active-set KKT polish (OSQP-style)
     polish_passes: int = 4        # active-set correction passes
     polish_delta: float = 1e-8
-    # The fused_sweeps CUDA kernel (cuda_kernels.py).  "auto" and True run
-    # it wherever the shape fits one block's shared memory (the TPU's
-    # measured loss band does not carry over to Hopper); False always takes
-    # the batched tensor path.  On CPU tensors the kernel's wrapper runs its
-    # plain version, which is the same recurrence.
+    # The hand-written CUDA sweep kernels (cuda_kernels.py).  "auto" and
+    # True run every sweep block through the kernel's wrapper, which raises
+    # on a CUDA shape the kernel does not take (the TPU's measured loss band
+    # does not carry over to Hopper); False always takes the batched tensor
+    # path.  On CPU tensors the wrapper runs its plain version, which is the
+    # same recurrence.
     use_kernel: bool | str = "auto"
     # Per-ROW rho adaptation between restarts: rows (and variable boxes) with
     # persistent primal violation get their penalty boosted.
@@ -208,14 +209,16 @@ def _done_mask(pri, dua, prinorm, duanorm, st: ADMMSettings):
     return (pri < eps_pri) & (dua < eps_dua)
 
 
-def _plateau_update(s: _IterState, pri, dua, prinorm, duanorm,
-                    st: ADMMSettings):
+def _plateau_update(s, pri, dua, prinorm, duanorm, st: ADMMSettings,
+                    min_k=0):
     """(best, stall) update at a residual checkpoint, evaluated every
     ``sweep_plateau_window`` sweeps on the geometric mean of per-scenario
-    eps-normalized residual excesses clipped to [1, 1e6]."""
+    eps-normalized residual excesses clipped to [1, 1e6].  ``min_k``: stall
+    counting starts only at checkpoints from this sweep index on (the
+    shared engine's adaptive solve passes its gamma cadence)."""
     ck = max(1, st.check_every)
     period = max(1, -(-st.sweep_plateau_window // ck))
-    if ((s.k // ck) + 1) % period != 0:
+    if ((s.k // ck) + 1) % period != 0 or s.k < min_k:
         return s.best, s.stall
     eps_pri = st.eps_abs + st.eps_rel * torch.clamp(prinorm, min=1.0)
     eps_dua = st.eps_abs + st.eps_rel * torch.clamp(duanorm, min=1.0)
@@ -229,12 +232,15 @@ def _plateau_update(s: _IterState, pri, dua, prinorm, duanorm,
     return min(s.best, gmean), stall
 
 
-def _kernel_on(st: ADMMSettings, S, m, n, dtype) -> bool:
+def _kernel_on(st: ADMMSettings) -> bool:
+    """Whether sweep blocks go through the kernel's wrapper (which launches
+    the kernel on CUDA tensors, or raises on a shape it does not take) or
+    straight to the plain version."""
     if isinstance(st.use_kernel, str) and st.use_kernel != "auto":
         raise ValueError(
             f"use_kernel must be True, False, or 'auto'; got "
             f"{st.use_kernel!r}")
-    return bool(st.use_kernel) and cuda_kernels.usable(S, m, n, dtype)
+    return bool(st.use_kernel)
 
 
 def _admm_core(q, q2, A, cl, cu, lb, ub, state: _IterState, LK, rho_a,
@@ -246,11 +252,11 @@ def _admm_core(q, q2, A, cl, cu, lb, ub, state: _IterState, LK, rho_a,
     are measured, and the host reads the all-done vote — the exit rule of
     the reference's while_loop (max_iter, eps, plateau stall)."""
     sigma, alpha = st.sigma, st.alpha
-    S, m, n = A.shape
+    S, _, n = A.shape
     ce = max(1, st.check_every)
     Kinv, K = LK[0].contiguous(), LK[1].contiguous()
     rho_x = rho_x.expand(S, n).contiguous()
-    sweeps = (cuda_kernels.fused_sweeps if _kernel_on(st, S, m, n, A.dtype)
+    sweeps = (cuda_kernels.fused_sweeps if _kernel_on(st)
               else cuda_kernels.fused_sweeps_plain)
     aq = q.abs().amax(dim=1)
 

@@ -5,14 +5,20 @@
 OSQP sweeps per scenario with the scenario's A, K^-1 and K held in shared
 memory (source, bound and design notes: ``tpusppy_torch/csrc/fused_sweeps.cu``).
 
-The wrapper launches the kernel for CUDA tensors and raises on anything it
-cannot take; for CPU tensors it runs :func:`fused_sweeps_plain`, the batched
-PyTorch transcription of the same recurrence (the CPU path, and the oracle the
-kernel is held against on the card).  There is no fallback on failure.
+``fused_sweeps_shared`` replaces ``pallas_kernels.py:_shared_sweeps_kernel``:
+one ``n_sweeps`` block of the shared-A engine's sweep, with one (m, n) A and
+one (n, n) K^-1 and K for the whole batch, per-scenario gamma scaling and the
+dq2 refinement (``tpusppy_torch/csrc/fused_sweeps_shared.cu``).
 
-The kernel is compiled on first use with ``nvcc`` for ``sm_90a`` into
-``tpusppy_torch/_build/`` (named by the source's hash) and bound with
-``ctypes``; nothing is built or imported from CUDA when this module loads.
+Each wrapper launches its kernel for CUDA tensors and raises on anything it
+cannot take; for CPU tensors it runs the plain version beside it, the batched
+PyTorch transcription of the same recurrence (the CPU path, and the oracle
+the kernel is held against on the card).  There is no fallback on failure.
+
+Each kernel is compiled on first use with ``nvcc`` for ``sm_90a`` into its
+own library under ``tpusppy_torch/_build/`` (named by the source's hash) and
+bound with ``ctypes``; nothing is built or imported from CUDA when this
+module loads.
 """
 
 from __future__ import annotations
@@ -36,12 +42,26 @@ SMEM_LIMIT = 232448
 
 #: Kernel launches per wrapper (one per launch, nowhere else), and calls of
 #: the plain versions; :func:`reset_counts` zeroes both.
-launches = {"fused_sweeps": 0}
-plain_calls = {"fused_sweeps": 0}
+launches = {"fused_sweeps": 0, "fused_sweeps_shared": 0}
+plain_calls = {"fused_sweeps": 0, "fused_sweeps_shared": 0}
 
-_lib = None
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+#: Exported C entry points of each source, with their ctypes argument types.
+_ENTRY_POINTS = {
+    # (in ptrs, out ptrs, S, m, n, n_sweeps, n_refine, sigma, alpha, stream)
+    "fused_sweeps": (("tpusppy_fused_sweeps_f32", "tpusppy_fused_sweeps_f64"),
+                     [_P, _P] + [_I] * 5 + [_D, _D, _P]),
+    # (in ptrs, out ptrs, S, m, n, sb, chunk, n_sweeps, n_refine, n_extra,
+    #  sigma, alpha, stream)
+    "fused_sweeps_shared": (("tpusppy_fused_sweeps_shared_f32",
+                             "tpusppy_fused_sweeps_shared_f64"),
+                            [_P, _P] + [_I] * 8 + [_D, _D, _P]),
+}
+
+_libs: dict = {}
 _lib_lock = threading.Lock()
-build_log = ""
+#: The compiler's resource report (``-Xptxas -v``) of each built source.
+build_log: dict = {}
 
 
 def reset_counts():
@@ -51,12 +71,18 @@ def reset_counts():
 
 
 def matvec(M, v):
-    """Batched ``einsum("snk,sk->sn", M, v)``."""
+    """``M v`` per scenario: (S, n, k) @ (S, k) batched, or a shared (n, k)
+    matrix against (S, k) rows."""
+    if M.ndim == 2:
+        return v @ M.T
     return torch.bmm(M, v.unsqueeze(-1)).squeeze(-1)
 
 
 def rmatvec(A, y):
-    """Batched ``einsum("smn,sm->sn", A, y)`` (A' y per scenario)."""
+    """``A' y`` per scenario: (S, m, n) batched, or a shared (m, n) A
+    against (S, m) rows."""
+    if A.ndim == 2:
+        return y @ A
     return torch.bmm(A.transpose(1, 2), y.unsqueeze(-1)).squeeze(-1)
 
 
@@ -72,7 +98,7 @@ def usable(S, m, n, dtype) -> bool:
     """Whether ``fused_sweeps`` takes this shape: f32/f64, and one
     scenario's matrices and vectors fit the shared memory of a block.
     Mirrors ``pallas_kernels.usable`` sized to Hopper shared memory instead
-    of TPU VMEM; a shape that fails takes the batched tensor path."""
+    of TPU VMEM; the wrapper raises on a CUDA shape that fails."""
     if dtype not in (torch.float32, torch.float64) or S < 1 or n < 1:
         return False
     itemsize = 4 if dtype == torch.float32 else 8
@@ -118,6 +144,118 @@ def fused_sweeps_plain(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
     return tuple(t.squeeze(-1) for t in (x, z, zx, y, yx, Ax))
 
 
+# ---- fused_sweeps_shared ---------------------------------------------------
+
+#: Scenario tiles (scenarios per thread block) the shared kernel is built
+#: for, largest first; mirrors the ``case`` labels of the CUDA launcher.
+SHARED_TILES = (8, 4, 2, 1)
+#: Fewest constraint rows one chunk of the A' contraction may hold.
+_MIN_CHUNK = 32
+#: Threads per block of the shared kernel (``kThreads`` in the source).
+_SHARED_THREADS = 512
+
+
+def shared_layout(m, n, itemsize):
+    """``(sb, chunk)`` of one ``fused_sweeps_shared`` block, or None.
+
+    A block keeps, for its ``sb`` scenarios, their gammas, the rhs, K^-1
+    input and x-tilde n-vectors, one ``chunk``-row slice of the A' input
+    and one partial sum per thread (mirrors ``smem`` in the CUDA launcher);
+    A, K^-1 and K stream from device memory and L2.  The largest tile whose
+    buffers fit with a chunk of at least ``min(m, 32)`` rows wins, and the
+    chunk then takes the rest of the budget, up to all m."""
+    for sb in SHARED_TILES:
+        cap = SMEM_LIMIT // (itemsize * sb) - 1 - 3 * n - _SHARED_THREADS
+        if cap >= max(1, min(m, _MIN_CHUNK)):
+            return sb, max(1, min(m, cap))
+    return None
+
+
+def shared_smem_bytes(m, n, itemsize, sb, chunk):
+    """``(bytes, resident)``: shared memory of one ``fused_sweeps_shared``
+    block, which also holds K^-1 (``resident`` 1) and then K (3) where they
+    still fit; the rest stream from L2 (mirrors ``launch_tile`` in the CUDA
+    source)."""
+    smem = sb * (1 + 3 * n + chunk + _SHARED_THREADS) * itemsize
+    mat = n * n * itemsize
+    resident = 0
+    for bit in (1, 2):
+        if smem + mat > SMEM_LIMIT:
+            break
+        resident |= bit
+        smem += mat
+    return smem, resident
+
+
+def usable_shared(S, m, n, dtype) -> int | None:
+    """Scenarios per block if ``fused_sweeps_shared`` takes this shape, else
+    None.  Mirrors ``pallas_kernels.usable_shared`` sized to Hopper: the
+    shared matrices stream through L2, so only a block's scenario vectors
+    limit the shape (n up to ~9,600 in f64), which covers every shape the
+    TPU kernel's 1.5 MB matrix budget admits."""
+    if dtype not in (torch.float32, torch.float64) or S < 1 or n < 1 \
+            or m < 0:
+        return None
+    lay = shared_layout(m, n, 4 if dtype == torch.float32 else 8)
+    return None if lay is None else lay[0]
+
+
+def _check_precision(name, precision):
+    if precision != "highest":
+        raise ValueError(
+            f"{name}: precision {precision!r} is not ported; only "
+            f"'highest' (full f32/f64) is (the bf16 modes wait for ROADMAP "
+            f"Queue 1 item 8)")
+
+
+def fused_sweeps_shared_plain(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
+                              dq2, has, gamma, x, z, zx, y, yx, Ax, n_sweeps,
+                              n_refine, n_extra, sigma, alpha,
+                              precision="highest", At=None):
+    """One ``n_sweeps`` block of ``shared_admm._core`` in batched tensor
+    form (``tests/test_pallas.py``'s XLA shared sweep in PyTorch).  Shapes:
+    A (m, n), Kinv/K (n, n) and rho_a (1, m), rho_x (1, n) are shared; q,
+    lb, ub, dq2, x, zx, yx are (S, n); cl, cu, z, y, Ax (S, m); gamma
+    (S, 1); ``has`` (1, 1) is the batch-global ``any(dq2 != 0)`` that arms
+    the ``n_extra`` refinement passes (read on the device, never on the
+    host).  ``At`` (A' contiguous, which the kernel reads) is accepted and
+    unused here.  Returns ``(x, z, zx, y, yx, Ax)``."""
+    _check_precision("fused_sweeps_shared_plain", precision)
+    plain_calls["fused_sweeps_shared"] += 1
+    g = gamma
+    sigma, alpha, beta = float(sigma), float(alpha), 1.0 - float(alpha)
+    sigma_s = g * sigma
+    rho_a_s = g * rho_a
+    rho_x_s = g * rho_x
+    extra = has > 0
+    At = A.T
+
+    def refine(xt, rhs):
+        return xt + ((rhs - (g * (xt @ K) + dq2 * xt)) / g) @ Kinv
+
+    for _ in range(n_sweeps):
+        rhs = (sigma_s * x - q + (rho_a_s * z - y) @ A) + (rho_x_s * zx - yx)
+        xt = (rhs / g) @ Kinv
+        for _ in range(n_refine):
+            xt = refine(xt, rhs)
+        for _ in range(n_extra):
+            xt = torch.where(extra, refine(xt, rhs), xt)
+        Axt = alpha * (xt @ At)
+        xt = alpha * xt
+        x_new = xt + beta * x
+        Ax_new = Axt + beta * Ax
+        za = Axt + beta * z
+        z_new = torch.clamp(za + y / rho_a_s, cl, cu)
+        y_new = y + rho_a_s * (za - z_new)
+        zxa = xt + beta * zx
+        zx_new = torch.clamp(zxa + yx / rho_x_s, lb, ub)
+        yx_new = yx + rho_x_s * (zxa - zx_new)
+        x, z, zx, y, yx, Ax = x_new, z_new, zx_new, y_new, yx_new, Ax_new
+    return x, z, zx, y, yx, Ax
+
+
+# ---- build and bind --------------------------------------------------------
+
 def _nvcc() -> str:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
@@ -127,44 +265,78 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build(name="fused_sweeps") -> Path:
-    """Compile ``csrc/<name>.cu`` into a shared library under ``_build/``
-    unless a library of the same source hash exists; returns its path.
-    The compiler's resource report (``-Xptxas -v``) lands in
-    :data:`build_log`."""
-    global build_log
+def _lib_path(name) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", str(tmp), str(src)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{res.stderr}")
-    build_log = res.stderr
-    os.replace(tmp, out)
-    return out
+    return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _load():
-    global _lib
+def build(*names) -> list:
+    """Compile each ``csrc/<name>.cu`` (default: every kernel) into its own
+    shared library under ``_build/``, named by the source's hash, unless it
+    exists; the ``nvcc`` runs start together.  Returns the libraries'
+    paths.  The compiler's resource reports (``-Xptxas -v``) land in
+    :data:`build_log`."""
+    names = names or tuple(_ENTRY_POINTS)
+    outs = [_lib_path(nm) for nm in names]
+    jobs = []
+    for nm, out in zip(names, outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{nm}.cu")]
+        jobs.append((nm, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for nm, out, tmp, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on csrc/{nm}.cu:\n{err}")
+            continue
+        build_log[nm] = err
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
+
+
+def _load(name):
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build("fused_sweeps")))
-            for fn in (lib.tpusppy_fused_sweeps_f32,
-                       lib.tpusppy_fused_sweeps_f64):
-                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_int, ctypes.c_int, ctypes.c_double,
-                               ctypes.c_double, ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build(name)[0]))
+            fns, argtypes = _ENTRY_POINTS[name]
+            for fn in fns:
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+        return _libs[name]
+
+
+def _check_args(name, ins, shapes, dev, dt):
+    for i, (t, shp) in enumerate(zip(ins, shapes)):
+        if tuple(t.shape) != shp or t.dtype != dt or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: argument {i} is {tuple(t.shape)} {t.dtype} "
+                f"on {t.device} (contiguous={t.is_contiguous()}); wanted "
+                f"{shp} {dt} on {dev}, contiguous")
+
+
+def _launch(name, dt, ins, outs, *scalars):
+    lib = _load(name)
+    fn = getattr(lib, _ENTRY_POINTS[name][0][dt == torch.float64])
+    in_ptrs = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins])
+    out_ptrs = (ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs])
+    dev = outs[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(in_ptrs, out_ptrs, *scalars, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    launches[name] += 1
 
 
 def fused_sweeps(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
@@ -184,28 +356,57 @@ def fused_sweeps(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
         raise ValueError(f"fused_sweeps: shape (S={S}, m={m}, n={n}) in "
                          f"{dt} does not fit one block's shared memory")
     ins = (q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, x, z, zx, y, yx, Ax)
-    shapes = ((S, n), (S, m, n), (S, n, n), (S, n, n), (S, m), (S, m),
-              (S, n), (S, n), (S, m), (S, n), (S, n), (S, m), (S, n),
-              (S, m), (S, n), (S, m))
-    for i, (t, shp) in enumerate(zip(ins, shapes)):
-        if tuple(t.shape) != shp or t.dtype != dt or t.device != A.device \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"fused_sweeps: argument {i} is {tuple(t.shape)} {t.dtype} "
-                f"on {t.device} (contiguous={t.is_contiguous()}); wanted "
-                f"{shp} {dt} on {A.device}, contiguous")
+    _check_args("fused_sweeps", ins,
+                ((S, n), (S, m, n), (S, n, n), (S, n, n), (S, m), (S, m),
+                 (S, n), (S, n), (S, m), (S, n), (S, n), (S, m), (S, n),
+                 (S, m), (S, n), (S, m)), A.device, dt)
     outs = tuple(torch.empty_like(t) for t in (x, z, zx, y, yx, Ax))
-    lib = _load()
-    fn = (lib.tpusppy_fused_sweeps_f32 if dt == torch.float32
-          else lib.tpusppy_fused_sweeps_f64)
-    in_ptrs = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins])
-    out_ptrs = (ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs])
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = fn(in_ptrs, out_ptrs, S, m, n, int(n_sweeps), int(n_refine),
-                 float(sigma), float(alpha), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_sweeps: CUDA launch failed with error "
-                           f"{err}")
-    launches["fused_sweeps"] += 1
+    _launch("fused_sweeps", dt, ins, outs, S, m, n, int(n_sweeps),
+            int(n_refine), float(sigma), float(alpha))
+    return outs
+
+
+def fused_sweeps_shared(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, dq2,
+                        has, gamma, x, z, zx, y, yx, Ax, n_sweeps, n_refine,
+                        n_extra, sigma, alpha, precision="highest",
+                        At=None):
+    """Run one ``n_sweeps`` block of the shared-A sweep; same arguments and
+    result as :func:`fused_sweeps_shared_plain`.  CUDA tensors launch the
+    kernel (or raise); CPU tensors run the plain version.  ``At`` is A'
+    contiguous, which the kernel reads for A xt; a caller that launches
+    many blocks against one A passes it, else it is made here."""
+    _check_precision("fused_sweeps_shared", precision)
+    if A.device.type == "cpu":
+        return fused_sweeps_shared_plain(
+            q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, dq2, has, gamma,
+            x, z, zx, y, yx, Ax, n_sweeps, n_refine, n_extra, sigma, alpha)
+    if A.device.type != "cuda":
+        raise ValueError(f"fused_sweeps_shared: unsupported device "
+                         f"{A.device}")
+    if A.ndim != 2 or q.ndim != 2:
+        raise ValueError(f"fused_sweeps_shared: A must be (m, n) and q "
+                         f"(S, n); got {tuple(A.shape)} and "
+                         f"{tuple(q.shape)}")
+    (m, n), S, dt = A.shape, q.shape[0], A.dtype
+    itemsize = 4 if dt == torch.float32 else 8
+    lay = shared_layout(m, n, itemsize) if usable_shared(S, m, n, dt) \
+        else None
+    if lay is None:
+        raise ValueError(f"fused_sweeps_shared: shape (S={S}, m={m}, "
+                         f"n={n}) in {dt} is not taken by the kernel")
+    # the kernel reads A along rows for A'v and along columns (as A') for
+    # A xt; the transposed copy keeps both reads coalesced
+    if At is None:
+        At = A.T.contiguous()
+    ins = (q, A, At, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, dq2, has, gamma,
+           x, z, zx, y, yx, Ax)
+    _check_args("fused_sweeps_shared", ins,
+                ((S, n), (m, n), (n, m), (n, n), (n, n), (S, m), (S, m),
+                 (S, n), (S, n), (1, m), (1, n), (S, n), (1, 1), (S, 1),
+                 (S, n), (S, m), (S, n), (S, m), (S, n), (S, m)), A.device,
+                dt)
+    outs = tuple(torch.empty_like(t) for t in (x, z, zx, y, yx, Ax))
+    _launch("fused_sweeps_shared", dt, ins, outs, S, m, n, lay[0], lay[1],
+            int(n_sweeps), int(n_refine), int(n_extra), float(sigma),
+            float(alpha))
     return outs

@@ -1,0 +1,431 @@
+"""Shared-constraint-matrix ADMM: one A and one factorization for the batch.
+
+Port of the dense-A part of ``tpusppy/solvers/shared_admm.py``.  Families
+whose scenarios differ only in costs, rhs and bounds (stochastic unit
+commitment above all: wind enters the power-balance rhs) share ONE
+constraint matrix.  The batch then stores A once as (m, n), the Ruiz scaling
+and row penalties are shared, and there is ONE (n, n) factorization of the
+x-update system for the whole batch.  Per-scenario diagonal deviations (PH
+prox terms that differ across scenarios, ``dq2``) are absorbed by iterative
+refinement against the exact per-scenario system, and a per-scenario
+penalty scale ``gamma`` adapts inside the sweep loop without refactoring.
+Every ``check_every`` block of sweeps runs in the hand-written CUDA kernel
+``fused_sweeps_shared`` (:mod:`.cuda_kernels`), refresh solves included.
+
+No active-set polish on this path: outer bounds stay certified through weak
+duality (:func:`tpusppy_torch.solvers.admm.dual_objective` takes the 2-D A)
+and LP-exact residue is left to the host straggler rescue
+(``spopt.SPOpt._rescue_stragglers``).
+
+Differences from the JAX package: the sweep ``while_loop`` is a host loop
+with one ``all(done)`` vote per block (``admm.loop_checks``), as in
+:func:`tpusppy_torch.solvers.admm._admm_core`; the restart ``scan`` is a
+Python loop.  Not ported yet: ``SparseA`` and the structured (block/Woodbury)
+factorization (ROADMAP Queue 1 item 6), matrix-free refinement
+(``factors_keep_K=False``, the same item) and ``sweep_precision`` (item 8).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .. import resolve_device
+from . import cuda_kernels
+from .admm import (ADMMSettings, BatchSolution, BIG, _LOOP_CHECKS,
+                   _clean_bounds, _done_mask, _explicit_inverse,
+                   _kernel_on, _plateau_update, _tensor)
+from .cuda_kernels import matvec as _mv
+from .cuda_kernels import rmatvec as _rmv
+
+
+def should_sparsify(A_np) -> bool:
+    """The reference's policy for uploading a shared A as ``SparseA``
+    (``tpusppy/solvers/sparse.py:should_sparsify``): large AND very sparse.
+    The port has no sparse engine yet, so a shared A it selects raises."""
+    return A_np.size >= 4e6 and (A_np != 0).mean() < 0.01
+
+
+class SharedFactors(NamedTuple):
+    """Reusable solve state for the frozen path (the shared-A analogue of
+    :class:`tpusppy_torch.solvers.admm.Factors`)."""
+
+    D: torch.Tensor       # (n,) Ruiz column scaling (shared)
+    E: torch.Tensor       # (m,) Ruiz row scaling (shared)
+    cost: torch.Tensor    # scalar objective scaling (shared)
+    rho_a: torch.Tensor   # (m,) row penalties actually used last
+    rho_x: torch.Tensor   # (n,) variable-box penalties actually used last
+    gamma: torch.Tensor   # (S,) per-scenario penalty scales used last
+    Kinv: torch.Tensor    # (n, n) explicit inverse of the shared system
+    K: torch.Tensor       # (n, n) exact shared K for refinement
+    q2ref: torch.Tensor   # (n,) scaled q2 the K was built with
+
+
+class _Masks(NamedTuple):
+    eq: torch.Tensor      # (m,) equality row in EVERY scenario
+    loose: torch.Tensor   # (m,) two-sided-infinite row in every scenario
+    eqx: torch.Tensor     # (n,) zero-width variable box in every scenario
+
+
+class _IterState(NamedTuple):
+    x: torch.Tensor
+    z: torch.Tensor
+    zx: torch.Tensor
+    y: torch.Tensor
+    yx: torch.Tensor
+    gamma: torch.Tensor   # (S,) per-scenario penalty scale, adapts in-loop
+    pri: torch.Tensor
+    dua: torch.Tensor
+    prinorm: torch.Tensor
+    duanorm: torch.Tensor
+    k: int                # sweeps run at this rho profile
+    best: float           # plateau: best batch eps-normalized residual
+    stall: int            # plateau: consecutive non-improving windows
+
+
+def _ruiz_shared(A, q2ref, iters):
+    """Ruiz equilibration of the single shared A; returns (D (n,), E (m,))."""
+    m, n = A.shape
+    D = torch.ones((n,), dtype=A.dtype, device=A.device)
+    E = torch.ones((m,), dtype=A.dtype, device=A.device)
+    for _ in range(iters):
+        Ps = q2ref * D * D
+        As = A * E[:, None] * D[None, :]
+        col = torch.maximum(As.abs().amax(dim=0), Ps.abs())
+        row = As.abs().amax(dim=1)
+        col = torch.where(col < 1e-12, 1.0, col)
+        row = torch.where(row < 1e-12, 1.0, row)
+        D, E = D / torch.sqrt(col), E / torch.sqrt(row)
+    return D, E
+
+
+def _factor_shared(q2ref, A, rho_a, rho_x, sigma):
+    """(Kinv, K) of the SHARED K = diag(q2ref + rho_x) + sigma I + A'RA:
+    one (n, n) system for the whole scenario batch."""
+    n = A.shape[1]
+    K = A.T @ (rho_a[:, None] * A)
+    K = K + torch.eye(n, dtype=A.dtype, device=A.device) * sigma
+    K = K + torch.diag(q2ref + rho_x)
+    return _explicit_inverse(K[None])[0], K
+
+
+def _core(q, q2s, q2ref, A, cl, cu, lb, ub, state: _IterState, Kinv, K,
+          rho_a, rho_x, glo, ghi, st: ADMMSettings,
+          adaptive=False) -> _IterState:
+    """Inner sweep loop at a fixed shared rho profile, with IN-LOOP
+    per-scenario gamma adaptation.
+
+    Scaling the whole penalty profile (rho_a, rho_x, sigma) by gamma_s keeps
+    the x-update system an exact multiple of the shared K, so adapting gamma
+    needs no refactorization.  ``glo``/``ghi`` bound gamma: wide for LP
+    batches (dq2 = 0, exact at any gamma), near 1 for QP (keeps the dq2
+    refinement contractive).  Each ``check_every`` block runs in
+    ``fused_sweeps_shared``; then one true matvec re-anchors Ax, the
+    residuals are measured, the divergence guard and the gamma rule apply,
+    and the host reads the all-done vote."""
+    ce = max(1, st.check_every)
+    A, Kinv, K = A.contiguous(), Kinv.contiguous(), K.contiguous()
+    # the kernel's A xt reads A' by rows; A is fixed for the whole call
+    At = A.T.contiguous()
+    rho_a1 = rho_a[None, :].contiguous()
+    rho_x1 = rho_x[None, :].contiguous()
+    sweeps = (cuda_kernels.fused_sweeps_shared if _kernel_on(st)
+              else cuda_kernels.fused_sweeps_shared_plain)
+    aq = q.abs().amax(dim=1)
+    inf = torch.full((), torch.inf, dtype=q.dtype, device=q.device)
+
+    def block(x, z, zx, y, yx, Ax, gamma):
+        g = gamma[:, None].contiguous()
+        dq2 = q2s - g * q2ref[None, :]
+        # batch-global flag for the extra refinement passes, on the device
+        has = (dq2 != 0).any().to(q.dtype).reshape(1, 1)
+        return sweeps(q, A, Kinv, K, cl, cu, lb, ub, rho_a1, rho_x1, dq2,
+                      has, g, x, z, zx, y, yx, Ax, ce, st.solve_refine, 2,
+                      st.sigma, st.alpha, At=At)
+
+    def residuals(x, z, zx, y, yx, Ax):
+        pri = torch.maximum((Ax - z).abs().amax(dim=1),
+                            (x - zx).abs().amax(dim=1))
+        Aty = _rmv(A, y)
+        Pxv = q2s * x
+        dua = (Pxv + q + Aty + yx).abs().amax(dim=1)
+        prinorm = torch.maximum(Ax.abs().amax(dim=1), z.abs().amax(dim=1))
+        duanorm = torch.maximum(
+            torch.maximum(Pxv.abs().amax(dim=1), Aty.abs().amax(dim=1)), aq)
+        return pri, dua, prinorm, duanorm
+
+    def finite_rows(t):
+        return torch.isfinite(t).all(dim=1)
+
+    s = state
+    Ax_prev = _mv(A, s.x)
+    period = max(1, 128 // ce)
+    while s.k < st.max_iter:
+        if st.sweep_plateau_rtol > 0 and s.stall >= 2:
+            break
+        _LOOP_CHECKS.inc()
+        if bool(_done_mask(s.pri, s.dua, s.prinorm, s.duanorm, st).all()):
+            break
+        x, z, zx, y, yx, _ = block(s.x, s.z, s.zx, s.y, s.yx, Ax_prev,
+                                   s.gamma)
+        # re-anchor the incrementally carried Ax (see admm._admm_core)
+        Ax = _mv(A, x)
+        pri, dua, prinorm, duanorm = residuals(x, z, zx, y, yx, Ax)
+        # Per-scenario divergence guard: a scenario whose iterates left the
+        # finite range (e.g. a dq2 too large for the shared-K refinement to
+        # contract) is frozen at its last finite iterate and reports INF
+        # residuals, so done stays False and nothing downstream sees NaN.
+        # Ax_prev is exactly A @ s.x from the previous re-anchor.
+        finite = (finite_rows(x) & finite_rows(z) & finite_rows(zx)
+                  & finite_rows(y) & finite_rows(yx))
+        bad = ~finite | ~(pri <= BIG) | ~(dua <= BIG)
+        bv = bad[:, None]
+        x = torch.where(bv, s.x, x)
+        z = torch.where(bv, s.z, z)
+        zx = torch.where(bv, s.zx, zx)
+        y = torch.where(bv, s.y, y)
+        yx = torch.where(bv, s.yx, yx)
+        Ax = torch.where(bv, Ax_prev, Ax)
+        pri = torch.where(bad, inf, pri)
+        dua = torch.where(bad, inf, dua)
+        prinorm = torch.where(bad, s.prinorm, prinorm)
+        duanorm = torch.where(bad, s.duanorm, duanorm)
+        # OSQP-style per-scenario gamma adaptation on normalized residual
+        # ratios, every ~128 sweeps (the reference's cadence: adapting at
+        # every checkpoint thrashes)
+        gamma = s.gamma
+        due = ((s.k + ce) // ce) % period == 0
+        if due:
+            done = _done_mask(pri, dua, prinorm, duanorm, st)
+            pri_rel = pri / torch.clamp(prinorm, min=1e-10)
+            dua_rel = dua / torch.clamp(duanorm, min=1e-10)
+            ratio = torch.sqrt(torch.clamp(pri_rel, min=1e-12)
+                               / torch.clamp(dua_rel, min=1e-12))
+            move = (ratio > 5.0) | (ratio < 0.2)
+            gnew = torch.minimum(torch.maximum(
+                s.gamma * torch.clamp(ratio, 0.1, 10.0), glo), ghi)
+            gamma = torch.where(done | ~move, s.gamma, gnew)
+        best, stall = s.best, s.stall
+        if st.sweep_plateau_rtol > 0:
+            best, stall = _plateau_update(s, pri, dua, prinorm, duanorm, st,
+                                          min_k=128 if adaptive else 0)
+            # an actual gamma move changes the iteration: fresh plateau grace
+            if due and bool((move & ~done & (gnew != s.gamma)).any()):
+                best, stall = float("inf"), 0
+        s = _IterState(x, z, zx, y, yx, gamma, pri, dua, prinorm, duanorm,
+                       s.k + ce, best, stall)
+        Ax_prev = Ax
+    return s
+
+
+def _median(v):
+    """``jnp.median`` of a 1-D tensor: the mean of the two middle values
+    when the length is even (``torch.median`` takes the lower one)."""
+    srt = torch.sort(v).values
+    k = srt.shape[0]
+    if k % 2:
+        return srt[k // 2]
+    return 0.5 * (srt[k // 2 - 1] + srt[k // 2])
+
+
+def _prep_shared(c, q2, A, cl, cu, lb, ub, settings, device,
+                 want_masks=True):
+    """Device placement, dtype casting, bound cleaning and the shared
+    penalty-class masks (skipped by the frozen path, which never reads
+    them)."""
+    dev = resolve_device(device, A, c, q2, cl, cu, lb, ub)
+    dt = settings.tdtype()
+
+    def t(v):
+        return _tensor(v, dt, dev)
+
+    c, q2, A = t(c), t(q2), t(A)
+    if A.ndim != 2:
+        raise ValueError(f"the shared-A engine takes one (m, n) A; got "
+                         f"shape {tuple(A.shape)}")
+    cl, cu = _clean_bounds(t(cl), t(cu))
+    lb, ub = _clean_bounds(t(lb), t(ub))
+    if not want_masks:
+        return c, q2, A, cl, cu, lb, ub, None
+    # a row is boosted only when it is an equality in EVERY scenario
+    # (families share structure; a non-uniform row just loses the boost)
+    masks = _Masks(
+        eq=((cu - cl).abs() < 1e-10).all(dim=0),
+        loose=((cl <= -BIG / 2) & (cu >= BIG / 2)).all(dim=0),
+        eqx=((ub - lb).abs() < 1e-10).all(dim=0))
+    return c, q2, A, cl, cu, lb, ub, masks
+
+
+def _scale_shared(c, q2, A, cl, cu, lb, ub, D, E, cost, warm):
+    As = A * E[:, None] * D[None, :]
+    q2s = q2 * (D * D)[None, :] * cost
+    qs = c * D[None, :] * cost
+    cls, cus = cl * E[None, :], cu * E[None, :]
+    lbs, ubs = lb / D[None, :], ub / D[None, :]
+    if warm is not None:
+        x0, z0, y0, yx0 = (_tensor(v, A.dtype, A.device) for v in warm)
+        warm = (x0 / D[None, :], z0 * E[None, :], y0 / E[None, :] * cost,
+                yx0 * D[None, :] * cost)
+    return qs, q2s, As, cls, cus, lbs, ubs, warm
+
+
+def _start(warm, cls, cus, lbs, ubs, gamma):
+    """Initial iterate: the scaled warm start, else zeros (z clipped)."""
+    S, m = cls.shape
+    n = lbs.shape[1]
+    dt, dev = cls.dtype, cls.device
+    if warm is None:
+        x0 = torch.zeros((S, n), dtype=dt, device=dev)
+        z0 = torch.clamp(torch.zeros((S, m), dtype=dt, device=dev), cls, cus)
+        y0 = torch.zeros((S, m), dtype=dt, device=dev)
+        yx0 = torch.zeros((S, n), dtype=dt, device=dev)
+    else:
+        x0, z0, y0, yx0 = warm
+    inf = torch.full((S,), torch.inf, dtype=dt, device=dev)
+    one = torch.ones((S,), dtype=dt, device=dev)
+    return _IterState(x0, z0, torch.clamp(x0, lbs, ubs), y0, yx0, gamma,
+                      inf, inf, one, one, 0, float("inf"), 0)
+
+
+def _gamma_bounds(q2s):
+    """Gamma runs free for (near-)LP batches (dq2 = 0: the shared inverse
+    is exact at any gamma); significant q2 clamps it near 1 to keep the
+    dq2 = q2 (1 - gamma) refinement contractive."""
+    lp_like = q2s.abs().amax() < 1e-12
+    one = torch.ones((), dtype=q2s.dtype, device=q2s.device)
+    return (torch.where(lp_like, 1e-4 * one, 0.6 * one),
+            torch.where(lp_like, 1e4 * one, 1.8 * one))
+
+
+def _solution(state, D, E, cost, iters, st) -> BatchSolution:
+    x, z = state.x * D[None, :], state.z / E[None, :]
+    y = state.y * E[None, :] / cost
+    yx = state.yx / D[None, :] / cost
+    S = x.shape[0]
+    return BatchSolution(
+        x=x, z=z, y=y, yx=yx, pri_res=state.pri, dua_res=state.dua,
+        iters=torch.full((S,), iters, dtype=torch.int64, device=x.device),
+        done=_done_mask(state.pri, state.dua, state.prinorm, state.duanorm,
+                        st),
+        raw=(x, z, y, yx))
+
+
+def _solve_shared_impl(c, q2, A, cl, cu, lb, ub, settings, warm, device,
+                       want_factors=False):
+    st = settings
+    c, q2, A, cl, cu, lb, ub, masks = _prep_shared(
+        c, q2, A, cl, cu, lb, ub, st, device)
+    S, n = c.shape
+    m = A.shape[0]
+    dt, dev = c.dtype, c.device
+
+    D, E = _ruiz_shared(A, q2.mean(dim=0), st.scaling_iters)
+    # shared scalar objective scaling (median scenario magnitude), so the
+    # scaled q2, hence K, stays shared
+    cost = 1.0 / torch.clamp(_median((c * D[None, :]).abs().amax(dim=1)),
+                             min=1e-8)
+    qs, q2s, As, cls, cus, lbs, ubs, warm = _scale_shared(
+        c, q2, A, cl, cu, lb, ub, D, E, cost, warm)
+    q2ref = q2s.mean(dim=0)
+    glo, ghi = _gamma_bounds(q2s)
+
+    def rho_vec(base):
+        r = torch.where(masks.eq, base * st.rho_eq_scale, base)
+        return torch.where(masks.loose, st.rho_min, r)
+
+    def rho_x_vec(base):
+        return torch.where(masks.eqx, base * st.rho_eq_scale,
+                           base.expand(n))
+
+    state = _start(warm, cls, cus, lbs, ubs,
+                   torch.ones((S,), dtype=dt, device=dev))
+    base = torch.full((), st.rho, dtype=dt, device=dev)
+    total = 0
+    mult = torch.ones((m,), dtype=dt, device=dev)
+    multx = torch.ones((n,), dtype=dt, device=dev)
+    rho_a = torch.zeros((m,), dtype=dt, device=dev)
+    rho_x = torch.zeros((n,), dtype=dt, device=dev)
+    Kinv = K = torch.zeros((n, n), dtype=dt, device=dev)
+    for _ in range(st.restarts):
+        rho_a, rho_x = rho_vec(base), rho_x_vec(base)
+        if st.rho_row_adapt:
+            rho_a = torch.clamp(rho_a * mult, max=st.rho_row_max)
+            rho_x = torch.clamp(rho_x * multx, max=st.rho_row_max)
+        Kinv, K = _factor_shared(q2ref, As, rho_a, rho_x, st.sigma)
+        state = _core(qs, q2s, q2ref, As, cls, cus, lbs, ubs,
+                      state._replace(k=0, best=float("inf"), stall=0),
+                      Kinv, K, rho_a, rho_x, glo, ghi, st, adaptive=True)
+        total += state.k
+        done = _done_mask(state.pri, state.dua, state.prinorm,
+                          state.duanorm, st)
+        eps_pri = st.eps_abs + st.eps_rel * torch.clamp(state.prinorm,
+                                                        min=1.0)
+        pri_rel = state.pri / torch.clamp(state.prinorm, min=1e-10)
+        dua_rel = state.dua / torch.clamp(state.duanorm, min=1e-10)
+        ratio = torch.sqrt(torch.clamp(pri_rel, min=1e-12)
+                           / torch.clamp(dua_rel, min=1e-12))
+        # shared base: geometric-mean ratio of the UNCONVERGED scenarios;
+        # diverged ones (inf residuals, NaN ratio) are excluded so one
+        # exploding scenario cannot poison the base for the batch
+        ok = torch.isfinite(ratio)
+        logr = torch.where(done | ~ok, 0.0,
+                           torch.log(torch.clamp(ratio, 0.1, 10.0)))
+        denom = torch.clamp((~done & ok).sum(), min=1)
+        gmean = torch.exp(logr.sum() / denom)
+        base = torch.where(done.all(), base,
+                           torch.clamp(base * gmean, st.rho_min, st.rho_max))
+        if st.rho_row_adapt:
+            stuck = (state.pri > 100.0 * eps_pri)[:, None]
+            gate = torch.maximum(0.3 * state.pri, 10.0 * eps_pri)[:, None]
+            Ax = _mv(As, state.x)
+            viol = torch.maximum(cls - Ax, Ax - cus)
+            mult = torch.where((stuck & (viol > gate)).any(dim=0),
+                               mult * st.rho_row_boost, mult)
+            violx = torch.maximum(lbs - state.x, state.x - ubs)
+            multx = torch.where((stuck & (violx > gate)).any(dim=0),
+                                multx * st.rho_row_boost, multx)
+    sol = _solution(state, D, E, cost, total, st)
+    if want_factors:
+        return sol, SharedFactors(D=D, E=E, cost=cost, rho_a=rho_a,
+                                  rho_x=rho_x, gamma=state.gamma, Kinv=Kinv,
+                                  K=K, q2ref=q2ref)
+    return sol
+
+
+def solve_shared(c, q2, A, cl, cu, lb, ub,
+                 settings: ADMMSettings = ADMMSettings(), warm=None,
+                 device=None) -> BatchSolution:
+    """Solve a shared-A batch: A is (m, n); everything else (S, ...).
+    ``warm``: optional unscaled (x, z, y, yx) from a previous call."""
+    return _solve_shared_impl(c, q2, A, cl, cu, lb, ub, settings, warm,
+                              device)
+
+
+def solve_shared_factored(c, q2, A, cl, cu, lb, ub,
+                          settings: ADMMSettings = ADMMSettings(), warm=None,
+                          device=None):
+    """Adaptive shared-A solve that also returns :class:`SharedFactors`."""
+    return _solve_shared_impl(c, q2, A, cl, cu, lb, ub, settings, warm,
+                              device, want_factors=True)
+
+
+def solve_shared_frozen(c, q2, A, cl, cu, lb, ub, factors: SharedFactors,
+                        settings: ADMMSettings = ADMMSettings(), warm=None,
+                        device=None) -> BatchSolution:
+    """Sweep-only shared solve reusing a refresh's :class:`SharedFactors`:
+    no Ruiz recomputation, factorization or restarts.  Valid while A and
+    the bounds' structure are unchanged; per-scenario q2 drift is absorbed
+    by the refinement against gamma K + diag(dq2)."""
+    device = resolve_device(device, factors.Kinv, A, c)
+    c, q2, A, cl, cu, lb, ub, _ = _prep_shared(
+        c, q2, A, cl, cu, lb, ub, settings, device, want_masks=False)
+    D, E, cost = factors.D, factors.E, factors.cost
+    qs, q2s, As, cls, cus, lbs, ubs, warm = _scale_shared(
+        c, q2, A, cl, cu, lb, ub, D, E, cost, warm)
+    glo, ghi = _gamma_bounds(q2s)
+    state = _core(qs, q2s, factors.q2ref, As, cls, cus, lbs, ubs,
+                  _start(warm, cls, cus, lbs, ubs, factors.gamma),
+                  factors.Kinv, factors.K, factors.rho_a, factors.rho_x,
+                  glo, ghi, settings)
+    return _solution(state, D, E, cost, state.k, settings)

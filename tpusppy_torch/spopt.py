@@ -4,8 +4,10 @@ Port of the host path of ``tpusppy/spopt.py``: the whole local batch is ONE
 batched ADMM call on the device, warm-started between calls, with the
 factorization amortized over ``solver_refresh_every`` calls (frozen solves in
 between) and a host-exact rescue of the scenarios a refresh leaves
-unconverged.  Expectations are probability-weighted contractions on the host.
-The megastep, bucketed and in-wheel methods are not part of this slice.
+unconverged.  A batch with a shared constraint matrix (``A_shared``) runs the
+shared-A engine (:mod:`.solvers.shared_admm`) on the single (m, n) matrix.
+Expectations are probability-weighted contractions on the host.  The
+megastep, bucketed and in-wheel methods are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -13,12 +15,13 @@ from __future__ import annotations
 import itertools
 
 import numpy as np
+import scipy.sparse as sp
 
 from . import global_toc
 from .obs import metrics as _metrics
 from .obs import trace as _trace
 from .spbase import SPBase
-from .solvers import admm, hostsync, segmented
+from .solvers import admm, hostsync, segmented, shared_admm
 
 _BATCH_TOKENS = itertools.count(1)
 
@@ -98,14 +101,26 @@ class SPOpt(SPBase):
 
     def _device_consts(self, dt):
         """Device-resident (A, cl, cu), cached on batch identity/version:
-        the (S, m, n) constraint tensor never changes between solves."""
+        the constraint tensor never changes between solves.  A shared-A
+        batch uploads its single (m, n) matrix, never the (S, m, n)
+        broadcast view."""
         b = self.batch
         key = (_batch_token(b), getattr(b, "version", 0), dt)
         cached = getattr(self, "_dev_consts", None)
         if cached is None or cached[0] != key:
             def t(v):
                 return admm._tensor(np.ascontiguousarray(v), dt, self.device)
-            cached = (key, (t(b.A), t(b.cl), t(b.cu)))
+            A_src = b.A
+            if b.A_shared is not None:
+                A_src = b.A_shared
+                if shared_admm.should_sparsify(A_src):
+                    raise NotImplementedError(
+                        f"this shared A ({A_src.shape[0]}x{A_src.shape[1]}, "
+                        f"{np.count_nonzero(A_src) / A_src.size:.2%} "
+                        "non-zeros) takes the reference's sparse engine "
+                        "(SparseA), which the port does not have yet "
+                        "(ROADMAP Queue 1 item 6)")
+            cached = (key, (t(A_src), t(b.cl), t(b.cu)))
             self._dev_consts = cached
         return cached[1]
 
@@ -143,7 +158,8 @@ class SPOpt(SPBase):
                 "sig": self._factors_sig, "age": self._factors_age,
                 "n_div_prev": self._n_div_prev}
         sol, meas = self._solve_amortized(
-            (q, q2, A_d, cl_d, cu_d, b.lb, b.ub), slot, warm)
+            (q, q2, A_d, cl_d, cu_d, b.lb, b.ub), slot, warm,
+            shared=b.A_shared is not None)
         self._warm = slot["warm"]
         self._factors = slot["factors"]
         self._factors_sig = slot["sig"]
@@ -163,11 +179,18 @@ class SPOpt(SPBase):
         return admm.measure_unpack(
             hostsync.fetch(admm.measure_pack(sol)), S, n)
 
-    def _solve_amortized(self, args, slot: dict, warm: bool):
+    def _solve_amortized(self, args, slot: dict, warm: bool, shared=False):
         """Frozen attempt under a validity signature, else an adaptive
         factored solve + straggler rescue.  ``slot`` carries
-        warm/factors/sig/age; ``args`` is (q, q2, A, cl, cu, lb, ub).
-        Returns ``(sol, meas)``."""
+        warm/factors/sig/age; ``args`` is (q, q2, A, cl, cu, lb, ub), with A
+        (m, n) when ``shared`` (the shared-A engine).  Returns
+        ``(sol, meas)``."""
+        if shared:
+            frozen_fn = shared_admm.solve_shared_frozen
+            factored_fn = shared_admm.solve_shared_factored
+        else:
+            frozen_fn = admm.solve_batch_frozen
+            factored_fn = admm.solve_batch_factored
         refresh_every = self._refresh_every()
         sig = (self._solve_sig(args[1], args[5], args[6])
                if refresh_every > 1 else None)
@@ -178,7 +201,7 @@ class SPOpt(SPBase):
                 and slot.get("age", 0) < refresh_every):
             with _trace.span(None, "solve.frozen") as _sp:
                 cand = segmented.solve_frozen_segmented(
-                    admm.solve_batch_frozen, args, slot["factors"],
+                    frozen_fn, args, slot["factors"],
                     self.admm_settings, warm=slot["warm"])
                 meas_c = self._fetch_measure(cand)
                 if _trace.enabled():
@@ -197,7 +220,7 @@ class SPOpt(SPBase):
         if sol is None:
             with _trace.span(None, "solve.refresh"):
                 sol, factors = segmented.solve_factored_segmented(
-                    admm.solve_batch_factored, args, self.admm_settings,
+                    factored_fn, args, self.admm_settings,
                     warm=slot.get("warm") if warm else None)
                 slot["factors"] = factors
                 slot["sig"] = sig
@@ -280,8 +303,10 @@ class SPOpt(SPBase):
             chunk = max(1, int(self.options.get("straggler_qp_chunk", 16)))
             for lo in range(0, qp_bad.size, chunk):
                 sl = qp_bad[lo:lo + chunk]
+                # a shared-A family passes its one (m, n) matrix
+                A_arg = b.A[sl] if b.A_shared is None else b.A_shared
                 xb, yb, feas = scipy_backend.solve_qp_batch_with_duals(
-                    q[sl], q2[sl], b.A[sl], b.cl[sl], b.cu[sl], lb[sl],
+                    q[sl], q2[sl], A_arg, b.cl[sl], b.cu[sl], lb[sl],
                     ub[sl])
                 for j, s in enumerate(sl):
                     if not feas[j]:
@@ -299,9 +324,13 @@ class SPOpt(SPBase):
         if lp_bad.size > max_lp:
             worst = np.argsort(-np.maximum(pri[lp_bad], dua[lp_bad]))
             lp_bad = lp_bad[worst[:max_lp]]
+        # a shared-A family converts its one matrix to CSR once per round
+        A_csr = (sp.csr_matrix(b.A_shared)
+                 if lp_bad.size and b.A_shared is not None else None)
         for s in lp_bad:
             res = scipy_backend.solve_lp_with_duals(
-                q[s], b.A[s], b.cl[s], b.cu[s], lb[s], ub[s])
+                q[s], b.A[s] if A_csr is None else A_csr, b.cl[s], b.cu[s],
+                lb[s], ub[s])
             if not res.feasible or res.duals is None:
                 continue        # genuine infeasibility: leave residuals
             xs = res.x
