@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (tpusppy_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases kernels,golden,farmer,uc_lite,uc]
 
 Run from the root of a checkout on a machine with one CUDA device and the
 CUDA toolkit (nvcc).  Phases, each printing a line:
@@ -14,23 +14,36 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    card's bound for the same work: ``fused_sweeps`` at farmer
    crops_multiplier=4 (S=1000, m=28, n=44, n_sweeps=4, n_refine=2),
    ``fused_sweeps_shared`` at uc_lite's defaults (S=1000, m=242, n=132,
-   n_sweeps=4, n_refine=2, n_extra=2, with has=1 and has=0);
+   n_sweeps=4, n_refine=2, n_extra=2, with has=1 and has=0),
+   ``fused_sweeps_sparse`` at the full-width uc's (S=1000, m=4626,
+   n=2928, kr=61, kc=10, n_sweeps=4, n_refine=1, n_extra=2, has=1 and
+   has=0; in f32 also against the f64 plain version);
 4. goldens in f64 through the kernels: farmer S=3 PH (EF optimum -108390),
-   and uc_lite S=3 (3 generators, 6 hours) PH against its HiGHS EF;
+   uc_lite S=3 (3 generators, 6 hours) and full-width uc S=10 (30
+   generators, 24 hours) PH, each against its HiGHS EF; the uc one also
+   on the tensor path, its eobj held to the kernel run's after every
+   iteration;
 5. main paths, each with the launch counts and host syncs read around
    exactly that run, then the first iterations of the same PH on the
    batched tensor path (eobj held to the kernel run's after as many
-   iterations) and the HiGHS EF of the same scenarios: farmer-1000
-   crops_multiplier=4 PH in f32 (100 iterations, 50 on the tensor path)
-   through ``fused_sweeps`` (the dense per-scenario engine), and
-   uc_lite-1000 at its defaults (rho 500, 60 iterations, 20 on the tensor
-   path) PH in f32 through ``fused_sweeps_shared`` (the shared-A engine).
+   iterations, with both runs' eobj and solve-loop decisions printed side
+   by side) and, below S=1000 UC, the HiGHS EF of the same scenarios:
+   farmer-1000 crops_multiplier=4 PH in f32 (100 iterations, 25 on the
+   tensor path) through ``fused_sweeps`` (the dense per-scenario engine),
+   uc_lite-1000 at its defaults (rho 500, 60 iterations, 10 on the tensor
+   path) through ``fused_sweeps_shared`` (the shared-A engine), and
+   uc-1000 at full width (rho 500 and bench_uc.py's solver settings, 30
+   iterations, 10 on the tensor path; its EF is out of HiGHS's reach, so
+   the S=10 golden holds the EF check) through
+   ``fused_sweeps_sparse`` (the sparse and structured-KKT engine).
 
+``--phases`` runs a subset; the result lines print only when all ran.
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero before
 the last line is printed.  Imports nothing of JAX.
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -52,6 +65,23 @@ UC_GOLDEN_OPTIONS = {"defaultPHrho": 10.0, "convthresh": 1e-5}
 # At the golden's rho 10 the S=1000 eobj climbs toward the EF far too
 # slowly to come within 1e-2 in a depth that fits the time limit.
 UC_MAIN_OPTIONS = {"defaultPHrho": 500.0, "convthresh": 1e-5}
+# fused_sweeps_sparse in f32 against its plain version at uc-1000's shape
+SPARSE_TOL_F32 = 1e-5
+# the repo's UC solver settings (bench_uc.py): 200 sweeps a solve, 2
+# restarts, one refinement pass, the in-loop plateau exit
+UC_SOLVER = {"max_iter": 200, "restarts": 2, "scaling_iters": 6,
+             "solve_refine": 1, "sweep_plateau_rtol": 0.05,
+             "sweep_plateau_window": 8}
+# the full-width uc S=10 golden, 10 PH iterations: rho 10000 brings its
+# eobj within 1e-2 of the EF in a few iterations; at the main path's rho 500
+# it climbs toward the EF far too slowly for the time limit
+UC_FULL_GOLDEN_OPTIONS = {"defaultPHrho": 10000.0, "convthresh": 1e-5}
+UC_FULL_GOLDEN_ITERS = 10
+# the uc S=10 golden's first 5 iterations also on the tensor path, in f64:
+# the same recurrence, so the eobj agrees after every iteration (5e-14 in
+# all 10, PERF.md, PR 3)
+UC_FULL_TENSOR_ITERS = 5
+UC_FULL_F64_TOL = 1e-7
 
 
 class PhaseError(RuntimeError):
@@ -149,9 +179,11 @@ def shared_sweep_case(S, m, n, dtype, has, seed=0):
             for k in order], sigma
 
 
-def hold_kernel(label, kern, plain, args, flops, tol, dtype):
+def hold_kernel(label, kern, plain, args, flops, tol, dtype, ref=None):
     """One kernel call against its plain version on the same inputs, then
-    both timed; returns the errors, times and bound."""
+    both timed; returns the errors, times and bound.  ``ref`` (f32 cases)
+    gives the f64 plain version on the same f32-rounded inputs: the kernel
+    must lie no further from it than twice the plain f32's distance."""
     import torch
 
     got, want = kern(), plain()
@@ -160,11 +192,17 @@ def hold_kernel(label, kern, plain, args, flops, tol, dtype):
     rel_err = max(float((g - w).abs().max() / w.abs().max())
                   for g, w in zip(got, want))
     finite = all(bool(torch.isfinite(g).all()) for g in got)
+    vs64 = ""
+    if ref is not None:
+        r64 = ref()
+        k64, p64 = max_err(got, r64), max_err(want, r64)
+        vs64 = f" kernel-f64={k64:.3e} plain-f64={p64:.3e}"
+        del r64
     ms, plain_ms = cuda_time_ms(kern), cuda_time_ms(plain)
     # bound: each input read once, each output written once, over the HBM
     # rate; the arithmetic (a multiply-add counts 2) over the peak rate
-    nbytes = (sum(a.numel() for a in args)
-              + sum(o.numel() for o in got)) * args[0].element_size()
+    nbytes = (sum(a.numel() * a.element_size() for a in args)
+              + sum(o.numel() * o.element_size() for o in got))
     name = str(dtype).replace("torch.", "")
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[name] * 1e3
@@ -173,13 +211,83 @@ def hold_kernel(label, kern, plain, args, flops, tol, dtype):
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                bytes=nbytes, flops=flops)
     print(f"kernel {label} {name}: max_rel_err={rel_err:.3e} "
-          f"(tol {tol:.0e}) max_abs_err={abs_err:.3e} kernel_ms={ms:.5f} "
-          f"plain_ms={plain_ms:.5f} bound_ms={res['bound_ms']:.5f} "
+          f"(tol {tol:.0e}) max_abs_err={abs_err:.3e}{vs64} "
+          f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+          f"bound_ms={res['bound_ms']:.5f} "
           f"({res['bound_by']}: {nbytes} B, {flops} flop)", flush=True)
     check(finite, f"{label} {name}: non-finite output")
     check(rel_err < tol, f"{label} {name}: kernel disagrees with plain "
           f"version ({rel_err:.3e} >= {tol:.0e})")
+    if ref is not None:
+        check(k64 <= 2.0 * p64 + 1e-7, f"{label} {name}: kernel lies "
+              f"{k64:.3e} from the f64 plain version, the plain f32 "
+              f"{p64:.3e}")
     return res
+
+
+def uc_sparse_pattern():
+    """The full-width uc shared A (30 generators, 24 hours): the sparsity
+    pattern the main path's kernel runs on."""
+    from tpusppy_torch.models import uc
+
+    return uc.scenario_creator("Scenario0", relax_integers=True).A != 0
+
+
+def sparse_sweep_case(pattern, S, dtype, has, seed=0):
+    """fused_sweeps_sparse inputs on the card on the uc A's sparsity
+    pattern, with values drawn so that the check is well conditioned:
+    entries of magnitude in [0.5, 1] / sqrt(kr kc) (so A'RA has norm at
+    most 1), rho in [0.5, 1] (cond(K) below 4), gamma in [0.6, 1.8], and
+    dq2 at most half of gamma K's smallest eigenvalue, so the refinement
+    contracts.  K^-1 is formed in f64 (torch.linalg.inv, a yardstick the
+    port never calls) and rounded to ``dtype``.  Returns (args, A, sigma)
+    with args in the wrapper's order."""
+    import torch
+
+    from tpusppy_torch.solvers.sparse import SparseA
+
+    rng = np.random.RandomState(seed)
+    m, n = pattern.shape
+    kr, kc = int(pattern.sum(1).max()), int(pattern.sum(0).max())
+    sigma = 1e-6
+    A = np.where(pattern, rng.uniform(0.5, 1.0, (m, n))
+                 * rng.choice([-1.0, 1.0], (m, n)), 0.0) / np.sqrt(kr * kc)
+    sp = SparseA.from_dense(A, torch.float64, "cuda")
+    rho_a = rng.uniform(0.5, 1.0, size=m)
+    rho_x = rng.uniform(0.5, 1.0, size=n)
+    Ad = sp.todense()
+    t64 = lambda v: torch.as_tensor(v, dtype=torch.float64, device="cuda")
+    K = Ad.T @ (t64(rho_a)[:, None] * Ad) + torch.diag(t64(rho_x + sigma))
+    Kinv = torch.linalg.inv(K)
+    cl = -np.abs(rng.randn(S, m)) - 0.5
+    cu = np.abs(rng.randn(S, m)) + 0.5
+    x = rng.randn(S, n) * 0.1
+    gamma = rng.uniform(0.6, 1.8, size=(S, 1))
+    lo = rho_x.min() + sigma
+    arrs = dict(
+        q=rng.randn(S, n), Kinv=Kinv, diagK=(rho_x + sigma)[None, :],
+        cl=cl, cu=cu, lb=-2.0 * np.ones((S, n)), ub=2.0 * np.ones((S, n)),
+        rho_a=rho_a[None, :], rho_x=rho_x[None, :],
+        dq2=0.5 * gamma * lo * rng.uniform(size=(S, n)) * has,
+        has=np.full((1, 1), float(has)), gamma=gamma, x=x,
+        z=np.clip(rng.randn(S, m), cl, cu), zx=np.clip(x, -2.0, 2.0),
+        y=0.1 * rng.randn(S, m), yx=0.1 * rng.randn(S, n),
+        Ax=sp.matvec(t64(x)))
+    ell = [sp.ell.rowcols, sp.ell.rowvals.to(dtype), sp.ell.colrows,
+           sp.ell.colvals.to(dtype)]
+    order = ("q", "Kinv", "diagK", "cl", "cu", "lb", "ub", "rho_a", "rho_x",
+             "dq2", "has", "gamma", "x", "z", "zx", "y", "yx", "Ax")
+    vals = [torch.as_tensor(arrs[k], device="cuda").to(dtype).contiguous()
+            for k in order]
+    return [vals[0]] + ell + vals[1:], sp, sigma
+
+
+def max_err(got, want):
+    """Largest difference relative to the largest entry of ``want``
+    (floored at 1), over the six outputs."""
+    return max(float((g.double() - w.double()).abs().max()
+                     / max(float(w.double().abs().max()), 1.0))
+               for g, w in zip(got, want))
 
 
 def phase_kernels(cuda_kernels):
@@ -214,6 +322,48 @@ def phase_kernels(cuda_kernels):
                 lambda: cuda_kernels.fused_sweeps_shared_plain(
                     *args, n_sweeps, n_refine, n_extra, sigma, alpha),
                 args, flops, tol, dtype)
+    out["fused_sweeps_sparse"] = phase_sparse_kernel(cuda_kernels)
+    return out
+
+
+def phase_sparse_kernel(cuda_kernels, S=1000):
+    """fused_sweeps_sparse against its plain version at uc-1000's shape
+    (m=4626, n=2928, kr=61, kc=10; 4 sweeps, n_refine=1 as bench_uc.py
+    runs it, n_extra=2), has=1 and has=0, f32 and f64.  In f32 both the
+    kernel and the plain version are also held against the f64 plain
+    version on the same inputs."""
+    import torch
+
+    out = {}
+    pattern = uc_sparse_pattern()
+    n_sweeps, n_refine, n_extra, alpha = 4, 1, 2, 1.6
+    n = pattern.shape[1]
+    for has in (1, 0):
+        n_pass = n_refine + n_extra * has
+        for dtype, tol in ((torch.float32, SPARSE_TOL_F32),
+                           (torch.float64, 1e-12)):
+            args, sp, sigma = sparse_sweep_case(pattern, S, dtype, has)
+            # the work this data needs: K^-1 applies on n^2, and the ELL
+            # products on the non-zeros only (padding slots are no work)
+            flops = 2 * S * n_sweeps * ((1 + n_pass) * n * n
+                                        + sp.nnz * (2 + 2 * n_pass))
+            ell_t = cuda_kernels.ell_slot_major(args[1:5])
+            fixed = (n_sweeps, n_refine, n_extra, sigma, alpha)
+            ref = None
+            if dtype == torch.float32:
+                args64 = [a.double() if a.is_floating_point() else a
+                          for a in args]
+                ref = (lambda a=args64:
+                       cuda_kernels.fused_sweeps_sparse_plain(*a, *fixed))
+            out[(dtype, has)] = hold_kernel(
+                f"fused_sweeps_sparse has={has}",
+                lambda: cuda_kernels.fused_sweeps_sparse(*args, *fixed,
+                                                         ell_t=ell_t),
+                lambda: cuda_kernels.fused_sweeps_sparse_plain(*args,
+                                                               *fixed),
+                args, flops, tol, dtype, ref=ref)
+            del args, sp, ref
+            torch.cuda.empty_cache()
     return out
 
 
@@ -240,6 +390,27 @@ def uc_ph(S, options, extensions=None, **kw):
                                          relax_integers=True),
             extensions=extensions)
     check(ph.batch.A_shared is not None, "uc_lite batch is not shared-A")
+    return ph
+
+
+def uc_full_ph(S, options, extensions=None):
+    """uc PH (models/uc.py at its full width, 30 generators x 24 hours; LP
+    relaxation) on the structured-KKT engine: the shared A goes up as a
+    SparseA with its block/Woodbury structure."""
+    import torch
+
+    from tpusppy_torch.models import uc
+    from tpusppy_torch.opt.ph import PH
+    from tpusppy_torch.solvers.sparse import SparseA
+
+    ph = PH(options, uc.scenario_names_creator(S), uc.scenario_creator,
+            scenario_creator_kwargs={"num_scens": S, "relax_integers": True},
+            extensions=extensions)
+    A_d = ph._device_consts(ph.admm_settings.tdtype())[0]
+    check(isinstance(A_d, SparseA) and A_d.structure is not None
+          and A_d.device.type == "cuda" and A_d.dtype == getattr(
+              torch, ph.admm_settings.dtype),
+          "the uc batch did not go up as a structured SparseA on the card")
     return ph
 
 
@@ -280,30 +451,95 @@ def phase_golden(cuda_kernels):
     check(tbound <= ef_obj + 1e-6 * abs(ef_obj),
           f"uc_lite golden trivial bound {tbound} above EF {ef_obj}")
 
+    # full-width uc at S=10 through fused_sweeps_sparse, f64, with the
+    # repo's UC solver settings at f64's eps (bench_uc.py); then the same
+    # PH's first iterations on the tensor path, held to it after each
+    runs = {}
+    for use_kernel, iters in (("auto", UC_FULL_GOLDEN_ITERS),
+                              (False, UC_FULL_TENSOR_ITERS)):
+        ph, runs[use_kernel] = run_path(
+            cuda_kernels, "fused_sweeps_sparse",
+            lambda o, ext: uc_full_ph(10, o, extensions=ext), use_kernel,
+            iters, UC_FULL_GOLDEN_OPTIONS, UC_SOLVER, dtype="float64",
+            eps=1e-8)
+    k, p = runs["auto"], runs[False]
+    t0 = time.perf_counter()
+    ef_obj, _ = solve_ef(ph.batch, solver="highs")
+    print(f"golden uc S=10 (30 gens, 24 h) f64 on {ph.device}: "
+          f"conv={k['conv']:.3e} eobj={k['eobj']:.4f} "
+          f"tbound={k['tbound']:.4f} iters={k['iters']} "
+          f"wall_s={k['wall_s']:.2f} (EF {ef_obj:.4f} in "
+          f"{time.perf_counter() - t0:.2f} s, rel "
+          f"{abs(k['eobj'] - ef_obj) / abs(ef_obj):.3e}) "
+          f"launches={k['launches']} plain_calls={k['plain_calls']}; "
+          f"tensor path wall_s={p['wall_s']:.2f}", flush=True)
+    rel = print_parting("golden uc S=10 f64", k, p, UC_FULL_TENSOR_ITERS)
+    check(k["launches"] > 0 and k["plain_calls"] == 0, "the uc golden run "
+          "did not go through the fused_sweeps_sparse kernel")
+    check(p["launches"] == 0, "use_kernel=False launched the kernel")
+    check(max(rel) <= UC_FULL_F64_TOL, f"uc golden f64: kernel and tensor-"
+          f"path eobj differ by {max(rel):.3e} > {UC_FULL_F64_TOL:.0e}")
+    check(abs(k["eobj"] - ef_obj) <= 1e-2 * abs(ef_obj),
+          f"uc golden eobj {k['eobj']} not within 1e-2 of EF {ef_obj}")
+    check(k["tbound"] <= ef_obj + 1e-6 * abs(ef_obj),
+          f"uc golden trivial bound {k['tbound']} above EF {ef_obj}")
 
-def run_path(cuda_kernels, kernel, make_ph, use_kernel, iters, options):
-    """One main path's PH in f32; returns (ph, results) with the launch
-    counts and host syncs read around exactly this run."""
+
+def run_path(cuda_kernels, kernel, make_ph, use_kernel, iters, options,
+             solver=None, dtype="float32", eps=1e-5):
+    """One path's PH (f32 at eps 1e-5 unless told); returns (ph, results)
+    with the launch counts and host syncs read around exactly this run, and
+    eobj and the solve loop's decisions after Iter0 and every iteration.
+    ``solver``: more solver options."""
     import torch
 
     from tpusppy_torch.extensions.extension import Extension
     from tpusppy_torch.obs import metrics
 
     opts = dict(options, PHIterLimit=iters,
-                solver_options={"dtype": "float32", "eps_abs": 1e-5,
-                                "eps_rel": 1e-5, "use_kernel": use_kernel})
+                solver_options=dict(solver or {}, dtype=dtype,
+                                    eps_abs=eps, eps_rel=eps,
+                                    use_kernel=use_kernel))
+
+    def counts():
+        return (cuda_kernels.launches[kernel]
+                + cuda_kernels.plain_calls[kernel],
+                metrics.value("solve.frozen_rejected"),
+                metrics.value("solve.rescued_scenarios"))
 
     class Clock(Extension):
         """Stamps the end of Iter0, so the PH rate excludes it, and records
-        eobj after every iteration."""
+        after Iter0 and every iteration the eobj and the decisions that
+        can part two runs: sweep blocks (a plateau or eps exit), whether
+        the factors were refreshed, frozen solves refused, scenarios
+        rescued (and, in Iter0, which)."""
+
+        def record(self):
+            opt = self.opt
+            now = counts()
+            blocks, rejected, rescued = (a - b for a, b in zip(now,
+                                                               self.base))
+            self.base = now
+            opt.decisions.append(dict(
+                eobj=opt.Eobjective(), blocks=blocks,
+                refresh=opt._factors_age == 1, rejected=rejected,
+                rescued=rescued))
+
+        def pre_iter0(self):
+            self.base = counts()
+            self.opt.decisions = []
 
         def post_iter0(self):
             torch.cuda.synchronize()
-            self.opt.t_iter0_done = time.perf_counter()
-            self.opt.eobj_trace = []
+            opt = self.opt
+            opt.t_iter0_done = time.perf_counter()
+            # a rescue leaves exactly zero residuals
+            opt.iter0_rescued = np.flatnonzero((opt.pri_res == 0)
+                                               & (opt.dua_res == 0))
+            self.record()
 
         def enditer(self):
-            self.opt.eobj_trace.append(self.opt.Eobjective())
+            self.record()
 
     ph = make_ph(opts, Clock)
     torch.cuda.synchronize()
@@ -318,8 +554,8 @@ def run_path(cuda_kernels, kernel, make_ph, use_kernel, iters, options):
     plain = cuda_kernels.plain_calls[kernel]
     n_it = max(ph._iter, 1)
     syncs = win.delta("host_sync.count") + win.delta("admm.loop_checks")
-    res = dict(eobj=eobj, eobj_trace=ph.eobj_trace,
-               tbound=ph.trivial_bound, conv=ph.conv,
+    res = dict(eobj=eobj, decisions=ph.decisions,
+               iter0_rescued=ph.iter0_rescued, tbound=ph.trivial_bound, conv=ph.conv,
                iters=ph._iter, wall_s=t2 - t0, iter0_s=t1 - t0,
                loop_s=t2 - t1, rate=ph._iter / (t2 - t1),
                launches=launches, plain_calls=plain,
@@ -336,15 +572,45 @@ def run_path(cuda_kernels, kernel, make_ph, use_kernel, iters, options):
     return ph, res
 
 
+def print_parting(label, k, p, iters):
+    """The kernel run ``k`` and the tensor-path run ``p`` side by side,
+    after Iter0 and each of the first ``iters`` iterations: eobj, and the
+    decisions :func:`run_path` records.  Prints where the decisions first
+    differ; returns the relative eobj differences, Iter0 first."""
+    dk, dp = k["decisions"], p["decisions"]
+    iters = min(iters, len(dk) - 1, len(dp) - 1)
+    xor = np.setxor1d(k["iter0_rescued"], p["iter0_rescued"]).size
+    first, rels = None, []
+    for i in range(iters + 1):
+        a, b = dk[i], dp[i]
+        rel = abs(a["eobj"] - b["eobj"]) / max(abs(b["eobj"]), 1e-12)
+        rels.append(rel)
+        same = all(a[f] == b[f] for f in ("blocks", "refresh", "rejected",
+                                          "rescued"))
+        if first is None and not (same and (i or xor == 0)):
+            first = i
+        print(f"{label} it {i}: eobj {a['eobj']:.6f} / {b['eobj']:.6f} "
+              f"rel {rel:.3e}; blocks {a['blocks']}/{b['blocks']} refresh "
+              f"{int(a['refresh'])}/{int(b['refresh'])} rejected "
+              f"{a['rejected']:.0f}/{b['rejected']:.0f} rescued "
+              f"{a['rescued']:.0f}/{b['rescued']:.0f}"
+              + (f" (sets differ in {xor})" if i == 0 else ""), flush=True)
+    print(f"{label}: kernel and tensor-path decisions "
+          + (f"first differ at iteration {first}" if first is not None
+             else f"agree through iteration {iters}"), flush=True)
+    return rels
+
+
 def phase_main(cuda_kernels, label, kernel, make_ph, iters, tensor_iters,
-               options):
+               options, solver=None, ef=True):
     """A main path through ``kernel``, the same PH on the tensor path for
     its first ``tensor_iters`` iterations (the plain sweep is launch-bound
-    on the host, so its depth is cut to fit the time limit), and the HiGHS
-    EF of the same scenarios."""
+    on the host, so its depth is cut to fit the time limit), and, with
+    ``ef``, the HiGHS EF of the same scenarios."""
     from tpusppy_torch.ef import solve_ef
 
-    ph, k = run_path(cuda_kernels, kernel, make_ph, "auto", iters, options)
+    ph, k = run_path(cuda_kernels, kernel, make_ph, "auto", iters, options,
+                     solver)
     print(f"main path {label} f32 kernel: eobj={k['eobj']:.4f} "
           f"tbound={k['tbound']:.4f} conv={k['conv']:.3e} "
           f"iters={k['iters']} wall_s={k['wall_s']:.3f} "
@@ -362,7 +628,7 @@ def phase_main(cuda_kernels, label, kernel, make_ph, iters, tensor_iters,
           "PH iterations")
 
     _, p = run_path(cuda_kernels, kernel, make_ph, False, tensor_iters,
-                    options)
+                    options, solver)
     print(f"main path {label} f32 tensor path: "
           f"eobj={p['eobj']:.4f} tbound={p['tbound']:.4f} "
           f"iters={p['iters']} wall_s={p['wall_s']:.3f} "
@@ -372,11 +638,12 @@ def phase_main(cuda_kernels, label, kernel, make_ph, iters, tensor_iters,
     check(p["iters"] == tensor_iters, f"the tensor path ran {p['iters']} of "
           f"{tensor_iters} PH iterations")
     # the kernel run's eobj after the same number of iterations
-    k_eobj = k["eobj_trace"][tensor_iters - 1]
-    rel_kp = abs(k_eobj - p["eobj"]) / abs(p["eobj"])
+    rel_kp = print_parting(label, k, p, tensor_iters)[-1]
     print(f"{label} eobj after {tensor_iters} iterations, kernel vs tensor "
           f"path rel diff {rel_kp:.3e}", flush=True)
     check(rel_kp <= 1e-4, f"kernel and tensor-path eobj differ by {rel_kp}")
+    if not ef:
+        return k
 
     t0 = time.perf_counter()
     ef_obj, _ = solve_ef(ph.batch, solver="highs")
@@ -398,7 +665,18 @@ def kernel_line(name, source, replaces, launches, res):
             "bound_by": res["bound_by"], "library_ms": None}
 
 
-def main() -> int:
+PHASES = ("kernels", "golden", "farmer", "uc_lite", "uc")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES)
+                         + "; the result lines print only when all ran")
+    args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
+    if not phases <= set(PHASES):
+        ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
     if not os.path.isdir(os.path.join(HERE, "tpusppy_torch")):
         print("FAIL: tpusppy_torch/ not found beside chip_smoke.py; run it "
               "from a checkout of the repository", flush=True)
@@ -432,19 +710,36 @@ def main() -> int:
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}", flush=True)
-        kres = phase_kernels(cuda_kernels)
-        phase_golden(cuda_kernels)
-        farmer = phase_main(
-            cuda_kernels, "farmer-1000 cm=4", "fused_sweeps",
-            lambda o, ext: farmer_ph(1000, 4, o, extensions=ext), 100, 50,
-            {"defaultPHrho": 1.0, "convthresh": 1e-6})
-        uc = phase_main(
-            cuda_kernels, "uc_lite-1000", "fused_sweeps_shared",
-            lambda o, ext: uc_ph(1000, o, extensions=ext), 60, 20,
-            UC_MAIN_OPTIONS)
+        if "kernels" in phases:
+            kres = phase_kernels(cuda_kernels)
+            print(f"[{time.perf_counter() - t_all:.1f} s] kernels done",
+                  flush=True)
+        if "golden" in phases:
+            phase_golden(cuda_kernels)
+            print(f"[{time.perf_counter() - t_all:.1f} s] goldens done",
+                  flush=True)
+        if "farmer" in phases:
+            farmer = phase_main(
+                cuda_kernels, "farmer-1000 cm=4", "fused_sweeps",
+                lambda o, ext: farmer_ph(1000, 4, o, extensions=ext), 100,
+                25, {"defaultPHrho": 1.0, "convthresh": 1e-6})
+        if "uc_lite" in phases:
+            uc_lite = phase_main(
+                cuda_kernels, "uc_lite-1000", "fused_sweeps_shared",
+                lambda o, ext: uc_ph(1000, o, extensions=ext), 60, 10,
+                UC_MAIN_OPTIONS)
+        if "uc" in phases:
+            uc = phase_main(
+                cuda_kernels, "uc-1000", "fused_sweeps_sparse",
+                lambda o, ext: uc_full_ph(1000, o, extensions=ext), 30,
+                10, UC_MAIN_OPTIONS, solver=UC_SOLVER,
+                ef=False)
     except PhaseError as e:
         print(f"FAIL: {e}", flush=True)
         return 1
+    print(f"total: {time.perf_counter() - t_all:.1f} s", flush=True)
+    if phases != set(PHASES):
+        return 0
     f32 = torch.float32
     print(json.dumps({"kernels": [
         kernel_line("fused_sweeps", "tpusppy_torch/csrc/fused_sweeps.cu",
@@ -453,9 +748,13 @@ def main() -> int:
         kernel_line("fused_sweeps_shared",
                     "tpusppy_torch/csrc/fused_sweeps_shared.cu",
                     "tpusppy/solvers/pallas_kernels.py:265",
-                    uc["launches"], kres["fused_sweeps_shared"][(f32, 1)]),
+                    uc_lite["launches"],
+                    kres["fused_sweeps_shared"][(f32, 1)]),
+        kernel_line("fused_sweeps_sparse",
+                    "tpusppy_torch/csrc/fused_sweeps_sparse.cu",
+                    "tpusppy/solvers/pallas_kernels.py:423",
+                    uc["launches"], kres["fused_sweeps_sparse"][(f32, 1)]),
     ]}), flush=True)
-    print(f"total: {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

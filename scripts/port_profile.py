@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where a PH iteration of the PyTorch/CUDA port spends its time on the card.
 
-    python3 scripts/port_profile.py [--model farmer|uc_lite] [--scens 1000]
+    python3 scripts/port_profile.py [--model farmer|uc_lite|uc] [--scens 1000]
                                     [--crops-multiplier 4]
                                     [--warm-iters 20] [--iters 5]
 
 Runs PH (float32, eps 1e-5) through ``tpusppy_torch`` on one CUDA device,
-on farmer (``--crops-multiplier``; rho 1, the dense engine) or on uc_lite at
-its defaults (LP relaxation; rho 500, the shared-A engine): Iter0 and
+on farmer (``--crops-multiplier``; rho 1, the dense engine), on uc_lite at
+its defaults (LP relaxation; rho 500, the shared-A engine) or on uc at its
+full width (30 generators x 24 hours, LP relaxation; rho 500 and
+bench_uc.py's solver settings, the structured-KKT engine): Iter0 and
 ``--warm-iters`` iterations, then ``--iters`` iterations timed on the host
 clock, then ``--iters`` more under ``torch.profiler``.
 Prints one JSON line: the card, the untraced window's wall seconds per
@@ -48,7 +50,7 @@ def busy_seconds(events):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("farmer", "uc_lite"),
+    ap.add_argument("--model", choices=("farmer", "uc_lite", "uc"),
                     default="farmer")
     ap.add_argument("--scens", type=int, default=1000)
     ap.add_argument("--crops-multiplier", type=int, default=4)
@@ -59,7 +61,7 @@ def main():
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from tpusppy_torch.models import farmer, uc_lite
+    from tpusppy_torch.models import farmer, uc, uc_lite
     from tpusppy_torch.obs import metrics
     from tpusppy_torch.opt.ph import PH
     from tpusppy_torch.solvers import cuda_kernels
@@ -69,16 +71,21 @@ def main():
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     S, cm = args.scens, args.crops_multiplier
+    solver = {"dtype": "float32", "eps_abs": 1e-5, "eps_rel": 1e-5}
     if args.model == "farmer":
         model, rho = farmer, 1.0
         kw = {"num_scens": S, "crops_multiplier": cm}
     else:
-        model, rho = uc_lite, 500.0
+        model = uc_lite if args.model == "uc_lite" else uc
+        rho = 500.0
         kw = {"num_scens": S, "relax_integers": True}
+    if args.model == "uc":
+        # bench_uc.py's UC solver settings
+        solver.update(max_iter=200, restarts=2, scaling_iters=6,
+                      solve_refine=1, sweep_plateau_rtol=0.05,
+                      sweep_plateau_window=8)
     ph = PH({"defaultPHrho": rho, "PHIterLimit": args.warm_iters,
-             "convthresh": 0.0,
-             "solver_options": {"dtype": "float32", "eps_abs": 1e-5,
-                                "eps_rel": 1e-5}},
+             "convthresh": 0.0, "solver_options": solver},
             model.scenario_names_creator(S), model.scenario_creator,
             scenario_creator_kwargs=kw)
     ph.ph_main()

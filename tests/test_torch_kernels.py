@@ -229,7 +229,8 @@ def test_shared_wrapper_on_cpu_runs_plain_and_launches_nothing():
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert cuda_kernels.launches == {"fused_sweeps": 0,
-                                     "fused_sweeps_shared": 0}
+                                     "fused_sweeps_shared": 0,
+                                     "fused_sweeps_sparse": 0}
     assert cuda_kernels.plain_calls["fused_sweeps_shared"] == 2
 
 
@@ -447,3 +448,132 @@ def test_engines_send_every_shape_to_the_wrapper(engine, monkeypatch):
         assert bool(calls) == use_kernel
         assert cuda_kernels.plain_calls[name] > 0
         assert cuda_kernels.launches[name] == 0
+
+
+# ---- fused_sweeps_sparse ---------------------------------------------------
+
+_SPARSE_ORDER = ("q", "rowcols", "rowvals", "colrows", "colvals", "Kinv",
+                 "diagK", "cl", "cu", "lb", "ub", "rho_a", "rho_x", "dq2",
+                 "has", "gamma", "x", "z", "zx", "y", "yx", "Ax")
+
+
+def _sparse_card_case(S, num_gens, horizon, has, seed=5):
+    """fused_sweeps_sparse inputs on the uc model's sparsity pattern, with
+    values of magnitude [0.5, 1] / sqrt(kr kc) (A'RA of norm at most 1),
+    rho in [0.5, 1] (cond(K) below 4) and dq2 at most half of gamma K's
+    smallest eigenvalue, so the refinement contracts (as chip_smoke.py's
+    case)."""
+    from tpusppy_torch.models import uc
+    from tpusppy_torch.solvers.sparse import SparseA
+
+    pattern = uc.scenario_creator("Scenario0", num_gens=num_gens,
+                                  horizon=horizon,
+                                  relax_integers=True).A != 0
+    rng = np.random.RandomState(seed)
+    m, n = pattern.shape
+    kr, kc = int(pattern.sum(1).max()), int(pattern.sum(0).max())
+    sigma = 1e-6
+    A = np.where(pattern, rng.uniform(0.5, 1.0, (m, n))
+                 * rng.choice([-1.0, 1.0], (m, n)), 0.0) / np.sqrt(kr * kc)
+    sp = SparseA.from_dense(A, torch.float64, "cpu")
+    rho_a = rng.uniform(0.5, 1.0, size=m)
+    rho_x = rng.uniform(0.5, 1.0, size=n)
+    K = (A.T * rho_a) @ A + np.diag(rho_x + sigma)
+    cl = -np.abs(rng.randn(S, m)) - 0.5
+    cu = np.abs(rng.randn(S, m)) + 0.5
+    x = rng.randn(S, n) * 0.1
+    gamma = rng.uniform(0.6, 1.8, size=(S, 1))
+    c = dict(q=rng.randn(S, n), rowcols=sp.ell.rowcols.numpy(),
+             rowvals=sp.ell.rowvals.numpy(), colrows=sp.ell.colrows.numpy(),
+             colvals=sp.ell.colvals.numpy(), Kinv=np.linalg.inv(K),
+             diagK=(rho_x + sigma)[None, :], cl=cl, cu=cu,
+             lb=-2.0 * np.ones((S, n)), ub=2.0 * np.ones((S, n)),
+             rho_a=rho_a[None, :], rho_x=rho_x[None, :],
+             dq2=0.5 * gamma * (rho_x.min() + sigma)
+             * rng.uniform(size=(S, n)) * has,
+             has=np.full((1, 1), float(has)), gamma=gamma, x=x,
+             z=np.clip(rng.randn(S, m), cl, cu), zx=np.clip(x, -2.0, 2.0),
+             y=0.1 * rng.randn(S, m), yx=0.1 * rng.randn(S, n), Ax=x @ A.T)
+    return c, sigma
+
+
+def _sparse_card_args(c, dtype):
+    return [torch.as_tensor(c[k], device="cuda",
+                            dtype=(torch.int32 if k in ("rowcols", "colrows")
+                                   else dtype)) for k in _SPARSE_ORDER]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,num_gens,horizon", [
+    (37, 10, 6),       # a ragged last tile; the structured uc pattern
+    (64, 30, 24),      # the main path's full-width pattern (m=4626, n=2928)
+])
+@pytest.mark.parametrize("has", [1, 0])
+def test_cuda_sparse_kernel_matches_plain(S, num_gens, horizon, has):
+    """The hand-written sparse kernel against its plain version on the card:
+    f64 to 1e-12 (summation order); in f32 both are held against the f64
+    plain version on the same inputs, the kernel within a factor of 2 of
+    the plain f32's distance, and kernel and plain agree to 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    c, sigma = _sparse_card_case(S, num_gens, horizon, has)
+    fixed = (4, 1, 2, sigma, 1.6)
+    args64 = _sparse_card_args(c, torch.float64)
+    cuda_kernels.reset_counts()
+    got = cuda_kernels.fused_sweeps_sparse(*args64, *fixed)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launches["fused_sweeps_sparse"] == 1
+    want = cuda_kernels.fused_sweeps_sparse_plain(*args64, *fixed)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert _max_err(g.cpu().numpy(), w.cpu().numpy()) < TOL_F64
+    args32 = _sparse_card_args(c, torch.float32)
+    got = cuda_kernels.fused_sweeps_sparse(*args32, *fixed)
+    want = cuda_kernels.fused_sweeps_sparse_plain(*args32, *fixed)
+    ref = cuda_kernels.fused_sweeps_sparse_plain(
+        *(a.double() if a.is_floating_point() else a for a in args32),
+        *fixed)
+    errs = []
+    for g, w, r in zip(got, want, ref):
+        assert torch.isfinite(g).all()
+        g, w, r = (t.cpu().double().numpy() for t in (g, w, r))
+        errs.append((_max_err(g, w), _max_err(g, r), _max_err(w, r)))
+    kp, kr, pr = (max(e[i] for e in errs) for i in range(3))
+    print(f"sparse f32 S={S} uc {num_gens}x{horizon} has={has}: "
+          f"kernel-plain {kp:.3e}, kernel-f64 {kr:.3e}, plain-f64 {pr:.3e}")
+    assert kp < 1e-4
+    assert kr <= 2.0 * pr + 1e-7
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_raises_on_a_shape_it_does_not_take():
+    """n = 15000 in f64: one scenario's two n-vectors and the partial sums
+    pass a block's shared memory.  The wrapper raises, and so does the
+    engine that sends a SparseA of that width to it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from tpusppy_torch.solvers import shared_admm as tshared
+    from tpusppy_torch.solvers.admm import ADMMSettings
+    from tpusppy_torch.solvers.sparse import SparseA
+
+    S, m, n, f64 = 2, 5, 15000, torch.float64
+    assert cuda_kernels.usable_sparse(S, m, n, 1, 1, f64) is None
+    A = np.zeros((m, n))
+    A[np.arange(n) % m, np.arange(n)] = 1.0
+    sp = SparseA.from_dense(A, f64, "cuda")
+    e = lambda *shape: torch.zeros(shape, dtype=f64, device="cuda")
+    kr, kc = sp.ell.rowcols.shape[1], sp.ell.colrows.shape[1]
+    with pytest.raises(ValueError, match="not taken by the kernel"):
+        cuda_kernels.fused_sweeps_sparse(
+            e(S, n), sp.ell.rowcols, e(m, kr), sp.ell.colrows, e(n, kc),
+            e(n, n), e(1, n), e(S, m), e(S, m), e(S, n), e(S, n), e(1, m),
+            e(1, n), e(S, n), e(1, 1), e(S, 1), e(S, n), e(S, m), e(S, n),
+            e(S, m), e(S, n), e(S, m), 4, 1, 2, 1e-6, 1.6)
+    rng = np.random.RandomState(0)
+    x0 = rng.rand(S, n)
+    Ax = x0 @ A.T
+    with pytest.raises(ValueError, match="not taken by the kernel"):
+        tshared.solve_shared(rng.randn(S, n), np.zeros((S, n)), sp, Ax - 1,
+                             Ax + 1, np.zeros((S, n)), np.ones((S, n)),
+                             ADMMSettings(max_iter=8, restarts=1),
+                             device="cuda")

@@ -130,8 +130,10 @@ def test_factored_and_frozen_match_reference():
     tsol, tfac = tshared.solve_shared_factored(
         *_arrays(tb, q2=q2), settings=TSettings(**SETTINGS), device="cpu")
     _same_solution(tsol, jsol)
-    for name in tshared.SharedFactors._fields:
+    for name in jshared.SharedFactors._fields:
         _close(getattr(tfac, name), getattr(jfac, name), 1e-9, name)
+    # the dense engine's sweep operand is its explicit inverse itself
+    assert tfac.Kinv_dense is tfac.Kinv
     assert not np.allclose(np.asarray(tfac.gamma), 1.0)
     rng = np.random.RandomState(0)
     idx = tb.tree.nonant_indices
@@ -359,11 +361,12 @@ def test_state_carry_reproduces_next_iteration():
 
 
 def test_missing_engines_raise():
-    """What the slice leaves out raises and runs no substitute: a shared A
-    the reference would upload as SparseA, lowered sweep precision and
-    matrix-free refinement."""
+    """What the port still leaves out raises and runs no substitute:
+    lowered sweep precision.  A shared A the reference uploads as SparseA
+    now solves, on the sparse engine, and factors without K are taken."""
     from tpusppy_torch.ir import LinearModelBuilder
     from tpusppy_torch.scenario_tree import ScenarioNode
+    from tpusppy_torch.solvers.sparse import SparseA
 
     b = LinearModelBuilder("big")
     xs = b.add_vars("x", 2000, lb=0.0, ub=1.0, cost=1.0)
@@ -376,14 +379,19 @@ def test_missing_engines_raise():
             template, name=name,
             nodes=[ScenarioNode("ROOT", 1.0, 1, np.arange(3))])
 
-    opt = SPOpt({"device": "cpu"}, ["s0", "s1"], creator)
+    opt = SPOpt({"device": "cpu", "solver_options": {"max_iter": 8,
+                                                     "restarts": 1}},
+                ["s0", "s1"], creator)
     assert opt.batch.A_shared is not None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        opt.solve_loop()
+    cuda_kernels.reset_counts()
+    x = opt.solve_loop()
+    assert isinstance(opt._device_consts(torch.float64)[0], SparseA)
+    assert x.shape == (2, 2000) and np.isfinite(x).all()
+    assert cuda_kernels.plain_calls["fused_sweeps_sparse"] > 0
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         make_admm_settings({"solver_options": {"sweep_precision": "bf16"}})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        make_admm_settings({"solver_options": {"factors_keep_K": False}})
+    assert make_admm_settings({"solver_options": {
+        "factors_keep_K": False}}) == TSettings(factors_keep_K=False)
     assert make_admm_settings({"solver_options": {
         "sweep_precision": "highest", "megastep": 1}}) == TSettings()
 

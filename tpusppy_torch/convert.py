@@ -16,6 +16,8 @@ from .ir import ScenarioBatch
 from .scenario_tree import TreeInfo
 from .solvers.admm import Factors
 from .solvers.shared_admm import SharedFactors
+from .solvers.sparse import SparseA
+from .solvers.structured_kkt import BlockWoodbury, StructureArrays, densify
 
 
 def tree_from_arrays(node_names, node_stage, scen_node_ids, nonant_stage,
@@ -66,19 +68,68 @@ def factors_from_arrays(arrays: dict, device, dtype=torch.float64) -> Factors:
         for k in Factors._fields})
 
 
+def _fields_of(v):
+    """A reference NamedTuple (``_asdict``) or a dict, as a dict."""
+    return v._asdict() if hasattr(v, "_asdict") else dict(v)
+
+
+def _is_none(v):
+    """None, or ``np.asarray(None)`` (how a None field arrives when the
+    caller maps ``np.asarray`` over a factors' ``_asdict()``)."""
+    return v is None or (isinstance(v, np.ndarray) and v.dtype == object
+                         and v.shape == () and v.item() is None)
+
+
 def shared_factors_from_arrays(arrays: dict, device,
                                dtype=torch.float64) -> SharedFactors:
     """:class:`SharedFactors` from the reference's shared-A factors as a
-    dict of numpy arrays.  Factors without K (the reference's
-    ``factors_keep_K=False``) need matrix-free refinement, which the port
-    does not have yet (ROADMAP Queue 1 item 6)."""
-    if arrays.get("K") is None:
-        raise NotImplementedError(
-            "shared-A factors without K (factors_keep_K=False) need "
-            "matrix-free refinement, not ported yet (ROADMAP Queue 1 item 6)")
-    return SharedFactors(**{
-        k: torch.tensor(np.asarray(arrays[k]), dtype=dtype, device=device)
-        for k in SharedFactors._fields})
+    dict of numpy arrays.  ``Kinv`` is an (n, n) array, or the structured
+    engine's BlockWoodbury (a NamedTuple or dict with ``binv``, ``bvars``,
+    ``Aw``, ``Cinv``); ``K`` may be None (the sparse regimes, or
+    ``factors_keep_K=False``), and refinement then runs matrix-free.  The
+    dense K^-1 the port's sweep kernels apply is built here, once."""
+    def t(v):
+        return torch.tensor(np.asarray(v), dtype=dtype, device=device)
+
+    out = {k: t(arrays[k]) for k in ("D", "E", "cost", "rho_a", "rho_x",
+                                      "gamma", "q2ref")}
+    kinv = arrays["Kinv"]
+    if isinstance(kinv, dict) or hasattr(kinv, "binv"):
+        f = _fields_of(kinv)
+        kinv = BlockWoodbury(
+            binv=tuple(t(v) for v in f["binv"]),
+            bvars=tuple(torch.tensor(np.asarray(v), dtype=torch.int64,
+                                     device=device) for v in f["bvars"]),
+            Aw=t(f["Aw"]), Cinv=t(f["Cinv"]))
+    else:
+        kinv = t(kinv)
+    K = arrays.get("K")
+    return SharedFactors(**out, Kinv=kinv, K=None if _is_none(K) else t(K),
+                         Kinv_dense=densify(kinv))
+
+
+def sparse_from_arrays(rows, cols, vals, shape, structure=None, device=None,
+                       dtype=torch.float64, **_ignored) -> SparseA:
+    """A :class:`SparseA` from the reference's SparseA fields (``rows``,
+    ``cols``, ``vals`` in CSR order, ``shape``; its ``perm_csc`` and
+    ``ell`` are not needed: the port builds the ELL twin its products and
+    kernel run on).  ``structure`` is the reference's StructureArrays (a
+    NamedTuple or dict with ``bvars``, ``brows``, ``wide_rows``) or None."""
+    sp = SparseA.from_coo(np.asarray(rows), np.asarray(cols),
+                          np.asarray(vals), tuple(shape), dtype=dtype,
+                          device=device)
+    if structure is not None:
+        f = _fields_of(structure)
+
+        def idx(v):
+            return torch.tensor(np.asarray(v), dtype=torch.int64,
+                                device=device)
+
+        sp.structure = StructureArrays(
+            bvars=tuple(idx(v) for v in f["bvars"]),
+            brows=tuple(idx(v) for v in f["brows"]),
+            wide_rows=idx(f["wide_rows"]))
+    return sp
 
 
 def load_ph_state(ph, W, xbars, rho, warm, factors=None, factors_age=1,

@@ -83,6 +83,9 @@ class ADMMSettings:
     # 0 disables.  ``BatchSolution.done`` reports true eps-convergence.
     sweep_plateau_rtol: float = 0.0
     sweep_plateau_window: int = 32
+    # Shared-A factors keep the dense K for refinement (False drops it from
+    # SharedFactors; frozen solves then refine matrix-free through A).
+    factors_keep_K: bool = True
 
     def tdtype(self) -> torch.dtype:
         dt = getattr(torch, self.dtype, None)

@@ -10,6 +10,12 @@ one ``n_sweeps`` block of the shared-A engine's sweep, with one (m, n) A and
 one (n, n) K^-1 and K for the whole batch, per-scenario gamma scaling and the
 dq2 refinement (``tpusppy_torch/csrc/fused_sweeps_shared.cu``).
 
+``fused_sweeps_sparse`` replaces ``pallas_kernels.py:_sparse_sweeps_kernel``:
+the same block on the sparse and structured-KKT engines, with exact
+padded-ELL matvecs for A and A', one dense (n, n) K^-1 and a matrix-free
+refinement defect g (diagK x + A'(rho_a A x)) + dq2 x
+(``tpusppy_torch/csrc/fused_sweeps_sparse.cu``).
+
 Each wrapper launches its kernel for CUDA tensors and raises on anything it
 cannot take; for CPU tensors it runs the plain version beside it, the batched
 PyTorch transcription of the same recurrence (the CPU path, and the oracle
@@ -33,6 +39,8 @@ from pathlib import Path
 
 import torch
 
+from .sparse import SparseA, ell_matvec, ell_slot_major
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -42,8 +50,10 @@ SMEM_LIMIT = 232448
 
 #: Kernel launches per wrapper (one per launch, nowhere else), and calls of
 #: the plain versions; :func:`reset_counts` zeroes both.
-launches = {"fused_sweeps": 0, "fused_sweeps_shared": 0}
-plain_calls = {"fused_sweeps": 0, "fused_sweeps_shared": 0}
+launches = {"fused_sweeps": 0, "fused_sweeps_shared": 0,
+            "fused_sweeps_sparse": 0}
+plain_calls = {"fused_sweeps": 0, "fused_sweeps_shared": 0,
+               "fused_sweeps_sparse": 0}
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 #: Exported C entry points of each source, with their ctypes argument types.
@@ -56,6 +66,11 @@ _ENTRY_POINTS = {
     "fused_sweeps_shared": (("tpusppy_fused_sweeps_shared_f32",
                              "tpusppy_fused_sweeps_shared_f64"),
                             [_P, _P] + [_I] * 8 + [_D, _D, _P]),
+    # (in ptrs, out+scratch ptrs, S, m, n, kr, kc, sb, n_sweeps, n_refine,
+    #  n_extra, sigma, alpha, stream)
+    "fused_sweeps_sparse": (("tpusppy_fused_sweeps_sparse_f32",
+                             "tpusppy_fused_sweeps_sparse_f64"),
+                            [_P, _P] + [_I] * 9 + [_D, _D, _P]),
 }
 
 _libs: dict = {}
@@ -72,7 +87,9 @@ def reset_counts():
 
 def matvec(M, v):
     """``M v`` per scenario: (S, n, k) @ (S, k) batched, or a shared (n, k)
-    matrix against (S, k) rows."""
+    matrix (dense or :class:`~.sparse.SparseA`) against (S, k) rows."""
+    if isinstance(M, SparseA):
+        return M.matvec(v)
     if M.ndim == 2:
         return v @ M.T
     return torch.bmm(M, v.unsqueeze(-1)).squeeze(-1)
@@ -80,7 +97,9 @@ def matvec(M, v):
 
 def rmatvec(A, y):
     """``A' y`` per scenario: (S, m, n) batched, or a shared (m, n) A
-    against (S, m) rows."""
+    (dense or :class:`~.sparse.SparseA`) against (S, m) rows."""
+    if isinstance(A, SparseA):
+        return A.rmatvec(y)
     if A.ndim == 2:
         return y @ A
     return torch.bmm(A.transpose(1, 2), y.unsqueeze(-1)).squeeze(-1)
@@ -254,6 +273,99 @@ def fused_sweeps_shared_plain(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
     return x, z, zx, y, yx, Ax
 
 
+# ---- fused_sweeps_sparse ---------------------------------------------------
+
+#: Scenario tiles the sparse kernel is built for, largest first; mirrors
+#: the ``case`` labels of the CUDA launcher.
+SPARSE_TILES = (8, 4, 2, 1)
+#: Threads per block of the sparse kernel (``kThreads`` in the source).
+_SPARSE_THREADS = 512
+#: Largest element offset into one ELL array (32-bit ``int`` in the kernel).
+_INT_MAX = 2 ** 31 - 1
+
+
+def sparse_smem_bytes(n, itemsize, sb) -> int:
+    """Shared memory of one ``fused_sweeps_sparse`` block of ``sb``
+    scenarios: their gammas, the K^-1 input and x-tilde n-vectors, and one
+    split-k partial sum per thread (mirrors ``launch_tile`` in the CUDA
+    source).  The rhs and the m-vectors live in device-memory scratch."""
+    return itemsize * sb * (1 + 2 * n + _SPARSE_THREADS)
+
+
+def usable_sparse(S, m, n, kr, kc, dtype) -> int | None:
+    """Scenarios per block if ``fused_sweeps_sparse`` takes this shape, else
+    None.  Mirrors ``pallas_kernels.usable_sparse`` sized to Hopper: K^-1
+    and the ELL arrays stream from device memory and L2, so only a block's
+    two n-vectors per scenario limit the shape (n up to ~14,000 in f64,
+    ~28,000 in f32, one scenario a block).  kr and kc are run-time loop
+    bounds, so there is no slot cap (the TPU kernel unrolls them and stops
+    at 64); the ELL arrays must only stay within 32-bit offsets."""
+    if dtype not in (torch.float32, torch.float64) or S < 1 or n < 1 \
+            or m < 0 or kr < 1 or kc < 1:
+        return None
+    if m * kr > _INT_MAX or n * kc > _INT_MAX:
+        return None
+    itemsize = 4 if dtype == torch.float32 else 8
+    for sb in SPARSE_TILES:
+        if sparse_smem_bytes(n, itemsize, sb) <= SMEM_LIMIT:
+            return sb
+    return None
+
+
+def fused_sweeps_sparse_plain(q, rowcols, rowvals, colrows, colvals, Kinv,
+                              diagK, cl, cu, lb, ub, rho_a, rho_x, dq2, has,
+                              gamma, x, z, zx, y, yx, Ax, n_sweeps, n_refine,
+                              n_extra, sigma, alpha, precision="highest"):
+    """One ``n_sweeps`` block of ``shared_admm._core`` on a sparse A in
+    batched tensor form, a transcription of
+    ``pallas_kernels._sparse_sweeps_kernel``: ELL arrays (m, kr)/(n, kc)
+    and ``Kinv`` (n, n) (the dense inverse, or the densified
+    BlockWoodbury), ``diagK`` (1, n) = q2ref + rho_x + sigma (the
+    matrix-free defect's diagonal), ``rho_a`` (1, m) unscaled, everything
+    else as :func:`fused_sweeps_shared_plain`.  Returns
+    ``(x, z, zx, y, yx, Ax)``."""
+    _check_precision("fused_sweeps_sparse_plain", precision)
+    plain_calls["fused_sweeps_sparse"] += 1
+    rc_t, rv_t, cr_t, cv_t = ell_slot_major((rowcols, rowvals, colrows,
+                                             colvals))
+    g = gamma
+    sigma, alpha, beta = float(sigma), float(alpha), 1.0 - float(alpha)
+    rho_a_s = g * rho_a
+    rho_x_s = g * rho_x
+    sigma_s = g * sigma
+    extra = has > 0
+
+    def mv(v):
+        return ell_matvec(rc_t, rv_t, v)
+
+    def rmv(v):
+        return ell_matvec(cr_t, cv_t, v)
+
+    def refine(xt, rhs):
+        Kx = xt * diagK + rmv(mv(xt) * rho_a)
+        return xt + ((rhs - (g * Kx + dq2 * xt)) / g) @ Kinv
+
+    for _ in range(n_sweeps):
+        rhs = (sigma_s * x - q + rmv(rho_a_s * z - y)) + (rho_x_s * zx - yx)
+        xt = (rhs / g) @ Kinv
+        for _ in range(n_refine):
+            xt = refine(xt, rhs)
+        for _ in range(n_extra):
+            xt = torch.where(extra, refine(xt, rhs), xt)
+        Axt = alpha * mv(xt)
+        xt = alpha * xt
+        x_new = xt + beta * x
+        Ax_new = Axt + beta * Ax
+        za = Axt + beta * z
+        z_new = torch.clamp(za + y / rho_a_s, cl, cu)
+        y_new = y + rho_a_s * (za - z_new)
+        zxa = xt + beta * zx
+        zx_new = torch.clamp(zxa + yx / rho_x_s, lb, ub)
+        yx_new = yx + rho_x_s * (zxa - zx_new)
+        x, z, zx, y, yx, Ax = x_new, z_new, zx_new, y_new, yx_new, Ax_new
+    return x, z, zx, y, yx, Ax
+
+
 # ---- build and bind --------------------------------------------------------
 
 def _nvcc() -> str:
@@ -408,5 +520,64 @@ def fused_sweeps_shared(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, dq2,
     outs = tuple(torch.empty_like(t) for t in (x, z, zx, y, yx, Ax))
     _launch("fused_sweeps_shared", dt, ins, outs, S, m, n, lay[0], lay[1],
             int(n_sweeps), int(n_refine), int(n_extra), float(sigma),
+            float(alpha))
+    return outs
+
+
+def fused_sweeps_sparse(q, rowcols, rowvals, colrows, colvals, Kinv, diagK,
+                        cl, cu, lb, ub, rho_a, rho_x, dq2, has, gamma, x, z,
+                        zx, y, yx, Ax, n_sweeps, n_refine, n_extra, sigma,
+                        alpha, precision="highest", ell_t=None):
+    """Run one ``n_sweeps`` block of the sparse shared-A sweep; same
+    arguments and result as :func:`fused_sweeps_sparse_plain`.  CUDA
+    tensors launch the kernel (or raise); CPU tensors run the plain
+    version.  ``ell_t`` is :func:`ell_slot_major` of the ELL arrays, which
+    the kernel reads; a caller that launches many blocks against one A
+    passes it, else it is made here."""
+    _check_precision("fused_sweeps_sparse", precision)
+    if Kinv.device.type == "cpu":
+        return fused_sweeps_sparse_plain(
+            q, rowcols, rowvals, colrows, colvals, Kinv, diagK, cl, cu, lb,
+            ub, rho_a, rho_x, dq2, has, gamma, x, z, zx, y, yx, Ax, n_sweeps,
+            n_refine, n_extra, sigma, alpha)
+    if Kinv.device.type != "cuda":
+        raise ValueError(f"fused_sweeps_sparse: unsupported device "
+                         f"{Kinv.device}")
+    if q.ndim != 2 or rowcols.ndim != 2 or colrows.ndim != 2:
+        raise ValueError(f"fused_sweeps_sparse: q must be (S, n) and the "
+                         f"ELL arrays 2-D; got {tuple(q.shape)}, "
+                         f"{tuple(rowcols.shape)}, {tuple(colrows.shape)}")
+    (S, n), (m, kr), kc = q.shape, rowcols.shape, colrows.shape[1]
+    dt = Kinv.dtype
+    sb = usable_sparse(S, m, n, kr, kc, dt)
+    if sb is None:
+        raise ValueError(f"fused_sweeps_sparse: shape (S={S}, m={m}, n={n}, "
+                         f"kr={kr}, kc={kc}) in {dt} is not taken by the "
+                         f"kernel")
+    dev = Kinv.device
+    if Kinv.data_ptr() % 16:
+        # the kernel reads K^-1 rows in 16-byte vector loads
+        Kinv = Kinv.clone()
+    if ell_t is None:
+        ell_t = ell_slot_major((rowcols, rowvals, colrows, colvals))
+    rc_t, rv_t, cr_t, cv_t = ell_t
+    _check_args("fused_sweeps_sparse", (rc_t, cr_t), ((kr, m), (kc, n)),
+                dev, torch.int32)
+    ins = (q, rc_t, rv_t, cr_t, cv_t, Kinv, diagK, cl, cu, lb, ub, rho_a,
+           rho_x, dq2, has, gamma, x, z, zx, y, yx, Ax)
+    shapes = ((S, n), (kr, m), (kr, m), (kc, n), (kc, n), (n, n), (1, n),
+              (S, m), (S, m), (S, n), (S, n), (1, m), (1, n), (S, n), (1, 1),
+              (S, 1), (S, n), (S, m), (S, n), (S, m), (S, n), (S, m))
+    floats = [i for i in range(len(ins)) if i not in (1, 3)]
+    _check_args("fused_sweeps_sparse", [ins[i] for i in floats],
+                [shapes[i] for i in floats], dev, dt)
+    outs = tuple(torch.empty_like(t) for t in (x, z, zx, y, yx, Ax))
+    # per-tile device-memory scratch: the rhs (n, sb) and an m-vector
+    # (m, sb) of each tile, scenario values side by side
+    tiles = -(-S // sb)
+    scratch = (torch.empty(tiles * sb * n, dtype=dt, device=dev),
+               torch.empty(max(1, tiles * sb * m), dtype=dt, device=dev))
+    _launch("fused_sweeps_sparse", dt, ins, outs + scratch, S, m, n, kr, kc,
+            sb, int(n_sweeps), int(n_refine), int(n_extra), float(sigma),
             float(alpha))
     return outs

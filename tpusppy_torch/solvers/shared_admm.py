@@ -1,32 +1,48 @@
 """Shared-constraint-matrix ADMM: one A and one factorization for the batch.
 
-Port of the dense-A part of ``tpusppy/solvers/shared_admm.py``.  Families
-whose scenarios differ only in costs, rhs and bounds (stochastic unit
-commitment above all: wind enters the power-balance rhs) share ONE
-constraint matrix.  The batch then stores A once as (m, n), the Ruiz scaling
-and row penalties are shared, and there is ONE (n, n) factorization of the
-x-update system for the whole batch.  Per-scenario diagonal deviations (PH
-prox terms that differ across scenarios, ``dq2``) are absorbed by iterative
-refinement against the exact per-scenario system, and a per-scenario
-penalty scale ``gamma`` adapts inside the sweep loop without refactoring.
-Every ``check_every`` block of sweeps runs in the hand-written CUDA kernel
-``fused_sweeps_shared`` (:mod:`.cuda_kernels`), refresh solves included.
+Port of ``tpusppy/solvers/shared_admm.py``.  Families whose scenarios differ
+only in costs, rhs and bounds (stochastic unit commitment above all: wind
+enters the balance and reserve rhs) share ONE constraint matrix.  The batch
+then stores A once, the Ruiz scaling and row penalties are shared, and there
+is ONE factorization of the x-update system for the whole batch.
+Per-scenario diagonal deviations (PH prox terms that differ across
+scenarios, ``dq2``) are absorbed by iterative refinement against the exact
+per-scenario system, and a per-scenario penalty scale ``gamma`` adapts
+inside the sweep loop without refactoring.
+
+Three factorization regimes, by the type of A (:func:`_factor_shared`):
+
+- a dense (m, n) tensor: dense K and its explicit inverse; every
+  ``check_every`` block of sweeps runs in the hand-written CUDA kernel
+  ``fused_sweeps_shared`` (:mod:`.cuda_kernels`);
+- a :class:`~.sparse.SparseA` with block/Woodbury structure: the structured
+  factorization (:mod:`.structured_kkt`), K None;
+- a SparseA without structure: a dense explicit inverse, K None.
+
+Without K (the sparse regimes, or factors from ``factors_keep_K=False``)
+the refinement applies K matrix-free through A, and every sweep block runs
+in ``fused_sweeps_sparse`` on the ELL form of A (a dense A's ELL form is A
+itself).  That kernel applies K^-1 as one dense (n, n) matrix, so the
+structured regime densifies its operator once per factorization
+(``SharedFactors.Kinv_dense``).
 
 No active-set polish on this path: outer bounds stay certified through weak
-duality (:func:`tpusppy_torch.solvers.admm.dual_objective` takes the 2-D A)
-and LP-exact residue is left to the host straggler rescue
-(``spopt.SPOpt._rescue_stragglers``).
+duality (:func:`tpusppy_torch.solvers.admm.dual_objective` takes the shared
+A, dense or sparse) and LP-exact residue is left to the host straggler
+rescue (``spopt.SPOpt._rescue_stragglers``).
 
 Differences from the JAX package: the sweep ``while_loop`` is a host loop
 with one ``all(done)`` vote per block (``admm.loop_checks``), as in
 :func:`tpusppy_torch.solvers.admm._admm_core`; the restart ``scan`` is a
-Python loop.  Not ported yet: ``SparseA`` and the structured (block/Woodbury)
-factorization (ROADMAP Queue 1 item 6), matrix-free refinement
-(``factors_keep_K=False``, the same item) and ``sweep_precision`` (item 8).
+Python loop; the sparse engines' sweep blocks always run in the fused
+kernel (the reference's XLA path applies the Woodbury operator instead of
+its densified matrix: the same operator, rounded differently).  Not ported
+yet: ``sweep_precision`` (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -38,13 +54,8 @@ from .admm import (ADMMSettings, BatchSolution, BIG, _LOOP_CHECKS,
                    _kernel_on, _plateau_update, _tensor)
 from .cuda_kernels import matvec as _mv
 from .cuda_kernels import rmatvec as _rmv
-
-
-def should_sparsify(A_np) -> bool:
-    """The reference's policy for uploading a shared A as ``SparseA``
-    (``tpusppy/solvers/sparse.py:should_sparsify``): large AND very sparse.
-    The port has no sparse engine yet, so a shared A it selects raises."""
-    return A_np.size >= 4e6 and (A_np != 0).mean() < 0.01
+from .sparse import SparseA, dense_ell, ell_slot_major
+from .structured_kkt import densify, factor_structured
 
 
 class SharedFactors(NamedTuple):
@@ -57,9 +68,13 @@ class SharedFactors(NamedTuple):
     rho_a: torch.Tensor   # (m,) row penalties actually used last
     rho_x: torch.Tensor   # (n,) variable-box penalties actually used last
     gamma: torch.Tensor   # (S,) per-scenario penalty scales used last
-    Kinv: torch.Tensor    # (n, n) explicit inverse of the shared system
-    K: torch.Tensor       # (n, n) exact shared K for refinement
+    Kinv: object          # (n, n) explicit inverse of the shared system,
+                          # or a structured_kkt.BlockWoodbury operator
+    K: object             # (n, n) exact shared K for dense refinement, or
+                          # None: refinement then runs matrix-free through A
     q2ref: torch.Tensor   # (n,) scaled q2 the K was built with
+    Kinv_dense: torch.Tensor  # (n, n) the K^-1 the sweep kernels apply:
+                              # Kinv itself, or the densified BlockWoodbury
 
 
 class _Masks(NamedTuple):
@@ -85,15 +100,22 @@ class _IterState(NamedTuple):
 
 
 def _ruiz_shared(A, q2ref, iters):
-    """Ruiz equilibration of the single shared A; returns (D (n,), E (m,))."""
+    """Ruiz equilibration of the single shared A (dense or sparse); returns
+    (D (n,), E (m,))."""
     m, n = A.shape
     D = torch.ones((n,), dtype=A.dtype, device=A.device)
     E = torch.ones((m,), dtype=A.dtype, device=A.device)
+    sparse = isinstance(A, SparseA)
     for _ in range(iters):
         Ps = q2ref * D * D
-        As = A * E[:, None] * D[None, :]
-        col = torch.maximum(As.abs().amax(dim=0), Ps.abs())
-        row = As.abs().amax(dim=1)
+        if sparse:
+            As = A.scale(E, D)
+            col = torch.maximum(As.col_absmax(), Ps.abs())
+            row = As.row_absmax()
+        else:
+            As = A * E[:, None] * D[None, :]
+            col = torch.maximum(As.abs().amax(dim=0), Ps.abs())
+            row = As.abs().amax(dim=1)
         col = torch.where(col < 1e-12, 1.0, col)
         row = torch.where(row < 1e-12, 1.0, row)
         D, E = D / torch.sqrt(col), E / torch.sqrt(row)
@@ -101,13 +123,27 @@ def _ruiz_shared(A, q2ref, iters):
 
 
 def _factor_shared(q2ref, A, rho_a, rho_x, sigma):
-    """(Kinv, K) of the SHARED K = diag(q2ref + rho_x) + sigma I + A'RA:
-    one (n, n) system for the whole scenario batch."""
+    """``(Kinv, K, Kinv_dense)`` of the SHARED K = diag(q2ref + rho_x) +
+    sigma I + A'RA: one system for the whole scenario batch, in one of
+    three regimes by the type of A:
+
+    - dense (m, n) tensor: dense K and its explicit inverse;
+    - :class:`SparseA` with block/Woodbury structure: the structured
+      factorization (no dense K; refinement runs matrix-free through A),
+      with its operator densified once for the sweep kernel;
+    - SparseA without structure: K assembled through a transient dense
+      scatter, its explicit inverse kept and K dropped."""
     n = A.shape[1]
-    K = A.T @ (rho_a[:, None] * A)
-    K = K + torch.eye(n, dtype=A.dtype, device=A.device) * sigma
+    sparse = isinstance(A, SparseA)
+    if sparse and A.structure is not None:
+        bw = factor_structured(A, A.structure, q2ref + rho_x, rho_a, sigma)
+        return bw, None, densify(bw)
+    Ad = A.todense() if sparse else A
+    K = Ad.T @ (rho_a[:, None] * Ad)
+    K = K + torch.eye(n, dtype=Ad.dtype, device=Ad.device) * sigma
     K = K + torch.diag(q2ref + rho_x)
-    return _explicit_inverse(K[None])[0], K
+    Kinv = _explicit_inverse(K[None])[0]
+    return Kinv, None if sparse else K, Kinv
 
 
 def _core(q, q2s, q2ref, A, cl, cu, lb, ub, state: _IterState, Kinv, K,
@@ -120,18 +156,45 @@ def _core(q, q2s, q2ref, A, cl, cu, lb, ub, state: _IterState, Kinv, K,
     the x-update system an exact multiple of the shared K, so adapting gamma
     needs no refactorization.  ``glo``/``ghi`` bound gamma: wide for LP
     batches (dq2 = 0, exact at any gamma), near 1 for QP (keeps the dq2
-    refinement contractive).  Each ``check_every`` block runs in
-    ``fused_sweeps_shared``; then one true matvec re-anchors Ax, the
-    residuals are measured, the divergence guard and the gamma rule apply,
-    and the host reads the all-done vote."""
+    refinement contractive).  ``Kinv`` is the dense (n, n) K^-1 the kernels
+    apply.  Each ``check_every`` block runs in ``fused_sweeps_shared`` when
+    A is dense and K is given, else in ``fused_sweeps_sparse`` with the
+    matrix-free defect on A's ELL form; then one true matvec re-anchors Ax,
+    the residuals are measured, the divergence guard and the gamma rule
+    apply, and the host reads the all-done vote."""
     ce = max(1, st.check_every)
-    A, Kinv, K = A.contiguous(), Kinv.contiguous(), K.contiguous()
-    # the kernel's A xt reads A' by rows; A is fixed for the whole call
-    At = A.T.contiguous()
+    Kinv = Kinv.contiguous()
     rho_a1 = rho_a[None, :].contiguous()
     rho_x1 = rho_x[None, :].contiguous()
-    sweeps = (cuda_kernels.fused_sweeps_shared if _kernel_on(st)
-              else cuda_kernels.fused_sweeps_shared_plain)
+    kernel = _kernel_on(st)
+    if isinstance(A, SparseA) or K is None:
+        ell = A.ell if isinstance(A, SparseA) else dense_ell(A)
+        # the exact K's diagonal part; A'RA is applied through the ELL form
+        diagK = (q2ref + rho_x + st.sigma)[None, :].contiguous()
+        if kernel:
+            # the kernel reads the ELL arrays slot-major; made once per call
+            sweeps = functools.partial(
+                cuda_kernels.fused_sweeps_sparse,
+                ell_t=(A.ell_t() if isinstance(A, SparseA)
+                       else ell_slot_major(ell)) if Kinv.is_cuda else None)
+        else:
+            sweeps = cuda_kernels.fused_sweeps_sparse_plain
+
+        def run(q, cl, cu, lb, ub, dq2, has, g, x, z, zx, y, yx, Ax):
+            return sweeps(q, *ell, Kinv, diagK, cl, cu, lb, ub, rho_a1,
+                          rho_x1, dq2, has, g, x, z, zx, y, yx, Ax, ce,
+                          st.solve_refine, 2, st.sigma, st.alpha)
+    else:
+        A, K = A.contiguous(), K.contiguous()
+        # the kernel's A xt reads A' by rows; A is fixed for the whole call
+        At = A.T.contiguous()
+        sweeps = (cuda_kernels.fused_sweeps_shared if kernel
+                  else cuda_kernels.fused_sweeps_shared_plain)
+
+        def run(q, cl, cu, lb, ub, dq2, has, g, x, z, zx, y, yx, Ax):
+            return sweeps(q, A, Kinv, K, cl, cu, lb, ub, rho_a1, rho_x1,
+                          dq2, has, g, x, z, zx, y, yx, Ax, ce,
+                          st.solve_refine, 2, st.sigma, st.alpha, At=At)
     aq = q.abs().amax(dim=1)
     inf = torch.full((), torch.inf, dtype=q.dtype, device=q.device)
 
@@ -140,9 +203,7 @@ def _core(q, q2s, q2ref, A, cl, cu, lb, ub, state: _IterState, Kinv, K,
         dq2 = q2s - g * q2ref[None, :]
         # batch-global flag for the extra refinement passes, on the device
         has = (dq2 != 0).any().to(q.dtype).reshape(1, 1)
-        return sweeps(q, A, Kinv, K, cl, cu, lb, ub, rho_a1, rho_x1, dq2,
-                      has, g, x, z, zx, y, yx, Ax, ce, st.solve_refine, 2,
-                      st.sigma, st.alpha, At=At)
+        return run(q, cl, cu, lb, ub, dq2, has, g, x, z, zx, y, yx, Ax)
 
     def residuals(x, z, zx, y, yx, Ax):
         pri = torch.maximum((Ax - z).abs().amax(dim=1),
@@ -233,14 +294,25 @@ def _prep_shared(c, q2, A, cl, cu, lb, ub, settings, device,
                  want_masks=True):
     """Device placement, dtype casting, bound cleaning and the shared
     penalty-class masks (skipped by the frozen path, which never reads
-    them)."""
-    dev = resolve_device(device, A, c, q2, cl, cu, lb, ub)
+    them).  A :class:`SparseA` stays on its own device, which must be the
+    solve's."""
+    sparse = isinstance(A, SparseA)
+    dev = resolve_device(device, A.vals if sparse else A, c, q2, cl, cu,
+                         lb, ub)
     dt = settings.tdtype()
 
     def t(v):
         return _tensor(v, dt, dev)
 
-    c, q2, A = t(c), t(q2), t(A)
+    c, q2 = t(c), t(q2)
+    if sparse:
+        # "cuda" names the current card, where A's tensors say "cuda:0"
+        if A.device != torch.empty(0, device=dev).device:
+            raise ValueError(f"the SparseA lives on {A.device}; the solve "
+                             f"runs on {dev}")
+        A = A.astype(dt)
+    else:
+        A = t(A)
     if A.ndim != 2:
         raise ValueError(f"the shared-A engine takes one (m, n) A; got "
                          f"shape {tuple(A.shape)}")
@@ -258,7 +330,8 @@ def _prep_shared(c, q2, A, cl, cu, lb, ub, settings, device,
 
 
 def _scale_shared(c, q2, A, cl, cu, lb, ub, D, E, cost, warm):
-    As = A * E[:, None] * D[None, :]
+    As = A.scale(E, D) if isinstance(A, SparseA) else (
+        A * E[:, None] * D[None, :])
     q2s = q2 * (D * D)[None, :] * cost
     qs = c * D[None, :] * cost
     cls, cus = cl * E[None, :], cu * E[None, :]
@@ -346,16 +419,16 @@ def _solve_shared_impl(c, q2, A, cl, cu, lb, ub, settings, warm, device,
     multx = torch.ones((n,), dtype=dt, device=dev)
     rho_a = torch.zeros((m,), dtype=dt, device=dev)
     rho_x = torch.zeros((n,), dtype=dt, device=dev)
-    Kinv = K = torch.zeros((n, n), dtype=dt, device=dev)
+    Kinv = K = Kd = torch.zeros((n, n), dtype=dt, device=dev)
     for _ in range(st.restarts):
         rho_a, rho_x = rho_vec(base), rho_x_vec(base)
         if st.rho_row_adapt:
             rho_a = torch.clamp(rho_a * mult, max=st.rho_row_max)
             rho_x = torch.clamp(rho_x * multx, max=st.rho_row_max)
-        Kinv, K = _factor_shared(q2ref, As, rho_a, rho_x, st.sigma)
+        Kinv, K, Kd = _factor_shared(q2ref, As, rho_a, rho_x, st.sigma)
         state = _core(qs, q2s, q2ref, As, cls, cus, lbs, ubs,
                       state._replace(k=0, best=float("inf"), stall=0),
-                      Kinv, K, rho_a, rho_x, glo, ghi, st, adaptive=True)
+                      Kd, K, rho_a, rho_x, glo, ghi, st, adaptive=True)
         total += state.k
         done = _done_mask(state.pri, state.dua, state.prinorm,
                           state.duanorm, st)
@@ -389,7 +462,8 @@ def _solve_shared_impl(c, q2, A, cl, cu, lb, ub, settings, warm, device,
     if want_factors:
         return sol, SharedFactors(D=D, E=E, cost=cost, rho_a=rho_a,
                                   rho_x=rho_x, gamma=state.gamma, Kinv=Kinv,
-                                  K=K, q2ref=q2ref)
+                                  K=K if st.factors_keep_K else None,
+                                  q2ref=q2ref, Kinv_dense=Kd)
     return sol
 
 
@@ -416,8 +490,9 @@ def solve_shared_frozen(c, q2, A, cl, cu, lb, ub, factors: SharedFactors,
     """Sweep-only shared solve reusing a refresh's :class:`SharedFactors`:
     no Ruiz recomputation, factorization or restarts.  Valid while A and
     the bounds' structure are unchanged; per-scenario q2 drift is absorbed
-    by the refinement against gamma K + diag(dq2)."""
-    device = resolve_device(device, factors.Kinv, A, c)
+    by the refinement against gamma K + diag(dq2), matrix-free through A
+    when the factors carry no K."""
+    device = resolve_device(device, factors.Kinv_dense, c)
     c, q2, A, cl, cu, lb, ub, _ = _prep_shared(
         c, q2, A, cl, cu, lb, ub, settings, device, want_masks=False)
     D, E, cost = factors.D, factors.E, factors.cost
@@ -426,6 +501,6 @@ def solve_shared_frozen(c, q2, A, cl, cu, lb, ub, factors: SharedFactors,
     glo, ghi = _gamma_bounds(q2s)
     state = _core(qs, q2s, factors.q2ref, As, cls, cus, lbs, ubs,
                   _start(warm, cls, cus, lbs, ubs, factors.gamma),
-                  factors.Kinv, factors.K, factors.rho_a, factors.rho_x,
-                  glo, ghi, settings)
+                  factors.Kinv_dense, factors.K, factors.rho_a,
+                  factors.rho_x, glo, ghi, settings)
     return _solution(state, D, E, cost, state.k, settings)

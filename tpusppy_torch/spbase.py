@@ -31,18 +31,14 @@ def build_batch(all_scenario_names, scenario_creator,
 
 def make_admm_settings(options) -> ADMMSettings:
     """``solver_options`` -> :class:`ADMMSettings`; keys the port's settings
-    do not have (e.g. the reference's ``megastep``) are ignored, except the
-    two that would change the solve itself: lowered sweep precision and
-    matrix-free refinement raise until the port has them."""
+    do not have (e.g. the reference's ``megastep``) are ignored, except
+    lowered sweep precision, which would change the solve itself and
+    raises until the port has it."""
     so = dict(options.get("solver_options") or {})
     if so.get("sweep_precision") not in (None, "highest"):
         raise NotImplementedError(
             f"solver_options sweep_precision={so['sweep_precision']!r}: the "
             "precision modes are not ported yet (ROADMAP Queue 1 item 8)")
-    if so.get("factors_keep_K", True) is False:
-        raise NotImplementedError(
-            "solver_options factors_keep_K=False (matrix-free refinement) "
-            "is not ported yet (ROADMAP Queue 1 item 6)")
     allowed = {f.name for f in ADMMSettings.__dataclass_fields__.values()}
     return ADMMSettings(**{k: v for k, v in so.items() if k in allowed})
 

@@ -5,7 +5,9 @@ batched ADMM call on the device, warm-started between calls, with the
 factorization amortized over ``solver_refresh_every`` calls (frozen solves in
 between) and a host-exact rescue of the scenarios a refresh leaves
 unconverged.  A batch with a shared constraint matrix (``A_shared``) runs the
-shared-A engine (:mod:`.solvers.shared_admm`) on the single (m, n) matrix.
+shared-A engine (:mod:`.solvers.shared_admm`) on the single (m, n) matrix,
+dense or, when large and very sparse, as a :class:`~.solvers.sparse.SparseA`
+(the sparse and structured-KKT engines).
 Expectations are probability-weighted contractions on the host.  The
 megastep, bucketed and in-wheel methods are not part of the port yet.
 """
@@ -22,6 +24,7 @@ from .obs import metrics as _metrics
 from .obs import trace as _trace
 from .spbase import SPBase
 from .solvers import admm, hostsync, segmented, shared_admm
+from .solvers.sparse import SparseA, should_sparsify
 
 _BATCH_TOKENS = itertools.count(1)
 
@@ -103,24 +106,29 @@ class SPOpt(SPBase):
         """Device-resident (A, cl, cu), cached on batch identity/version:
         the constraint tensor never changes between solves.  A shared-A
         batch uploads its single (m, n) matrix, never the (S, m, n)
-        broadcast view."""
+        broadcast view; a large, very sparse one (or any, with option
+        ``sparse_device_A=True``) goes up as a :class:`SparseA` with its
+        block/Woodbury structure and ELL twin, as the reference's
+        ``spopt._device_A`` does (``"auto"``, the default, asks
+        :func:`~.solvers.sparse.should_sparsify`; False keeps it dense)."""
         b = self.batch
         key = (_batch_token(b), getattr(b, "version", 0), dt)
         cached = getattr(self, "_dev_consts", None)
         if cached is None or cached[0] != key:
             def t(v):
                 return admm._tensor(np.ascontiguousarray(v), dt, self.device)
-            A_src = b.A
-            if b.A_shared is not None:
-                A_src = b.A_shared
-                if shared_admm.should_sparsify(A_src):
-                    raise NotImplementedError(
-                        f"this shared A ({A_src.shape[0]}x{A_src.shape[1]}, "
-                        f"{np.count_nonzero(A_src) / A_src.size:.2%} "
-                        "non-zeros) takes the reference's sparse engine "
-                        "(SparseA), which the port does not have yet "
-                        "(ROADMAP Queue 1 item 6)")
-            cached = (key, (t(A_src), t(b.cl), t(b.cu)))
+            if b.A_shared is None:
+                A_dev = t(b.A)
+            else:
+                sparse = self.options.get("sparse_device_A", "auto")
+                if sparse is True or (sparse == "auto"
+                                      and should_sparsify(b.A_shared)):
+                    A_dev = SparseA.from_dense(b.A_shared, dtype=dt,
+                                               device=self.device,
+                                               structure=True)
+                else:
+                    A_dev = t(b.A_shared)
+            cached = (key, (A_dev, t(b.cl), t(b.cu)))
             self._dev_consts = cached
         return cached[1]
 
@@ -217,6 +225,8 @@ class SPOpt(SPBase):
                                    & (meas_c["dua"] <= tol_s)))):
                 sol, meas = cand, meas_c
                 slot["age"] = slot.get("age", 0) + 1
+            else:
+                _metrics.inc("solve.frozen_rejected")
         if sol is None:
             with _trace.span(None, "solve.refresh"):
                 sol, factors = segmented.solve_factored_segmented(
