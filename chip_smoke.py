@@ -17,7 +17,10 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    n_sweeps=4, n_refine=2, n_extra=2, with has=1 and has=0),
    ``fused_sweeps_sparse`` at the full-width uc's (S=1000, m=4626,
    n=2928, kr=61, kc=10, n_sweeps=4, n_refine=1, n_extra=2, has=1 and
-   has=0; in f32 also against the f64 plain version);
+   has=0; in f32 also against the f64 plain version) in both its modes:
+   with a dense K^-1, and with the structured operand (the block/Woodbury
+   factors of the check's A, 30 blocks of 96 variables, 48 of one, 184
+   wide rows), which the uc paths run;
 4. goldens in f64 through the kernels: farmer S=3 PH (EF optimum -108390),
    uc_lite S=3 (3 generators, 6 hours) and full-width uc S=10 (30
    generators, 24 hours) PH, each against its HiGHS EF; the uc one also
@@ -35,7 +38,9 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    uc-1000 at full width (rho 500 and bench_uc.py's solver settings, 30
    iterations, 10 on the tensor path; its EF is out of HiGHS's reach, so
    the S=10 golden holds the EF check) through
-   ``fused_sweeps_sparse`` (the sparse and structured-KKT engine).
+   ``fused_sweeps_sparse`` (the sparse and structured-KKT engine); the uc
+   paths must launch only its structured mode and keep no dense (n, n)
+   K^-1 in their factors.
 
 ``--phases`` runs a subset; the result lines print only when all ran.
 Prints a ``{"kernels": [...]}`` line, then as the last line
@@ -186,6 +191,18 @@ def hold_kernel(label, kern, plain, args, flops, tol, dtype, ref=None):
     must lie no further from it than twice the plain f32's distance."""
     import torch
 
+    from tpusppy_torch.solvers.structured_kkt import KernelWoodbury
+
+    def nbytes(a):
+        if isinstance(a, KernelWoodbury):
+            pat = a.pattern
+            return sum(nbytes(t) for t in (
+                a.mats, a.dinv, a.wvals, a.wtvals, pat.pos, pat.order,
+                pat.binfo_t, pat.items[a.mats.element_size()],
+                pat.wcols, pat.wpos, pat.wtrows, pat.ncols, a.nvals,
+                pat.wrows))
+        return a.numel() * a.element_size()
+
     got, want = kern(), plain()
     torch.cuda.synchronize()
     abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
@@ -201,8 +218,7 @@ def hold_kernel(label, kern, plain, args, flops, tol, dtype, ref=None):
     ms, plain_ms = cuda_time_ms(kern), cuda_time_ms(plain)
     # bound: each input read once, each output written once, over the HBM
     # rate; the arithmetic (a multiply-add counts 2) over the peak rate
-    nbytes = (sum(a.numel() * a.element_size() for a in args)
-              + sum(o.numel() * o.element_size() for o in got))
+    nbytes = sum(nbytes(a) for a in args) + sum(nbytes(o) for o in got)
     name = str(dtype).replace("torch.", "")
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[name] * 1e3
@@ -233,18 +249,23 @@ def uc_sparse_pattern():
     return uc.scenario_creator("Scenario0", relax_integers=True).A != 0
 
 
-def sparse_sweep_case(pattern, S, dtype, has, seed=0):
+def sparse_sweep_case(pattern, S, dtype, has, seed=0, structured=False):
     """fused_sweeps_sparse inputs on the card on the uc A's sparsity
     pattern, with values drawn so that the check is well conditioned:
     entries of magnitude in [0.5, 1] / sqrt(kr kc) (so A'RA has norm at
     most 1), rho in [0.5, 1] (cond(K) below 4), gamma in [0.6, 1.8], and
     dq2 at most half of gamma K's smallest eigenvalue, so the refinement
-    contracts.  K^-1 is formed in f64 (torch.linalg.inv, a yardstick the
-    port never calls) and rounded to ``dtype``.  Returns (args, A, sigma)
-    with args in the wrapper's order."""
+    contracts.  The dense operand: K^-1 formed in f64 (torch.linalg.inv, a
+    yardstick the port never calls) and rounded to ``dtype``.  With
+    ``structured``, the structured operand instead: the A's block/Woodbury
+    split (``detect_structure`` on uc's pattern) factored by
+    ``factor_structured`` in ``dtype`` and laid out for the kernel.
+    Returns (args, A, sigma) with args in the wrapper's order."""
     import torch
 
     from tpusppy_torch.solvers.sparse import SparseA
+    from tpusppy_torch.solvers.structured_kkt import (factor_structured,
+                                                      woodbury_layout)
 
     rng = np.random.RandomState(seed)
     m, n = pattern.shape
@@ -252,13 +273,20 @@ def sparse_sweep_case(pattern, S, dtype, has, seed=0):
     sigma = 1e-6
     A = np.where(pattern, rng.uniform(0.5, 1.0, (m, n))
                  * rng.choice([-1.0, 1.0], (m, n)), 0.0) / np.sqrt(kr * kc)
-    sp = SparseA.from_dense(A, torch.float64, "cuda")
+    sp = SparseA.from_dense(A, torch.float64, "cuda", structure=structured)
     rho_a = rng.uniform(0.5, 1.0, size=m)
     rho_x = rng.uniform(0.5, 1.0, size=n)
-    Ad = sp.todense()
     t64 = lambda v: torch.as_tensor(v, dtype=torch.float64, device="cuda")
-    K = Ad.T @ (t64(rho_a)[:, None] * Ad) + torch.diag(t64(rho_x + sigma))
-    Kinv = torch.linalg.inv(K)
+    if structured:
+        spd = sp.astype(dtype)
+        Kinv = woodbury_layout(factor_structured(
+            spd, spd.structure, t64(rho_x).to(dtype), t64(rho_a).to(dtype),
+            sigma), spd)
+    else:
+        Ad = sp.todense()
+        K = Ad.T @ (t64(rho_a)[:, None] * Ad) + torch.diag(t64(rho_x
+                                                              + sigma))
+        Kinv = torch.linalg.inv(K)
     cl = -np.abs(rng.randn(S, m)) - 0.5
     cu = np.abs(rng.randn(S, m)) + 0.5
     x = rng.randn(S, n) * 0.1
@@ -277,8 +305,9 @@ def sparse_sweep_case(pattern, S, dtype, has, seed=0):
            sp.ell.colvals.to(dtype)]
     order = ("q", "Kinv", "diagK", "cl", "cu", "lb", "ub", "rho_a", "rho_x",
              "dq2", "has", "gamma", "x", "z", "zx", "y", "yx", "Ax")
-    vals = [torch.as_tensor(arrs[k], device="cuda").to(dtype).contiguous()
-            for k in order]
+    vals = [v if k == "Kinv" and structured else
+            torch.as_tensor(v, device="cuda").to(dtype).contiguous()
+            for k, v in ((k, arrs[k]) for k in order)]
     return [vals[0]] + ell + vals[1:], sp, sigma
 
 
@@ -326,44 +355,69 @@ def phase_kernels(cuda_kernels):
     return out
 
 
+def woodbury_apply_macs(lay, sp):
+    """Multiply-adds of one structured K^-1 apply for one scenario: two
+    passes over the blocks at their real sizes, the one-variable
+    components twice, C^-1 (r x r), and A_w t and A_w' v over the wide
+    rows' non-zeros."""
+    import torch
+
+    pat = lay.pattern
+    blocks = sum(s * s for _, s, _, _ in pat.binfo[:-1])
+    nnz_w = int(torch.isin(sp.rows, pat.wide).sum())
+    return 2 * blocks + 2 * (sp.shape[1] - pat.pd) + pat.r ** 2 + 2 * nnz_w
+
+
 def phase_sparse_kernel(cuda_kernels, S=1000):
     """fused_sweeps_sparse against its plain version at uc-1000's shape
     (m=4626, n=2928, kr=61, kc=10; 4 sweeps, n_refine=1 as bench_uc.py
-    runs it, n_extra=2), has=1 and has=0, f32 and f64.  In f32 both the
-    kernel and the plain version are also held against the f64 plain
-    version on the same inputs."""
+    runs it, n_extra=2), has=1 and has=0, f32 and f64, in its structured
+    mode (the uc paths') and its dense mode.  In f32 both the kernel and
+    the plain version are also held against the f64 plain version on the
+    same inputs.  Keys: (mode, dtype, has)."""
     import torch
 
     out = {}
     pattern = uc_sparse_pattern()
     n_sweeps, n_refine, n_extra, alpha = 4, 1, 2, 1.6
     n = pattern.shape[1]
-    for has in (1, 0):
-        n_pass = n_refine + n_extra * has
-        for dtype, tol in ((torch.float32, SPARSE_TOL_F32),
-                           (torch.float64, 1e-12)):
-            args, sp, sigma = sparse_sweep_case(pattern, S, dtype, has)
-            # the work this data needs: K^-1 applies on n^2, and the ELL
-            # products on the non-zeros only (padding slots are no work)
-            flops = 2 * S * n_sweeps * ((1 + n_pass) * n * n
-                                        + sp.nnz * (2 + 2 * n_pass))
-            ell_t = cuda_kernels.ell_slot_major(args[1:5])
-            fixed = (n_sweeps, n_refine, n_extra, sigma, alpha)
-            ref = None
-            if dtype == torch.float32:
-                args64 = [a.double() if a.is_floating_point() else a
-                          for a in args]
-                ref = (lambda a=args64:
-                       cuda_kernels.fused_sweeps_sparse_plain(*a, *fixed))
-            out[(dtype, has)] = hold_kernel(
-                f"fused_sweeps_sparse has={has}",
-                lambda: cuda_kernels.fused_sweeps_sparse(*args, *fixed,
-                                                         ell_t=ell_t),
-                lambda: cuda_kernels.fused_sweeps_sparse_plain(*args,
-                                                               *fixed),
-                args, flops, tol, dtype, ref=ref)
-            del args, sp, ref
-            torch.cuda.empty_cache()
+    for mode in ("structured", "dense"):
+        for has in (1, 0):
+            n_pass = n_refine + n_extra * has
+            for dtype, tol in ((torch.float32, SPARSE_TOL_F32),
+                               (torch.float64, 1e-12)):
+                args, sp, sigma = sparse_sweep_case(
+                    pattern, S, dtype, has, structured=mode == "structured")
+                # the work this data needs: each K^-1 apply (n^2 dense, or
+                # the structured operator's real blocks, C^-1 and wide
+                # rows), and the ELL products on the non-zeros only
+                # (padding slots are no work)
+                apply = (n * n if mode == "dense"
+                         else woodbury_apply_macs(args[5], sp))
+                flops = 2 * S * n_sweeps * ((1 + n_pass) * apply
+                                            + sp.nnz * (2 + 2 * n_pass))
+                ell_t = cuda_kernels.ell_slot_major(args[1:5])
+                fixed = (n_sweeps, n_refine, n_extra, sigma, alpha)
+                ref = None
+                if dtype == torch.float32:
+                    args64 = [a.double() if torch.is_tensor(a)
+                              and a.is_floating_point() else a for a in args]
+                    if mode == "structured":
+                        args64[5] = args[5].astype(torch.float64)
+                    ref = (lambda a=args64:
+                           cuda_kernels.fused_sweeps_sparse_plain(*a, *fixed))
+                before = dict(cuda_kernels.sparse_modes)
+                out[(mode, dtype, has)] = hold_kernel(
+                    f"fused_sweeps_sparse {mode} has={has}",
+                    lambda: cuda_kernels.fused_sweeps_sparse(*args, *fixed,
+                                                             ell_t=ell_t),
+                    lambda: cuda_kernels.fused_sweeps_sparse_plain(*args,
+                                                                   *fixed),
+                    args, flops, tol, dtype, ref=ref)
+                check(cuda_kernels.sparse_modes[mode] > before[mode],
+                      f"fused_sweeps_sparse did not launch its {mode} mode")
+                del args, sp, ref
+                torch.cuda.empty_cache()
     return out
 
 
@@ -471,7 +525,8 @@ def phase_golden(cuda_kernels):
           f"wall_s={k['wall_s']:.2f} (EF {ef_obj:.4f} in "
           f"{time.perf_counter() - t0:.2f} s, rel "
           f"{abs(k['eobj'] - ef_obj) / abs(ef_obj):.3e}) "
-          f"launches={k['launches']} plain_calls={k['plain_calls']}; "
+          f"launches={k['launches']} plain_calls={k['plain_calls']} "
+          f"modes={k['modes']}; "
           f"tensor path wall_s={p['wall_s']:.2f}", flush=True)
     rel = print_parting("golden uc S=10 f64", k, p, UC_FULL_TENSOR_ITERS)
     check(k["launches"] > 0 and k["plain_calls"] == 0, "the uc golden run "
@@ -552,24 +607,45 @@ def run_path(cuda_kernels, kernel, make_ph, use_kernel, iters, options,
     t1 = ph.t_iter0_done
     launches = cuda_kernels.launches[kernel]
     plain = cuda_kernels.plain_calls[kernel]
+    modes = dict(cuda_kernels.sparse_modes)
     n_it = max(ph._iter, 1)
     syncs = win.delta("host_sync.count") + win.delta("admm.loop_checks")
     res = dict(eobj=eobj, decisions=ph.decisions,
                iter0_rescued=ph.iter0_rescued, tbound=ph.trivial_bound, conv=ph.conv,
                iters=ph._iter, wall_s=t2 - t0, iter0_s=t1 - t0,
                loop_s=t2 - t1, rate=ph._iter / (t2 - t1),
-               launches=launches, plain_calls=plain,
+               launches=launches, plain_calls=plain, modes=modes,
                launches_per_iter=launches / n_it,
                syncs_per_iter=syncs / n_it,
                fetches_per_iter=win.delta("host_sync.count") / n_it,
                loop_checks_per_iter=win.delta("admm.loop_checks") / n_it,
                rescued=win.delta("solve.rescued_scenarios"))
+    if kernel == "fused_sweeps_sparse":
+        check_structured(ph, res)
     x = ph.local_x
     check(x.shape == (ph.batch.num_scenarios, ph.batch.num_vars),
           f"local_x shape {x.shape}")
     check(bool(np.isfinite(x).all() and np.isfinite(ph.W).all()),
           "non-finite PH state")
     return ph, res
+
+
+def check_structured(ph, res):
+    """A uc run went through the structured mode only: no dense-mode
+    launch, and its factors hold the kernel layout and no dense (n, n)
+    K^-1."""
+    import torch
+
+    from tpusppy_torch.solvers.structured_kkt import KernelWoodbury
+
+    modes, n = res["modes"], ph.batch.num_vars
+    check(modes["dense"] == 0 and modes["structured"] == res["launches"],
+          f"the uc run launched fused_sweeps_sparse's modes {modes}")
+    fac = ph._factors
+    check(fac is not None and isinstance(fac.Kinv_op, KernelWoodbury)
+          and not any(isinstance(f, torch.Tensor) and f.shape == (n, n)
+                      for f in fac),
+          "the uc run's factors hold a dense K^-1, not the kernel layout")
 
 
 def print_parting(label, k, p, iters):
@@ -619,7 +695,8 @@ def phase_main(cuda_kernels, label, kernel, make_ph, iters, tensor_iters,
           f"launches_per_iter={k['launches_per_iter']:.2f} "
           f"host_syncs_per_iter={k['syncs_per_iter']:.2f} "
           f"(fetches {k['fetches_per_iter']:.2f} + loop checks "
-          f"{k['loop_checks_per_iter']:.2f}) rescued={k['rescued']:.0f}",
+          f"{k['loop_checks_per_iter']:.2f}) rescued={k['rescued']:.0f} "
+          f"sparse_modes={k['modes']}",
           flush=True)
     check(k["launches"] > 0, f"the main path launched no {kernel} kernel")
     check(k["plain_calls"] == 0,
@@ -753,7 +830,8 @@ def main(argv=None) -> int:
         kernel_line("fused_sweeps_sparse",
                     "tpusppy_torch/csrc/fused_sweeps_sparse.cu",
                     "tpusppy/solvers/pallas_kernels.py:423",
-                    uc["launches"], kres["fused_sweeps_sparse"][(f32, 1)]),
+                    uc["launches"],
+                    kres["fused_sweeps_sparse"][("structured", f32, 1)]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,8 @@
     python3 scripts/port_kinv_accuracy.py [--device cuda] [--reps 5]
 
 The shared-A engine factors a SparseA with block/Woodbury structure through
-``structured_kkt.factor_structured`` and densifies the operator for the
-sweep kernel; a SparseA without structure gets a dense explicit inverse.
+``structured_kkt.factor_structured`` (with the operator's kernel layout);
+a SparseA without structure gets a dense explicit inverse.
 At uc's full width (30 generators x 24 hours) this takes the K of a first
 factorization: the Ruiz-scaled A (6 passes), q2 = 0 (Iter0), the starting
 rho profile (the default base rho, equality rows and fixed variables
@@ -15,8 +15,12 @@ ways in f32 and prints, against the f64 inverse of the same K:
 - ``kinv_err``: max |K^-1 error| / max |K^-1|;
 - ``solve_err``: max |x - x64| / max |x64| for x = b K^-1, b random;
 - ``backward_err``: max |x K - b| / max |b|;
-- ``ms``: the factorization's time, densification included (the median of
-  ``--reps`` calls; CUDA events on a card, the host clock on the CPU).
+- ``ms``: the factorization's time, the structured way's kernel layout
+  included (the median of ``--reps`` calls; CUDA events on a card, the
+  host clock on the CPU).
+
+The errors read the structured operator densified (``kinv_apply`` on the
+identity), outside the timed factorization.
 
 One JSON line.  Imports nothing of JAX.
 """
@@ -46,6 +50,7 @@ def main():
     from tpusppy_torch.solvers import shared_admm as sa
     from tpusppy_torch.solvers.admm import ADMMSettings, _explicit_inverse
     from tpusppy_torch.solvers.sparse import SparseA
+    from tpusppy_torch.solvers.structured_kkt import kinv_apply
     from tpusppy_torch.spbase import build_batch
 
     dev = torch.device(args.device)
@@ -101,8 +106,10 @@ def main():
     out = {"card": card, "base_rho": st.rho, "n": A.shape[1],
            "cond_K": float(torch.linalg.cond(K))}
     for name, A32 in ways.items():
-        Kd, ms = timed(lambda: sa._factor_shared(
-            q2ref.to(f32), A32, rho_a.to(f32), rho_x.to(f32), st.sigma)[2])
+        Kf, ms = timed(lambda: sa._factor_shared(
+            q2ref.to(f32), A32, rho_a.to(f32), rho_x.to(f32), st.sigma)[0])
+        Kd = Kf if isinstance(Kf, torch.Tensor) else kinv_apply(
+            Kf, torch.eye(A.shape[1], dtype=f32, device=dev))
         x = (b.to(f32) @ Kd).double()
         out[name] = {
             "kinv_err": float((Kd.double() - Kinv).abs().max()

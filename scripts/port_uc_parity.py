@@ -9,11 +9,13 @@ bench_uc.py's solver settings, eps 1e-5), ``--iters`` iterations a run:
 
 1. f32 through ``fused_sweeps_sparse``, capturing the inputs of the first
    sweep block of iteration ``--iters // 2``.  On those inputs (the real
-   K^-1, ELL arrays and ADMM state) the kernel and the plain version in f32
-   are each held against the plain version in f64 on the same f32 values;
-2. the same run with every entry of the densified K^-1 moved one ulp, up
-   or down at random (seeded): a change far below the f32 K^-1's own
-   error, which shows how far the PH recurrence carries a rounding;
+   block/Woodbury operator, ELL arrays and ADMM state) the kernel and the
+   plain version in f32 are each held against the plain version in f64 on
+   the same f32 values;
+2. the same run with every stored entry of the operator the kernel applies
+   (the block inverses and C^-1) moved one ulp, up or down at random
+   (seeded): a change far below the f32 K^-1's own error, which shows how
+   far the PH recurrence carries a rounding;
 3. f64 through the kernel and on the tensor path: the kernel and the plain
    version in the same recurrence, with f64 rounding.
 
@@ -42,6 +44,7 @@ def main():
 
     import chip_smoke as cs
     from tpusppy_torch.solvers import cuda_kernels, shared_admm
+    from tpusppy_torch.solvers.structured_kkt import KernelWoodbury
 
     if not torch.cuda.is_available():
         print("FAIL: needs a CUDA device", flush=True)
@@ -81,7 +84,8 @@ def main():
     finally:
         cuda_kernels.fused_sweeps_sparse = launch
     a32 = cap["args"]
-    a64 = [v.double() if torch.is_tensor(v) and v.is_floating_point()
+    a64 = [v.astype(torch.float64) if isinstance(v, KernelWoodbury)
+           else v.double() if torch.is_tensor(v) and v.is_floating_point()
            else v for v in a32]
     got = launch(*a32, ell_t=cap["ell_t"])
     p32 = cuda_kernels.fused_sweeps_sparse_plain(*a32)
@@ -97,26 +101,30 @@ def main():
           f"{block['plain_vs_f64']:.3e}", flush=True)
     del a32, a64, got, p32, p64, cap["args"]
 
-    # 2. f32 through the kernel with K^-1 moved one ulp an entry
-    densify = shared_admm.densify
+    # 2. f32 through the kernel with the operator moved one ulp an entry
+    layout = shared_admm.woodbury_layout
+    gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def nudged(Kinv):
-        Kd = densify(Kinv)
-        gen = torch.Generator(device=Kd.device).manual_seed(0)
-        up = torch.rand(Kd.shape, generator=gen, device=Kd.device) < 0.5
-        inf = torch.full((), torch.inf, dtype=Kd.dtype, device=Kd.device)
-        return torch.nextafter(Kd, torch.where(up, inf, -inf))
+    def ulp(v):
+        up = torch.rand(v.shape, generator=gen, device=v.device) < 0.5
+        inf = torch.full((), torch.inf, dtype=v.dtype, device=v.device)
+        return torch.nextafter(v, torch.where(up, inf, -inf))
 
-    shared_admm.densify = nudged
+    def nudged(bw, A):
+        lay = layout(bw, A)
+        return lay._replace(mats=ulp(lay.mats), dinv=ulp(lay.dinv))
+
+    shared_admm.woodbury_layout = nudged
     try:
-        _, ulp = cs.run_path(cuda_kernels, kern,
-                             lambda o, ext: cs.uc_full_ph(S, o,
-                                                          extensions=ext),
-                             "auto", iters, cs.UC_MAIN_OPTIONS, cs.UC_SOLVER)
+        _, ulp_run = cs.run_path(cuda_kernels, kern,
+                                 lambda o, ext: cs.uc_full_ph(
+                                     S, o, extensions=ext),
+                                 "auto", iters, cs.UC_MAIN_OPTIONS,
+                                 cs.UC_SOLVER)
     finally:
-        shared_admm.densify = densify
+        shared_admm.woodbury_layout = layout
     rel_ulp = cs.print_parting("f32 kernel vs f32 kernel, K^-1 one ulp off",
-                               base, ulp, iters)
+                               base, ulp_run, iters)
 
     # 3. f64 through the kernel and on the tensor path
     runs = {}
@@ -130,7 +138,7 @@ def main():
     print(json.dumps({
         "card": card, "scens": S, "iters": iters, "block": block,
         "f32_ulp_rel": rel_ulp, "f64_rel": rel_64,
-        "wall_s": {"f32_kernel": base["wall_s"], "f32_ulp": ulp["wall_s"],
+        "wall_s": {"f32_kernel": base["wall_s"], "f32_ulp": ulp_run["wall_s"],
                    "f64_kernel": runs["auto"]["wall_s"],
                    "f64_tensor": runs[False]["wall_s"]}}), flush=True)
     return 0

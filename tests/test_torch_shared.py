@@ -133,7 +133,7 @@ def test_factored_and_frozen_match_reference():
     for name in jshared.SharedFactors._fields:
         _close(getattr(tfac, name), getattr(jfac, name), 1e-9, name)
     # the dense engine's sweep operand is its explicit inverse itself
-    assert tfac.Kinv_dense is tfac.Kinv
+    assert tfac.Kinv_op is tfac.Kinv
     assert not np.allclose(np.asarray(tfac.gamma), 1.0)
     rng = np.random.RandomState(0)
     idx = tb.tree.nonant_indices

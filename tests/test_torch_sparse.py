@@ -8,13 +8,12 @@ numpy arrays, or the uc model's own scenarios), in float64 on the CPU.
 Tolerances, relative to the largest entry (floored at 1):
 
 - ELL indices and structure: exactly equal (integer bookkeeping);
-- SparseA products, the structured factors and the densified K^-1: 1e-10
-  (summation order only);
+- SparseA products, the structured factors and their kernel layout's
+  apply: 1e-10 (summation order only);
 - the plain sweep against the Pallas interpreter: 1e-12 (the same slot-by-
   slot recurrence);
 - shared solves (adaptive, factored, frozen) and a carried PH state: 1e-9.
-  The reference applies K^-1 through the Woodbury operator and the port
-  through its densified matrix: the same operator, rounded differently;
+  Both packages apply the structured K^-1 through the Woodbury operator;
 - PH trajectories (W, xbar, eobj per iteration): 1e-7, as the other PH
   parity tests.
 """
@@ -257,14 +256,15 @@ def test_structured_factors_match_reference():
     b = rng.normal(size=(4, n))
     _close(tsk.kinv_apply(tbw, torch.as_tensor(b)),
            jsk.kinv_apply(jbw, jnp.asarray(b)), 1e-10, "kinv_apply")
-    # the densified K^-1 is the same operator
-    Kd = tsk.densify(tbw)
+    # the kernel layout is the same operator, and the inverse of K
+    lay = tsk.woodbury_layout(tbw, t)
+    Kd = tsk.layout_apply(lay, torch.eye(n, dtype=torch.float64))
     ref = np.asarray(jsk.kinv_apply(jbw, jnp.eye(n)))
-    _close(Kd, ref, 1e-10, "densified K^-1")
+    _close(Kd, ref, 1e-10, "layout's K^-1")
     K = np.diag(d + 1e-6) + A.T @ (rho[:, None] * A)
     _close(Kd, np.linalg.inv(K), 1e-10, "against inv(K)")
-    _close(torch.as_tensor(b) @ Kd, tsk.kinv_apply(tbw, torch.as_tensor(b)),
-           1e-10, "apply")
+    _close(tsk.layout_apply(lay, torch.as_tensor(b)),
+           tsk.kinv_apply(tbw, torch.as_tensor(b)), 1e-10, "apply")
 
 
 # ---- the plain sweep against the Pallas interpreter ------------------------
@@ -441,14 +441,18 @@ def test_sparse_solves_match_reference(regime):
     for name in ("D", "E", "cost", "rho_a", "rho_x", "gamma", "q2ref"):
         _close(getattr(tfac, name), getattr(jfac, name), 1e-9, name)
     if regime == "structured":
+        # the sweep operand is the factors' kernel layout: no dense K^-1
         assert isinstance(tfac.Kinv, tsk.BlockWoodbury)
+        assert isinstance(tfac.Kinv_op, tsk.KernelWoodbury)
+        assert tfac.Kinv_op.bw is tfac.Kinv
         _close(tfac.Kinv.Cinv, jfac.Kinv.Cinv, 1e-9, "Cinv")
-        _close(tfac.Kinv_dense,
-               jsk.kinv_apply(jfac.Kinv, jnp.eye(arrs[0].shape[1])), 1e-9,
-               "Kinv_dense")
+        n = arrs[0].shape[1]
+        _close(tsk.layout_apply(tfac.Kinv_op,
+                                torch.eye(n, dtype=torch.float64)),
+               jsk.kinv_apply(jfac.Kinv, jnp.eye(n)), 1e-9, "Kinv_op")
     else:
         _close(tfac.Kinv, jfac.Kinv, 1e-9, "Kinv")
-        assert tfac.Kinv_dense is tfac.Kinv
+        assert tfac.Kinv_op is tfac.Kinv
     assert not np.allclose(np.asarray(tfac.gamma), 1.0)
     rng = np.random.RandomState(0)
     jw, tw = jsol.raw, tsol.raw
@@ -592,6 +596,7 @@ def test_structured_state_carry_reproduces_next_iteration():
         warm=tuple(np.asarray(v) for v in jph._warm), factors=fac,
         factors_age=jph._factors_age, iteration=jph._iter)
     assert isinstance(tph._factors.Kinv, tsk.BlockWoodbury)
+    assert isinstance(tph._factors.Kinv_op, tsk.KernelWoodbury)
     assert tph._factors.K is None
     age = jph._factors_age
     jph._iterk_one(jph._iter + 1, 0.0)

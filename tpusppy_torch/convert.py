@@ -17,7 +17,8 @@ from .scenario_tree import TreeInfo
 from .solvers.admm import Factors
 from .solvers.shared_admm import SharedFactors
 from .solvers.sparse import SparseA
-from .solvers.structured_kkt import BlockWoodbury, StructureArrays, densify
+from .solvers.structured_kkt import (BlockWoodbury, StructureArrays,
+                                     woodbury_layout)
 
 
 def tree_from_arrays(node_names, node_stage, scen_node_ids, nonant_stage,
@@ -80,14 +81,16 @@ def _is_none(v):
                          and v.shape == () and v.item() is None)
 
 
-def shared_factors_from_arrays(arrays: dict, device,
-                               dtype=torch.float64) -> SharedFactors:
+def shared_factors_from_arrays(arrays: dict, device, dtype=torch.float64,
+                               A=None) -> SharedFactors:
     """:class:`SharedFactors` from the reference's shared-A factors as a
     dict of numpy arrays.  ``Kinv`` is an (n, n) array, or the structured
     engine's BlockWoodbury (a NamedTuple or dict with ``binv``, ``bvars``,
     ``Aw``, ``Cinv``); ``K`` may be None (the sparse regimes, or
-    ``factors_keep_K=False``), and refinement then runs matrix-free.  The
-    dense K^-1 the port's sweep kernels apply is built here, once."""
+    ``factors_keep_K=False``), and refinement then runs matrix-free.  A
+    BlockWoodbury needs ``A``, the batch's structured :class:`SparseA` on
+    ``device`` (unscaled): its kernel layout, which the port's sweep kernel
+    applies, is made here from A scaled by the factors' D and E."""
     def t(v):
         return torch.tensor(np.asarray(v), dtype=dtype, device=device)
 
@@ -103,9 +106,16 @@ def shared_factors_from_arrays(arrays: dict, device,
             Aw=t(f["Aw"]), Cinv=t(f["Cinv"]))
     else:
         kinv = t(kinv)
+    op = kinv
+    if isinstance(kinv, BlockWoodbury):
+        if not isinstance(A, SparseA) or A.structure is None:
+            raise ValueError("structured factors need the batch's "
+                             "structured SparseA (argument A)")
+        op = woodbury_layout(kinv, A.astype(dtype).scale(out["E"],
+                                                         out["D"]))
     K = arrays.get("K")
     return SharedFactors(**out, Kinv=kinv, K=None if _is_none(K) else t(K),
-                         Kinv_dense=densify(kinv))
+                         Kinv_op=op)
 
 
 def sparse_from_arrays(rows, cols, vals, shape, structure=None, device=None,
@@ -161,9 +171,11 @@ def load_ph_state(ph, W, xbars, rho, warm, factors=None, factors_age=1,
         ph._factors = ph._factors_sig = None
         ph._factors_age = 0
         return ph
-    load = (shared_factors_from_arrays if ph.batch.A_shared is not None
-            else factors_from_arrays)
-    ph._factors = load(factors, ph.device, dt)
+    if ph.batch.A_shared is not None:
+        ph._factors = shared_factors_from_arrays(
+            factors, ph.device, dt, A=ph._device_consts(dt)[0])
+    else:
+        ph._factors = factors_from_arrays(factors, ph.device, dt)
     ph._factors_sig = ph._solve_sig(ph._augmented_q2(), ph.batch.lb,
                                     ph.batch.ub)
     ph._factors_age = int(factors_age)

@@ -12,9 +12,14 @@ dq2 refinement (``tpusppy_torch/csrc/fused_sweeps_shared.cu``).
 
 ``fused_sweeps_sparse`` replaces ``pallas_kernels.py:_sparse_sweeps_kernel``:
 the same block on the sparse and structured-KKT engines, with exact
-padded-ELL matvecs for A and A', one dense (n, n) K^-1 and a matrix-free
-refinement defect g (diagK x + A'(rho_a A x)) + dq2 x
-(``tpusppy_torch/csrc/fused_sweeps_sparse.cu``).
+padded-ELL matvecs for A and A' and a matrix-free refinement defect
+g (diagK x + A'(rho_a A x)) + dq2 x
+(``tpusppy_torch/csrc/fused_sweeps_sparse.cu``).  It has two modes, by the
+K^-1 operand: a dense (n, n) matrix (the unstructured regimes), or the
+block/Woodbury operator in its kernel layout
+(:class:`~.structured_kkt.KernelWoodbury`), applied block by block with the
+blocks staged through shared memory and A's narrow and wide rows taken
+apart.
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything it
 cannot take; for CPU tensors it runs the plain version beside it, the batched
@@ -40,6 +45,7 @@ from pathlib import Path
 import torch
 
 from .sparse import SparseA, ell_matvec, ell_slot_major
+from .structured_kkt import KernelWoodbury, kinv_apply, narrow_wide_matvec
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -54,23 +60,34 @@ launches = {"fused_sweeps": 0, "fused_sweeps_shared": 0,
             "fused_sweeps_sparse": 0}
 plain_calls = {"fused_sweeps": 0, "fused_sweeps_shared": 0,
                "fused_sweeps_sparse": 0}
+#: ``fused_sweeps_sparse`` launches by mode: a dense K^-1 or the structured
+#: (block/Woodbury) operand.
+sparse_modes = {"dense": 0, "structured": 0}
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-#: Exported C entry points of each source, with their ctypes argument types.
+#: Exported C entry points of each source (f32, f64), with their ctypes
+#: argument types.
 _ENTRY_POINTS = {
     # (in ptrs, out ptrs, S, m, n, n_sweeps, n_refine, sigma, alpha, stream)
-    "fused_sweeps": (("tpusppy_fused_sweeps_f32", "tpusppy_fused_sweeps_f64"),
-                     [_P, _P] + [_I] * 5 + [_D, _D, _P]),
+    "fused_sweeps": [(("tpusppy_fused_sweeps_f32",
+                       "tpusppy_fused_sweeps_f64"),
+                      [_P, _P] + [_I] * 5 + [_D, _D, _P])],
     # (in ptrs, out ptrs, S, m, n, sb, chunk, n_sweeps, n_refine, n_extra,
     #  sigma, alpha, stream)
-    "fused_sweeps_shared": (("tpusppy_fused_sweeps_shared_f32",
-                             "tpusppy_fused_sweeps_shared_f64"),
-                            [_P, _P] + [_I] * 8 + [_D, _D, _P]),
-    # (in ptrs, out+scratch ptrs, S, m, n, kr, kc, sb, n_sweeps, n_refine,
-    #  n_extra, sigma, alpha, stream)
-    "fused_sweeps_sparse": (("tpusppy_fused_sweeps_sparse_f32",
-                             "tpusppy_fused_sweeps_sparse_f64"),
-                            [_P, _P] + [_I] * 9 + [_D, _D, _P]),
+    "fused_sweeps_shared": [(("tpusppy_fused_sweeps_shared_f32",
+                              "tpusppy_fused_sweeps_shared_f64"),
+                             [_P, _P] + [_I] * 8 + [_D, _D, _P])],
+    "fused_sweeps_sparse": [
+        # dense K^-1: (in ptrs, out+scratch ptrs, S, m, n, kr, kc, sb,
+        # n_sweeps, n_refine, n_extra, sigma, alpha, stream)
+        (("tpusppy_fused_sweeps_sparse_f32",
+          "tpusppy_fused_sweeps_sparse_f64"),
+         [_P, _P] + [_I] * 9 + [_D, _D, _P]),
+        # structured: the same, then r, kn, kw, kwc, nb, items, pd,
+        # stage_elems, bmax before the stream
+        (("tpusppy_fused_sweeps_sparse_wb_f32",
+          "tpusppy_fused_sweeps_sparse_wb_f64"),
+         [_P, _P] + [_I] * 9 + [_D, _D] + [_I] * 9 + [_P])],
 }
 
 _libs: dict = {}
@@ -80,7 +97,7 @@ build_log: dict = {}
 
 
 def reset_counts():
-    for d in (launches, plain_calls):
+    for d in (launches, plain_calls, sparse_modes):
         for k in d:
             d[k] = 0
 
@@ -284,30 +301,56 @@ _SPARSE_THREADS = 512
 _INT_MAX = 2 ** 31 - 1
 
 
-def sparse_smem_bytes(n, itemsize, sb) -> int:
+def _r16(nbytes):
+    return -(-nbytes // 16) * 16
+
+
+def sparse_smem_bytes(n, itemsize, sb, kinv=None) -> int:
     """Shared memory of one ``fused_sweeps_sparse`` block of ``sb``
-    scenarios: their gammas, the K^-1 input and x-tilde n-vectors, and one
-    split-k partial sum per thread (mirrors ``launch_tile`` in the CUDA
-    source).  The rhs and the m-vectors live in device-memory scratch."""
-    return itemsize * sb * (1 + 2 * n + _SPARSE_THREADS)
+    scenarios (mirrors ``smem_dense`` and ``smem_structured`` in the CUDA
+    source).  With a dense K^-1: their gammas, the K^-1 input and x-tilde
+    n-vectors, and one split-k partial sum per thread.  With the structured
+    operand ``kinv`` (a :class:`~.structured_kkt.KernelWoodbury`): two
+    mbarriers, the gammas and x-tilde, two staging buffers of the largest
+    panel, the partial sums of a block product (``max(threads, bmax)``
+    columns), and four ``bmax``-row tile vectors (two of a block's input,
+    u and v of the Woodbury cap), each region 16-byte aligned; the K^-1
+    input and the Woodbury correction then live in device-memory
+    scratch.  The rhs and the m-vectors always
+    do."""
+    if kinv is None:
+        return itemsize * sb * (1 + 2 * n + _SPARSE_THREADS)
+    pat = kinv.pattern
+    stage = pat.stage_elems[itemsize]
+    return (16 + _r16(itemsize * sb) + _r16(itemsize * sb * n)
+            + 2 * _r16(itemsize * stage)
+            + _r16(itemsize * sb * max(_SPARSE_THREADS, pat.bmax))
+            + 4 * _r16(itemsize * sb * pat.bmax))
 
 
-def usable_sparse(S, m, n, kr, kc, dtype) -> int | None:
+def usable_sparse(S, m, n, kr, kc, dtype, kinv=None) -> int | None:
     """Scenarios per block if ``fused_sweeps_sparse`` takes this shape, else
     None.  Mirrors ``pallas_kernels.usable_sparse`` sized to Hopper: K^-1
     and the ELL arrays stream from device memory and L2, so only a block's
     two n-vectors per scenario limit the shape (n up to ~14,000 in f64,
     ~28,000 in f32, one scenario a block).  kr and kc are run-time loop
     bounds, so there is no slot cap (the TPU kernel unrolls them and stops
-    at 64); the ELL arrays must only stay within 32-bit offsets."""
+    at 64); the ELL arrays must only stay within 32-bit offsets.  With the
+    structured operand ``kinv`` one n-vector a scenario stays in shared
+    memory beside the staged panels (n up to ~38,000 in f32 and ~18,000 in
+    f64 at uc's panels, one scenario a block), and no stored block may be wider than the threads
+    of a block (each thread takes one column of a block product)."""
     if dtype not in (torch.float32, torch.float64) or S < 1 or n < 1 \
             or m < 0 or kr < 1 or kc < 1:
         return None
     if m * kr > _INT_MAX or n * kc > _INT_MAX:
         return None
+    if kinv is not None and (kinv.pattern.bmax > _SPARSE_THREADS
+                             or kinv.mats.numel() > _INT_MAX):
+        return None
     itemsize = 4 if dtype == torch.float32 else 8
     for sb in SPARSE_TILES:
-        if sparse_smem_bytes(n, itemsize, sb) <= SMEM_LIMIT:
+        if sparse_smem_bytes(n, itemsize, sb, kinv) <= SMEM_LIMIT:
             return sb
     return None
 
@@ -318,9 +361,12 @@ def fused_sweeps_sparse_plain(q, rowcols, rowvals, colrows, colvals, Kinv,
                               n_extra, sigma, alpha, precision="highest"):
     """One ``n_sweeps`` block of ``shared_admm._core`` on a sparse A in
     batched tensor form, a transcription of
-    ``pallas_kernels._sparse_sweeps_kernel``: ELL arrays (m, kr)/(n, kc)
-    and ``Kinv`` (n, n) (the dense inverse, or the densified
-    BlockWoodbury), ``diagK`` (1, n) = q2ref + rho_x + sigma (the
+    ``pallas_kernels._sparse_sweeps_kernel``: ELL arrays (m, kr)/(n, kc),
+    ``Kinv`` the dense (n, n) inverse or the structured operand (a
+    :class:`~.structured_kkt.KernelWoodbury`, applied with ``kinv_apply``
+    as the reference's XLA sweep applies its BlockWoodbury, with A x taken
+    over the narrow rows' first ``kn`` slots and the wide rows' lists, as
+    the kernel takes it), ``diagK`` (1, n) = q2ref + rho_x + sigma (the
     matrix-free defect's diagonal), ``rho_a`` (1, m) unscaled, everything
     else as :func:`fused_sweeps_shared_plain`.  Returns
     ``(x, z, zx, y, yx, Ax)``."""
@@ -328,6 +374,18 @@ def fused_sweeps_sparse_plain(q, rowcols, rowvals, colrows, colvals, Kinv,
     plain_calls["fused_sweeps_sparse"] += 1
     rc_t, rv_t, cr_t, cv_t = ell_slot_major((rowcols, rowvals, colrows,
                                              colvals))
+    if isinstance(Kinv, KernelWoodbury):
+        def kinv(v):
+            return kinv_apply(Kinv.bw, v)
+
+        def mv(v):
+            return narrow_wide_matvec(Kinv, v)
+    else:
+        def kinv(v):
+            return v @ Kinv
+
+        def mv(v):
+            return ell_matvec(rc_t, rv_t, v)
     g = gamma
     sigma, alpha, beta = float(sigma), float(alpha), 1.0 - float(alpha)
     rho_a_s = g * rho_a
@@ -335,19 +393,16 @@ def fused_sweeps_sparse_plain(q, rowcols, rowvals, colrows, colvals, Kinv,
     sigma_s = g * sigma
     extra = has > 0
 
-    def mv(v):
-        return ell_matvec(rc_t, rv_t, v)
-
     def rmv(v):
         return ell_matvec(cr_t, cv_t, v)
 
     def refine(xt, rhs):
         Kx = xt * diagK + rmv(mv(xt) * rho_a)
-        return xt + ((rhs - (g * Kx + dq2 * xt)) / g) @ Kinv
+        return xt + kinv((rhs - (g * Kx + dq2 * xt)) / g)
 
     for _ in range(n_sweeps):
         rhs = (sigma_s * x - q + rmv(rho_a_s * z - y)) + (rho_x_s * zx - yx)
-        xt = (rhs / g) @ Kinv
+        xt = kinv(rhs / g)
         for _ in range(n_refine):
             xt = refine(xt, rhs)
         for _ in range(n_extra):
@@ -419,10 +474,10 @@ def _load(name):
     with _lib_lock:
         if name not in _libs:
             lib = ctypes.CDLL(str(build(name)[0]))
-            fns, argtypes = _ENTRY_POINTS[name]
-            for fn in fns:
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+            for fns, argtypes in _ENTRY_POINTS[name]:
+                for fn in fns:
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib
         return _libs[name]
 
@@ -437,9 +492,9 @@ def _check_args(name, ins, shapes, dev, dt):
                 f"{shp} {dt} on {dev}, contiguous")
 
 
-def _launch(name, dt, ins, outs, *scalars):
+def _launch(name, dt, ins, outs, *scalars, entry=0):
     lib = _load(name)
-    fn = getattr(lib, _ENTRY_POINTS[name][0][dt == torch.float64])
+    fn = getattr(lib, _ENTRY_POINTS[name][entry][0][dt == torch.float64])
     in_ptrs = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins])
     out_ptrs = (ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs])
     dev = outs[0].device
@@ -530,10 +585,11 @@ def fused_sweeps_sparse(q, rowcols, rowvals, colrows, colvals, Kinv, diagK,
                         alpha, precision="highest", ell_t=None):
     """Run one ``n_sweeps`` block of the sparse shared-A sweep; same
     arguments and result as :func:`fused_sweeps_sparse_plain`.  CUDA
-    tensors launch the kernel (or raise); CPU tensors run the plain
-    version.  ``ell_t`` is :func:`ell_slot_major` of the ELL arrays, which
-    the kernel reads; a caller that launches many blocks against one A
-    passes it, else it is made here."""
+    tensors launch the kernel in the mode of ``Kinv`` (a dense (n, n)
+    tensor, or a :class:`~.structured_kkt.KernelWoodbury`) or raise; CPU
+    tensors run the plain version.  ``ell_t`` is :func:`ell_slot_major` of
+    the ELL arrays, which the kernel reads; a caller that launches many
+    blocks against one A passes it, else it is made here."""
     _check_precision("fused_sweeps_sparse", precision)
     if Kinv.device.type == "cpu":
         return fused_sweeps_sparse_plain(
@@ -549,23 +605,28 @@ def fused_sweeps_sparse(q, rowcols, rowvals, colrows, colvals, Kinv, diagK,
                          f"{tuple(rowcols.shape)}, {tuple(colrows.shape)}")
     (S, n), (m, kr), kc = q.shape, rowcols.shape, colrows.shape[1]
     dt = Kinv.dtype
-    sb = usable_sparse(S, m, n, kr, kc, dt)
+    wb = Kinv if isinstance(Kinv, KernelWoodbury) else None
+    sb = usable_sparse(S, m, n, kr, kc, dt, wb)
     if sb is None:
         raise ValueError(f"fused_sweeps_sparse: shape (S={S}, m={m}, n={n}, "
                          f"kr={kr}, kc={kc}) in {dt} is not taken by the "
-                         f"kernel")
+                         f"kernel" + (" with this structured operand"
+                                      if wb is not None else ""))
     dev = Kinv.device
-    if Kinv.data_ptr() % 16:
-        # the kernel reads K^-1 rows in 16-byte vector loads
-        Kinv = Kinv.clone()
+    # the kernel reads K^-1 rows in 16-byte vector loads, and copies the
+    # structured operand's panels in 16-byte-aligned bulk copies
+    mats = Kinv if wb is None else wb.mats
+    if mats.data_ptr() % 16:
+        mats = mats.clone()
     if ell_t is None:
         ell_t = ell_slot_major((rowcols, rowvals, colrows, colvals))
     rc_t, rv_t, cr_t, cv_t = ell_t
     _check_args("fused_sweeps_sparse", (rc_t, cr_t), ((kr, m), (kc, n)),
                 dev, torch.int32)
-    ins = (q, rc_t, rv_t, cr_t, cv_t, Kinv, diagK, cl, cu, lb, ub, rho_a,
+    ins = (q, rc_t, rv_t, cr_t, cv_t, mats, diagK, cl, cu, lb, ub, rho_a,
            rho_x, dq2, has, gamma, x, z, zx, y, yx, Ax)
-    shapes = ((S, n), (kr, m), (kr, m), (kc, n), (kc, n), (n, n), (1, n),
+    shapes = ((S, n), (kr, m), (kr, m), (kc, n), (kc, n),
+              (n, n) if wb is None else tuple(mats.shape), (1, n),
               (S, m), (S, m), (S, n), (S, n), (1, m), (1, n), (S, n), (1, 1),
               (S, 1), (S, n), (S, m), (S, n), (S, m), (S, n), (S, m))
     floats = [i for i in range(len(ins)) if i not in (1, 3)]
@@ -573,11 +634,38 @@ def fused_sweeps_sparse(q, rowcols, rowvals, colrows, colvals, Kinv, diagK,
                 [shapes[i] for i in floats], dev, dt)
     outs = tuple(torch.empty_like(t) for t in (x, z, zx, y, yx, Ax))
     # per-tile device-memory scratch: the rhs (n, sb) and an m-vector
-    # (m, sb) of each tile, scenario values side by side
+    # (m, sb) of each tile, scenario values side by side; in the structured
+    # mode also the K^-1 input and the Woodbury correction (n, sb each), by
+    # position
     tiles = -(-S // sb)
     scratch = (torch.empty(tiles * sb * n, dtype=dt, device=dev),
                torch.empty(max(1, tiles * sb * m), dtype=dt, device=dev))
-    _launch("fused_sweeps_sparse", dt, ins, outs + scratch, S, m, n, kr, kc,
-            sb, int(n_sweeps), int(n_refine), int(n_extra), float(sigma),
-            float(alpha))
+    fixed = (S, m, n, kr, kc, sb, int(n_sweeps), int(n_refine), int(n_extra),
+             float(sigma), float(alpha))
+    if wb is None:
+        _launch("fused_sweeps_sparse", dt, ins, outs + scratch, *fixed)
+        sparse_modes["dense"] += 1
+        return outs
+    pat = wb.pattern
+    items = pat.items[4 if dt == torch.float32 else 8]
+    lay = (pat.pos, pat.order, items, pat.binfo_t, wb.dinv, pat.wcols,
+           wb.wvals, pat.wpos, pat.wtrows, wb.wtvals, pat.ncols, wb.nvals,
+           pat.wrows)
+    kw, r = pat.wcols.shape
+    kwc = pat.wtrows.shape[0]
+    shapes = ((n,), (n,), tuple(items.shape), (pat.nb + 1, 4),
+              (n - pat.pd,), (kw, r), (kw, r), (kw, r), (kwc, n), (kwc, n),
+              (pat.kn, m), (pat.kn, m), (r,))
+    vals = (4, 6, 9, 11)
+    for want, idx in ((dt, vals), (torch.int32, [i for i in range(len(lay))
+                                                 if i not in vals])):
+        _check_args("fused_sweeps_sparse", [lay[i] for i in idx],
+                    [shapes[i] for i in idx], dev, want)
+    scratch += tuple(torch.empty(tiles * sb * n, dtype=dt, device=dev)
+                     for _ in range(2))
+    _launch("fused_sweeps_sparse", dt, ins + lay, outs + scratch, *fixed,
+            r, pat.kn, kw, kwc, pat.nb, items.shape[0], pat.pd,
+            pat.stage_elems[4 if dt == torch.float32 else 8], pat.bmax,
+            entry=1)
+    sparse_modes["structured"] += 1
     return outs

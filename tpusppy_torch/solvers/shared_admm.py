@@ -22,9 +22,11 @@ Three factorization regimes, by the type of A (:func:`_factor_shared`):
 Without K (the sparse regimes, or factors from ``factors_keep_K=False``)
 the refinement applies K matrix-free through A, and every sweep block runs
 in ``fused_sweeps_sparse`` on the ELL form of A (a dense A's ELL form is A
-itself).  That kernel applies K^-1 as one dense (n, n) matrix, so the
-structured regime densifies its operator once per factorization
-(``SharedFactors.Kinv_dense``).
+itself).  That kernel takes a dense (n, n) K^-1, or, in the structured
+regime, the block/Woodbury operator in its kernel layout
+(:class:`~.structured_kkt.KernelWoodbury`, made once per factorization
+and kept in ``SharedFactors.Kinv_op``); no dense (n, n) matrix is made
+there.
 
 No active-set polish on this path: outer bounds stay certified through weak
 duality (:func:`tpusppy_torch.solvers.admm.dual_objective` takes the shared
@@ -35,8 +37,8 @@ Differences from the JAX package: the sweep ``while_loop`` is a host loop
 with one ``all(done)`` vote per block (``admm.loop_checks``), as in
 :func:`tpusppy_torch.solvers.admm._admm_core`; the restart ``scan`` is a
 Python loop; the sparse engines' sweep blocks always run in the fused
-kernel (the reference's XLA path applies the Woodbury operator instead of
-its densified matrix: the same operator, rounded differently).  Not ported
+kernel, which applies the Woodbury operator as the reference's XLA path
+does (the reference's Pallas kernel takes its densified matrix).  Not ported
 yet: ``sweep_precision`` (ROADMAP Queue 1 item 8).
 """
 
@@ -55,7 +57,7 @@ from .admm import (ADMMSettings, BatchSolution, BIG, _LOOP_CHECKS,
 from .cuda_kernels import matvec as _mv
 from .cuda_kernels import rmatvec as _rmv
 from .sparse import SparseA, dense_ell, ell_slot_major
-from .structured_kkt import densify, factor_structured
+from .structured_kkt import factor_structured, woodbury_layout
 
 
 class SharedFactors(NamedTuple):
@@ -73,8 +75,8 @@ class SharedFactors(NamedTuple):
     K: object             # (n, n) exact shared K for dense refinement, or
                           # None: refinement then runs matrix-free through A
     q2ref: torch.Tensor   # (n,) scaled q2 the K was built with
-    Kinv_dense: torch.Tensor  # (n, n) the K^-1 the sweep kernels apply:
-                              # Kinv itself, or the densified BlockWoodbury
+    Kinv_op: object       # the K^-1 the sweep kernels apply: Kinv itself,
+                          # or the structured_kkt.KernelWoodbury of it
 
 
 class _Masks(NamedTuple):
@@ -123,21 +125,22 @@ def _ruiz_shared(A, q2ref, iters):
 
 
 def _factor_shared(q2ref, A, rho_a, rho_x, sigma):
-    """``(Kinv, K, Kinv_dense)`` of the SHARED K = diag(q2ref + rho_x) +
+    """``(Kinv, K, Kinv_op)`` of the SHARED K = diag(q2ref + rho_x) +
     sigma I + A'RA: one system for the whole scenario batch, in one of
-    three regimes by the type of A:
+    three regimes by the type of A (``Kinv_op`` is what the sweep kernels
+    apply):
 
     - dense (m, n) tensor: dense K and its explicit inverse;
     - :class:`SparseA` with block/Woodbury structure: the structured
       factorization (no dense K; refinement runs matrix-free through A),
-      with its operator densified once for the sweep kernel;
+      with its kernel layout;
     - SparseA without structure: K assembled through a transient dense
       scatter, its explicit inverse kept and K dropped."""
     n = A.shape[1]
     sparse = isinstance(A, SparseA)
     if sparse and A.structure is not None:
         bw = factor_structured(A, A.structure, q2ref + rho_x, rho_a, sigma)
-        return bw, None, densify(bw)
+        return bw, None, woodbury_layout(bw, A)
     Ad = A.todense() if sparse else A
     K = Ad.T @ (rho_a[:, None] * Ad)
     K = K + torch.eye(n, dtype=Ad.dtype, device=Ad.device) * sigma
@@ -156,14 +159,16 @@ def _core(q, q2s, q2ref, A, cl, cu, lb, ub, state: _IterState, Kinv, K,
     the x-update system an exact multiple of the shared K, so adapting gamma
     needs no refactorization.  ``glo``/``ghi`` bound gamma: wide for LP
     batches (dq2 = 0, exact at any gamma), near 1 for QP (keeps the dq2
-    refinement contractive).  ``Kinv`` is the dense (n, n) K^-1 the kernels
-    apply.  Each ``check_every`` block runs in ``fused_sweeps_shared`` when
+    refinement contractive).  ``Kinv`` is the operand the kernels apply:
+    a dense (n, n) K^-1, or a KernelWoodbury (with a SparseA and no K).
+    Each ``check_every`` block runs in ``fused_sweeps_shared`` when
     A is dense and K is given, else in ``fused_sweeps_sparse`` with the
     matrix-free defect on A's ELL form; then one true matvec re-anchors Ax,
     the residuals are measured, the divergence guard and the gamma rule
     apply, and the host reads the all-done vote."""
     ce = max(1, st.check_every)
-    Kinv = Kinv.contiguous()
+    if isinstance(Kinv, torch.Tensor):
+        Kinv = Kinv.contiguous()
     rho_a1 = rho_a[None, :].contiguous()
     rho_x1 = rho_x[None, :].contiguous()
     kernel = _kernel_on(st)
@@ -176,7 +181,8 @@ def _core(q, q2s, q2ref, A, cl, cu, lb, ub, state: _IterState, Kinv, K,
             sweeps = functools.partial(
                 cuda_kernels.fused_sweeps_sparse,
                 ell_t=(A.ell_t() if isinstance(A, SparseA)
-                       else ell_slot_major(ell)) if Kinv.is_cuda else None)
+                       else ell_slot_major(ell))
+                if Kinv.device.type == "cuda" else None)
         else:
             sweeps = cuda_kernels.fused_sweeps_sparse_plain
 
@@ -419,7 +425,7 @@ def _solve_shared_impl(c, q2, A, cl, cu, lb, ub, settings, warm, device,
     multx = torch.ones((n,), dtype=dt, device=dev)
     rho_a = torch.zeros((m,), dtype=dt, device=dev)
     rho_x = torch.zeros((n,), dtype=dt, device=dev)
-    Kinv = K = Kd = torch.zeros((n, n), dtype=dt, device=dev)
+    Kinv = K = Kd = None
     for _ in range(st.restarts):
         rho_a, rho_x = rho_vec(base), rho_x_vec(base)
         if st.rho_row_adapt:
@@ -463,7 +469,7 @@ def _solve_shared_impl(c, q2, A, cl, cu, lb, ub, settings, warm, device,
         return sol, SharedFactors(D=D, E=E, cost=cost, rho_a=rho_a,
                                   rho_x=rho_x, gamma=state.gamma, Kinv=Kinv,
                                   K=K if st.factors_keep_K else None,
-                                  q2ref=q2ref, Kinv_dense=Kd)
+                                  q2ref=q2ref, Kinv_op=Kd)
     return sol
 
 
@@ -492,7 +498,7 @@ def solve_shared_frozen(c, q2, A, cl, cu, lb, ub, factors: SharedFactors,
     the bounds' structure are unchanged; per-scenario q2 drift is absorbed
     by the refinement against gamma K + diag(dq2), matrix-free through A
     when the factors carry no K."""
-    device = resolve_device(device, factors.Kinv_dense, c)
+    device = resolve_device(device, factors.q2ref, c)
     c, q2, A, cl, cu, lb, ub, _ = _prep_shared(
         c, q2, A, cl, cu, lb, ub, settings, device, want_masks=False)
     D, E, cost = factors.D, factors.E, factors.cost
@@ -501,6 +507,6 @@ def solve_shared_frozen(c, q2, A, cl, cu, lb, ub, factors: SharedFactors,
     glo, ghi = _gamma_bounds(q2s)
     state = _core(qs, q2s, factors.q2ref, As, cls, cus, lbs, ubs,
                   _start(warm, cls, cus, lbs, ubs, factors.gamma),
-                  factors.Kinv_dense, factors.K, factors.rho_a,
+                  factors.Kinv_op, factors.K, factors.rho_a,
                   factors.rho_x, glo, ghi, settings)
     return _solution(state, D, E, cost, state.k, settings)

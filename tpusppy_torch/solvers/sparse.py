@@ -143,6 +143,10 @@ class SparseA:
         self.kn = kn
         self.structure = structure
         self._ell_t = None
+        # structured_kkt.woodbury_pattern's cache: the pattern depends on
+        # the sparsity and structure only, so scaled and cast copies share
+        # this one dict
+        self._wb_cache = {}
 
     # -- construction -----------------------------------------------------
     @classmethod
@@ -212,8 +216,10 @@ class SparseA:
         return self.vals.device
 
     def _with(self, vals, ell, Aw):
-        return SparseA(self.rows, self.cols, vals, self.shape, ell,
-                       self.wide, Aw, self.kn, self.structure)
+        out = SparseA(self.rows, self.cols, vals, self.shape, ell,
+                      self.wide, Aw, self.kn, self.structure)
+        out._wb_cache = self._wb_cache
+        return out
 
     def astype(self, dt):
         return self._with(self.vals.to(dt), self.ell._replace(
