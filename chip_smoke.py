@@ -9,18 +9,25 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
 1. card: the device, with ``nvidia-smi``'s name and power limit;
 2. build: every hand-written kernel from ``tpusppy_torch/csrc``, one
    ``nvcc`` per source, all started together;
-3. kernels: each kernel against its plain PyTorch version on the card at
-   its main path's shape, in f32 and f64, with CUDA-event times and the
-   card's bound for the same work: ``fused_sweeps`` at farmer
-   crops_multiplier=4 (S=1000, m=28, n=44, n_sweeps=4, n_refine=2),
-   ``fused_sweeps_shared`` at uc_lite's defaults (S=1000, m=242, n=132,
-   n_sweeps=4, n_refine=2, n_extra=2, with has=1 and has=0),
-   ``fused_sweeps_sparse`` at the full-width uc's (S=1000, m=4626,
-   n=2928, kr=61, kc=10, n_sweeps=4, n_refine=1, n_extra=2, has=1 and
-   has=0; in f32 also against the f64 plain version) in both its modes:
-   with a dense K^-1, and with the structured operand (the block/Woodbury
-   factors of the check's A, 30 blocks of 96 variables, 48 of one, 184
-   wide rows), which the uc paths run;
+3. kernels: each kernel against its plain PyTorch version on the card in
+   f32 (also against the f64 plain version on the same inputs: the kernel
+   may lie no further from it than twice the plain f32 does) and f64, with
+   CUDA-event times and the card's bound for the same work, each mode
+   checked to have run: ``fused_sweeps`` at farmer crops_multiplier=4
+   (S=1000, m=28, n=44, n_sweeps=4, n_refine=2; its resident mode) and at
+   crops_multiplier=12 (S=64, m=84, n=132; its streamed mode),
+   ``fused_sweeps_shared`` at uc_lite's defaults (m=242, n=132,
+   n_sweeps=4, n_refine=2, n_extra=2, with has=1 and has=0) at S=1000
+   (the main path: more tiles than the card holds clusters at once, its
+   streamed mode) and at S=128 (a cluster for every tile: its
+   cluster-resident mode), each also timed in the other mode, which must
+   be the slower, and at a wide A (S=16, m=242, n=2000, has=1; its
+   streamed mode), ``fused_sweeps_sparse`` at the full-width uc's
+   (S=1000, m=4626, n=2928, kr=61, kc=10, n_sweeps=4, n_refine=1,
+   n_extra=2, has=1 and has=0) in both its modes: with a dense K^-1, and
+   with the structured operand (the block/Woodbury factors of the check's
+   A, 30 blocks of 96 variables, 48 of one, 184 wide rows), which the uc
+   paths run;
 4. goldens in f64 through the kernels: farmer S=3 PH (EF optimum -108390),
    uc_lite S=3 (3 generators, 6 hours) and full-width uc S=10 (30
    generators, 24 hours) PH, each against its HiGHS EF; the uc one also
@@ -38,9 +45,11 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    uc-1000 at full width (rho 500 and bench_uc.py's solver settings, 30
    iterations, 10 on the tensor path; its EF is out of HiGHS's reach, so
    the S=10 golden holds the EF check) through
-   ``fused_sweeps_sparse`` (the sparse and structured-KKT engine); the uc
-   paths must launch only its structured mode and keep no dense (n, n)
-   K^-1 in their factors.
+   ``fused_sweeps_sparse`` (the sparse and structured-KKT engine); each
+   prints its kernel's launches by mode: farmer must launch only the
+   resident mode, uc_lite-1000 only the streamed mode, the uc paths only
+   the structured mode, and keep no dense (n, n) K^-1 in their
+   factors.
 
 ``--phases`` runs a subset; the result lines print only when all ran.
 Prints a ``{"kernels": [...]}`` line, then as the last line
@@ -319,38 +328,97 @@ def max_err(got, want):
                for g, w in zip(got, want))
 
 
+def f64_ref(plain, args, dtype):
+    """For an f32 case, the f64 plain version on the same f32-rounded
+    inputs (``hold_kernel``'s ``ref``); None in f64."""
+    import torch
+
+    if dtype != torch.float32:
+        return None
+    args64 = [a.double() for a in args]
+    return lambda: plain(*args64)
+
+
+def hold_mode(cuda_kernels, modes, mode, label, *hold_args, **hold_kw):
+    """``hold_kernel`` for one mode of a kernel: the kernel's launches in
+    the check must all have run ``mode`` (``modes`` is the kernel's launch
+    counts by mode)."""
+    before = dict(modes)
+    res = hold_kernel(f"{label} [{mode}]", *hold_args, **hold_kw)
+    ran = {k: modes[k] - before[k] for k in modes}
+    check(ran[mode] > 0 and sum(ran.values()) == ran[mode],
+          f"{label}: launched modes {ran}, wanted only {mode}")
+    return res
+
+
 def phase_kernels(cuda_kernels):
     """Each kernel against its plain version at its main path's shape, in
-    f32 and f64."""
+    f32 (also against the f64 plain version) and f64, in the mode the main
+    path runs, and in its streamed mode at a shape that needs it."""
     import torch
 
     out = {"fused_sweeps": {}, "fused_sweeps_shared": {}}
-    S, m, n, n_sweeps, n_refine, alpha = 1000, 28, 44, 4, 2, 1.6
-    flops = 2 * S * n_sweeps * (2 * m * n + n * n * (1 + 2 * n_refine))
-    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-        args, sigma = sweep_case(S, m, n, dtype)
-        out["fused_sweeps"][dtype] = hold_kernel(
-            "fused_sweeps",
-            lambda: cuda_kernels.fused_sweeps(*args, n_sweeps, n_refine,
-                                              sigma, alpha),
-            lambda: cuda_kernels.fused_sweeps_plain(*args, n_sweeps,
-                                                    n_refine, sigma, alpha),
-            args, flops, tol, dtype)
-    S, m, n, n_extra = 1000, 242, 132, 2
-    for has in (1, 0):
-        flops = 2 * S * n_sweeps * (
-            2 * m * n + n * n * (1 + 2 * n_refine + 2 * n_extra * has))
+    n_sweeps, n_refine, alpha = 4, 2, 1.6
+    # farmer crops_multiplier=4 (the main path, resident mode), and
+    # crops_multiplier=12 (m=84, n=132; one scenario does not fit two
+    # buffers: the streamed mode, which took over from a raise)
+    for (S, m, n, mode) in ((1000, 28, 44, "resident"),
+                            (64, 84, 132, "streamed")):
+        flops = 2 * S * n_sweeps * (2 * m * n + n * n * (1 + 2 * n_refine))
         for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-            args, sigma = shared_sweep_case(S, m, n, dtype, has)
-            # A' made once, as the engine makes it once per solve
-            At = args[1].T.contiguous()
-            out["fused_sweeps_shared"][(dtype, has)] = hold_kernel(
-                f"fused_sweeps_shared has={has}",
-                lambda: cuda_kernels.fused_sweeps_shared(
-                    *args, n_sweeps, n_refine, n_extra, sigma, alpha, At=At),
-                lambda: cuda_kernels.fused_sweeps_shared_plain(
-                    *args, n_sweeps, n_refine, n_extra, sigma, alpha),
-                args, flops, tol, dtype)
+            args, sigma = sweep_case(S, m, n, dtype)
+            fixed = (n_sweeps, n_refine, sigma, alpha)
+            out["fused_sweeps"][(mode, dtype)] = hold_mode(
+                cuda_kernels, cuda_kernels.dense_modes, mode,
+                f"fused_sweeps S={S} m={m} n={n}",
+                lambda: cuda_kernels.fused_sweeps(*args, *fixed),
+                lambda: cuda_kernels.fused_sweeps_plain(*args, *fixed),
+                args, flops, tol, dtype,
+                ref=f64_ref(lambda *a: cuda_kernels.fused_sweeps_plain(
+                    *a, *fixed), args, dtype))
+            del args
+    # uc_lite's defaults, has=1 and has=0: at S=1000 (the main path) its
+    # 125 tiles outnumber the clusters the card holds at once and the
+    # streamed mode runs; at S=128 every tile has a cluster and the
+    # cluster-resident mode runs.  Each is timed in the other mode too,
+    # which must be the slower.  And a wide shared A (n=2000, the streamed
+    # mode only) at small S.
+    n_extra = 2
+    for (S, m, n, mode, other, hases) in (
+            (1000, 242, 132, "streamed", "resident", (1, 0)),
+            (128, 242, 132, "resident", "streamed", (1, 0)),
+            (16, 242, 2000, "streamed", None, (1,))):
+        for has in hases:
+            flops = 2 * S * n_sweeps * (
+                2 * m * n + n * n * (1 + 2 * n_refine + 2 * n_extra * has))
+            for dtype, tol in ((torch.float32, 1e-5),
+                               (torch.float64, 1e-12)):
+                args, sigma = shared_sweep_case(S, m, n, dtype, has)
+                fixed = (n_sweeps, n_refine, n_extra, sigma, alpha)
+                label = f"fused_sweeps_shared S={S} m={m} n={n} has={has}"
+                res = hold_mode(
+                    cuda_kernels, cuda_kernels.shared_modes, mode, label,
+                    lambda: cuda_kernels.fused_sweeps_shared(*args, *fixed),
+                    lambda: cuda_kernels.fused_sweeps_shared_plain(
+                        *args, *fixed),
+                    args, flops, tol, dtype,
+                    ref=f64_ref(
+                        lambda *a: cuda_kernels.fused_sweeps_shared_plain(
+                            *a, *fixed), args, dtype))
+                out["fused_sweeps_shared"][(S, dtype, has)] = res
+                if other is not None:
+                    res["other_ms"] = cuda_time_ms(
+                        lambda: cuda_kernels.fused_sweeps_shared(
+                            *args, *fixed, mode=other))
+                    print(f"  {label} {dtype}: [{other}] "
+                          f"{res['other_ms']:.5f} ms against [{mode}] "
+                          f"{res['ms']:.5f} ms", flush=True)
+                    check(res["ms"] <= res["other_ms"],
+                          f"{label} {dtype}: the {mode} mode picked, "
+                          f"{res['ms']:.5f} ms, is slower than the {other} "
+                          f"mode, {res['other_ms']:.5f} ms")
+                del args
+    torch.cuda.empty_cache()
     out["fused_sweeps_sparse"] = phase_sparse_kernel(cuda_kernels)
     return out
 
@@ -607,7 +675,7 @@ def run_path(cuda_kernels, kernel, make_ph, use_kernel, iters, options,
     t1 = ph.t_iter0_done
     launches = cuda_kernels.launches[kernel]
     plain = cuda_kernels.plain_calls[kernel]
-    modes = dict(cuda_kernels.sparse_modes)
+    modes = dict(mode_counts(cuda_kernels)[kernel])
     n_it = max(ph._iter, 1)
     syncs = win.delta("host_sync.count") + win.delta("admm.loop_checks")
     res = dict(eobj=eobj, decisions=ph.decisions,
@@ -622,12 +690,30 @@ def run_path(cuda_kernels, kernel, make_ph, use_kernel, iters, options,
                rescued=win.delta("solve.rescued_scenarios"))
     if kernel == "fused_sweeps_sparse":
         check_structured(ph, res)
+    elif use_kernel:
+        want = MAIN_MODES[kernel]
+        check(modes[want] == launches,
+              f"the run launched {kernel}'s modes {modes}, wanted only "
+              f"{want}")
     x = ph.local_x
     check(x.shape == (ph.batch.num_scenarios, ph.batch.num_vars),
           f"local_x shape {x.shape}")
     check(bool(np.isfinite(x).all() and np.isfinite(ph.W).all()),
           "non-finite PH state")
     return ph, res
+
+
+#: The mode each dense main path runs at S=1000: farmer-1000's scenarios
+#: fit two buffers a block; uc_lite-1000's 125 tiles outnumber the clusters
+#: of its cluster-resident mode the card holds at once.
+MAIN_MODES = {"fused_sweeps": "resident", "fused_sweeps_shared": "streamed"}
+
+
+def mode_counts(cuda_kernels):
+    """Each kernel's launch counts by mode."""
+    return {"fused_sweeps": cuda_kernels.dense_modes,
+            "fused_sweeps_shared": cuda_kernels.shared_modes,
+            "fused_sweeps_sparse": cuda_kernels.sparse_modes}
 
 
 def check_structured(ph, res):
@@ -696,7 +782,7 @@ def phase_main(cuda_kernels, label, kernel, make_ph, iters, tensor_iters,
           f"host_syncs_per_iter={k['syncs_per_iter']:.2f} "
           f"(fetches {k['fetches_per_iter']:.2f} + loop checks "
           f"{k['loop_checks_per_iter']:.2f}) rescued={k['rescued']:.0f} "
-          f"sparse_modes={k['modes']}",
+          f"modes={k['modes']}",
           flush=True)
     check(k["launches"] > 0, f"the main path launched no {kernel} kernel")
     check(k["plain_calls"] == 0,
@@ -821,12 +907,13 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         kernel_line("fused_sweeps", "tpusppy_torch/csrc/fused_sweeps.cu",
                     "tpusppy/solvers/pallas_kernels.py:57",
-                    farmer["launches"], kres["fused_sweeps"][f32]),
+                    farmer["launches"],
+                    kres["fused_sweeps"][("resident", f32)]),
         kernel_line("fused_sweeps_shared",
                     "tpusppy_torch/csrc/fused_sweeps_shared.cu",
                     "tpusppy/solvers/pallas_kernels.py:265",
                     uc_lite["launches"],
-                    kres["fused_sweeps_shared"][(f32, 1)]),
+                    kres["fused_sweeps_shared"][(1000, f32, 1)]),
         kernel_line("fused_sweeps_sparse",
                     "tpusppy_torch/csrc/fused_sweeps_sparse.cu",
                     "tpusppy/solvers/pallas_kernels.py:423",

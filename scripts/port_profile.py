@@ -17,8 +17,8 @@ iteration, device-busy seconds per iteration in the traced window (the union
 of kernel intervals on the timeline), the idle share (busy against the
 UNTRACED wall, since the profiler slows the host), host syncs and kernel
 launches per iteration (device kernels, and hand-written kernel launches in
-the traced window, which tell a frozen iteration from a refresh), and the top
-device kernels by time.  Imports nothing of JAX.
+the traced window, which tell a frozen iteration from a refresh, also by each
+kernel's mode), and the top device kernels by time.  Imports nothing of JAX.
 """
 
 import argparse
@@ -133,6 +133,13 @@ def main():
         "loop_checks_per_iter": win.delta("admm.loop_checks") / n,
         "kernel_launches_per_iter": {k: v / n for k, v in
                                      cuda_kernels.launches.items()},
+        "launches_by_mode_per_iter": {
+            name: {k: v / n for k, v in modes.items()}
+            for name, modes in (("fused_sweeps", cuda_kernels.dense_modes),
+                                ("fused_sweeps_shared",
+                                 cuda_kernels.shared_modes),
+                                ("fused_sweeps_sparse",
+                                 cuda_kernels.sparse_modes))},
         "top_kernels_s_per_iter": top}), flush=True)
     return 0
 

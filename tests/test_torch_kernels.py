@@ -114,36 +114,74 @@ def test_usable_gate_sized_to_shared_memory():
     # farmer-1000 crops_multiplier=4 fits in f32 and f64
     assert cuda_kernels.usable(1000, 28, 44, torch.float32)
     assert cuda_kernels.usable(1000, 28, 44, torch.float64)
-    # (28*45 + 2*44*45 + 10*44 + 8*28) * 8 B: just under the 48 KB default,
-    # so the wrapper's opt-in to more dynamic shared memory is exercised by
-    # any larger shape
-    assert cuda_kernels.smem_bytes(28, 44, 8) == 47072
-    # n=100 f64: 2 n^2 * 8 B alone is 160 KB -> fits; n=120 does not
+    # farmer's shape takes the resident mode: two buffers of a scenario's
+    # 16 arrays (each in a slot 16 bytes past its rounded size) beside the
+    # work vectors fit, 91,152 B in f64, 45,872 in f32
+    assert cuda_kernels.dense_layout(28, 44, 8)["mode"] == "resident"
+    assert cuda_kernels.dense_layout(28, 44, 8)["smem"] == 91152
+    assert cuda_kernels.dense_layout(28, 44, 4)["smem"] == 45872
+    # n=100 and n=120 f64: the scenario no longer fits two buffers, and the
+    # streamed mode takes it (n=120 raised before the streamed mode)
     assert cuda_kernels.usable(10, 50, 100, torch.float64)
-    assert not cuda_kernels.usable(10, 50, 120, torch.float64)
+    assert cuda_kernels.usable(10, 50, 120, torch.float64)
+    assert cuda_kernels.dense_layout(50, 120, 8)["mode"] == "streamed"
     assert cuda_kernels.usable(10, 50, 120, torch.float32)
     assert not cuda_kernels.usable(10, 5, 5, torch.float16)
     assert not cuda_kernels.usable(0, 5, 5, torch.float32)
 
 
+def test_usable_takes_every_tpu_shape():
+    """Every (S, m, n) the TPU kernel takes, and every shape the reference
+    sends to its XLA sweep instead, ``fused_sweeps`` takes in f32 and f64
+    (on the grid of ``test_usable_shared_takes_every_tpu_shape``); the
+    mode follows from whether two of a scenario fit shared memory."""
+    taken = 0
+    for n in (1, 5, 44, 132, 300, 443):
+        for m in (0, 1, 9, 242, 2000, 20000, 120000):
+            for S in (1, 7, 1000):
+                taken += pallas_kernels.usable(S, m, n,
+                                               platform="tpu") is not None
+                for dt in (torch.float32, torch.float64):
+                    assert cuda_kernels.usable(S, m, n, dt), (S, m, n, dt)
+                    lay = cuda_kernels.dense_layout(m, n, dt.itemsize)
+                    assert lay["smem"] <= cuda_kernels.SMEM_LIMIT
+                    assert lay["mode"] == ("resident" if 2 * lay.get(
+                        "buffer", 1 << 40) + lay.get("buf", 0)
+                        <= cuda_kernels.SMEM_LIMIT else "streamed")
+    assert taken > 40
+    assert cuda_kernels.dense_layout(84, 132, 8)["mode"] == "streamed"
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("S,m,n,mode", [
+    (1000, 28, 44, "resident"),    # farmer crops_multiplier=4: main path
+    (37, 84, 132, "streamed"),     # farmer crops_multiplier=12 (raised
+                                   # before the streamed mode in f64)
+    (3, 0, 7, "resident"),         # no constraint rows
+    (5000, 3, 7, "resident"),      # more scenarios than one wave of
+                                   # blocks holds: two buffers a block
+])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.float64, 1e-12)])
-def test_cuda_kernel_matches_plain(dtype, tol):
-    """The hand-written kernel against its plain version on the card, at
-    the main-path shape, with A scaled so cond(K) stays below ~10 (f32
-    tolerance for its rounding, f64 for summation order)."""
+def test_cuda_kernel_matches_plain(dtype, tol, S, m, n, mode):
+    """The hand-written kernel against its plain version on the card, in
+    the mode each shape is pinned to, with A scaled so cond(K) stays below
+    ~10 (f32 tolerance for its rounding, f64 for summation order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    c, sigma = _case(1000, 28, 44, seed=3, a_scale=44 ** -0.5)
+    assert cuda_kernels.dense_layout(m, n, dtype.itemsize)["mode"] == mode
+    c, sigma = _case(S, m, n, seed=3, a_scale=n ** -0.5)
     args = _torch_args(c, "cuda", dtype)
     cuda_kernels.reset_counts()
     got = cuda_kernels.fused_sweeps(*args, 4, 2, sigma, 1.6)
     torch.cuda.synchronize()
     assert cuda_kernels.launches["fused_sweeps"] == 1
+    assert cuda_kernels.dense_modes[mode] == 1
     want = cuda_kernels.fused_sweeps_plain(*args, 4, 2, sigma, 1.6)
     for g, w in zip(got, want):
-        assert _max_rel(g.cpu().numpy(), w.cpu().numpy()) < tol
+        assert torch.isfinite(g).all()
+        if g.numel():
+            assert _max_rel(g.cpu().numpy(), w.cpu().numpy()) < tol
 
 
 # ---- fused_sweeps_shared ---------------------------------------------------
@@ -259,20 +297,35 @@ def test_usable_shared_takes_every_tpu_shape():
                     assert cuda_kernels.usable_shared(S, m, n, dt), \
                         (S, m, n, dt)
     assert taken > 40
-    # uc_lite's defaults: 8 scenarios a block, all 242 rows in one chunk,
-    # K^-1 and K in shared memory in f32, K^-1 alone in f64
+    # uc_lite's defaults: the cluster-resident mode, tiles of 8 scenarios;
+    # f32: 2 CTAs of 66 columns (A, K^-1 and K: 133,584 B each, beside the
+    # eight warps' partial sums of a column product); f64: the
+    # slices are whole 16-column units (9 for n=132) and 4 CTAs would take
+    # 48 columns each, past shared memory, so 5 CTAs of at most 32
     assert cuda_kernels.usable_shared(1000, 242, 132, torch.float32) == 8
-    assert cuda_kernels.shared_layout(242, 132, 4) == (8, 242)
-    assert cuda_kernels.shared_layout(242, 132, 8) == (8, 242)
+    lay = cuda_kernels.shared_layout(242, 132, 4)
+    assert (lay["mode"], lay["C"], lay["sb"], lay["ld"]) == \
+        ("resident", 2, 8, 66)
+    assert lay["cols"] == [(0, 66), (66, 132)]
+    assert lay["rows"] == [(0, 121), (121, 242)]
+    assert lay["smem"] == 212768
+    lay = cuda_kernels.shared_layout(242, 132, 8)
+    assert (lay["mode"], lay["C"], lay["ld"], lay["km"], lay["kn"]) == \
+        ("resident", 5, 32, 256, 144)
+    assert lay["smem"] == 224656
+    # the streamed mode's buffers at that shape, as it would take them:
+    # K^-1 and K in shared memory in f32, K^-1 alone in f64
     assert cuda_kernels.shared_smem_bytes(242, 132, 4, 8, 242) == (176224, 3)
     assert cuda_kernels.shared_smem_bytes(242, 132, 8, 8, 242) == (213056, 1)
-    # wide n lowers the tile and streams the matrices; huge m is chunked
-    assert cuda_kernels.shared_layout(242, 2000, 8)[0] == 4
-    assert cuda_kernels.shared_layout(60, 3000, 8)[0] == 2
+    # wide n lowers the streamed tile and streams the matrices; huge m is
+    # chunked
+    assert cuda_kernels.shared_layout(242, 2000, 8)["mode"] == "streamed"
+    assert cuda_kernels.shared_layout(242, 2000, 8)["sb"] == 4
+    assert cuda_kernels.shared_layout(60, 3000, 8)["sb"] == 2
     assert cuda_kernels.shared_smem_bytes(60, 3000, 8, 2, 60)[1] == 0
-    assert cuda_kernels.shared_layout(100000, 132, 8) == (8, 2723)
-    assert cuda_kernels.shared_smem_bytes(
-        100000, 132, 8, 8, 2723) == (cuda_kernels.SMEM_LIMIT, 0)
+    lay = cuda_kernels.shared_layout(100000, 132, 8)
+    assert (lay["mode"], lay["sb"], lay["chunk"]) == ("streamed", 8, 2723)
+    assert (lay["smem"], lay["resident"]) == (cuda_kernels.SMEM_LIMIT, 0)
     assert cuda_kernels.usable_shared(10, 5, 12000, torch.float64) is None
     assert cuda_kernels.usable_shared(10, 5, 5, torch.float16) is None
     assert cuda_kernels.usable_shared(0, 5, 5, torch.float32) is None
@@ -288,16 +341,20 @@ def _refinement_factor(c):
     return float(np.max(c["dq2"] / (c["gamma"] * lo)))
 
 
-def _shared_against_f64(c, sigma, n_sweeps=4, n_refine=2, n_extra=2):
-    """The f32 kernel and the f32 plain version, each against the f64 plain
-    version on the same (f32-rounded) inputs: (kernel-plain, kernel-f64,
-    plain-f64) errors, relative as in ``_max_err``."""
+def _shared_against_f64(c, sigma, n_sweeps=4, n_refine=2, n_extra=2,
+                        mode=None):
+    """The f32 kernel (in ``mode``, else the one it picks) and the f32 plain
+    version, each against the f64 plain version on the same (f32-rounded)
+    inputs: (kernel-plain, kernel-f64, plain-f64) errors, relative as in
+    ``_max_err``."""
     args = _shared_args(c, "cuda", torch.float32)
     cuda_kernels.reset_counts()
     got = cuda_kernels.fused_sweeps_shared(*args, n_sweeps, n_refine,
-                                           n_extra, sigma, 1.6)
+                                           n_extra, sigma, 1.6, mode=mode)
     torch.cuda.synchronize()
     assert cuda_kernels.launches["fused_sweeps_shared"] == 1
+    if mode is not None:
+        assert cuda_kernels.shared_modes[mode] == 1
     want = cuda_kernels.fused_sweeps_shared_plain(*args, n_sweeps, n_refine,
                                                   n_extra, sigma, 1.6)
     ref = cuda_kernels.fused_sweeps_shared_plain(
@@ -315,6 +372,8 @@ def _shared_against_f64(c, sigma, n_sweeps=4, n_refine=2, n_extra=2):
 @pytest.mark.parametrize("S,m,n,dtype,tol", [
     (1000, 242, 132, *_F32),   # uc_lite defaults: the main path
     (1000, 242, 132, *_F64),
+    (128, 242, 132, *_F32),    # a cluster for every tile
+    (128, 242, 132, *_F64),
     (1003, 50, 22, *_F32),     # a ragged last tile
     (1003, 50, 22, *_F64),
     (37, 3000, 132, *_F64),    # A' in two chunks
@@ -325,34 +384,56 @@ def _shared_against_f64(c, sigma, n_sweeps=4, n_refine=2, n_extra=2):
 @pytest.mark.parametrize("has", [1, 0])
 def test_cuda_shared_kernel_matches_plain(S, m, n, dtype, tol, has):
     """The hand-written shared kernel against its plain version on the card,
-    with A scaled by 1/sqrt(n), rho >= 0.4 and dq2 at most half of gamma K's
-    smallest eigenvalue, so K is well conditioned and the refinement
-    contracts, as on the engine's path (f32 tolerance for its rounding, f64
-    for summation order).  In f32 both are also held against the f64 plain
-    version: the kernel lies no further from it than the plain f32 does,
-    within a factor of 2."""
+    in each mode that takes the shape, with A scaled by 1/sqrt(n), rho >=
+    0.4 and dq2 at most half of gamma K's smallest eigenvalue, so K is well
+    conditioned and the refinement contracts, as on the engine's path (f32
+    tolerance for its rounding, f64 for summation order).  In f32 both are
+    also held against the f64 plain version: the kernel lies no further
+    from it than the plain f32 does, within a factor of 2.  Unforced, the
+    wrapper runs the mode ``shared_mode`` picks for the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     c, sigma = _shared_case(S, m, n, has, a_scale=n ** -0.5, contract=0.5)
-    if dtype == torch.float32:
-        kp, kr, pr = _shared_against_f64(c, sigma)
-        print(f"shared f32 S={S} m={m} n={n} has={has} refinement factor "
-              f"<= {_refinement_factor(c):.3f}: kernel-plain {kp:.3e}, "
-              f"kernel-f64 {kr:.3e}, plain-f64 {pr:.3e}")
-        assert kp < tol
-        assert kr <= 2.0 * pr + 1e-7
-        return
+    isz = dtype.itemsize
+    modes = [md for md in ("resident", "streamed")
+             if cuda_kernels.shared_layout(m, n, isz, md) is not None]
+    assert modes
+    for mode in modes:
+        if dtype == torch.float32:
+            kp, kr, pr = _shared_against_f64(c, sigma, mode=mode)
+            print(f"shared f32 [{mode}] S={S} m={m} n={n} has={has} "
+                  f"refinement factor <= {_refinement_factor(c):.3f}: "
+                  f"kernel-plain {kp:.3e}, kernel-f64 {kr:.3e}, plain-f64 "
+                  f"{pr:.3e}")
+            assert kp < tol
+            assert kr <= 2.0 * pr + 1e-7
+            continue
+        args = _shared_args(c, "cuda", dtype)
+        cuda_kernels.reset_counts()
+        got = cuda_kernels.fused_sweeps_shared(*args, 4, 2, 2, sigma, 1.6,
+                                               mode=mode)
+        torch.cuda.synchronize()
+        assert cuda_kernels.launches["fused_sweeps_shared"] == 1
+        assert cuda_kernels.shared_modes[mode] == 1
+        want = cuda_kernels.fused_sweeps_shared_plain(*args, 4, 2, 2, sigma,
+                                                      1.6)
+        for g, w in zip(got, want):
+            assert torch.isfinite(g).all()
+            if g.numel():
+                assert _max_err(g.cpu().numpy(), w.cpu().numpy()) < tol
     args = _shared_args(c, "cuda", dtype)
     cuda_kernels.reset_counts()
-    got = cuda_kernels.fused_sweeps_shared(*args, 4, 2, 2, sigma, 1.6)
-    torch.cuda.synchronize()
-    assert cuda_kernels.launches["fused_sweeps_shared"] == 1
-    want = cuda_kernels.fused_sweeps_shared_plain(*args, 4, 2, 2, sigma,
-                                                  1.6)
-    for g, w in zip(got, want):
-        assert torch.isfinite(g).all()
-        if g.numel():
-            assert _max_err(g.cpu().numpy(), w.cpu().numpy()) < tol
+    cuda_kernels.fused_sweeps_shared(*args, 4, 2, 2, sigma, 1.6)
+    res = cuda_kernels.shared_layout(m, n, isz, "resident")
+    picked = cuda_kernels.shared_mode(
+        S, m, n, isz, cuda_kernels._shared_clusters(args[1].device, dtype,
+                                                    m, n)
+        if res is not None and res["C"] > 1 else 0)
+    assert cuda_kernels.shared_modes[picked] == 1
+    if (m, n) == (242, 132):
+        # uc_lite's shape: the main path's S=1000 outnumbers the clusters
+        # the card holds at once, S=128 does not
+        assert picked == ("streamed" if S == 1000 else "resident")
 
 
 @pytest.mark.cuda
@@ -381,6 +462,7 @@ def test_cuda_wrappers_raise_on_shapes_they_do_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from tpusppy_torch.solvers import admm as tadmm
+    from tpusppy_torch.solvers import shared_admm as tshared
 
     dev, f64 = "cuda", torch.float64
     S, m, n = 10, 5, 12000
@@ -394,18 +476,52 @@ def test_cuda_wrappers_raise_on_shapes_they_do_not_take():
             e(S, n), e(m, n), e(1, 1), e(1, 1), e(S, m), e(S, m), e(S, n),
             e(S, n), e(1, m), e(1, n), e(S, n), e(1, 1), e(S, 1), e(S, n),
             e(S, m), e(S, n), e(S, m), e(S, n), e(S, m), 4, 2, 2, 1e-6, 1.6)
+    rng = np.random.RandomState(0)
+    A = rng.randn(m, n)
+    x0 = rng.rand(S, n)
+    Ax = x0 @ A.T
+    with pytest.raises(ValueError, match="not taken by the kernel"):
+        tshared.solve_shared(rng.randn(S, n), np.zeros((S, n)), A, Ax - 1,
+                             Ax + 1, np.zeros((S, n)), np.ones((S, n)),
+                             tadmm.ADMMSettings(max_iter=8, restarts=1),
+                             device=dev)
+    # fused_sweeps takes every shape in f32 and f64 (its streamed mode);
+    # what it refuses is another dtype
     c, _ = _case(2, 50, 120)
-    assert not cuda_kernels.usable(2, 50, 120, f64)
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_kernels.fused_sweeps(*_torch_args(c, dev, f64), 4, 2, 1e-6, 1.6)
+    f16 = torch.float16
+    assert not cuda_kernels.usable(2, 50, 120, f16)
+    with pytest.raises(ValueError, match="not taken by the kernel"):
+        cuda_kernels.fused_sweeps(*_torch_args(c, dev, f16), 4, 2, 1e-6, 1.6)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_engine_takes_a_shape_that_raised_before():
+    """(S=2, m=50, n=120) in f64, which the reference's engine solves and
+    the port raised on before the streamed mode: the dense engine now
+    solves it through the kernel's streamed mode, to the plain path's
+    answer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from tpusppy_torch.solvers import admm as tadmm
+
     rng = np.random.RandomState(0)
     A = rng.randn(2, 50, 120)
     x0 = rng.rand(2, 120)
     Ax = np.einsum("smn,sn->sm", A, x0)
-    with pytest.raises(ValueError, match="shared memory"):
-        tadmm.solve_batch(rng.randn(2, 120), np.zeros((2, 120)), A, Ax - 1,
-                          Ax + 1, np.zeros((2, 120)), np.ones((2, 120)),
-                          tadmm.ADMMSettings(max_iter=8), device=dev)
+    arrs = (rng.randn(2, 120), np.zeros((2, 120)), A, Ax - 1, Ax + 1,
+            np.zeros((2, 120)), np.ones((2, 120)))
+    res = {}
+    for use_kernel in (True, False):
+        cuda_kernels.reset_counts()
+        res[use_kernel] = tadmm.solve_batch(
+            *arrs, tadmm.ADMMSettings(max_iter=200, use_kernel=use_kernel),
+            device="cuda")
+        if use_kernel:
+            assert cuda_kernels.dense_modes["streamed"] > 0
+            assert cuda_kernels.plain_calls["fused_sweeps"] == 0
+    xk, xp = (res[k].x.cpu().numpy() for k in (True, False))
+    assert np.isfinite(xk).all()
+    assert _max_err(xk, xp) < 1e-9
 
 
 @pytest.mark.parametrize("engine", ["dense", "shared"])

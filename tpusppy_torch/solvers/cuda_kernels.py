@@ -2,13 +2,20 @@
 
 ``fused_sweeps`` replaces the TPU Pallas kernel
 ``tpusppy/solvers/pallas_kernels.py:_sweeps_kernel``: ``n_sweeps`` relaxed
-OSQP sweeps per scenario with the scenario's A, K^-1 and K held in shared
-memory (source, bound and design notes: ``tpusppy_torch/csrc/fused_sweeps.cu``).
+OSQP sweeps per scenario of the dense engine.  Two modes, by
+:func:`dense_layout`: resident (a scenario's A, K^-1 and K sit in shared
+memory, the next scenario's arriving by bulk copies meanwhile) and streamed
+(the matrices pass through staged panels), so it takes every shape
+(source, bound and design notes: ``tpusppy_torch/csrc/fused_sweeps.cu``).
 
 ``fused_sweeps_shared`` replaces ``pallas_kernels.py:_shared_sweeps_kernel``:
 one ``n_sweeps`` block of the shared-A engine's sweep, with one (m, n) A and
 one (n, n) K^-1 and K for the whole batch, per-scenario gamma scaling and the
-dq2 refinement (``tpusppy_torch/csrc/fused_sweeps_shared.cu``).
+dq2 refinement (``tpusppy_torch/csrc/fused_sweeps_shared.cu``).  Two modes,
+by :func:`shared_mode`: cluster-resident (the matrices cut into column
+slices held across a thread-block cluster, :func:`shared_pack`), taken
+when every tile of the batch has a cluster at once, and streamed (a block
+a tile, A and A' read from L2) otherwise.
 
 ``fused_sweeps_sparse`` replaces ``pallas_kernels.py:_sparse_sweeps_kernel``:
 the same block on the sparse and structured-KKT engines, with exact
@@ -25,6 +32,7 @@ Each wrapper launches its kernel for CUDA tensors and raises on anything it
 cannot take; for CPU tensors it runs the plain version beside it, the batched
 PyTorch transcription of the same recurrence (the CPU path, and the oracle
 the kernel is held against on the card).  There is no fallback on failure.
+Launches are counted per kernel and, for each kernel's modes, per mode.
 
 Each kernel is compiled on first use with ``nvcc`` for ``sm_90a`` into its
 own library under ``tpusppy_torch/_build/`` (named by the source's hash) and
@@ -35,6 +43,7 @@ module loads.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -63,20 +72,36 @@ plain_calls = {"fused_sweeps": 0, "fused_sweeps_shared": 0,
 #: ``fused_sweeps_sparse`` launches by mode: a dense K^-1 or the structured
 #: (block/Woodbury) operand.
 sparse_modes = {"dense": 0, "structured": 0}
+#: ``fused_sweeps_shared`` launches by mode (:func:`shared_mode`).
+shared_modes = {"resident": 0, "streamed": 0}
+#: ``fused_sweeps`` launches by mode (:func:`dense_layout`).
+dense_modes = {"resident": 0, "streamed": 0}
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 #: Exported C entry points of each source (f32, f64), with their ctypes
 #: argument types.
 _ENTRY_POINTS = {
-    # (in ptrs, out ptrs, S, m, n, n_sweeps, n_refine, sigma, alpha, stream)
+    # (in ptrs, out ptrs, S, m, n, n_sweeps, n_refine, mode, nsm, sigma,
+    #  alpha, stream)
     "fused_sweeps": [(("tpusppy_fused_sweeps_f32",
                        "tpusppy_fused_sweeps_f64"),
-                      [_P, _P] + [_I] * 5 + [_D, _D, _P])],
-    # (in ptrs, out ptrs, S, m, n, sb, chunk, n_sweeps, n_refine, n_extra,
-    #  sigma, alpha, stream)
-    "fused_sweeps_shared": [(("tpusppy_fused_sweeps_shared_f32",
-                              "tpusppy_fused_sweeps_shared_f64"),
-                             [_P, _P] + [_I] * 8 + [_D, _D, _P])],
+                      [_P, _P] + [_I] * 7 + [_D, _D, _P])],
+    "fused_sweeps_shared": [
+        # streamed: (in ptrs, out ptrs, S, m, n, sb, chunk, n_sweeps,
+        # n_refine, n_extra, sigma, alpha, stream)
+        (("tpusppy_fused_sweeps_shared_f32",
+          "tpusppy_fused_sweeps_shared_f64"),
+         [_P, _P] + [_I] * 8 + [_D, _D, _P]),
+        # resident: (in ptrs, out ptrs, S, m, n, C, ld, km, kn, n_sweeps,
+        # n_refine, n_extra, sigma, alpha, stream)
+        (("tpusppy_fused_sweeps_shared_res_f32",
+          "tpusppy_fused_sweeps_shared_res_f64"),
+         [_P, _P] + [_I] * 10 + [_D, _D, _P]),
+        # the resident mode's clusters held at once: (m, n, C, ld, km, kn,
+        # out)
+        (("tpusppy_fused_sweeps_shared_clusters_f32",
+          "tpusppy_fused_sweeps_shared_clusters_f64"),
+         [_I] * 6 + [ctypes.POINTER(ctypes.c_int)])],
     "fused_sweeps_sparse": [
         # dense K^-1: (in ptrs, out+scratch ptrs, S, m, n, kr, kc, sb,
         # n_sweeps, n_refine, n_extra, sigma, alpha, stream)
@@ -97,7 +122,8 @@ build_log: dict = {}
 
 
 def reset_counts():
-    for d in (launches, plain_calls, sparse_modes):
+    for d in (launches, plain_calls, sparse_modes, shared_modes,
+              dense_modes):
         for k in d:
             d[k] = 0
 
@@ -122,23 +148,62 @@ def rmatvec(A, y):
     return torch.bmm(A.transpose(1, 2), y.unsqueeze(-1)).squeeze(-1)
 
 
-def smem_bytes(m, n, itemsize) -> int:
-    """Shared memory of one ``fused_sweeps`` block: A, K^-1, K with rows
-    padded to an odd stride, ten n-vectors and eight m-vectors (mirrors
-    ``smem_elems`` in the CUDA source)."""
-    ld = n | 1
-    return itemsize * (m * ld + 2 * n * ld + 10 * n + 8 * m)
+def _r16(nbytes):
+    return -(-nbytes // 16) * 16
+
+
+#: Threads per block of ``fused_sweeps`` (``kThreads`` in the source).
+_DENSE_THREADS = 256
+#: Bytes of one stage buffer's panel in its streamed mode (``kStageBytes``).
+_STAGE_BYTES = 32768
+
+
+def _dense_array_lens(m, n):
+    """Elements of one scenario's arrays in the resident buffer's slot
+    order: A, K^-1, K, q, lb, ub, rho_x, x, zx, yx, cl, cu, rho_a, z, y,
+    Ax."""
+    return [m * n, n * n, n * n] + [n] * 7 + [m] * 6
+
+
+@functools.lru_cache(maxsize=64)
+def dense_layout(m, n, itemsize) -> dict:
+    """Mode and shared memory of one ``fused_sweeps`` block (mirrors
+    ``ResLayout`` and ``StreamLayout`` in the CUDA source).
+
+    Resident when two scenario buffers fit beside the two mbarriers, the
+    slots' offsets and the work vectors (rhs, xt, r of n and v of m): each
+    buffer holds a scenario's 16 arrays, each
+    in a slot 16 bytes longer than its 16-byte-rounded size (the span a
+    bulk copy brings in may start up to 15 bytes early).  Otherwise
+    streamed: two stage buffers of ``_STAGE_BYTES`` (+32) for the matrix
+    panels, and the work vectors (rhs, xt, r, t and v) in shared memory
+    where they fit (``vec_smem``), else ``scratch`` values a block in
+    device memory.  Cached per shape: the wrapper asks at every launch,
+    so callers must not change the dict."""
+    slots = [_r16(L * itemsize) + 16 for L in _dense_array_lens(m, n)]
+    work = 16 + 4 * len(slots)
+    buf = work + 3 * _r16(n * itemsize) + _r16(m * itemsize)
+    total = buf + 2 * sum(slots)
+    if total <= SMEM_LIMIT:
+        return {"mode": "resident", "smem": total, "buffer": sum(slots),
+                "slots": slots, "work": work, "buf": buf}
+    stage = _STAGE_BYTES + 32
+    work = 16 + 2 * stage
+    work_bytes = 4 * _r16(n * itemsize) + _r16(m * itemsize)
+    vec_smem = work + work_bytes <= SMEM_LIMIT
+    return {"mode": "streamed", "smem": work + work_bytes if vec_smem
+            else work, "stage": stage, "work": work, "vec_smem": vec_smem,
+            "scratch": 0 if vec_smem else work_bytes // itemsize}
 
 
 def usable(S, m, n, dtype) -> bool:
-    """Whether ``fused_sweeps`` takes this shape: f32/f64, and one
-    scenario's matrices and vectors fit the shared memory of a block.
-    Mirrors ``pallas_kernels.usable`` sized to Hopper shared memory instead
-    of TPU VMEM; the wrapper raises on a CUDA shape that fails."""
-    if dtype not in (torch.float32, torch.float64) or S < 1 or n < 1:
-        return False
-    itemsize = 4 if dtype == torch.float32 else 8
-    return smem_bytes(m, n, itemsize) <= SMEM_LIMIT
+    """Whether ``fused_sweeps`` takes this shape: f32/f64, at least one
+    scenario and one variable.  No limit comes from m or n: a scenario
+    that does not fit shared memory runs the streamed mode
+    (:func:`dense_layout`).  Covers every shape ``pallas_kernels.usable``
+    takes and those the reference sends to its XLA sweep."""
+    return dtype in (torch.float32, torch.float64) and S >= 1 and n >= 1 \
+        and m >= 0
 
 
 def fused_sweeps_plain(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
@@ -182,24 +247,62 @@ def fused_sweeps_plain(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
 
 # ---- fused_sweeps_shared ---------------------------------------------------
 
-#: Scenario tiles (scenarios per thread block) the shared kernel is built
+#: Scenario tiles (scenarios per thread block) the streamed mode is built
 #: for, largest first; mirrors the ``case`` labels of the CUDA launcher.
 SHARED_TILES = (8, 4, 2, 1)
-#: Fewest constraint rows one chunk of the A' contraction may hold.
+#: Fewest constraint rows one chunk of the streamed mode's A' contraction
+#: may hold.
 _MIN_CHUNK = 32
-#: Threads per block of the shared kernel (``kThreads`` in the source).
+#: Threads per block of the streamed mode (``kThreads`` in the source).
 _SHARED_THREADS = 512
+#: Scenarios per tile of the resident mode (``kResTile``): the n8 side of
+#: the f64 tensor-core tile.
+RESIDENT_TILE = 8
+#: Threads per CTA of the resident mode (``kResThreads``).
+_RESIDENT_THREADS = 256
+#: Largest cluster the resident mode uses (the portable limit).
+MAX_CLUSTER = 8
+#: Output columns a lane of the resident mode's f32 column products holds
+#: (``kColsPerLane``).
+_COLS_PER_LANE = 3
 
 
-def shared_layout(m, n, itemsize):
-    """``(sb, chunk)`` of one ``fused_sweeps_shared`` block, or None.
+def _split_values(itemsize):
+    """Values of the resident mode's per-warp partial sums of a column
+    product (``split_values`` in the CUDA source)."""
+    warps = _RESIDENT_THREADS // 32
+    return warps * (16 if itemsize == 8 else 32 * _COLS_PER_LANE) \
+        * RESIDENT_TILE
 
-    A block keeps, for its ``sb`` scenarios, their gammas, the rhs, K^-1
-    input and x-tilde n-vectors, one ``chunk``-row slice of the A' input
-    and one partial sum per thread (mirrors ``smem`` in the CUDA launcher);
-    A, K^-1 and K stream from device memory and L2.  The largest tile whose
-    buffers fit with a chunk of at least ``min(m, 32)`` rows wins, and the
-    chunk then takes the rest of the budget, up to all m."""
+
+def _resident_offsets(ld, km, kn, mcm, itemsize) -> dict:
+    """Byte offsets of the resident mode's shared buffers (mirrors
+    ``ResLayout`` in the CUDA source)."""
+    sb, off, o = RESIDENT_TILE, {}, 0
+    for name, nbytes in (
+            ("bar", 16), ("gam", _r16(sb * itemsize)),
+            ("mats", _r16((km + 2 * kn) * ld * itemsize)),
+            ("v", _r16(km * sb * itemsize)), ("w", _r16(kn * sb * itemsize)),
+            ("xt", _r16((kn + ld) * sb * itemsize)),
+            ("rhs", _r16(ld * sb * itemsize)),
+            ("part", _r16(max(km * sb, _split_values(itemsize))
+                          * itemsize)),
+            ("cols", 7 * _r16(ld * sb * itemsize)),
+            ("rows", 5 * _r16(mcm * sb * itemsize))):
+        off[name] = o
+        o += nbytes
+    off["total"] = o
+    return off
+
+
+def _streamed_layout(m, n, itemsize):
+    """``(sb, chunk)`` of one streamed block, or None: it keeps, for its
+    ``sb`` scenarios, their gammas, the rhs, K^-1 input and x-tilde
+    n-vectors, one ``chunk``-row slice of the A' input and one partial sum
+    per thread; A, K^-1 and K stream from device memory and L2.  The
+    largest tile whose buffers fit with a chunk of at least ``min(m, 32)``
+    rows wins, and the chunk then takes the rest of the budget, up to all
+    m."""
     for sb in SHARED_TILES:
         cap = SMEM_LIMIT // (itemsize * sb) - 1 - 3 * n - _SHARED_THREADS
         if cap >= max(1, min(m, _MIN_CHUNK)):
@@ -208,9 +311,9 @@ def shared_layout(m, n, itemsize):
 
 
 def shared_smem_bytes(m, n, itemsize, sb, chunk):
-    """``(bytes, resident)``: shared memory of one ``fused_sweeps_shared``
-    block, which also holds K^-1 (``resident`` 1) and then K (3) where they
-    still fit; the rest stream from L2 (mirrors ``launch_tile`` in the CUDA
+    """``(bytes, resident)``: shared memory of one streamed block, which
+    also holds K^-1 (``resident`` 1) and then K (3) where they still fit;
+    the rest stream from L2 (mirrors ``launch_tile`` in the CUDA
     source)."""
     smem = sb * (1 + 3 * n + chunk + _SHARED_THREADS) * itemsize
     mat = n * n * itemsize
@@ -223,17 +326,151 @@ def shared_smem_bytes(m, n, itemsize, sb, chunk):
     return smem, resident
 
 
+def _resident_layout(m, n, itemsize):
+    """The cluster-resident layout (see :func:`shared_layout`), or None
+    where the slices do not fit even across ``MAX_CLUSTER`` CTAs."""
+    unit = 16 if itemsize == 8 else 2
+    pad = (lambda k: -(-k // 16) * 16) if itemsize == 8 else (lambda k: k)
+    nu = -(-n // unit)
+    km, kn = pad(m), pad(n)
+    for C in range(1, MAX_CLUSTER + 1):
+        ld = unit * -(-nu // C)
+        mcm = -(-m // C)
+        off = _resident_offsets(ld, km, kn, mcm, itemsize)
+        if off["total"] <= SMEM_LIMIT:
+            return {"mode": "resident", "C": C, "sb": RESIDENT_TILE,
+                    "ld": ld, "km": km, "kn": kn,
+                    "cols": [(unit * (r * nu // C),
+                              min(n, unit * ((r + 1) * nu // C)))
+                             for r in range(C)],
+                    "rows": [(r * m // C, (r + 1) * m // C)
+                             for r in range(C)],
+                    "offsets": off, "smem": off["total"],
+                    "reg": (off["v"] - off["mats"]) // itemsize}
+    return None
+
+
+@functools.lru_cache(maxsize=128)
+def shared_layout(m, n, itemsize, mode=None) -> dict | None:
+    """The layout of ``fused_sweeps_shared`` in ``mode`` at this shape, or
+    None if that mode does not take it; ``mode`` None gives the
+    cluster-resident layout where it exists, else the streamed one.
+
+    Cluster-resident when A, K^-1 and K, cut into C column slices, fit with
+    the tile's buffers in every CTA's shared memory, for the smallest C up
+    to ``MAX_CLUSTER``: slices are whole units of 16 columns in f64 (the
+    tensor-core tile) and 2 in f32, rank r taking units [r NU / C,
+    (r + 1) NU / C); rows of m go to the ranks as [r m / C, (r + 1) m /
+    C).  In f64 the slices' rows are padded to 16 (``km``, ``kn``).  Keys:
+    ``mode`` "resident", ``C``, ``sb``, ``ld`` (a slice's padded width),
+    ``km``, ``kn``, ``cols`` and ``rows`` (each rank's ranges), ``offsets``
+    (of its shared buffers), ``smem``, ``reg`` (elements of a rank's packed
+    slices, :func:`shared_pack`).  Streamed: ``mode`` "streamed", ``sb``,
+    ``chunk``, ``smem``, ``resident`` (bits: K^-1, K in shared memory).
+    Which of the two a launch runs is :func:`shared_mode`'s choice.
+    Cached per shape: the wrapper asks at every launch, so callers must not
+    change the dict."""
+    if n < 1 or m < 0 or itemsize not in (4, 8) \
+            or mode not in (None, "resident", "streamed"):
+        return None
+    if mode != "streamed":
+        lay = _resident_layout(m, n, itemsize)
+        if lay is not None or mode == "resident":
+            return lay
+    lay = _streamed_layout(m, n, itemsize)
+    if lay is None:
+        return None
+    smem, resident = shared_smem_bytes(m, n, itemsize, *lay)
+    return {"mode": "streamed", "sb": lay[0], "chunk": lay[1], "smem": smem,
+            "resident": resident}
+
+
+def shared_mode(S, m, n, itemsize, clusters) -> str | None:
+    """The mode ``fused_sweeps_shared`` launches for ``S`` scenarios:
+    cluster-resident where its layout exists and either fits one CTA
+    (C = 1) or every tile of the batch has a cluster at once (``ceil(S /
+    RESIDENT_TILE) <= clusters``, the clusters of its C the card holds
+    together), or where the streamed mode does not take the shape;
+    streamed otherwise; None where neither mode takes it.
+
+    With C = 1 the resident mode loads the matrices once a CTA, not once a
+    tile, and pays no cluster costs.  With C >= 2 it spreads one tile over
+    C SMs and pays a cluster barrier for each of its products, where the
+    streamed mode gives a tile one SM: it wins while the streamed mode
+    would leave SMs idle, and loses once its tiles queue for a second
+    round of clusters.  Both from the crossover of
+    ``scripts/port_shared_ablation.py`` on an H100 (PERF.md)."""
+    res = shared_layout(m, n, itemsize, "resident")
+    streamed = shared_layout(m, n, itemsize, "streamed")
+    if res is not None and (streamed is None or res["C"] == 1
+                            or -(-S // RESIDENT_TILE) <= clusters):
+        return "resident"
+    return None if streamed is None else "streamed"
+
+
 def usable_shared(S, m, n, dtype) -> int | None:
-    """Scenarios per block if ``fused_sweeps_shared`` takes this shape, else
+    """Scenarios per tile if ``fused_sweeps_shared`` takes this shape, else
     None.  Mirrors ``pallas_kernels.usable_shared`` sized to Hopper: the
-    shared matrices stream through L2, so only a block's scenario vectors
-    limit the shape (n up to ~9,600 in f64), which covers every shape the
-    TPU kernel's 1.5 MB matrix budget admits."""
-    if dtype not in (torch.float32, torch.float64) or S < 1 or n < 1 \
-            or m < 0:
+    resident mode takes the matrices that fit across a cluster of up to 8
+    CTAs, and the streamed mode reads them from L2, so only a block's
+    scenario vectors limit the shape (n up to ~9,600 in f64), which covers
+    every shape the TPU kernel's 1.5 MB matrix budget admits."""
+    if dtype not in (torch.float32, torch.float64) or S < 1:
         return None
     lay = shared_layout(m, n, 4 if dtype == torch.float32 else 8)
-    return None if lay is None else lay[0]
+    return None if lay is None else lay["sb"]
+
+
+def shared_pack(A, Kinv, K, lay):
+    """The resident mode's matrices: (C, reg) with rank r's row holding
+    columns ``lay["cols"][r]`` of A (km rows), K^-1 and K (kn rows each),
+    each (rows, ld) row-major, zero-padded; the kernel brings a rank's row
+    into its shared memory with one bulk copy."""
+    m, n = A.shape
+    C, ld, km, kn = lay["C"], lay["ld"], lay["km"], lay["kn"]
+    out = torch.zeros((C, lay["reg"]), dtype=A.dtype, device=A.device)
+    for r, (j0, j1) in enumerate(lay["cols"]):
+        if j1 <= j0:
+            continue
+        blk = out[r, :(km + 2 * kn) * ld].view(km + 2 * kn, ld)
+        blk[:m, :j1 - j0] = A[:, j0:j1]
+        blk[km:km + n, :j1 - j0] = Kinv[:, j0:j1]
+        blk[km + kn:km + kn + n, :j1 - j0] = K[:, j0:j1]
+    return out
+
+
+def _version(t):
+    """``t``'s version counter (it moves with every in-place write), or
+    None for a tensor that keeps none (one made in inference mode)."""
+    try:
+        return t._version
+    except RuntimeError:
+        return None
+
+
+#: The last operand the shared wrapper made: (A, K^-1, K, mode, versions,
+#: operand).  Holding the three tensors keeps their identity unique.
+_operand_cache: list = []
+
+
+def shared_operand(A, Kinv, K, lay):
+    """What ``fused_sweeps_shared`` in ``lay``'s mode reads of the shared
+    matrices: the packed slices in the resident mode (:func:`shared_pack`),
+    A' contiguous in the streamed mode (it reads A along rows for A'v and
+    along columns, as A', for A xt).  The last one made is kept and handed
+    out again while the wrapper gets the same A, K^-1 and K tensors in the
+    same mode, none written since (their version counters), so a solve's
+    blocks make it once and a new factorization makes it anew."""
+    versions = tuple(_version(t) for t in (A, Kinv, K))
+    if _operand_cache and None not in versions:
+        a, ki, k, mode, ver, op = _operand_cache[0]
+        if a is A and ki is Kinv and k is K and mode == lay["mode"] \
+                and ver == versions:
+            return op
+    op = shared_pack(A, Kinv, K, lay) if lay["mode"] == "resident" \
+        else A.T.contiguous()
+    _operand_cache[:] = [(A, Kinv, K, lay["mode"], versions, op)]
+    return op
 
 
 def _check_precision(name, precision):
@@ -247,15 +484,15 @@ def _check_precision(name, precision):
 def fused_sweeps_shared_plain(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
                               dq2, has, gamma, x, z, zx, y, yx, Ax, n_sweeps,
                               n_refine, n_extra, sigma, alpha,
-                              precision="highest", At=None):
+                              precision="highest", mode=None):
     """One ``n_sweeps`` block of ``shared_admm._core`` in batched tensor
     form (``tests/test_pallas.py``'s XLA shared sweep in PyTorch).  Shapes:
     A (m, n), Kinv/K (n, n) and rho_a (1, m), rho_x (1, n) are shared; q,
     lb, ub, dq2, x, zx, yx are (S, n); cl, cu, z, y, Ax (S, m); gamma
     (S, 1); ``has`` (1, 1) is the batch-global ``any(dq2 != 0)`` that arms
     the ``n_extra`` refinement passes (read on the device, never on the
-    host).  ``At`` (A' contiguous, which the kernel reads) is accepted and
-    unused here.  Returns ``(x, z, zx, y, yx, Ax)``."""
+    host).  ``mode`` (the kernel's) is accepted and unused here.  Returns
+    ``(x, z, zx, y, yx, Ax)``."""
     _check_precision("fused_sweeps_shared_plain", precision)
     plain_calls["fused_sweeps_shared"] += 1
     g = gamma
@@ -299,10 +536,6 @@ SPARSE_TILES = (8, 4, 2, 1)
 _SPARSE_THREADS = 512
 #: Largest element offset into one ELL array (32-bit ``int`` in the kernel).
 _INT_MAX = 2 ** 31 - 1
-
-
-def _r16(nbytes):
-    return -(-nbytes // 16) * 16
 
 
 def sparse_smem_bytes(n, itemsize, sb, kinv=None) -> int:
@@ -506,11 +739,17 @@ def _launch(name, dt, ins, outs, *scalars, entry=0):
     launches[name] += 1
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def fused_sweeps(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
                  x, z, zx, y, yx, Ax, n_sweeps, n_refine, sigma, alpha):
     """Run ``n_sweeps`` fused ADMM sweeps; same arguments and result as
-    :func:`fused_sweeps_plain`.  CUDA tensors launch the kernel (or raise);
-    CPU tensors run the plain version."""
+    :func:`fused_sweeps_plain`.  CUDA tensors launch the kernel in the mode
+    of :func:`dense_layout` (or raise); CPU tensors run the plain
+    version."""
     if A.device.type == "cpu":
         return fused_sweeps_plain(q, A, Kinv, K, cl, cu, lb, ub, rho_a,
                                   rho_x, x, z, zx, y, yx, Ax, n_sweeps,
@@ -521,27 +760,57 @@ def fused_sweeps(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
     dt = A.dtype
     if not usable(S, m, n, dt):
         raise ValueError(f"fused_sweeps: shape (S={S}, m={m}, n={n}) in "
-                         f"{dt} does not fit one block's shared memory")
+                         f"{dt} is not taken by the kernel")
     ins = (q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, x, z, zx, y, yx, Ax)
     _check_args("fused_sweeps", ins,
                 ((S, n), (S, m, n), (S, n, n), (S, n, n), (S, m), (S, m),
                  (S, n), (S, n), (S, m), (S, n), (S, n), (S, m), (S, n),
                  (S, m), (S, n), (S, m)), A.device, dt)
+    lay = dense_layout(m, n, A.element_size())
+    nsm = _sm_count(A.device)
     outs = tuple(torch.empty_like(t) for t in (x, z, zx, y, yx, Ax))
-    _launch("fused_sweeps", dt, ins, outs, S, m, n, int(n_sweeps),
-            int(n_refine), float(sigma), float(alpha))
+    mode, ptrs = 0, outs
+    if lay["mode"] == "streamed":
+        # its work vectors, min(S, nsm) blocks of them, where they do not
+        # fit shared memory
+        mode = 1
+        ptrs += (torch.empty(max(1, min(S, nsm) * lay["scratch"]), dtype=dt,
+                             device=A.device),)
+    _launch("fused_sweeps", dt, ins, ptrs, S, m, n, int(n_sweeps),
+            int(n_refine), mode, nsm, float(sigma), float(alpha))
+    dense_modes[lay["mode"]] += 1
     return outs
+
+
+@functools.lru_cache(maxsize=64)
+def _shared_clusters(dev, dt, m, n) -> int:
+    """Clusters of the resident mode the card ``dev`` holds at once at this
+    shape (``cudaOccupancyMaxActiveClusters`` for its C and shared
+    memory)."""
+    lay = shared_layout(m, n, 4 if dt == torch.float32 else 8, "resident")
+    fn = getattr(_load("fused_sweeps_shared"),
+                 _ENTRY_POINTS["fused_sweeps_shared"][2][0][
+                     dt == torch.float64])
+    out = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = fn(m, n, lay["C"], lay["ld"], lay["km"], lay["kn"],
+                 ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"fused_sweeps_shared: the cluster occupancy "
+                           f"query failed with error {err}")
+    return out.value
 
 
 def fused_sweeps_shared(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, dq2,
                         has, gamma, x, z, zx, y, yx, Ax, n_sweeps, n_refine,
                         n_extra, sigma, alpha, precision="highest",
-                        At=None):
+                        mode=None):
     """Run one ``n_sweeps`` block of the shared-A sweep; same arguments and
     result as :func:`fused_sweeps_shared_plain`.  CUDA tensors launch the
-    kernel (or raise); CPU tensors run the plain version.  ``At`` is A'
-    contiguous, which the kernel reads for A xt; a caller that launches
-    many blocks against one A passes it, else it is made here."""
+    kernel in the mode of :func:`shared_mode` (or raise); CPU tensors run
+    the plain version.  ``mode`` ("resident" or "streamed") overrides that
+    choice where the mode takes the shape, to hold or time one mode
+    against the other."""
     _check_precision("fused_sweeps_shared", precision)
     if A.device.type == "cpu":
         return fused_sweeps_shared_plain(
@@ -555,27 +824,40 @@ def fused_sweeps_shared(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, dq2,
                          f"(S, n); got {tuple(A.shape)} and "
                          f"{tuple(q.shape)}")
     (m, n), S, dt = A.shape, q.shape[0], A.dtype
-    itemsize = 4 if dt == torch.float32 else 8
-    lay = shared_layout(m, n, itemsize) if usable_shared(S, m, n, dt) \
-        else None
+    isz = A.element_size()
+    if mode is None and usable_shared(S, m, n, dt) is not None:
+        res = shared_layout(m, n, isz, "resident")
+        clusters = (_shared_clusters(A.device, dt, m, n)
+                    if res is not None and res["C"] > 1 else 0)
+        mode = shared_mode(S, m, n, isz, clusters)
+    lay = shared_layout(m, n, isz, mode) \
+        if mode and usable_shared(S, m, n, dt) else None
     if lay is None:
         raise ValueError(f"fused_sweeps_shared: shape (S={S}, m={m}, "
-                         f"n={n}) in {dt} is not taken by the kernel")
-    # the kernel reads A along rows for A'v and along columns (as A') for
-    # A xt; the transposed copy keeps both reads coalesced
-    if At is None:
-        At = A.T.contiguous()
-    ins = (q, A, At, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, dq2, has, gamma,
-           x, z, zx, y, yx, Ax)
-    _check_args("fused_sweeps_shared", ins,
-                ((S, n), (m, n), (n, m), (n, n), (n, n), (S, m), (S, m),
-                 (S, n), (S, n), (1, m), (1, n), (S, n), (1, 1), (S, 1),
-                 (S, n), (S, m), (S, n), (S, m), (S, n), (S, m)), A.device,
-                dt)
+                         f"n={n}) in {dt} is not taken by the kernel"
+                         + (f" in its {mode} mode" if mode else ""))
+    operand = shared_operand(A, Kinv, K, lay)
+    vecs = (cl, cu, lb, ub, rho_a, rho_x, dq2, has, gamma, x, z, zx, y, yx,
+            Ax)
+    vshapes = ((S, m), (S, m), (S, n), (S, n), (1, m), (1, n), (S, n),
+               (1, 1), (S, 1), (S, n), (S, m), (S, n), (S, m), (S, n), (S, m))
     outs = tuple(torch.empty_like(t) for t in (x, z, zx, y, yx, Ax))
-    _launch("fused_sweeps_shared", dt, ins, outs, S, m, n, lay[0], lay[1],
-            int(n_sweeps), int(n_refine), int(n_extra), float(sigma),
-            float(alpha))
+    fixed = (int(n_sweeps), int(n_refine), int(n_extra), float(sigma),
+             float(alpha))
+    if lay["mode"] == "resident":
+        ins = (q, operand) + vecs
+        _check_args("fused_sweeps_shared", ins,
+                    ((S, n), (lay["C"], lay["reg"])) + vshapes, A.device, dt)
+        _launch("fused_sweeps_shared", dt, ins, outs, S, m, n, lay["C"],
+                lay["ld"], lay["km"], lay["kn"], *fixed, entry=1)
+    else:
+        ins = (q, A, operand, Kinv, K) + vecs
+        _check_args("fused_sweeps_shared", ins,
+                    ((S, n), (m, n), (n, m), (n, n), (n, n)) + vshapes,
+                    A.device, dt)
+        _launch("fused_sweeps_shared", dt, ins, outs, S, m, n, lay["sb"],
+                lay["chunk"], *fixed)
+    shared_modes[lay["mode"]] += 1
     return outs
 
 

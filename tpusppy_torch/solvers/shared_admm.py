@@ -192,15 +192,13 @@ def _core(q, q2s, q2ref, A, cl, cu, lb, ub, state: _IterState, Kinv, K,
                           st.solve_refine, 2, st.sigma, st.alpha)
     else:
         A, K = A.contiguous(), K.contiguous()
-        # the kernel's A xt reads A' by rows; A is fixed for the whole call
-        At = A.T.contiguous()
         sweeps = (cuda_kernels.fused_sweeps_shared if kernel
                   else cuda_kernels.fused_sweeps_shared_plain)
 
         def run(q, cl, cu, lb, ub, dq2, has, g, x, z, zx, y, yx, Ax):
             return sweeps(q, A, Kinv, K, cl, cu, lb, ub, rho_a1, rho_x1,
                           dq2, has, g, x, z, zx, y, yx, Ax, ce,
-                          st.solve_refine, 2, st.sigma, st.alpha, At=At)
+                          st.solve_refine, 2, st.sigma, st.alpha)
     aq = q.abs().amax(dim=1)
     inf = torch.full((), torch.inf, dtype=q.dtype, device=q.device)
 
