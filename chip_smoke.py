@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (tpusppy_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernels,golden,farmer,uc_lite,uc]
+    python3 chip_smoke.py [--phases kernels,golden,loop,farmer,uc_lite,uc]
 
 Run from the root of a checkout on a machine with one CUDA device and the
 CUDA toolkit (nvcc).  Phases, each printing a line:
@@ -33,7 +33,19 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    generators, 24 hours) PH, each against its HiGHS EF; the uc one also
    on the tensor path, its eobj held to the kernel run's after every
    iteration;
-5. main paths, each with the launch counts and host syncs read around
+5. loop: the sweep loop on the card (CUDA-graph replays of L blocks, the
+   host reading one stop flag a replay) held against L=1 for each engine:
+   an adaptive and a frozen solve at each golden's shape in f64 (the same
+   sweep counts, solutions within 1e-12 relative), and a frozen solve of
+   each main path in f32 (the same sweep counts; the largest difference
+   printed), also at L=4; every solve's kernel launches equal the blocks
+   its replays ran plus the warm-up blocks of its captures, and a frozen
+   solve runs at most 2L - 1 blocks past its last sweeping block.  Then
+   factors swapped between two frozen solves on the same captured graphs
+   (farmer-1000, uc_lite-1000 in the streamed mode, uc_lite at S=128 in
+   the cluster-resident mode, uc-1000 with its structured operand): the
+   second solve captures nothing and matches a fresh capture;
+6. main paths, each with the launch counts and host syncs read around
    exactly that run, then the first iterations of the same PH on the
    batched tensor path (eobj held to the kernel run's after as many
    iterations, with both runs' eobj and solve-loop decisions printed side
@@ -49,7 +61,8 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    prints its kernel's launches by mode: farmer must launch only the
    resident mode, uc_lite-1000 only the streamed mode, the uc paths only
    the structured mode, and keep no dense (n, n) K^-1 in their
-   factors.
+   factors; each prints its PH rate, flag reads (``admm.loop_checks``) and
+   host syncs per PH iteration, graph replays and the capture seconds.
 
 ``--phases`` runs a subset; the result lines print only when all ran.
 Prints a ``{"kernels": [...]}`` line, then as the last line
@@ -608,6 +621,231 @@ def phase_golden(cuda_kernels):
           f"uc golden trivial bound {k['tbound']} above EF {ef_obj}")
 
 
+# the sweep loop's f64 solutions at L and at L=1: the same operations in
+# the same order on the same data, so they agree to rounding at most
+LOOP_F64_TOL = 1e-12
+
+
+def loop_case(which, S, dtype):
+    """Device arrays (c, q2, A, cl, cu, lb, ub), solver settings, the engine
+    module and its blocks-per-replay constant, the kernel, and the PH-like
+    prox q2 of one engine's case: ``farmer`` (crops_multiplier 4 at
+    S=1000, 1 below; rho 1), ``uc_lite`` (defaults at S >= 128, 3
+    generators and 6 hours below; rho 500, its main path's, or 10, its
+    golden's) or ``uc`` (full width, a structured SparseA; rho 500 or
+    10000, bench_uc.py's solver settings)."""
+    import torch
+
+    from tpusppy_torch.models import farmer, uc, uc_lite
+    from tpusppy_torch.solvers import admm, shared_admm
+    from tpusppy_torch.solvers.sparse import SparseA
+    from tpusppy_torch.spbase import build_batch
+
+    f32 = dtype == torch.float32
+    eps = 1e-5 if f32 else 1e-8
+    solver = dict(dtype=str(dtype).replace("torch.", ""), eps_abs=eps,
+                  eps_rel=eps)
+    if which == "farmer":
+        model, mod, attr, kernel, rho = farmer, admm, "BLOCKS_PER_REPLAY", \
+            "fused_sweeps", 1.0
+        kw = {"num_scens": S, "crops_multiplier": 4 if S >= 1000 else 1}
+    elif which == "uc_lite":
+        model, mod, attr, kernel = uc_lite, shared_admm, \
+            "BLOCKS_PER_REPLAY", "fused_sweeps_shared"
+        rho = 500.0 if S >= 128 else 10.0
+        kw = {"num_scens": S, "relax_integers": True}
+        if S < 128:
+            kw.update(num_gens=3, horizon=6)
+    else:
+        model, mod, attr, kernel = uc, shared_admm, \
+            "SPARSE_BLOCKS_PER_REPLAY", "fused_sweeps_sparse"
+        rho = 500.0 if S >= 1000 else 10000.0
+        kw = {"num_scens": S, "relax_integers": True}
+        solver.update(UC_SOLVER)
+    b, _ = build_batch(model.scenario_names_creator(S), model.scenario_creator,
+                       kw)
+
+    def t(v):
+        return torch.as_tensor(np.ascontiguousarray(v), dtype=dtype,
+                               device="cuda")
+
+    if b.A_shared is None:
+        A = t(b.A)
+    elif which == "uc":
+        A = SparseA.from_dense(b.A_shared, dtype=dtype, device="cuda",
+                               structure=True)
+        check(A.structure is not None, "uc's A has no block structure")
+    else:
+        A = t(b.A_shared)
+    prox = np.zeros_like(b.q2)
+    prox[:, b.tree.nonant_indices] = rho
+    arrs = (t(b.c), t(b.q2), A, t(b.cl), t(b.cu), t(b.lb), t(b.ub))
+    st = admm.ADMMSettings(**solver)
+    return arrs, st, mod, attr, kernel, t(b.q2 + prox)
+
+
+def loop_solves(cuda_kernels, which, S, dtype, adaptive):
+    """One engine's case solved at L=1, L=4 and the engine's L: with
+    ``adaptive`` a factored solve (PH's Iter0 objective) at each L, then,
+    from the factors made at the engine's L, a frozen solve of the prox
+    objective at each L.  Returns {"adaptive"/"frozen": {L: (solution,
+    window deltas)}}, and the engine's L."""
+    import torch
+
+    from tpusppy_torch.obs import metrics
+    from tpusppy_torch.solvers import admm, device_loop, shared_admm
+
+    arrs, st, mod, attr, kernel, q2p = loop_case(which, S, dtype)
+    shared = mod is shared_admm
+    factored = (shared_admm.solve_shared_factored if shared
+                else admm.solve_batch_factored)
+    frozen = (shared_admm.solve_shared_frozen if shared
+              else admm.solve_batch_frozen)
+    L = getattr(mod, attr)
+    ce = max(1, st.check_every)
+
+    def timed(fn, *a, **k):
+        cuda_kernels.reset_counts()
+        with metrics.window() as win:
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+        blocks = win.delta("device_loop.blocks")
+        captures = win.delta("device_loop.captures")
+        warmups = win.delta("device_loop.warmups")
+        launches = cuda_kernels.launches[kernel]
+        check(launches == blocks + warmups
+              and cuda_kernels.plain_calls[kernel] == 0,
+              f"loop {which} S={S}: {launches} {kernel} launches against "
+              f"{blocks:.0f} blocks replayed and {warmups:.0f} warm-up "
+              f"blocks")
+        return out, dict(blocks=blocks, captures=captures,
+                         checks=win.delta("admm.loop_checks"),
+                         replays=win.delta("device_loop.replays"))
+
+    runs = {}
+    ls = sorted({1, 4, L}, key=lambda v: v == L)
+    try:
+        for bpr in (ls if adaptive else (L,)):
+            setattr(mod, attr, bpr)
+            (sol, fac), d = timed(factored, *arrs, settings=st)
+            runs.setdefault("adaptive", {})[bpr] = (sol, d)
+        base = (sol, fac)
+        q = arrs[0] * 1.01
+        for bpr in ls:
+            setattr(mod, attr, bpr)
+            sol, d = timed(frozen, q, q2p, *arrs[2:], base[1], settings=st,
+                           warm=base[0].raw)
+            sweeping = int(sol.iters[0]) // ce
+            waste = d["blocks"] - sweeping
+            check(0 <= waste <= 2 * bpr - 1,
+                  f"loop {which} S={S} L={bpr}: {d['blocks']:.0f} blocks "
+                  f"replayed for {sweeping} sweeping blocks")
+            runs.setdefault("frozen", {})[bpr] = (sol, d)
+    finally:
+        setattr(mod, attr, L)
+        device_loop._cache.clear()
+    return runs, L
+
+
+def loop_diff(a, b):
+    """Largest difference of two solutions' fields, relative to the
+    largest entry of ``b`` (floored at 1)."""
+    fields = ("x", "z", "y", "yx", "pri_res", "dua_res")
+    return max_err([getattr(a, f) for f in fields],
+                   [getattr(b, f) for f in fields])
+
+
+def phase_loop(cuda_kernels):
+    """The sweep loop at L=1 against the engine's L: the goldens' shapes
+    in f64, a frozen solve of each main path in f32, then the factor
+    swap."""
+    import torch
+
+    for which, S, dtype, adaptive in (
+            ("farmer", 3, torch.float64, True),
+            ("uc_lite", 3, torch.float64, True),
+            ("uc", 10, torch.float64, True),
+            ("farmer", 1000, torch.float32, False),
+            ("uc_lite", 1000, torch.float32, False),
+            ("uc", 1000, torch.float32, False)):
+        runs, L = loop_solves(cuda_kernels, which, S, dtype, adaptive)
+        name = str(dtype).replace("torch.", "")
+        for kind, by_l in runs.items():
+            if 1 not in by_l:
+                continue    # the main paths' factors, made at the engine's L
+            s1, d1 = by_l[1]
+            for bpr, (sL, dL) in by_l.items():
+                if bpr == 1:
+                    continue
+                diff = loop_diff(sL, s1)
+                print(f"loop {which} S={S} {name} {kind}: iters "
+                      f"{int(s1.iters[0])} (L=1) / {int(sL.iters[0])} "
+                      f"(L={bpr}{', the engine' if bpr == L else ''}), max "
+                      f"rel diff {diff:.3e}; flag reads {d1['checks']:.0f} "
+                      f"/ {dL['checks']:.0f}, replays {d1['replays']:.0f} / "
+                      f"{dL['replays']:.0f}, blocks replayed "
+                      f"{d1['blocks']:.0f} / {dL['blocks']:.0f}", flush=True)
+                check(int(s1.iters[0]) == int(sL.iters[0]),
+                      f"loop {which} S={S} {kind}: the sweep count moved "
+                      f"with L")
+                check(all(bool(torch.isfinite(getattr(sL, f)).all())
+                          for f in ("x", "y")), f"loop {which}: non-finite x")
+                if dtype == torch.float64:
+                    check(diff <= LOOP_F64_TOL, f"loop {which} S={S} "
+                          f"{kind}: L={bpr} parts from L=1 by {diff:.3e}")
+        torch.cuda.empty_cache()
+    for which, S in (("farmer", 1000), ("uc_lite", 1000), ("uc_lite", 128),
+                     ("uc", 1000)):
+        swap_factors(cuda_kernels, which, S)
+
+
+def swap_factors(cuda_kernels, which, S):
+    """Two frozen solves with different factors on one captured graph (the
+    refresh factors of two prox weights): the second must match, bitwise,
+    the same solve on a fresh capture."""
+    import torch
+
+    from tpusppy_torch.obs import metrics
+    from tpusppy_torch.solvers import admm, device_loop, shared_admm
+
+    arrs, st, mod, _, kernel, q2p = loop_case(which, S, torch.float32)
+    shared = mod is shared_admm
+    factored = (shared_admm.solve_shared_factored if shared
+                else admm.solve_batch_factored)
+    frozen = (shared_admm.solve_shared_frozen if shared
+              else admm.solve_batch_frozen)
+    q2b = 2.0 * q2p
+    sol_a, fac_a = factored(arrs[0], q2p, *arrs[2:], settings=st)
+    sol_b, fac_b = factored(arrs[0], q2b, *arrs[2:], settings=st)
+    q = arrs[0] * 1.01
+    device_loop._cache.clear()
+    modes = dict(mode_counts(cuda_kernels)[kernel])
+    frozen(q, q2p, *arrs[2:], fac_a, settings=st, warm=sol_a.raw)
+    c0 = metrics.value("device_loop.captures")
+    swapped = frozen(q, q2b, *arrs[2:], fac_b, settings=st, warm=sol_b.raw)
+    captures = metrics.value("device_loop.captures") - c0
+    ran = {k: v - modes[k] for k, v in mode_counts(cuda_kernels)[kernel]
+           .items()}
+    device_loop._cache.clear()
+    fresh = frozen(q, q2b, *arrs[2:], fac_b, settings=st, warm=sol_b.raw)
+    torch.cuda.synchronize()
+    diff = loop_diff(swapped, fresh)
+    print(f"factor swap {which} S={S} f32: captures for the second solve "
+          f"{captures:.0f}, modes {ran}; swapped against fresh capture "
+          f"{diff:.3e}, iters {int(swapped.iters[0])} / "
+          f"{int(fresh.iters[0])}", flush=True)
+    check(captures == 0, f"factor swap {which}: the second solve captured "
+          f"{captures:.0f} graphs")
+    want = {"fused_sweeps": "resident", "fused_sweeps_sparse": "structured",
+            "fused_sweeps_shared": "resident" if S <= 128
+            else "streamed"}[kernel]
+    check(ran[want] > 0 and sum(ran.values()) == ran[want],
+          f"factor swap {which} S={S}: launched modes {ran}, wanted {want}")
+    check(int(swapped.iters[0]) == int(fresh.iters[0]) and diff == 0.0,
+          f"factor swap {which} S={S}: the solve on the swapped graph "
+          f"parts from a fresh capture by {diff:.3e}")
+
+
 def run_path(cuda_kernels, kernel, make_ph, use_kernel, iters, options,
              solver=None, dtype="float32", eps=1e-5):
     """One path's PH (f32 at eps 1e-5 unless told); returns (ph, results)
@@ -677,16 +915,23 @@ def run_path(cuda_kernels, kernel, make_ph, use_kernel, iters, options,
     plain = cuda_kernels.plain_calls[kernel]
     modes = dict(mode_counts(cuda_kernels)[kernel])
     n_it = max(ph._iter, 1)
-    syncs = win.delta("host_sync.count") + win.delta("admm.loop_checks")
+    # every device-to-host read, the sweep loop's flag reads among them
+    syncs = win.delta("host_sync.count")
     res = dict(eobj=eobj, decisions=ph.decisions,
                iter0_rescued=ph.iter0_rescued, tbound=ph.trivial_bound, conv=ph.conv,
                iters=ph._iter, wall_s=t2 - t0, iter0_s=t1 - t0,
                loop_s=t2 - t1, rate=ph._iter / (t2 - t1),
                launches=launches, plain_calls=plain, modes=modes,
                launches_per_iter=launches / n_it,
+               # the blocks that swept, apart from gated ones (launches
+               # count every block replayed and the captures' warm-ups)
+               sweep_blocks_per_iter=win.delta("solve.sweeps") / max(
+                   1, ph.admm_settings.check_every) / n_it,
                syncs_per_iter=syncs / n_it,
-               fetches_per_iter=win.delta("host_sync.count") / n_it,
                loop_checks_per_iter=win.delta("admm.loop_checks") / n_it,
+               replays=win.delta("device_loop.replays"),
+               captures=win.delta("device_loop.captures"),
+               capture_s=win.delta("device_loop.capture_secs"),
                rescued=win.delta("solve.rescued_scenarios"))
     if kernel == "fused_sweeps_sparse":
         check_structured(ph, res)
@@ -779,9 +1024,11 @@ def phase_main(cuda_kernels, label, kernel, make_ph, iters, tensor_iters,
           f"(iter0 {k['iter0_s']:.3f}, loop {k['loop_s']:.3f}) "
           f"ph_it_per_s={k['rate']:.3f} launches={k['launches']} "
           f"launches_per_iter={k['launches_per_iter']:.2f} "
+          f"sweep_blocks_per_iter={k['sweep_blocks_per_iter']:.2f} "
           f"host_syncs_per_iter={k['syncs_per_iter']:.2f} "
-          f"(fetches {k['fetches_per_iter']:.2f} + loop checks "
-          f"{k['loop_checks_per_iter']:.2f}) rescued={k['rescued']:.0f} "
+          f"(loop checks {k['loop_checks_per_iter']:.2f}) "
+          f"graph_replays={k['replays']:.0f} captures={k['captures']:.0f} "
+          f"capture_s={k['capture_s']:.3f} rescued={k['rescued']:.0f} "
           f"modes={k['modes']}",
           flush=True)
     check(k["launches"] > 0, f"the main path launched no {kernel} kernel")
@@ -796,7 +1043,9 @@ def phase_main(cuda_kernels, label, kernel, make_ph, iters, tensor_iters,
           f"eobj={p['eobj']:.4f} tbound={p['tbound']:.4f} "
           f"iters={p['iters']} wall_s={p['wall_s']:.3f} "
           f"ph_it_per_s={p['rate']:.3f} "
-          f"host_syncs_per_iter={p['syncs_per_iter']:.2f}", flush=True)
+          f"host_syncs_per_iter={p['syncs_per_iter']:.2f} "
+          f"graph_replays={p['replays']:.0f} "
+          f"capture_s={p['capture_s']:.3f}", flush=True)
     check(p["launches"] == 0, "use_kernel=False launched the kernel")
     check(p["iters"] == tensor_iters, f"the tensor path ran {p['iters']} of "
           f"{tensor_iters} PH iterations")
@@ -828,7 +1077,7 @@ def kernel_line(name, source, replaces, launches, res):
             "bound_by": res["bound_by"], "library_ms": None}
 
 
-PHASES = ("kernels", "golden", "farmer", "uc_lite", "uc")
+PHASES = ("kernels", "golden", "loop", "farmer", "uc_lite", "uc")
 
 
 def main(argv=None) -> int:
@@ -880,6 +1129,10 @@ def main(argv=None) -> int:
         if "golden" in phases:
             phase_golden(cuda_kernels)
             print(f"[{time.perf_counter() - t_all:.1f} s] goldens done",
+                  flush=True)
+        if "loop" in phases:
+            phase_loop(cuda_kernels)
+            print(f"[{time.perf_counter() - t_all:.1f} s] loop done",
                   flush=True)
         if "farmer" in phases:
             farmer = phase_main(

@@ -15,10 +15,17 @@ clock, then ``--iters`` more under ``torch.profiler``.
 Prints one JSON line: the card, the untraced window's wall seconds per
 iteration, device-busy seconds per iteration in the traced window (the union
 of kernel intervals on the timeline), the idle share (busy against the
-UNTRACED wall, since the profiler slows the host), host syncs and kernel
-launches per iteration (device kernels, and hand-written kernel launches in
-the traced window, which tell a frozen iteration from a refresh, also by each
-kernel's mode), and the top device kernels by time.  Imports nothing of JAX.
+UNTRACED wall, since the profiler slows the host), the hand-written sweep
+kernels' device seconds per iteration, host syncs (every device-to-host
+read, the sweep loop's stop-flag reads among them, counted apart as loop
+checks), CUDA-graph replays and captures of the sweep loop and the host
+seconds its captures took, the blocks its replays ran (gated ones
+included) and the blocks that swept (all in the untraced window), kernel
+launches per
+iteration (device kernels, and hand-written kernel launches in the traced
+window, which tell a frozen iteration from a refresh, also by each
+kernel's mode), and the top device kernels by time.  Imports nothing of
+JAX.
 """
 
 import argparse
@@ -97,11 +104,17 @@ def main():
             ph._iterk_one(ph._iter + 1, 0.0)
         torch.cuda.synchronize()
 
-    t0 = time.perf_counter()
-    run_iters()
-    wall = (time.perf_counter() - t0) / n
+    with metrics.window() as win:
+        t0 = time.perf_counter()
+        run_iters()
+        wall = (time.perf_counter() - t0) / n
+    # read now: the window's deltas run on while the traced window runs
+    untraced = {k: win.delta(k) / n for k in (
+        "host_sync.count", "admm.loop_checks", "device_loop.replays",
+        "device_loop.blocks", "device_loop.captures",
+        "device_loop.capture_secs", "solve.sweeps")}
     cuda_kernels.reset_counts()
-    with metrics.window() as win, profile(
+    with profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run_iters()
@@ -118,6 +131,8 @@ def main():
         by_name[name] = by_name.get(name, 0.0) + (
             e.time_range.end - e.time_range.start) * 1e-6 / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    sweep_s = sum((e.time_range.end - e.time_range.start) * 1e-6
+                  for e in dev if "fused_sweeps" in e.name) / n
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
@@ -128,9 +143,15 @@ def main():
         "wall_s_per_iter": wall, "traced_wall_s_per_iter": traced_wall,
         "device_busy_s_per_iter": busy, "idle_share": 1.0 - busy / wall,
         "device_kernels_per_iter": len(dev) / n,
-        "host_syncs_per_iter": (win.delta("host_sync.count")
-                                + win.delta("admm.loop_checks")) / n,
-        "loop_checks_per_iter": win.delta("admm.loop_checks") / n,
+        "sweep_kernel_s_per_iter": sweep_s,
+        "host_syncs_per_iter": untraced["host_sync.count"],
+        "loop_checks_per_iter": untraced["admm.loop_checks"],
+        "graph_replays_per_iter": untraced["device_loop.replays"],
+        "blocks_replayed_per_iter": untraced["device_loop.blocks"],
+        "sweep_blocks_per_iter": untraced["solve.sweeps"] / max(
+            1, ph.admm_settings.check_every),
+        "graph_captures_per_iter": untraced["device_loop.captures"],
+        "capture_s_per_iter": untraced["device_loop.capture_secs"],
         "kernel_launches_per_iter": {k: v / n for k, v in
                                      cuda_kernels.launches.items()},
         "launches_by_mode_per_iter": {

@@ -277,7 +277,7 @@ def test_shared_wrapper_refuses_lowered_precision(precision):
     c, sigma = _shared_case(4, 6, 5, 1)
     for fn in (cuda_kernels.fused_sweeps_shared,
                cuda_kernels.fused_sweeps_shared_plain):
-        with pytest.raises(ValueError, match="Queue 1 item 8"):
+        with pytest.raises(ValueError, match="Queue 1 item 5"):
             fn(*_shared_args(c), 2, 2, 2, sigma, 1.6, precision=precision)
 
 

@@ -388,7 +388,7 @@ def test_missing_engines_raise():
     assert isinstance(opt._device_consts(torch.float64)[0], SparseA)
     assert x.shape == (2, 2000) and np.isfinite(x).all()
     assert cuda_kernels.plain_calls["fused_sweeps_sparse"] > 0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         make_admm_settings({"solver_options": {"sweep_precision": "bf16"}})
     assert make_admm_settings({"solver_options": {
         "factors_keep_K": False}}) == TSettings(factors_keep_K=False)

@@ -358,7 +358,7 @@ def test_sparse_wrapper_on_cpu_runs_plain_and_counts_cover_it():
         assert torch.equal(g, w)
     assert cuda_kernels.launches["fused_sweeps_sparse"] == 0
     assert cuda_kernels.plain_calls["fused_sweeps_sparse"] == 2
-    with pytest.raises(ValueError, match="Queue 1 item 8"):
+    with pytest.raises(ValueError, match="Queue 1 item 5"):
         cuda_kernels.fused_sweeps_sparse(*_sparse_args(c), 2, 1, 2, sigma,
                                          1.6, precision="default")
 

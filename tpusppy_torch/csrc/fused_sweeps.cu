@@ -67,6 +67,12 @@
 // alternative.  The sweeps still take most of the call; the copies hide
 // behind them (PERF.md).
 //
+// The stop flag: the solve loop runs its sweep blocks as CUDA-graph
+// replays (tpusppy_torch/solvers/device_loop.py) and keeps its exit vote in
+// a device int that stays set once set.  Every block reads it first and
+// returns where it is set, before any barrier or copy, so a block past the
+// loop's exit costs one launch; the graph's commit then keeps the old state.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libfused_sweeps.so fused_sweeps.cu
 // Bound to PyTorch with ctypes (tpusppy_torch/solvers/cuda_kernels.py).
@@ -325,8 +331,11 @@ __device__ __forceinline__ const T* scen(const In<T>& in, int a, long long s,
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) fused_sweeps_resident(
-    In<T> in, Out<T> out, int S, int m, int n, int n_sweeps, int n_refine,
-    int nbuf, T sigma, T alpha, T beta) {
+    In<T> in, Out<T> out, const int* __restrict__ stop, int S, int m, int n,
+    int n_sweeps, int n_refine, int nbuf, T sigma, T alpha, T beta) {
+  // the solve loop's stop flag: a stopped block returns before it touches
+  // shared memory or a barrier, and leaves the outputs unwritten
+  if (*stop) return;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const ResLayout L(m, n, sizeof(T));
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
@@ -461,8 +470,10 @@ struct Item {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_streamed(
-    In<T> in, Out<T> out, T* __restrict__ scratch, int S, int m, int n,
-    int n_sweeps, int n_refine, T sigma, T alpha, T beta) {
+    In<T> in, Out<T> out, T* __restrict__ scratch,
+    const int* __restrict__ stop, int S, int m, int n, int n_sweeps,
+    int n_refine, T sigma, T alpha, T beta) {
+  if (*stop) return;  // the stop flag, as in fused_sweeps_resident
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const StreamLayout L(m, n, sizeof(T));
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
@@ -686,10 +697,11 @@ int blocks_per_sm(K kern, int threads, long long smem, int* out) {
 }
 
 template <typename T>
-int launch(void* const* inp, void* const* outp, int S, int m, int n,
-           int n_sweeps, int n_refine, int mode, int nsm, double sigma,
-           double alpha, void* stream) {
-  if (S < 1 || n < 1 || m < 0 || nsm < 1 || mode < 0 || mode > 1) {
+int launch(void* const* inp, void* const* outp, const int* stop, int S,
+           int m, int n, int n_sweeps, int n_refine, int mode, int nsm,
+           double sigma, double alpha, void* stream) {
+  if (S < 1 || n < 1 || m < 0 || nsm < 1 || mode < 0 || mode > 1 ||
+      stop == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   In<T> in;
@@ -738,15 +750,15 @@ int launch(void* const* inp, void* const* outp, int S, int m, int n,
     const long long want = static_cast<long long>(nsm) * nb;
     const int grid = static_cast<int>(S < want ? S : want);
     fused_sweeps_resident<T><<<grid, threads, smem, st>>>(
-        in, out, S, m, n, n_sweeps, n_refine, nbuf, sg, al, be);
+        in, out, stop, S, m, n, n_sweeps, n_refine, nbuf, sg, al, be);
   } else {
     const StreamLayout L(m, n, sizeof(T));
     err = blocks_per_sm(fused_sweeps_streamed<T>, kThreads, L.total, &nb);
     if (err != 0) return err;
     const int grid = S < nsm ? S : nsm;
     fused_sweeps_streamed<T><<<grid, kThreads, L.total, st>>>(
-        in, out, static_cast<T*>(outp[6]), S, m, n, n_sweeps, n_refine, sg,
-        al, be);
+        in, out, static_cast<T*>(outp[6]), stop, S, m, n, n_sweeps,
+        n_refine, sg, al, be);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -759,22 +771,24 @@ extern "C" {
 // out: x, z, zx, y, yx, Ax, then (streamed mode) the work-vector scratch,
 //      min(S, nsm) * (4 n + m) values padded to 16 bytes per vector, unless
 //      they fit shared memory
+// stop: a device int, the solve loop's stop flag; where it is set every
+// block returns at once and the outputs are left unwritten.
 // mode: 0 resident, 1 streamed (cuda_kernels.dense_layout); nsm: the
 // card's SM count.  Returns the cudaError_t of the launch (0 on success).
-int tpusppy_fused_sweeps_f32(void* const* in, void* const* out, int S, int m,
-                             int n, int n_sweeps, int n_refine, int mode,
-                             int nsm, double sigma, double alpha,
-                             void* stream) {
-  return launch<float>(in, out, S, m, n, n_sweeps, n_refine, mode, nsm,
+int tpusppy_fused_sweeps_f32(void* const* in, void* const* out,
+                             const int* stop, int S, int m, int n,
+                             int n_sweeps, int n_refine, int mode, int nsm,
+                             double sigma, double alpha, void* stream) {
+  return launch<float>(in, out, stop, S, m, n, n_sweeps, n_refine, mode, nsm,
                        sigma, alpha, stream);
 }
 
-int tpusppy_fused_sweeps_f64(void* const* in, void* const* out, int S, int m,
-                             int n, int n_sweeps, int n_refine, int mode,
-                             int nsm, double sigma, double alpha,
-                             void* stream) {
-  return launch<double>(in, out, S, m, n, n_sweeps, n_refine, mode, nsm,
-                        sigma, alpha, stream);
+int tpusppy_fused_sweeps_f64(void* const* in, void* const* out,
+                             const int* stop, int S, int m, int n,
+                             int n_sweeps, int n_refine, int mode, int nsm,
+                             double sigma, double alpha, void* stream) {
+  return launch<double>(in, out, stop, S, m, n, n_sweeps, n_refine, mode,
+                        nsm, sigma, alpha, stream);
 }
 
 }  // extern "C"

@@ -83,6 +83,14 @@
 // clusters of 5 (f64), 0.249 and 0.703 ms against 0.225 and 0.326.  With
 // C = 1 (m = 50, n = 22) the resident mode is faster at every S measured.
 //
+// The stop flag: the solve loop runs its sweep blocks as CUDA-graph
+// replays (tpusppy_torch/solvers/device_loop.py) and keeps its exit vote in
+// a device int that stays set once set.  Every CTA of either mode reads it
+// first and returns where it is set, before any mbarrier, bulk copy or
+// cluster barrier; an earlier kernel of the stream wrote it, so every CTA
+// of a cluster reads the same value and none waits on a partner that has
+// left.  A block past the loop's exit costs one launch.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libfused_sweeps_shared.so fused_sweeps_shared.cu
 // Bound to PyTorch with ctypes (tpusppy_torch/solvers/cuda_kernels.py).
@@ -236,9 +244,11 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_shared_kernel(
     const T* __restrict__ zx_in, const T* __restrict__ y_in,
     const T* __restrict__ yx_in, const T* __restrict__ Ax_in,
     T* __restrict__ x, T* __restrict__ z, T* __restrict__ zx,
-    T* __restrict__ y, T* __restrict__ yx, T* __restrict__ Ax, int S, int m,
-    int n, int chunk, int resident, int n_sweeps, int n_refine,
-    int n_extra, T sigma, T alpha, T beta) {
+    T* __restrict__ y, T* __restrict__ yx, T* __restrict__ Ax,
+    const int* __restrict__ stop, int S, int m, int n, int chunk,
+    int resident, int n_sweeps, int n_refine, int n_extra, T sigma, T alpha,
+    T beta) {
+  if (*stop) return;  // the solve loop's stop flag (see the top)
   using V = Tile<T, SB>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* gs = reinterpret_cast<T*>(smem_raw);  // (SB) the tile's gammas
@@ -393,9 +403,9 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_shared_kernel(
 }
 
 template <typename T, int SB>
-int launch_tile(void* const* in, void* const* out, int S, int m, int n,
-                int chunk, int n_sweeps, int n_refine, int n_extra,
-                double sigma, double alpha, void* stream) {
+int launch_tile(void* const* in, void* const* out, const int* stop, int S,
+                int m, int n, int chunk, int n_sweeps, int n_refine,
+                int n_extra, double sigma, double alpha, void* stream) {
   // cuda_kernels.shared_smem_bytes mirrors this: the tile's buffers, then
   // K^-1 and, after it, K, each where it still fits
   size_t smem =
@@ -410,11 +420,15 @@ int launch_tile(void* const* in, void* const* out, int S, int m, int n,
       smem += mat;
     }
   }
-  if (smem > 48 * 1024) {
+  // raised once to the largest size asked, so that a launch captured into
+  // a CUDA graph after a first (warm-up) launch makes no attribute call
+  static size_t smem_set = 48 * 1024;
+  if (smem > smem_set) {
     cudaError_t err = cudaFuncSetAttribute(
         fused_sweeps_shared_kernel<T, SB>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = smem;
   }
   auto c = [&](int k) { return static_cast<const T*>(in[k]); };
   auto o = [&](int k) { return static_cast<T*>(out[k]); };
@@ -423,33 +437,33 @@ int launch_tile(void* const* in, void* const* out, int S, int m, int n,
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
           c(0), c(1), c(2), c(3), c(4), c(5), c(6), c(7), c(8), c(9), c(10),
           c(11), c(12), c(13), c(14), c(15), c(16), c(17), c(18), c(19),
-          o(0), o(1), o(2), o(3), o(4), o(5), S, m, n, chunk, resident,
+          o(0), o(1), o(2), o(3), o(4), o(5), stop, S, m, n, chunk, resident,
           n_sweeps, n_refine, n_extra, static_cast<T>(sigma), static_cast<T>(alpha),
           static_cast<T>(1.0 - alpha));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(void* const* in, void* const* out, int S, int m, int n, int sb,
-           int chunk, int n_sweeps, int n_refine, int n_extra, double sigma,
-           double alpha, void* stream) {
-  if (S < 1 || n < 1 || m < 0 || chunk < 1) {
+int launch(void* const* in, void* const* out, const int* stop, int S, int m,
+           int n, int sb, int chunk, int n_sweeps, int n_refine, int n_extra,
+           double sigma, double alpha, void* stream) {
+  if (S < 1 || n < 1 || m < 0 || chunk < 1 || stop == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // cuda_kernels.SHARED_TILES mirrors these cases
   switch (sb) {
     case 8:
-      return launch_tile<T, 8>(in, out, S, m, n, chunk, n_sweeps, n_refine,
-                               n_extra, sigma, alpha, stream);
+      return launch_tile<T, 8>(in, out, stop, S, m, n, chunk, n_sweeps,
+                               n_refine, n_extra, sigma, alpha, stream);
     case 4:
-      return launch_tile<T, 4>(in, out, S, m, n, chunk, n_sweeps, n_refine,
-                               n_extra, sigma, alpha, stream);
+      return launch_tile<T, 4>(in, out, stop, S, m, n, chunk, n_sweeps,
+                               n_refine, n_extra, sigma, alpha, stream);
     case 2:
-      return launch_tile<T, 2>(in, out, S, m, n, chunk, n_sweeps, n_refine,
-                               n_extra, sigma, alpha, stream);
+      return launch_tile<T, 2>(in, out, stop, S, m, n, chunk, n_sweeps,
+                               n_refine, n_extra, sigma, alpha, stream);
     case 1:
-      return launch_tile<T, 1>(in, out, S, m, n, chunk, n_sweeps, n_refine,
-                               n_extra, sigma, alpha, stream);
+      return launch_tile<T, 1>(in, out, stop, S, m, n, chunk, n_sweeps,
+                               n_refine, n_extra, sigma, alpha, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -863,8 +877,12 @@ __global__ void __launch_bounds__(kResThreads, 1) fused_sweeps_shared_resident(
     const T* __restrict__ y_in, const T* __restrict__ yx_in,
     const T* __restrict__ Ax_in, T* __restrict__ x, T* __restrict__ z,
     T* __restrict__ zx, T* __restrict__ y, T* __restrict__ yx,
-    T* __restrict__ Ax, int S, int m, int n, int C, int ld, int km, int kn,
-    int n_sweeps, int n_refine, int n_extra, T sigma, T alpha, T beta) {
+    T* __restrict__ Ax, const int* __restrict__ stop, int S, int m, int n,
+    int C, int ld, int km, int kn, int n_sweeps, int n_refine, int n_extra,
+    T sigma, T alpha, T beta) {
+  // the stop flag (see the top): every CTA of the cluster reads the same
+  // value and leaves before the cluster's first barrier
+  if (*stop) return;
   constexpr int SB = kResTile;
   constexpr int U = col_unit<T>();
   cg::cluster_group cluster = cg::this_cluster();
@@ -1158,11 +1176,14 @@ int resident_clusters(int m, int n, int C, int ld, int km, int kn, int* out) {
 }
 
 template <typename T>
-int launch_resident(void* const* in, void* const* out, int S, int m, int n,
-                    int C, int ld, int km, int kn, int n_sweeps, int n_refine,
-                    int n_extra, double sigma, double alpha, void* stream) {
+int launch_resident(void* const* in, void* const* out, const int* stop, int S,
+                    int m, int n, int C, int ld, int km, int kn, int n_sweeps,
+                    int n_refine, int n_extra, double sigma, double alpha,
+                    void* stream) {
   const size_t smem = resident_smem<T>(m, n, C, ld, km, kn);
-  if (S < 1 || smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (S < 1 || smem == 0 || stop == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   int active = 0;
   int err = active_clusters<T>(C, smem, &active);
   if (err != 0) return err;
@@ -1185,7 +1206,8 @@ int launch_resident(void* const* in, void* const* out, int S, int m, int n,
   cudaError_t e = cudaLaunchKernelEx(
       &cfg, fused_sweeps_shared_resident<T>, c(0), c(1), c(2), c(3), c(4),
       c(5), c(6), c(7), c(8), c(9), c(10), c(11), c(12), c(13), c(14), c(15),
-      c(16), o(0), o(1), o(2), o(3), o(4), o(5), S, m, n, C, ld, km, kn,
+      c(16), o(0), o(1), o(2), o(3), o(4), o(5), stop, S, m, n, C, ld, km,
+      kn,
       n_sweeps, n_refine, n_extra, static_cast<T>(sigma), static_cast<T>(alpha),
       static_cast<T>(1.0 - alpha));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1200,23 +1222,25 @@ extern "C" {
 // in:  q, A, At, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, dq2, has, gamma,
 //      x, z, zx, y, yx, Ax   (At: A transposed, (n, m) row-major)
 // out: x, z, zx, y, yx, Ax
+// stop: a device int, the solve loop's stop flag; where it is set every
+// block returns at once and the outputs are left unwritten.
 // Returns the cudaError_t of the launch (0 on success).
-int tpusppy_fused_sweeps_shared_f32(void* const* in, void* const* out, int S,
-                                    int m, int n, int sb, int chunk,
-                                    int n_sweeps, int n_refine, int n_extra,
-                                    double sigma, double alpha,
-                                    void* stream) {
-  return launch<float>(in, out, S, m, n, sb, chunk, n_sweeps, n_refine,
+int tpusppy_fused_sweeps_shared_f32(void* const* in, void* const* out,
+                                    const int* stop, int S, int m, int n,
+                                    int sb, int chunk, int n_sweeps,
+                                    int n_refine, int n_extra, double sigma,
+                                    double alpha, void* stream) {
+  return launch<float>(in, out, stop, S, m, n, sb, chunk, n_sweeps, n_refine,
                        n_extra, sigma, alpha, stream);
 }
 
-int tpusppy_fused_sweeps_shared_f64(void* const* in, void* const* out, int S,
-                                    int m, int n, int sb, int chunk,
-                                    int n_sweeps, int n_refine, int n_extra,
-                                    double sigma, double alpha,
-                                    void* stream) {
-  return launch<double>(in, out, S, m, n, sb, chunk, n_sweeps, n_refine,
-                        n_extra, sigma, alpha, stream);
+int tpusppy_fused_sweeps_shared_f64(void* const* in, void* const* out,
+                                    const int* stop, int S, int m, int n,
+                                    int sb, int chunk, int n_sweeps,
+                                    int n_refine, int n_extra, double sigma,
+                                    double alpha, void* stream) {
+  return launch<double>(in, out, stop, S, m, n, sb, chunk, n_sweeps,
+                        n_refine, n_extra, sigma, alpha, stream);
 }
 
 // Cluster-resident mode.
@@ -1224,24 +1248,27 @@ int tpusppy_fused_sweeps_shared_f64(void* const* in, void* const* out, int S,
 //      x, z, zx, y, yx, Ax   (packed: each CTA's column slices of A, K^-1
 //      and K, cuda_kernels.shared_pack)
 // out: x, z, zx, y, yx, Ax
+// stop: the stop flag, as in the streamed mode
 int tpusppy_fused_sweeps_shared_res_f32(void* const* in, void* const* out,
-                                        int S, int m, int n, int C, int ld,
-                                        int km, int kn, int n_sweeps,
-                                        int n_refine, int n_extra,
-                                        double sigma, double alpha,
-                                        void* stream) {
-  return launch_resident<float>(in, out, S, m, n, C, ld, km, kn, n_sweeps,
-                                n_refine, n_extra, sigma, alpha, stream);
+                                        const int* stop, int S, int m, int n,
+                                        int C, int ld, int km, int kn,
+                                        int n_sweeps, int n_refine,
+                                        int n_extra, double sigma,
+                                        double alpha, void* stream) {
+  return launch_resident<float>(in, out, stop, S, m, n, C, ld, km, kn,
+                                n_sweeps, n_refine, n_extra, sigma, alpha,
+                                stream);
 }
 
 int tpusppy_fused_sweeps_shared_res_f64(void* const* in, void* const* out,
-                                        int S, int m, int n, int C, int ld,
-                                        int km, int kn, int n_sweeps,
-                                        int n_refine, int n_extra,
-                                        double sigma, double alpha,
-                                        void* stream) {
-  return launch_resident<double>(in, out, S, m, n, C, ld, km, kn, n_sweeps,
-                                 n_refine, n_extra, sigma, alpha, stream);
+                                        const int* stop, int S, int m, int n,
+                                        int C, int ld, int km, int kn,
+                                        int n_sweeps, int n_refine,
+                                        int n_extra, double sigma,
+                                        double alpha, void* stream) {
+  return launch_resident<double>(in, out, stop, S, m, n, C, ld, km, kn,
+                                 n_sweeps, n_refine, n_extra, sigma, alpha,
+                                 stream);
 }
 
 // Clusters of the resident mode the card holds at once at this shape

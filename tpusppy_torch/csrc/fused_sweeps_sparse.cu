@@ -83,6 +83,12 @@
 // block-wide barriers and its slice traffic beside a few hundred
 // multiply-adds a thread.
 //
+// The stop flag: the solve loop runs its sweep blocks as CUDA-graph
+// replays (tpusppy_torch/solvers/device_loop.py) and keeps its exit vote in
+// a device int that stays set once set.  Every block of either mode reads
+// it first and returns where it is set, before any mbarrier or bulk copy,
+// so a block past the loop's exit costs one launch, not a full call.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libfused_sweeps_sparse.so fused_sweeps_sparse.cu
 // Bound to PyTorch with ctypes (tpusppy_torch/solvers/cuda_kernels.py).
@@ -862,9 +868,10 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_sparse_kernel(
     const T* __restrict__ yx_in, const T* __restrict__ Ax_in,
     T* __restrict__ x, T* __restrict__ z, T* __restrict__ zx,
     T* __restrict__ y, T* __restrict__ yx, T* __restrict__ Ax,
-    T* __restrict__ rhs_scratch, T* __restrict__ v_scratch, Wb<T> wb, int S,
-    int m, int n, int kr, int kc, int n_sweeps, int n_refine, int n_extra,
-    T sigma, T alpha, T beta) {
+    T* __restrict__ rhs_scratch, T* __restrict__ v_scratch, Wb<T> wb,
+    const int* __restrict__ stop, int S, int m, int n, int kr, int kc,
+    int n_sweeps, int n_refine, int n_extra, T sigma, T alpha, T beta) {
+  if (*stop) return;  // the solve loop's stop flag (see the top)
   using V = Tile<T, SB>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x;
@@ -1156,16 +1163,21 @@ size_t smem_bytes(int n, const Wb<T>& wb) {
 }
 
 template <typename T, int SB, int CW, bool WB>
-int launch_tile(void* const* in, void* const* out, Wb<T> wb, int S, int m,
-                int n, int kr, int kc, int n_sweeps, int n_refine,
-                int n_extra, double sigma, double alpha, void* stream) {
+int launch_tile(void* const* in, void* const* out, Wb<T> wb, const int* stop,
+                int S, int m, int n, int kr, int kc, int n_sweeps,
+                int n_refine, int n_extra, double sigma, double alpha,
+                void* stream) {
   const size_t smem = smem_bytes<T, SB, WB>(n, wb);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
+  // raised once to the largest size asked, so that a launch captured into
+  // a CUDA graph after a first (warm-up) launch makes no attribute call
+  static size_t smem_set = 48 * 1024;
+  if (smem > smem_set) {
     cudaError_t err = cudaFuncSetAttribute(
         fused_sweeps_sparse_kernel<T, SB, CW, WB>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = smem;
   }
   auto c = [&](int k) { return static_cast<const T*>(in[k]); };
   auto ci = [&](int k) { return static_cast<const int*>(in[k]); };
@@ -1176,7 +1188,7 @@ int launch_tile(void* const* in, void* const* out, Wb<T> wb, int S, int m,
           c(0), ci(1), c(2), ci(3), c(4), c(5), c(6), c(7), c(8), c(9),
           c(10), c(11), c(12), c(13), c(14), c(15), c(16), c(17), c(18),
           c(19), c(20), c(21), o(0), o(1), o(2), o(3), o(4), o(5), o(6),
-          o(7), wb, S, m, n, kr, kc, n_sweeps, n_refine, n_extra,
+          o(7), wb, stop, S, m, n, kr, kc, n_sweeps, n_refine, n_extra,
           static_cast<T>(sigma), static_cast<T>(alpha),
           static_cast<T>(1.0 - alpha));
   return static_cast<int>(cudaGetLastError());
@@ -1186,55 +1198,62 @@ int launch_tile(void* const* in, void* const* out, Wb<T> wb, int S, int m,
 // kMaxCW values) whose width divides n, so that every row of K^-1 starts
 // aligned.
 template <typename T, int SB, int CWmax>
-int launch_cols(void* const* in, void* const* out, int S, int m, int n,
-                int kr, int kc, int n_sweeps, int n_refine, int n_extra,
-                double sigma, double alpha, void* stream) {
+int launch_cols(void* const* in, void* const* out, const int* stop, int S,
+                int m, int n, int kr, int kc, int n_sweeps, int n_refine,
+                int n_extra, double sigma, double alpha, void* stream) {
   if constexpr (CWmax > 1) {
     if (n % CWmax != 0) {
-      return launch_cols<T, SB, CWmax / 2>(in, out, S, m, n, kr, kc,
+      return launch_cols<T, SB, CWmax / 2>(in, out, stop, S, m, n, kr, kc,
                                            n_sweeps, n_refine, n_extra,
                                            sigma, alpha, stream);
     }
   }
-  return launch_tile<T, SB, CWmax, false>(in, out, Wb<T>{}, S, m, n, kr, kc,
-                                          n_sweeps, n_refine, n_extra, sigma,
-                                          alpha, stream);
+  return launch_tile<T, SB, CWmax, false>(in, out, Wb<T>{}, stop, S, m, n,
+                                          kr, kc, n_sweeps, n_refine,
+                                          n_extra, sigma, alpha, stream);
 }
 
 template <typename T, int SB>
-int launch_mode(void* const* in, void* const* out, const Wb<T>* wb, int S,
-                int m, int n, int kr, int kc, int n_sweeps, int n_refine,
-                int n_extra, double sigma, double alpha, void* stream) {
+int launch_mode(void* const* in, void* const* out, const Wb<T>* wb,
+                const int* stop, int S, int m, int n, int kr, int kc,
+                int n_sweeps, int n_refine, int n_extra, double sigma,
+                double alpha, void* stream) {
   if (wb == nullptr) {
-    return launch_cols<T, SB, kMaxCW<T>>(in, out, S, m, n, kr, kc, n_sweeps,
-                                         n_refine, n_extra, sigma, alpha,
-                                         stream);
+    return launch_cols<T, SB, kMaxCW<T>>(in, out, stop, S, m, n, kr, kc,
+                                         n_sweeps, n_refine, n_extra, sigma,
+                                         alpha, stream);
   }
-  return launch_tile<T, SB, 1, true>(in, out, *wb, S, m, n, kr, kc, n_sweeps,
-                                     n_refine, n_extra, sigma, alpha, stream);
+  return launch_tile<T, SB, 1, true>(in, out, *wb, stop, S, m, n, kr, kc,
+                                     n_sweeps, n_refine, n_extra, sigma,
+                                     alpha, stream);
 }
 
 template <typename T>
-int launch(void* const* in, void* const* out, const Wb<T>* wb, int S, int m,
-           int n, int kr, int kc, int sb, int n_sweeps, int n_refine,
-           int n_extra, double sigma, double alpha, void* stream) {
-  if (S < 1 || n < 1 || m < 0 || kr < 1 || kc < 1) {
+int launch(void* const* in, void* const* out, const Wb<T>* wb,
+           const int* stop, int S, int m, int n, int kr, int kc, int sb,
+           int n_sweeps, int n_refine, int n_extra, double sigma,
+           double alpha, void* stream) {
+  if (S < 1 || n < 1 || m < 0 || kr < 1 || kc < 1 || stop == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // cuda_kernels.SPARSE_TILES mirrors these cases
   switch (sb) {
     case 8:
-      return launch_mode<T, 8>(in, out, wb, S, m, n, kr, kc, n_sweeps,
-                               n_refine, n_extra, sigma, alpha, stream);
+      return launch_mode<T, 8>(in, out, wb, stop, S, m, n, kr, kc,
+                               n_sweeps, n_refine, n_extra, sigma, alpha,
+                               stream);
     case 4:
-      return launch_mode<T, 4>(in, out, wb, S, m, n, kr, kc, n_sweeps,
-                               n_refine, n_extra, sigma, alpha, stream);
+      return launch_mode<T, 4>(in, out, wb, stop, S, m, n, kr, kc,
+                               n_sweeps, n_refine, n_extra, sigma, alpha,
+                               stream);
     case 2:
-      return launch_mode<T, 2>(in, out, wb, S, m, n, kr, kc, n_sweeps,
-                               n_refine, n_extra, sigma, alpha, stream);
+      return launch_mode<T, 2>(in, out, wb, stop, S, m, n, kr, kc,
+                               n_sweeps, n_refine, n_extra, sigma, alpha,
+                               stream);
     case 1:
-      return launch_mode<T, 1>(in, out, wb, S, m, n, kr, kc, n_sweeps,
-                               n_refine, n_extra, sigma, alpha, stream);
+      return launch_mode<T, 1>(in, out, wb, stop, S, m, n, kr, kc,
+                               n_sweeps, n_refine, n_extra, sigma, alpha,
+                               stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1243,11 +1262,11 @@ int launch(void* const* in, void* const* out, const Wb<T>* wb, int S, int m,
 // The structured operand from the launch's pointers (in[22..34], the
 // scratch out[8], out[9]) and sizes; checks what the kernel relies on.
 template <typename T>
-int launch_wb(void* const* in, void* const* out, int S, int m, int n, int kr,
-              int kc, int sb, int n_sweeps, int n_refine, int n_extra,
-              double sigma, double alpha, int r, int kn, int kw, int kwc,
-              int nb, int nitems, int pd, int stage_elems, int bmax,
-              void* stream) {
+int launch_wb(void* const* in, void* const* out, const int* stop, int S,
+              int m, int n, int kr, int kc, int sb, int n_sweeps,
+              int n_refine, int n_extra, double sigma, double alpha, int r,
+              int kn, int kw, int kwc, int nb, int nitems, int pd,
+              int stage_elems, int bmax, void* stream) {
   if (r < 0 || kn < 1 || kw < 1 || kwc < 1 || nb < 0 || nitems < 1 ||
       pd < 0 || pd > n || stage_elems < 1 || bmax < 16 || bmax > kThreads ||
       bmax % 16 != 0 || stage_elems * sizeof(T) >= (1u << 20) ||
@@ -1261,8 +1280,8 @@ int launch_wb(void* const* in, void* const* out, int S, int m, int n, int kr,
                  static_cast<T*>(out[8]), static_cast<T*>(out[9]), r, kn, kw,
                  kwc, nb, nitems, pd,
                  stage_elems, bmax};
-  return launch<T>(in, out, &wb, S, m, n, kr, kc, sb, n_sweeps, n_refine,
-                   n_extra, sigma, alpha, stream);
+  return launch<T>(in, out, &wb, stop, S, m, n, kr, kc, sb, n_sweeps,
+                   n_refine, n_extra, sigma, alpha, stream);
 }
 
 }  // namespace
@@ -1276,23 +1295,25 @@ extern "C" {
 //       (kc, n); rowcols, colrows int32; the rest T)
 // out: x, z, zx, y, yx, Ax, then the scratch rhs (tiles * n * sb) and
 //      m-vector (tiles * m * sb)
+// stop: a device int, the solve loop's stop flag; where it is set every
+// block returns at once and the outputs are left unwritten.
 // Returns the cudaError_t of the launch (0 on success).
-int tpusppy_fused_sweeps_sparse_f32(void* const* in, void* const* out, int S,
-                                    int m, int n, int kr, int kc, int sb,
-                                    int n_sweeps, int n_refine, int n_extra,
-                                    double sigma, double alpha,
-                                    void* stream) {
-  return launch<float>(in, out, nullptr, S, m, n, kr, kc, sb, n_sweeps,
-                       n_refine, n_extra, sigma, alpha, stream);
+int tpusppy_fused_sweeps_sparse_f32(void* const* in, void* const* out,
+                                    const int* stop, int S, int m, int n,
+                                    int kr, int kc, int sb, int n_sweeps,
+                                    int n_refine, int n_extra, double sigma,
+                                    double alpha, void* stream) {
+  return launch<float>(in, out, nullptr, stop, S, m, n, kr, kc, sb,
+                       n_sweeps, n_refine, n_extra, sigma, alpha, stream);
 }
 
-int tpusppy_fused_sweeps_sparse_f64(void* const* in, void* const* out, int S,
-                                    int m, int n, int kr, int kc, int sb,
-                                    int n_sweeps, int n_refine, int n_extra,
-                                    double sigma, double alpha,
-                                    void* stream) {
-  return launch<double>(in, out, nullptr, S, m, n, kr, kc, sb, n_sweeps,
-                        n_refine, n_extra, sigma, alpha, stream);
+int tpusppy_fused_sweeps_sparse_f64(void* const* in, void* const* out,
+                                    const int* stop, int S, int m, int n,
+                                    int kr, int kc, int sb, int n_sweeps,
+                                    int n_refine, int n_extra, double sigma,
+                                    double alpha, void* stream) {
+  return launch<double>(in, out, nullptr, stop, S, m, n, kr, kc, sb,
+                        n_sweeps, n_refine, n_extra, sigma, alpha, stream);
 }
 
 // Structured mode: in as the dense mode with the flat blocks and C^-1
@@ -1303,23 +1324,23 @@ int tpusppy_fused_sweeps_sparse_f64(void* const* in, void* const* out, int S,
 // then two scratch n-vectors (tiles * n * sb each): the K^-1 input, and
 // the Woodbury correction.
 int tpusppy_fused_sweeps_sparse_wb_f32(
-    void* const* in, void* const* out, int S, int m, int n, int kr, int kc,
-    int sb, int n_sweeps, int n_refine, int n_extra, double sigma,
-    double alpha, int r, int kn, int kw, int kwc, int nb, int nitems, int pd,
-    int stage_elems, int bmax, void* stream) {
-  return launch_wb<float>(in, out, S, m, n, kr, kc, sb, n_sweeps, n_refine,
-                          n_extra, sigma, alpha, r, kn, kw, kwc, nb, nitems,
-                          pd, stage_elems, bmax, stream);
+    void* const* in, void* const* out, const int* stop, int S, int m, int n,
+    int kr, int kc, int sb, int n_sweeps, int n_refine, int n_extra,
+    double sigma, double alpha, int r, int kn, int kw, int kwc, int nb,
+    int nitems, int pd, int stage_elems, int bmax, void* stream) {
+  return launch_wb<float>(in, out, stop, S, m, n, kr, kc, sb, n_sweeps,
+                          n_refine, n_extra, sigma, alpha, r, kn, kw, kwc, nb,
+                          nitems, pd, stage_elems, bmax, stream);
 }
 
 int tpusppy_fused_sweeps_sparse_wb_f64(
-    void* const* in, void* const* out, int S, int m, int n, int kr, int kc,
-    int sb, int n_sweeps, int n_refine, int n_extra, double sigma,
-    double alpha, int r, int kn, int kw, int kwc, int nb, int nitems, int pd,
-    int stage_elems, int bmax, void* stream) {
-  return launch_wb<double>(in, out, S, m, n, kr, kc, sb, n_sweeps, n_refine,
-                           n_extra, sigma, alpha, r, kn, kw, kwc, nb, nitems,
-                           pd, stage_elems, bmax, stream);
+    void* const* in, void* const* out, const int* stop, int S, int m, int n,
+    int kr, int kc, int sb, int n_sweeps, int n_refine, int n_extra,
+    double sigma, double alpha, int r, int kn, int kw, int kwc, int nb,
+    int nitems, int pd, int stage_elems, int bmax, void* stream) {
+  return launch_wb<double>(in, out, stop, S, m, n, kr, kc, sb, n_sweeps,
+                           n_refine, n_extra, sigma, alpha, r, kn, kw, kwc,
+                           nb, nitems, pd, stage_elems, bmax, stream);
 }
 
 }  // extern "C"

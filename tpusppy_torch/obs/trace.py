@@ -25,7 +25,7 @@ class Event(NamedTuple):
     tid: int            # OS thread ident at record time
     track: str          # logical timeline name
     name: str           # event name
-    kind: str           # "span" (the reference also records "instant")
+    kind: str           # "span" or "instant"
     dur: float | None   # span duration (seconds); None otherwise
     payload: dict | None
 
@@ -114,6 +114,14 @@ def span(track: str | None, name: str, **payload):
     if not _enabled:
         return _NULL
     return _Span(track, name, payload or None)
+
+
+def instant(track: str | None, name: str, **payload):
+    """Point event (a marker on the timeline)."""
+    if not _enabled:
+        return
+    _add(Event(_perf(), threading.get_ident(), track or thread_track(), name,
+               "instant", None, payload or None))
 
 
 def record_span(track: str | None, name: str, t0: float, dur: float,

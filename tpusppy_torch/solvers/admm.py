@@ -22,30 +22,38 @@ with per-row penalties R (equality rows boosted, free rows damped).  Ruiz
 equilibration preconditions the batch; adaptive-rho restarts refactorize.
 
 Differences from the JAX package: the batch dimension is explicit, the inner
-``lax.while_loop`` is a host loop (its termination vote costs one device sync
-per ``check_every`` sweeps, counted as ``admm.loop_checks``), the restart
-``lax.scan`` is a Python loop, and there is no dense ``P`` term.  Every entry
-point takes ``device=``; without it, the device of the first tensor argument,
-else CUDA (:func:`tpusppy_torch.resolve_device`).
+``lax.while_loop`` runs in :mod:`.device_loop` (on CUDA as replays of a
+CUDA graph of :data:`BLOCKS_PER_REPLAY` sweep blocks, the host reading one
+stop flag a replay, counted as ``admm.loop_checks``), the restart
+``lax.scan`` is a Python loop that reads nothing from the device, and there
+is no dense ``P`` term.  Every entry point takes ``device=``; without it,
+the device of the first tensor argument, else CUDA
+(:func:`tpusppy_torch.resolve_device`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import resolve_device
-from ..obs import metrics as _metrics
-from . import cuda_kernels
+from . import cuda_kernels, device_loop
 from .cuda_kernels import matvec as _mv
 from .cuda_kernels import rmatvec as _rmv
 
 BIG = 1e20  # stand-in for +inf inside kernels (keeps arithmetic finite)
 
-_LOOP_CHECKS = _metrics.counter("admm.loop_checks")
+#: Sweep blocks a CUDA-graph replay of the dense engine's loop runs (the
+#: host reads the stop flag once a replay).  250, the block cap at the
+#: default max_iter and check_every, is a multiple, so a solve that runs to
+#: its cap runs no block past it; one that stops earlier runs at most 9
+#: gated blocks and one speculative replay past it (PERF.md).  Without the
+#: plateau exit (farmer) every block is alike: one graph a run.
+BLOCKS_PER_REPLAY = 10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,9 +149,25 @@ class _IterState(NamedTuple):
     dua: torch.Tensor
     prinorm: torch.Tensor
     duanorm: torch.Tensor
-    k: int            # sweeps run at this rho setting
-    best: float       # best batch-worst eps-normalized residual (plateau)
-    stall: int        # consecutive non-improving windows (plateau)
+    k: torch.Tensor      # () int64: sweeps run at this rho setting
+    best: torch.Tensor   # () best batch gmean eps-normalized residual
+    stall: torch.Tensor  # () int64: consecutive non-improving windows
+
+
+def _counters(dt, dev):
+    """(k, best, stall) of a fresh sweep loop, on the device."""
+    return (torch.zeros((), dtype=torch.int64, device=dev),
+            torch.full((), torch.inf, dtype=dt, device=dev),
+            torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def _initial_state(x0, z0, zx0, y0, yx0) -> _IterState:
+    S = x0.shape[0]
+    dt, dev = x0.dtype, x0.device
+    inf = torch.full((S,), torch.inf, dtype=dt, device=dev)
+    one = torch.ones((S,), dtype=dt, device=dev)
+    return _IterState(x0, z0, zx0, y0, yx0, inf, inf, one, one,
+                      *_counters(dt, dev))
 
 
 def _clean_bounds(lo, hi):
@@ -212,27 +236,46 @@ def _done_mask(pri, dua, prinorm, duanorm, st: ADMMSettings):
     return (pri < eps_pri) & (dua < eps_dua)
 
 
-def _plateau_update(s, pri, dua, prinorm, duanorm, st: ADMMSettings,
-                    min_k=0):
-    """(best, stall) update at a residual checkpoint, evaluated every
-    ``sweep_plateau_window`` sweeps on the geometric mean of per-scenario
-    eps-normalized residual excesses clipped to [1, 1e6].  ``min_k``: stall
-    counting starts only at checkpoints from this sweep index on (the
-    shared engine's adaptive solve passes its gamma cadence)."""
+def plateau_due(b, st: ADMMSettings, min_k=0) -> bool:
+    """Whether block ``b`` of a sweep loop (from 0) ends a plateau window:
+    the reference's ``((k // ck) + 1) % period == 0 and k >= min_k`` at the
+    block's sweep count ``k = b * ck``, known on the host (with the plateau
+    exit off, never).  ``min_k``: stall counting starts only at this sweep
+    index (the shared engine's adaptive solve passes its gamma cadence)."""
+    if st.sweep_plateau_rtol <= 0:
+        return False
     ck = max(1, st.check_every)
     period = max(1, -(-st.sweep_plateau_window // ck))
-    if ((s.k // ck) + 1) % period != 0 or s.k < min_k:
-        return s.best, s.stall
+    return (b + 1) % period == 0 and b * ck >= min_k
+
+
+def _plateau_update(s, pri, dua, prinorm, duanorm, st: ADMMSettings):
+    """(best, stall) after a block that ends a plateau window
+    (:func:`plateau_due`), on the device: the geometric mean of
+    per-scenario eps-normalized residual excesses clipped to [1, 1e6]
+    against the best so far."""
     eps_pri = st.eps_abs + st.eps_rel * torch.clamp(prinorm, min=1.0)
     eps_dua = st.eps_abs + st.eps_rel * torch.clamp(duanorm, min=1.0)
     excess = torch.maximum(pri / eps_pri, dua / eps_dua)
     excess = torch.clamp(torch.nan_to_num(excess, nan=1e6, posinf=1e6),
                          1.0, 1e6)
-    gmean = float(torch.exp(torch.mean(torch.log(excess))))
-    improved = (gmean < (1.0 - st.sweep_plateau_rtol) * s.best) or (
+    gmean = torch.exp(torch.mean(torch.log(excess)))
+    improved = (gmean < (1.0 - st.sweep_plateau_rtol) * s.best) | (
         gmean <= 1.0 + st.sweep_plateau_rtol)
-    stall = 0 if improved else s.stall + 1
-    return min(s.best, gmean), stall
+    stall = torch.where(improved, 0, s.stall + 1)
+    best = torch.minimum(s.best, gmean)
+    return best, stall
+
+
+def _vote(s, st: ADMMSettings):
+    """The reference while_loop's exit test on a state, as a 0-dim bool on
+    the device: the sweep cap, every scenario eps-converged, or (with the
+    plateau exit on) two stalled windows."""
+    stop = (s.k >= st.max_iter) | _done_mask(s.pri, s.dua, s.prinorm,
+                                              s.duanorm, st).all()
+    if st.sweep_plateau_rtol > 0:
+        stop = stop | (s.stall >= 2)
+    return stop
 
 
 def _kernel_on(st: ADMMSettings) -> bool:
@@ -246,60 +289,69 @@ def _kernel_on(st: ADMMSettings) -> bool:
     return bool(st.use_kernel)
 
 
-def _admm_core(q, q2, A, cl, cu, lb, ub, state: _IterState, LK, rho_a,
-               rho_x, st: ADMMSettings) -> _IterState:
-    """Inner ADMM sweep loop at fixed rho.  Returns the final state.
+def _residuals(q, q2, A, aq, x, z, zx, y, yx, Ax):
+    """(pri, dua, prinorm, duanorm) of an iterate with its re-anchored Ax
+    (``aq``: max |q| a scenario)."""
+    pri = torch.maximum((Ax - z).abs().amax(dim=1),
+                        (x - zx).abs().amax(dim=1))
+    Aty = _rmv(A, y)
+    Pxv = q2 * x
+    dua = (Pxv + q + Aty + yx).abs().amax(dim=1)
+    prinorm = torch.maximum(Ax.abs().amax(dim=1), z.abs().amax(dim=1))
+    duanorm = torch.maximum(
+        torch.maximum(Pxv.abs().amax(dim=1), Aty.abs().amax(dim=1)), aq)
+    return pri, dua, prinorm, duanorm
 
-    Each ``check_every`` block of sweeps runs in ``fused_sweeps`` (with the
-    incremental Ax carry); then one true matvec re-anchors Ax, the residuals
-    are measured, and the host reads the all-done vote — the exit rule of
-    the reference's while_loop (max_iter, eps, plateau stall)."""
-    sigma, alpha = st.sigma, st.alpha
-    S, _, n = A.shape
-    ce = max(1, st.check_every)
-    Kinv, K = LK[0].contiguous(), LK[1].contiguous()
-    rho_x = rho_x.expand(S, n).contiguous()
+
+def _block(ops, cur, plateau, st: ADMMSettings):
+    """One sweep block of the dense engine's loop, in place on ``cur``
+    (the :class:`_IterState` fields, the carried Ax, the stop flag): the
+    ``check_every`` sweeps in ``fused_sweeps`` gated by the flag, one true
+    matvec that re-anchors Ax (the relaxation, alpha=1.6, amplifies
+    carried rounding across sweeps), the residuals, the plateau update
+    where the block ends a window (``plateau``, :func:`plateau_due`), the
+    commit (nothing where the flag was set), then the exit vote."""
+    q, q2, A, cl, cu, lb, ub, Kinv, K, rho_a, rho_x, aq = ops
+    s = _IterState(*cur[:12])
+    Ax, flag = cur[12], cur[13]
     sweeps = (cuda_kernels.fused_sweeps if _kernel_on(st)
               else cuda_kernels.fused_sweeps_plain)
-    aq = q.abs().amax(dim=1)
+    ce = max(1, st.check_every)
+    x, z, zx, y, yx, _ = sweeps(
+        q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, s.x, s.z, s.zx, s.y,
+        s.yx, Ax, ce, st.solve_refine, st.sigma, st.alpha, stop=flag)
+    Ax = _mv(A, x)
+    pri, dua, prinorm, duanorm = _residuals(q, q2, A, aq, x, z, zx, y, yx,
+                                            Ax)
+    best, stall = s.best, s.stall
+    if plateau:
+        best, stall = _plateau_update(s, pri, dua, prinorm, duanorm, st)
+    device_loop.commit(flag != 0, cur, (x, z, zx, y, yx, pri, dua, prinorm,
+                                        duanorm, s.k + ce, best, stall, Ax))
+    device_loop.raise_flag(flag, _vote(_IterState(*cur[:12]), st))
 
-    def residuals(x, z, zx, y, yx, Ax):
-        pri = torch.maximum((Ax - z).abs().amax(dim=1),
-                            (x - zx).abs().amax(dim=1))
-        Aty = _rmv(A, y)
-        Pxv = q2 * x
-        dua = (Pxv + q + Aty + yx).abs().amax(dim=1)
-        prinorm = torch.maximum(Ax.abs().amax(dim=1), z.abs().amax(dim=1))
-        duanorm = torch.maximum(
-            torch.maximum(Pxv.abs().amax(dim=1), Aty.abs().amax(dim=1)), aq)
-        return pri, dua, prinorm, duanorm
 
-    s = state
-    Ax = _mv(A, s.x)
-    while s.k < st.max_iter:
-        if st.sweep_plateau_rtol > 0 and s.stall >= 2:
-            break
-        _LOOP_CHECKS.inc()
-        if bool(_done_mask(s.pri, s.dua, s.prinorm, s.duanorm, st).all()):
-            break
-        x, z, zx, y, yx, Ax = sweeps(
-            q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
-            s.x, s.z, s.zx, s.y, s.yx, Ax, ce, st.solve_refine, sigma,
-            alpha)
-        # re-anchor the incrementally carried Ax: the relaxation
-        # (alpha=1.6) amplifies carried rounding across sweeps
-        Ax = _mv(A, x)
-        pri, dua, prinorm, duanorm = residuals(x, z, zx, y, yx, Ax)
-        best, stall = s.best, s.stall
-        if st.sweep_plateau_rtol > 0:
-            best, stall = _plateau_update(s, pri, dua, prinorm, duanorm, st)
-        s = _IterState(x, z, zx, y, yx, pri, dua, prinorm, duanorm,
-                       s.k + ce, best, stall)
-    return s
+def _admm_core(q, q2, A, cl, cu, lb, ub, state: _IterState, LK, rho_a,
+               rho_x, st: ADMMSettings) -> _IterState:
+    """Inner ADMM sweep loop at fixed rho, on the device
+    (:mod:`.device_loop`, :func:`_block`).  Returns the final state.  The
+    exit rule is the reference's while_loop's: max_iter, eps, the plateau
+    stall, voted on the device after every block."""
+    S, _, n = A.shape
+    ce = max(1, st.check_every)
+    ops = (q, q2, A, cl, cu, lb, ub, LK[0].contiguous(), LK[1].contiguous(),
+           rho_a, rho_x.expand(S, n).contiguous(), q.abs().amax(dim=1))
+    loop = [*state, _mv(A, state.x), _vote(state, st).to(torch.int32)]
+    out = device_loop.run(functools.partial(_block, st=st), ops, loop,
+                          BLOCKS_PER_REPLAY, -(-st.max_iter // ce),
+                          key=("admm", st),
+                          phase=lambda b: plateau_due(b, st))
+    return _IterState(*out[:12])
 
 
 def _fresh(state: _IterState) -> _IterState:
-    return state._replace(k=0, best=float("inf"), stall=0)
+    return state._replace(**dict(zip(("k", "best", "stall"), _counters(
+        state.x.dtype, state.x.device))))
 
 
 def _solve_scaled(q, q2, A, cl, cu, lb, ub, warm, masks, st: ADMMSettings):
@@ -326,14 +378,10 @@ def _solve_scaled(q, q2, A, cl, cu, lb, ub, warm, masks, st: ADMMSettings):
         yx0 = torch.zeros((S, n), dtype=dt, device=dev)
     else:
         x0, z0, y0, yx0 = warm
-    zx0 = torch.clamp(x0, lb, ub)
-    inf = torch.full((S,), torch.inf, dtype=dt, device=dev)
-    one = torch.ones((S,), dtype=dt, device=dev)
-    state = _IterState(x0, z0, zx0, y0, yx0, inf, inf, one, one,
-                       0, float("inf"), 0)
+    state = _initial_state(x0, z0, torch.clamp(x0, lb, ub), y0, yx0)
 
     base = torch.full((S,), st.rho, dtype=dt, device=dev)
-    total = 0
+    total = torch.zeros((), dtype=torch.int64, device=dev)
     mult = torch.ones((S, m), dtype=dt, device=dev)
     multx = torch.ones((S, n), dtype=dt, device=dev)
     rho_a = torch.zeros((S, m), dtype=dt, device=dev)
@@ -348,7 +396,7 @@ def _solve_scaled(q, q2, A, cl, cu, lb, ub, warm, masks, st: ADMMSettings):
         LK = _factor(q2, A, rho_a, rho_x, st.sigma)
         state = _admm_core(q, q2, A, cl, cu, lb, ub, _fresh(state), LK,
                            rho_a, rho_x, st)
-        total += state.k
+        total = total + state.k
         # OSQP rho adaptation on NORMALIZED residuals; converged scenarios
         # keep their rho (their restarts do zero sweeps)
         done = _done_mask(state.pri, state.dua, state.prinorm,
@@ -581,11 +629,12 @@ def _unscale(s, D, E, cost):
 
 
 def _solution(state, raw, D, E, cost, total, settings) -> BatchSolution:
+    """``total``: the sweeps run, a 0-dim device tensor (never read)."""
     x, z, y, yx = _unscale(state, D, E, cost)
     S = x.shape[0]
     return BatchSolution(
         x=x, z=z, y=y, yx=yx, pri_res=state.pri, dua_res=state.dua,
-        iters=torch.full((S,), total, dtype=torch.int64, device=x.device),
+        iters=total.to(torch.int64).expand(S).clone(),
         done=_done_mask(state.pri, state.dua, state.prinorm, state.duanorm,
                         settings),
         raw=raw)
@@ -654,11 +703,7 @@ def solve_batch_frozen(c, q2, A, cl, cu, lb, ub, factors: Factors,
         yx0 = torch.zeros((S, n), dtype=dt, device=dev)
     else:
         x0, z0, y0, yx0 = warm
-    zx0 = torch.clamp(x0, lbs, ubs)
-    inf = torch.full((S,), torch.inf, dtype=dt, device=dev)
-    one = torch.ones((S,), dtype=dt, device=dev)
-    state0 = _IterState(x0, z0, zx0, y0, yx0, inf, inf, one, one,
-                        0, float("inf"), 0)
+    state0 = _initial_state(x0, z0, torch.clamp(x0, lbs, ubs), y0, yx0)
     state = _admm_core(qs, q2s, As, cls, cus, lbs, ubs, state0,
                        (factors.Kinv, factors.K), factors.rho_a,
                        factors.rho_x, settings)

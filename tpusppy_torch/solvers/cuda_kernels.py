@@ -32,7 +32,15 @@ Each wrapper launches its kernel for CUDA tensors and raises on anything it
 cannot take; for CPU tensors it runs the plain version beside it, the batched
 PyTorch transcription of the same recurrence (the CPU path, and the oracle
 the kernel is held against on the card).  There is no fallback on failure.
-Launches are counted per kernel and, for each kernel's modes, per mode.
+Launches are counted per kernel and, for each kernel's modes, per mode; a
+launch captured into a CUDA graph is counted by each replay of the graph
+(:func:`counts`, :func:`add_counts`, used by :mod:`.device_loop`).
+
+Every wrapper and plain version takes ``stop``, the solve loop's stop flag
+(a one-element int32 tensor on the solve's device, :mod:`.device_loop`):
+where it is set, the kernel returns before it does anything and leaves its
+outputs unwritten, and the plain version returns its inputs.  None (the
+default) is a clear flag.
 
 Each kernel is compiled on first use with ``nvcc`` for ``sm_90a`` into its
 own library under ``tpusppy_torch/_build/`` (named by the source's hash) and
@@ -76,43 +84,46 @@ sparse_modes = {"dense": 0, "structured": 0}
 shared_modes = {"resident": 0, "streamed": 0}
 #: ``fused_sweeps`` launches by mode (:func:`dense_layout`).
 dense_modes = {"resident": 0, "streamed": 0}
+_COUNTS = {"launches": launches, "plain_calls": plain_calls,
+           "sparse_modes": sparse_modes, "shared_modes": shared_modes,
+           "dense_modes": dense_modes}
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 #: Exported C entry points of each source (f32, f64), with their ctypes
 #: argument types.
 _ENTRY_POINTS = {
-    # (in ptrs, out ptrs, S, m, n, n_sweeps, n_refine, mode, nsm, sigma,
-    #  alpha, stream)
+    # (in ptrs, out ptrs, stop, S, m, n, n_sweeps, n_refine, mode, nsm,
+    #  sigma, alpha, stream)
     "fused_sweeps": [(("tpusppy_fused_sweeps_f32",
                        "tpusppy_fused_sweeps_f64"),
-                      [_P, _P] + [_I] * 7 + [_D, _D, _P])],
+                      [_P, _P, _P] + [_I] * 7 + [_D, _D, _P])],
     "fused_sweeps_shared": [
-        # streamed: (in ptrs, out ptrs, S, m, n, sb, chunk, n_sweeps,
+        # streamed: (in ptrs, out ptrs, stop, S, m, n, sb, chunk, n_sweeps,
         # n_refine, n_extra, sigma, alpha, stream)
         (("tpusppy_fused_sweeps_shared_f32",
           "tpusppy_fused_sweeps_shared_f64"),
-         [_P, _P] + [_I] * 8 + [_D, _D, _P]),
-        # resident: (in ptrs, out ptrs, S, m, n, C, ld, km, kn, n_sweeps,
-        # n_refine, n_extra, sigma, alpha, stream)
+         [_P, _P, _P] + [_I] * 8 + [_D, _D, _P]),
+        # resident: (in ptrs, out ptrs, stop, S, m, n, C, ld, km, kn,
+        # n_sweeps, n_refine, n_extra, sigma, alpha, stream)
         (("tpusppy_fused_sweeps_shared_res_f32",
           "tpusppy_fused_sweeps_shared_res_f64"),
-         [_P, _P] + [_I] * 10 + [_D, _D, _P]),
+         [_P, _P, _P] + [_I] * 10 + [_D, _D, _P]),
         # the resident mode's clusters held at once: (m, n, C, ld, km, kn,
         # out)
         (("tpusppy_fused_sweeps_shared_clusters_f32",
           "tpusppy_fused_sweeps_shared_clusters_f64"),
          [_I] * 6 + [ctypes.POINTER(ctypes.c_int)])],
     "fused_sweeps_sparse": [
-        # dense K^-1: (in ptrs, out+scratch ptrs, S, m, n, kr, kc, sb,
+        # dense K^-1: (in ptrs, out+scratch ptrs, stop, S, m, n, kr, kc, sb,
         # n_sweeps, n_refine, n_extra, sigma, alpha, stream)
         (("tpusppy_fused_sweeps_sparse_f32",
           "tpusppy_fused_sweeps_sparse_f64"),
-         [_P, _P] + [_I] * 9 + [_D, _D, _P]),
+         [_P, _P, _P] + [_I] * 9 + [_D, _D, _P]),
         # structured: the same, then r, kn, kw, kwc, nb, items, pd,
         # stage_elems, bmax before the stream
         (("tpusppy_fused_sweeps_sparse_wb_f32",
           "tpusppy_fused_sweeps_sparse_wb_f64"),
-         [_P, _P] + [_I] * 9 + [_D, _D] + [_I] * 9 + [_P])],
+         [_P, _P, _P] + [_I] * 9 + [_D, _D] + [_I] * 9 + [_P])],
 }
 
 _libs: dict = {}
@@ -122,10 +133,48 @@ build_log: dict = {}
 
 
 def reset_counts():
-    for d in (launches, plain_calls, sparse_modes, shared_modes,
-              dense_modes):
+    for d in _COUNTS.values():
         for k in d:
             d[k] = 0
+
+
+def counts() -> dict:
+    """Every launch and plain-call count, flat: ``{(table, key): n}``."""
+    return {(t, k): v for t, d in _COUNTS.items() for k, v in d.items()}
+
+
+def add_counts(delta: dict):
+    """Add a :func:`counts`-shaped delta (what one CUDA-graph replay
+    launches) to the counts."""
+    for (t, k), v in delta.items():
+        _COUNTS[t][k] += v
+
+
+def _gate(stop, ins, outs):
+    """The plain versions' side of the stop flag: each output where
+    ``stop`` is clear, its input where it is set (on the device, with no
+    host read)."""
+    if stop is None:
+        return tuple(outs)
+    stopped = stop.reshape(()) != 0
+    return tuple(torch.where(stopped, i, o) for i, o in zip(ins, outs))
+
+
+#: A clear stop flag per device, for wrappers called without one.
+_CLEAR: dict = {}
+
+
+def _stop_ptr(stop, dev):
+    """The stop flag's device pointer, checked: a one-element int32 tensor
+    on the kernel's device (a clear one where ``stop`` is None)."""
+    if stop is None:
+        stop = _CLEAR.get(dev)
+        if stop is None:
+            stop = _CLEAR[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    if stop.numel() != 1 or stop.dtype != torch.int32 or stop.device != dev:
+        raise ValueError(f"stop must be one int32 on {dev}; got "
+                         f"{tuple(stop.shape)} {stop.dtype} on {stop.device}")
+    return stop.data_ptr()
 
 
 def matvec(M, v):
@@ -208,13 +257,14 @@ def usable(S, m, n, dtype) -> bool:
 
 def fused_sweeps_plain(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
                        x, z, zx, y, yx, Ax, n_sweeps, n_refine, sigma,
-                       alpha):
+                       alpha, stop=None):
     """The sweep recurrence of ``admm._admm_core`` in batched tensor form
     (``tests/test_pallas.py:_xla_sweeps`` in PyTorch).  Natural layout:
     A (S, m, n), Kinv/K (S, n, n), vectors (S, n) or (S, m).  Returns
     ``(x, z, zx, y, yx, Ax)`` after ``n_sweeps`` sweeps with the incremental
-    Ax carry."""
+    Ax carry, or the inputs where ``stop`` is set."""
     plain_calls["fused_sweeps"] += 1
+    state_in = (x, z, zx, y, yx, Ax)
     # column vectors (S, k, 1) so every matvec is one bmm
     q, cl, cu, lb, ub, rho_a, rho_x, x, z, zx, y, yx, Ax = (
         t.unsqueeze(-1) for t in (q, cl, cu, lb, ub, rho_a, rho_x, x, z, zx,
@@ -242,7 +292,8 @@ def fused_sweeps_plain(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
         zx_new = torch.clamp(zxa + yx / rho_x, lb, ub)
         yx_new = yx + rho_x * (zxa - zx_new)
         x, z, zx, y, yx, Ax = x_new, z_new, zx_new, y_new, yx_new, Ax_new
-    return tuple(t.squeeze(-1) for t in (x, z, zx, y, yx, Ax))
+    return _gate(stop, state_in,
+                 (t.squeeze(-1) for t in (x, z, zx, y, yx, Ax)))
 
 
 # ---- fused_sweeps_shared ---------------------------------------------------
@@ -460,7 +511,15 @@ def shared_operand(A, Kinv, K, lay):
     along columns, as A', for A xt).  The last one made is kept and handed
     out again while the wrapper gets the same A, K^-1 and K tensors in the
     same mode, none written since (their version counters), so a solve's
-    blocks make it once and a new factorization makes it anew."""
+    blocks make it once and a new factorization makes it anew.  Not inside
+    a CUDA-graph capture, which would keep the operand made there and
+    sweep it after new matrices were copied into the graph's buffers: a
+    captured loop makes its operand before the capture
+    (:func:`shared_plan`) and hands it to the wrapper as an input."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "fused_sweeps_shared inside a CUDA-graph capture takes the "
+            "operand made before it (shared_plan)")
     versions = tuple(_version(t) for t in (A, Kinv, K))
     if _operand_cache and None not in versions:
         a, ki, k, mode, ver, op = _operand_cache[0]
@@ -478,13 +537,13 @@ def _check_precision(name, precision):
         raise ValueError(
             f"{name}: precision {precision!r} is not ported; only "
             f"'highest' (full f32/f64) is (the bf16 modes wait for ROADMAP "
-            f"Queue 1 item 8)")
+            f"Queue 1 item 5)")
 
 
 def fused_sweeps_shared_plain(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
                               dq2, has, gamma, x, z, zx, y, yx, Ax, n_sweeps,
                               n_refine, n_extra, sigma, alpha,
-                              precision="highest", mode=None):
+                              precision="highest", mode=None, stop=None):
     """One ``n_sweeps`` block of ``shared_admm._core`` in batched tensor
     form (``tests/test_pallas.py``'s XLA shared sweep in PyTorch).  Shapes:
     A (m, n), Kinv/K (n, n) and rho_a (1, m), rho_x (1, n) are shared; q,
@@ -492,9 +551,10 @@ def fused_sweeps_shared_plain(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
     (S, 1); ``has`` (1, 1) is the batch-global ``any(dq2 != 0)`` that arms
     the ``n_extra`` refinement passes (read on the device, never on the
     host).  ``mode`` (the kernel's) is accepted and unused here.  Returns
-    ``(x, z, zx, y, yx, Ax)``."""
+    ``(x, z, zx, y, yx, Ax)``, or the inputs where ``stop`` is set."""
     _check_precision("fused_sweeps_shared_plain", precision)
     plain_calls["fused_sweeps_shared"] += 1
+    state_in = (x, z, zx, y, yx, Ax)
     g = gamma
     sigma, alpha, beta = float(sigma), float(alpha), 1.0 - float(alpha)
     sigma_s = g * sigma
@@ -524,7 +584,7 @@ def fused_sweeps_shared_plain(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
         zx_new = torch.clamp(zxa + yx / rho_x_s, lb, ub)
         yx_new = yx + rho_x_s * (zxa - zx_new)
         x, z, zx, y, yx, Ax = x_new, z_new, zx_new, y_new, yx_new, Ax_new
-    return x, z, zx, y, yx, Ax
+    return _gate(stop, state_in, (x, z, zx, y, yx, Ax))
 
 
 # ---- fused_sweeps_sparse ---------------------------------------------------
@@ -591,7 +651,8 @@ def usable_sparse(S, m, n, kr, kc, dtype, kinv=None) -> int | None:
 def fused_sweeps_sparse_plain(q, rowcols, rowvals, colrows, colvals, Kinv,
                               diagK, cl, cu, lb, ub, rho_a, rho_x, dq2, has,
                               gamma, x, z, zx, y, yx, Ax, n_sweeps, n_refine,
-                              n_extra, sigma, alpha, precision="highest"):
+                              n_extra, sigma, alpha, precision="highest",
+                              stop=None):
     """One ``n_sweeps`` block of ``shared_admm._core`` on a sparse A in
     batched tensor form, a transcription of
     ``pallas_kernels._sparse_sweeps_kernel``: ELL arrays (m, kr)/(n, kc),
@@ -602,9 +663,10 @@ def fused_sweeps_sparse_plain(q, rowcols, rowvals, colrows, colvals, Kinv,
     the kernel takes it), ``diagK`` (1, n) = q2ref + rho_x + sigma (the
     matrix-free defect's diagonal), ``rho_a`` (1, m) unscaled, everything
     else as :func:`fused_sweeps_shared_plain`.  Returns
-    ``(x, z, zx, y, yx, Ax)``."""
+    ``(x, z, zx, y, yx, Ax)``, or the inputs where ``stop`` is set."""
     _check_precision("fused_sweeps_sparse_plain", precision)
     plain_calls["fused_sweeps_sparse"] += 1
+    state_in = (x, z, zx, y, yx, Ax)
     rc_t, rv_t, cr_t, cv_t = ell_slot_major((rowcols, rowvals, colrows,
                                              colvals))
     if isinstance(Kinv, KernelWoodbury):
@@ -651,7 +713,7 @@ def fused_sweeps_sparse_plain(q, rowcols, rowvals, colrows, colvals, Kinv,
         zx_new = torch.clamp(zxa + yx / rho_x_s, lb, ub)
         yx_new = yx + rho_x_s * (zxa - zx_new)
         x, z, zx, y, yx, Ax = x_new, z_new, zx_new, y_new, yx_new, Ax_new
-    return x, z, zx, y, yx, Ax
+    return _gate(stop, state_in, (x, z, zx, y, yx, Ax))
 
 
 # ---- build and bind --------------------------------------------------------
@@ -725,15 +787,16 @@ def _check_args(name, ins, shapes, dev, dt):
                 f"{shp} {dt} on {dev}, contiguous")
 
 
-def _launch(name, dt, ins, outs, *scalars, entry=0):
+def _launch(name, dt, ins, outs, stop, *scalars, entry=0):
     lib = _load(name)
     fn = getattr(lib, _ENTRY_POINTS[name][entry][0][dt == torch.float64])
     in_ptrs = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins])
     out_ptrs = (ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs])
     dev = outs[0].device
+    stop = _stop_ptr(stop, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(in_ptrs, out_ptrs, *scalars, stream)
+        err = fn(in_ptrs, out_ptrs, stop, *scalars, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     launches[name] += 1
@@ -745,15 +808,17 @@ def _sm_count(dev) -> int:
 
 
 def fused_sweeps(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
-                 x, z, zx, y, yx, Ax, n_sweeps, n_refine, sigma, alpha):
+                 x, z, zx, y, yx, Ax, n_sweeps, n_refine, sigma, alpha,
+                 stop=None):
     """Run ``n_sweeps`` fused ADMM sweeps; same arguments and result as
     :func:`fused_sweeps_plain`.  CUDA tensors launch the kernel in the mode
     of :func:`dense_layout` (or raise); CPU tensors run the plain
-    version."""
+    version.  Where ``stop`` is set the kernel returns at once and the
+    outputs are left unwritten."""
     if A.device.type == "cpu":
         return fused_sweeps_plain(q, A, Kinv, K, cl, cu, lb, ub, rho_a,
                                   rho_x, x, z, zx, y, yx, Ax, n_sweeps,
-                                  n_refine, sigma, alpha)
+                                  n_refine, sigma, alpha, stop=stop)
     if A.device.type != "cuda":
         raise ValueError(f"fused_sweeps: unsupported device {A.device}")
     S, m, n = A.shape
@@ -776,7 +841,7 @@ def fused_sweeps(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
         mode = 1
         ptrs += (torch.empty(max(1, min(S, nsm) * lay["scratch"]), dtype=dt,
                              device=A.device),)
-    _launch("fused_sweeps", dt, ins, ptrs, S, m, n, int(n_sweeps),
+    _launch("fused_sweeps", dt, ins, ptrs, stop, S, m, n, int(n_sweeps),
             int(n_refine), mode, nsm, float(sigma), float(alpha))
     dense_modes[lay["mode"]] += 1
     return outs
@@ -801,29 +866,11 @@ def _shared_clusters(dev, dt, m, n) -> int:
     return out.value
 
 
-def fused_sweeps_shared(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, dq2,
-                        has, gamma, x, z, zx, y, yx, Ax, n_sweeps, n_refine,
-                        n_extra, sigma, alpha, precision="highest",
-                        mode=None):
-    """Run one ``n_sweeps`` block of the shared-A sweep; same arguments and
-    result as :func:`fused_sweeps_shared_plain`.  CUDA tensors launch the
-    kernel in the mode of :func:`shared_mode` (or raise); CPU tensors run
-    the plain version.  ``mode`` ("resident" or "streamed") overrides that
-    choice where the mode takes the shape, to hold or time one mode
-    against the other."""
-    _check_precision("fused_sweeps_shared", precision)
-    if A.device.type == "cpu":
-        return fused_sweeps_shared_plain(
-            q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, dq2, has, gamma,
-            x, z, zx, y, yx, Ax, n_sweeps, n_refine, n_extra, sigma, alpha)
-    if A.device.type != "cuda":
-        raise ValueError(f"fused_sweeps_shared: unsupported device "
-                         f"{A.device}")
-    if A.ndim != 2 or q.ndim != 2:
-        raise ValueError(f"fused_sweeps_shared: A must be (m, n) and q "
-                         f"(S, n); got {tuple(A.shape)} and "
-                         f"{tuple(q.shape)}")
-    (m, n), S, dt = A.shape, q.shape[0], A.dtype
+def _shared_launch_layout(S, A, mode):
+    """The layout ``fused_sweeps_shared`` launches in for ``S`` scenarios
+    on this A: ``mode``'s, or :func:`shared_mode`'s choice; raises where
+    the kernel does not take the shape."""
+    (m, n), dt = A.shape, A.dtype
     isz = A.element_size()
     if mode is None and usable_shared(S, m, n, dt) is not None:
         res = shared_layout(m, n, isz, "resident")
@@ -836,7 +883,49 @@ def fused_sweeps_shared(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, dq2,
         raise ValueError(f"fused_sweeps_shared: shape (S={S}, m={m}, "
                          f"n={n}) in {dt} is not taken by the kernel"
                          + (f" in its {mode} mode" if mode else ""))
-    operand = shared_operand(A, Kinv, K, lay)
+    return lay
+
+
+def shared_plan(S, A, Kinv, K, mode=None):
+    """``(mode, operand)``: the mode ``fused_sweeps_shared`` launches for
+    ``S`` scenarios on these CUDA matrices and what it reads of them
+    (:func:`shared_operand`), for a caller that passes both to every
+    launch (a captured sweep loop, whose graph reads the operand from its
+    buffers)."""
+    lay = _shared_launch_layout(S, A, mode)
+    return lay["mode"], shared_operand(A, Kinv, K, lay)
+
+
+def fused_sweeps_shared(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, dq2,
+                        has, gamma, x, z, zx, y, yx, Ax, n_sweeps, n_refine,
+                        n_extra, sigma, alpha, precision="highest",
+                        mode=None, stop=None, operand=None):
+    """Run one ``n_sweeps`` block of the shared-A sweep; same arguments and
+    result as :func:`fused_sweeps_shared_plain`.  CUDA tensors launch the
+    kernel in the mode of :func:`shared_mode` (or raise); CPU tensors run
+    the plain version.  ``mode`` ("resident" or "streamed") overrides that
+    choice where the mode takes the shape, to hold or time one mode
+    against the other.  ``operand``: what the kernel reads of A, K^-1 and
+    K in that mode (:func:`shared_plan`), else made here.  Where ``stop``
+    is set the kernel returns at once and the outputs are left
+    unwritten."""
+    _check_precision("fused_sweeps_shared", precision)
+    if A.device.type == "cpu":
+        return fused_sweeps_shared_plain(
+            q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, dq2, has, gamma,
+            x, z, zx, y, yx, Ax, n_sweeps, n_refine, n_extra, sigma, alpha,
+            stop=stop)
+    if A.device.type != "cuda":
+        raise ValueError(f"fused_sweeps_shared: unsupported device "
+                         f"{A.device}")
+    if A.ndim != 2 or q.ndim != 2:
+        raise ValueError(f"fused_sweeps_shared: A must be (m, n) and q "
+                         f"(S, n); got {tuple(A.shape)} and "
+                         f"{tuple(q.shape)}")
+    (m, n), S, dt = A.shape, q.shape[0], A.dtype
+    lay = _shared_launch_layout(S, A, mode)
+    if operand is None:
+        operand = shared_operand(A, Kinv, K, lay)
     vecs = (cl, cu, lb, ub, rho_a, rho_x, dq2, has, gamma, x, z, zx, y, yx,
             Ax)
     vshapes = ((S, m), (S, m), (S, n), (S, n), (1, m), (1, n), (S, n),
@@ -848,15 +937,15 @@ def fused_sweeps_shared(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, dq2,
         ins = (q, operand) + vecs
         _check_args("fused_sweeps_shared", ins,
                     ((S, n), (lay["C"], lay["reg"])) + vshapes, A.device, dt)
-        _launch("fused_sweeps_shared", dt, ins, outs, S, m, n, lay["C"],
-                lay["ld"], lay["km"], lay["kn"], *fixed, entry=1)
+        _launch("fused_sweeps_shared", dt, ins, outs, stop, S, m, n,
+                lay["C"], lay["ld"], lay["km"], lay["kn"], *fixed, entry=1)
     else:
         ins = (q, A, operand, Kinv, K) + vecs
         _check_args("fused_sweeps_shared", ins,
                     ((S, n), (m, n), (n, m), (n, n), (n, n)) + vshapes,
                     A.device, dt)
-        _launch("fused_sweeps_shared", dt, ins, outs, S, m, n, lay["sb"],
-                lay["chunk"], *fixed)
+        _launch("fused_sweeps_shared", dt, ins, outs, stop, S, m, n,
+                lay["sb"], lay["chunk"], *fixed)
     shared_modes[lay["mode"]] += 1
     return outs
 
@@ -864,20 +953,22 @@ def fused_sweeps_shared(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, dq2,
 def fused_sweeps_sparse(q, rowcols, rowvals, colrows, colvals, Kinv, diagK,
                         cl, cu, lb, ub, rho_a, rho_x, dq2, has, gamma, x, z,
                         zx, y, yx, Ax, n_sweeps, n_refine, n_extra, sigma,
-                        alpha, precision="highest", ell_t=None):
+                        alpha, precision="highest", ell_t=None, stop=None):
     """Run one ``n_sweeps`` block of the sparse shared-A sweep; same
     arguments and result as :func:`fused_sweeps_sparse_plain`.  CUDA
     tensors launch the kernel in the mode of ``Kinv`` (a dense (n, n)
     tensor, or a :class:`~.structured_kkt.KernelWoodbury`) or raise; CPU
     tensors run the plain version.  ``ell_t`` is :func:`ell_slot_major` of
     the ELL arrays, which the kernel reads; a caller that launches many
-    blocks against one A passes it, else it is made here."""
+    blocks against one A passes it, else it is made here.  Where ``stop``
+    is set the kernel returns at once and the outputs are left
+    unwritten."""
     _check_precision("fused_sweeps_sparse", precision)
     if Kinv.device.type == "cpu":
         return fused_sweeps_sparse_plain(
             q, rowcols, rowvals, colrows, colvals, Kinv, diagK, cl, cu, lb,
             ub, rho_a, rho_x, dq2, has, gamma, x, z, zx, y, yx, Ax, n_sweeps,
-            n_refine, n_extra, sigma, alpha)
+            n_refine, n_extra, sigma, alpha, stop=stop)
     if Kinv.device.type != "cuda":
         raise ValueError(f"fused_sweeps_sparse: unsupported device "
                          f"{Kinv.device}")
@@ -925,7 +1016,7 @@ def fused_sweeps_sparse(q, rowcols, rowvals, colrows, colvals, Kinv, diagK,
     fixed = (S, m, n, kr, kc, sb, int(n_sweeps), int(n_refine), int(n_extra),
              float(sigma), float(alpha))
     if wb is None:
-        _launch("fused_sweeps_sparse", dt, ins, outs + scratch, *fixed)
+        _launch("fused_sweeps_sparse", dt, ins, outs + scratch, stop, *fixed)
         sparse_modes["dense"] += 1
         return outs
     pat = wb.pattern
@@ -945,8 +1036,8 @@ def fused_sweeps_sparse(q, rowcols, rowvals, colrows, colvals, Kinv, diagK,
                     [shapes[i] for i in idx], dev, want)
     scratch += tuple(torch.empty(tiles * sb * n, dtype=dt, device=dev)
                      for _ in range(2))
-    _launch("fused_sweeps_sparse", dt, ins + lay, outs + scratch, *fixed,
-            r, pat.kn, kw, kwc, pat.nb, items.shape[0], pat.pd,
+    _launch("fused_sweeps_sparse", dt, ins + lay, outs + scratch, stop,
+            *fixed, r, pat.kn, kw, kwc, pat.nb, items.shape[0], pat.pd,
             pat.stage_elems[4 if dt == torch.float32 else 8], pat.bmax,
             entry=1)
     sparse_modes["structured"] += 1

@@ -1,0 +1,296 @@
+"""The solve cores' sweep loop on the device.
+
+The port's counterpart of the reference's ``lax.while_loop`` in
+``tpusppy/solvers/admm.py`` (``_admm_core``) and
+``tpusppy/solvers/shared_admm.py`` (``_core``); it has no module twin
+there.  A solve core hands :func:`run` a *block*: a function that runs one
+``check_every`` block of sweeps and its bookkeeping, in place on a state
+held in tensors, and ends with the exit vote.  The state's last tensor is
+the stop flag, a 0-dim int32 that stays set once set.  The block's sweep
+kernel returns at once where the flag is set, and the block commits every
+state tensor through ``torch.where(stop, old, new)``, so a block past the
+loop's exit changes nothing: running blocks past the stop gives, bit for
+bit, what stopping at once gives.
+
+A block's *phase* is what it does beside the sweeps that not every block
+does (the engines' gamma and plateau rules, which fall every so many
+blocks).  A run starts at block 0, so the host knows each block's index
+and phase: a replay of ``L`` blocks is a *pattern* of ``L`` phases, and
+each rule runs only in the blocks where it falls, with no device mask.
+The last replay before the sweep cap holds only the blocks left under it
+(a shorter pattern), so a run that reaches its cap runs no block past
+it.
+
+On a CUDA device :func:`run` captures one CUDA graph of ``L`` blocks for
+each pattern its run needs, once per key, and replays them; a later call
+with the same key copies its inputs (every floating-point tensor of its
+operands, new factors included) into the graphs' buffers and replays the
+same graphs.  The host reads the 4-byte flag once a replay, with the next
+replay already queued (the reference's pipelined continuation,
+``tpusppy/solvers/segmented.py`` ``_continue_frozen_pipelined``, moved
+into the loop: blocks past the stop are no-ops, so the speculative replay
+needs no discard).  The loop runs at most ``L - 1`` gated blocks past its
+exit in the replay that sets the flag, and one speculative replay of ``L``
+more.  A capture or a replay that fails raises; nothing falls back to a
+host loop.
+
+On the CPU the same blocks run eagerly, ``L`` a replay, with the same
+replay queued ahead of each flag read, so the CPU tests hold the graph
+body and the protocol themselves.
+
+Counters: ``device_loop.captures`` (graphs captured) and
+``device_loop.capture_secs`` (host time of the captures and their
+warm-ups), ``device_loop.warmups`` (blocks run with the flag set before a
+capture), ``device_loop.replays``, ``device_loop.blocks`` (blocks replayed,
+gated ones included) and, one per flag read, ``admm.loop_checks`` (each
+also a ``host_sync.count``).
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+
+import torch
+
+from ..obs import metrics as _metrics
+from . import cuda_kernels, hostsync
+from .sparse import SparseA
+
+_LOOP_CHECKS = _metrics.counter("admm.loop_checks")
+_CAPTURES = _metrics.counter("device_loop.captures")
+_CAPTURE_SECS = _metrics.counter("device_loop.capture_secs")
+_WARMUPS = _metrics.counter("device_loop.warmups")
+_REPLAYS = _metrics.counter("device_loop.replays")
+_BLOCKS = _metrics.counter("device_loop.blocks")
+
+#: Captured loops kept (least recently used dropped first); each holds its
+#: graphs' memory pools and its buffers.
+CACHE_SIZE = 4
+
+_cache: collections.OrderedDict = collections.OrderedDict()
+_streams: dict = {}
+
+
+def commit(stop: torch.Tensor, state, new):
+    """Write ``new`` into the ``state`` tensors where ``stop`` (a 0-dim
+    bool) is clear; keep the old values where it is set.  A state tensor
+    handed back as its own new value is left alone."""
+    for old, nw in zip(state, new):
+        if nw is not old:
+            torch.where(stop, old, nw, out=old)
+
+
+def raise_flag(flag: torch.Tensor, vote: torch.Tensor):
+    """Set the stop flag where ``vote`` (a 0-dim bool) is true; a set flag
+    stays set."""
+    flag.bitwise_or_(vote)
+
+
+def run(block, ops, state, blocks_per_replay, max_blocks, key, phase):
+    """Run ``block(ops, state, phase(b))`` for blocks ``b = 0, 1, ...``
+    until the stop flag ``state[-1]`` is set.
+
+    ``ops`` is a tuple of operands.  Their floating-point tensors, also
+    inside tuples (NamedTuples: factor operators) and :class:`SparseA`
+    values, are inputs that a captured graph reads from buffers of its
+    own, refilled at every call; the rest (index arrays, structure, other
+    objects) is held by the graph as it is and keys it by identity.
+    ``state`` is the initial state (not written).  The block must read
+    nothing but ``ops``, ``state`` and its phase besides what ``key``
+    names.  ``phase(b)``: block ``b``'s phase, a hashable host value that
+    ``key`` determines.  ``max_blocks``: the block count at which the
+    block's own vote sets the flag (the sweep cap), so no replay runs past
+    it.  Returns the final state as new tensors."""
+    L = max(1, int(blocks_per_replay))
+    nb = max(0, int(max_blocks))
+    plan = [tuple(map(phase, range(j, min(j + L, nb))))
+            for j in range(0, nb, L)]
+    if state[-1].device.type != "cuda":
+        work = [t.clone() for t in state]
+
+        def replay(j):
+            for ph in plan[j]:
+                block(ops, work, ph)
+
+        queued = _drive(replay, lambda: hostsync.fetch_async(work[-1]),
+                        len(plan))
+    else:
+        entry = _entry(block, ops, state, L, key)
+        entry.prepare(plan)
+        entry.load(ops, state)
+        queued = _drive(lambda j: entry.replay(plan[j]), entry.read_flag,
+                        len(plan))
+        work = [t.clone() for t in entry.state]
+    _REPLAYS.inc(queued)
+    _BLOCKS.inc(sum(len(p) for p in plan[:queued]))
+    return work
+
+
+def _drive(replay, read_flag, replays) -> int:
+    """Replay until a flag read says stop or all ``replays`` have run,
+    reading each replay's flag with the next replay already queued.
+    Returns the replays queued."""
+    if replays < 1:
+        return 0
+    replay(0)
+    queued = 1
+    for _ in range(replays):
+        pending = read_flag()
+        spec = queued < replays
+        if spec:
+            replay(queued)
+            queued += 1
+        stop = bool(pending.result(overlapped=spec))
+        _LOOP_CHECKS.inc()
+        if stop:
+            break
+    return queued
+
+
+def _values(v) -> list:
+    """The floating-point tensors of an operand, in walk order."""
+    if isinstance(v, torch.Tensor):
+        return [v] if v.is_floating_point() else []
+    if isinstance(v, SparseA):
+        return list(v.values())
+    if isinstance(v, tuple):
+        return [t for c in v for t in _values(c)]
+    return []
+
+
+def _skeleton(v):
+    """What keys a graph in an operand: the shape, type and device of its
+    floating-point tensors, and the identity of everything else."""
+    if isinstance(v, torch.Tensor):
+        return (("t", tuple(v.shape), v.dtype, v.device)
+                if v.is_floating_point() else ("id", id(v)))
+    if isinstance(v, SparseA):
+        return ("sparse", id(v.rows), tuple(_skeleton(t) for t in
+                                            v.values()))
+    if isinstance(v, tuple):
+        return (type(v),) + tuple(_skeleton(c) for c in v)
+    return ("id", id(v))
+
+
+def _rebuild(v, bufs):
+    """``v`` with its floating-point tensors taken, in walk order, from the
+    iterator ``bufs``."""
+    if isinstance(v, torch.Tensor):
+        return next(bufs) if v.is_floating_point() else v
+    if isinstance(v, SparseA):
+        return v.with_values(*(next(bufs) for _ in v.values()))
+    if isinstance(v, tuple):
+        parts = [_rebuild(c, bufs) for c in v]
+        return type(v)(*parts) if hasattr(v, "_fields") else tuple(parts)
+    return v
+
+
+def _signature(ops, state, L, key):
+    return (key, L, _skeleton(tuple(ops)),
+            tuple((tuple(t.shape), t.dtype, t.device) for t in state))
+
+
+def _entry(block, ops, state, L, key):
+    sig = _signature(ops, state, L, key)
+    entry = _cache.get(sig)
+    if entry is None:
+        entry = _Captured(block, ops, state)
+        _cache[sig] = entry
+        while len(_cache) > CACHE_SIZE:
+            _cache.popitem(last=False)
+    else:
+        _cache.move_to_end(sig)
+    return entry
+
+
+def _capture_stream(dev):
+    s = _streams.get(dev)
+    if s is None:
+        s = _streams[dev] = torch.cuda.Stream(dev)
+    return s
+
+
+def _buffer(t):
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
+
+
+class _Captured:
+    """One captured loop: the buffers its graphs read and write, a graph
+    and the kernel launches one replay of it makes for each pattern, and
+    the pinned flag buffer."""
+
+    def __init__(self, block, ops, state):
+        self.block = block
+        # the operands are held (the identity of their index arrays and
+        # objects keys the graphs), their values copied into buffers
+        self.held = ops
+        self.values = [_buffer(t) for t in _values(tuple(ops))]
+        self.ops = _rebuild(tuple(ops), iter(self.values))
+        self.state = [_buffer(t) for t in state]
+        self._fresh = True
+        self.graphs = {}
+        self.pinned = torch.empty((), dtype=torch.int32, pin_memory=True)
+        self.event = torch.cuda.Event()
+
+    def prepare(self, plan):
+        """Capture the graph of every pattern in ``plan`` not captured
+        yet (before :meth:`load`: a capture's warm-up writes the flag)."""
+        for pattern in dict.fromkeys(plan):
+            if pattern not in self.graphs:
+                self._capture(pattern)
+
+    def _capture(self, pattern):
+        t0 = time.perf_counter()
+        dev = self.state[-1].device
+        stream = _capture_stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            # warm-up: one block of each phase with the flag set runs
+            # every lazy set-up (libraries, handles, kernel attributes)
+            # outside the capture, and changes no state
+            self.state[-1].fill_(1)
+            phases = list(dict.fromkeys(pattern))
+            for ph in phases:
+                self.block(self.ops, self.state, ph)
+            before = cuda_kernels.counts()
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin()
+            try:
+                for ph in pattern:
+                    self.block(self.ops, self.state, ph)
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass
+                raise
+            graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        # the launches captured did not run: each replay counts them
+        after = cuda_kernels.counts()
+        delta = {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+        cuda_kernels.add_counts({k: -v for k, v in delta.items()})
+        self.graphs[pattern] = (graph, delta)
+        _WARMUPS.inc(len(phases))
+        _CAPTURES.inc()
+        _CAPTURE_SECS.inc(time.perf_counter() - t0)
+
+    def load(self, ops, state):
+        """Copy a call's inputs and initial state into the buffers."""
+        if not self._fresh:
+            for buf, t in zip(self.values, _values(tuple(ops))):
+                buf.copy_(t)
+        self._fresh = False
+        for buf, t in zip(self.state, state):
+            buf.copy_(t)
+
+    def replay(self, pattern):
+        graph, delta = self.graphs[pattern]
+        graph.replay()
+        cuda_kernels.add_counts(delta)
+
+    def read_flag(self):
+        return hostsync.fetch_async(self.state[-1], out=self.pinned,
+                                    event=self.event)

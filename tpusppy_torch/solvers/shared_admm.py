@@ -33,13 +33,17 @@ duality (:func:`tpusppy_torch.solvers.admm.dual_objective` takes the shared
 A, dense or sparse) and LP-exact residue is left to the host straggler
 rescue (``spopt.SPOpt._rescue_stragglers``).
 
-Differences from the JAX package: the sweep ``while_loop`` is a host loop
-with one ``all(done)`` vote per block (``admm.loop_checks``), as in
+Differences from the JAX package: the sweep ``while_loop`` runs in
+:mod:`.device_loop` (on CUDA as CUDA-graph replays of
+:data:`BLOCKS_PER_REPLAY` blocks with a dense A and
+:data:`SPARSE_BLOCKS_PER_REPLAY` in ``fused_sweeps_sparse``, the host
+reading one stop flag a replay, counted as ``admm.loop_checks``), as in
 :func:`tpusppy_torch.solvers.admm._admm_core`; the restart ``scan`` is a
-Python loop; the sparse engines' sweep blocks always run in the fused
-kernel, which applies the Woodbury operator as the reference's XLA path
-does (the reference's Pallas kernel takes its densified matrix).  Not ported
-yet: ``sweep_precision`` (ROADMAP Queue 1 item 8).
+Python loop that reads nothing from the device; the sparse engines' sweep
+blocks always run in the fused kernel, which applies the Woodbury operator
+as the reference's XLA path does (the reference's Pallas kernel takes its
+densified matrix).  Not ported yet: ``sweep_precision`` (ROADMAP Queue 1
+item 5).
 """
 
 from __future__ import annotations
@@ -50,14 +54,25 @@ from typing import NamedTuple
 import torch
 
 from .. import resolve_device
-from . import cuda_kernels
-from .admm import (ADMMSettings, BatchSolution, BIG, _LOOP_CHECKS,
-                   _clean_bounds, _done_mask, _explicit_inverse,
-                   _kernel_on, _plateau_update, _tensor)
+from . import cuda_kernels, device_loop
+from .admm import (ADMMSettings, BatchSolution, BIG, _clean_bounds,
+                   _counters, _done_mask, _explicit_inverse, _kernel_on,
+                   _plateau_update, _residuals, _tensor, _vote, plateau_due)
 from .cuda_kernels import matvec as _mv
-from .cuda_kernels import rmatvec as _rmv
 from .sparse import SparseA, dense_ell, ell_slot_major
 from .structured_kkt import factor_structured, woodbury_layout
+
+#: Sweep blocks a CUDA-graph replay of the loop runs with a dense shared A
+#: (``fused_sweeps_shared``): 8 divides the gamma cadence (32 blocks at the
+#: default ``check_every``) and the plateau window (8 blocks at the
+#: default ``sweep_plateau_window``), so a run needs two graphs, one with
+#: the gamma rule in its last block and one without (PERF.md).
+BLOCKS_PER_REPLAY = 8
+#: The same with ``fused_sweeps_sparse``: one, since a block there takes
+#: milliseconds (PERF.md), so a gated block past the exit costs more than
+#: the flag reads a longer replay saves, and the replay queued ahead keeps
+#: the card busy while the host reads the flag.
+SPARSE_BLOCKS_PER_REPLAY = 1
 
 
 class SharedFactors(NamedTuple):
@@ -96,9 +111,9 @@ class _IterState(NamedTuple):
     dua: torch.Tensor
     prinorm: torch.Tensor
     duanorm: torch.Tensor
-    k: int                # sweeps run at this rho profile
-    best: float           # plateau: best batch eps-normalized residual
-    stall: int            # plateau: consecutive non-improving windows
+    k: torch.Tensor       # () int64: sweeps run at this rho profile
+    best: torch.Tensor    # () plateau: best batch eps-normalized residual
+    stall: torch.Tensor   # () int64: consecutive non-improving windows
 
 
 def _ruiz_shared(A, q2ref, iters):
@@ -149,11 +164,121 @@ def _factor_shared(q2ref, A, rho_a, rho_x, sigma):
     return Kinv, None if sparse else K, Kinv
 
 
+def _finite_rows(t):
+    return torch.isfinite(t).all(dim=1)
+
+
+def gamma_due(b, st: ADMMSettings) -> bool:
+    """Whether block ``b`` of a sweep loop (from 0) falls on the gamma
+    cadence, every ~128 sweeps: the reference's ``((k + ck) // ck) %
+    period == 0`` at the block's sweep count ``k = b * ck``, known on the
+    host."""
+    ce = max(1, st.check_every)
+    return (b + 1) % max(1, 128 // ce) == 0
+
+
+def _block(ops, cur, phase, st: ADMMSettings, sparse, mode):
+    """One sweep block of the shared-A loop, in place on ``cur`` (the
+    :class:`_IterState` fields, the carried Ax, the stop flag): the
+    ``check_every`` sweeps gated by the flag (``fused_sweeps_shared`` in
+    ``mode`` on the operand made for it, or with ``sparse``
+    ``fused_sweeps_sparse`` and its matrix-free defect on A's ELL form),
+    one true matvec that re-anchors Ax, the residuals, the divergence
+    guard, the gamma rule and the plateau update where ``phase`` (``(gamma
+    due, plateau due)``, :func:`gamma_due`, :func:`.admm.plateau_due`)
+    says they fall, the commit (nothing where the flag was set), then the
+    exit vote."""
+    q, q2s, q2ref, A, cl, cu, lb, ub, Kinv, KD, rho_a1, rho_x1, glo, ghi, \
+        aq, operand = ops
+    g_due, p_due = phase
+    s = _IterState(*cur[:13])
+    Ax_prev, flag = cur[13], cur[14]
+    ce = max(1, st.check_every)
+    g = s.gamma[:, None].contiguous()
+    dq2 = q2s - g * q2ref[None, :]
+    # batch-global flag for the extra refinement passes, on the device
+    has = (dq2 != 0).any().to(q.dtype).reshape(1, 1)
+    fixed = (ce, st.solve_refine, 2, st.sigma, st.alpha)
+    if sparse:
+        # KD is the exact K's diagonal part; A'RA goes through the ELL form
+        ell = A.ell if isinstance(A, SparseA) else dense_ell(A)
+        if not _kernel_on(st):
+            sweep = cuda_kernels.fused_sweeps_sparse_plain
+        elif q.device.type != "cuda":
+            sweep = cuda_kernels.fused_sweeps_sparse
+        else:
+            # the kernel reads the ELL arrays slot-major
+            sweep = functools.partial(
+                cuda_kernels.fused_sweeps_sparse,
+                ell_t=(A.ell_t() if isinstance(A, SparseA)
+                       else ell_slot_major(ell)))
+        x, z, zx, y, yx, _ = sweep(
+            q, *ell, Kinv, KD, cl, cu, lb, ub, rho_a1, rho_x1, dq2, has, g,
+            s.x, s.z, s.zx, s.y, s.yx, Ax_prev, *fixed, stop=flag)
+    else:
+        sweep = (functools.partial(cuda_kernels.fused_sweeps_shared,
+                                   mode=mode, operand=operand)
+                 if _kernel_on(st) else cuda_kernels.fused_sweeps_shared_plain)
+        x, z, zx, y, yx, _ = sweep(
+            q, A, Kinv, KD, cl, cu, lb, ub, rho_a1, rho_x1, dq2, has, g,
+            s.x, s.z, s.zx, s.y, s.yx, Ax_prev, *fixed, stop=flag)
+    # re-anchor the incrementally carried Ax (see admm._block)
+    Ax = _mv(A, x)
+    pri, dua, prinorm, duanorm = _residuals(q, q2s, A, aq, x, z, zx, y, yx,
+                                            Ax)
+    # Per-scenario divergence guard: a scenario whose iterates left the
+    # finite range (e.g. a dq2 too large for the shared-K refinement to
+    # contract) is frozen at its last finite iterate and reports INF
+    # residuals, so done stays False and nothing downstream sees NaN.
+    # Ax_prev is exactly A @ s.x from the previous re-anchor.
+    finite = (_finite_rows(x) & _finite_rows(z) & _finite_rows(zx)
+              & _finite_rows(y) & _finite_rows(yx))
+    bad = ~finite | ~(pri <= BIG) | ~(dua <= BIG)
+    bv = bad[:, None]
+    x = torch.where(bv, s.x, x)
+    z = torch.where(bv, s.z, z)
+    zx = torch.where(bv, s.zx, zx)
+    y = torch.where(bv, s.y, y)
+    yx = torch.where(bv, s.yx, yx)
+    Ax = torch.where(bv, Ax_prev, Ax)
+    pri = torch.where(bad, torch.inf, pri)
+    dua = torch.where(bad, torch.inf, dua)
+    prinorm = torch.where(bad, s.prinorm, prinorm)
+    duanorm = torch.where(bad, s.duanorm, duanorm)
+    gamma, best, stall = s.gamma, s.best, s.stall
+    if p_due:
+        best, stall = _plateau_update(s, pri, dua, prinorm, duanorm, st)
+    if g_due:
+        # OSQP-style per-scenario gamma adaptation on normalized residual
+        # ratios, every ~128 sweeps (the reference's cadence: adapting at
+        # every checkpoint thrashes)
+        done = _done_mask(pri, dua, prinorm, duanorm, st)
+        pri_rel = pri / torch.clamp(prinorm, min=1e-10)
+        dua_rel = dua / torch.clamp(duanorm, min=1e-10)
+        ratio = torch.sqrt(torch.clamp(pri_rel, min=1e-12)
+                           / torch.clamp(dua_rel, min=1e-12))
+        move = (ratio > 5.0) | (ratio < 0.2)
+        gnew = torch.minimum(torch.maximum(
+            s.gamma * torch.clamp(ratio, 0.1, 10.0), glo), ghi)
+        gamma = torch.where(done | ~move, s.gamma, gnew)
+        if st.sweep_plateau_rtol > 0:
+            # an actual gamma move changes the iteration: fresh plateau
+            # grace
+            moved = (move & ~done & (gnew != s.gamma)).any()
+            best = torch.where(moved, torch.inf, best)
+            stall = torch.where(moved, 0, stall)
+    device_loop.commit(flag != 0, cur, (
+        x, z, zx, y, yx, gamma, pri, dua, prinorm, duanorm, s.k + ce, best,
+        stall, Ax))
+    device_loop.raise_flag(flag, _vote(_IterState(*cur[:13]), st))
+
+
 def _core(q, q2s, q2ref, A, cl, cu, lb, ub, state: _IterState, Kinv, K,
           rho_a, rho_x, glo, ghi, st: ADMMSettings,
           adaptive=False) -> _IterState:
     """Inner sweep loop at a fixed shared rho profile, with IN-LOOP
-    per-scenario gamma adaptation.
+    per-scenario gamma adaptation, on the device (:mod:`.device_loop`,
+    :func:`_block`).
 
     Scaling the whole penalty profile (rho_a, rho_x, sigma) by gamma_s keeps
     the x-update system an exact multiple of the shared K, so adapting gamma
@@ -161,127 +286,35 @@ def _core(q, q2s, q2ref, A, cl, cu, lb, ub, state: _IterState, Kinv, K,
     batches (dq2 = 0, exact at any gamma), near 1 for QP (keeps the dq2
     refinement contractive).  ``Kinv`` is the operand the kernels apply:
     a dense (n, n) K^-1, or a KernelWoodbury (with a SparseA and no K).
-    Each ``check_every`` block runs in ``fused_sweeps_shared`` when
-    A is dense and K is given, else in ``fused_sweeps_sparse`` with the
-    matrix-free defect on A's ELL form; then one true matvec re-anchors Ax,
-    the residuals are measured, the divergence guard and the gamma rule
-    apply, and the host reads the all-done vote."""
+    Blocks run in ``fused_sweeps_shared`` when A is dense and K is given,
+    else in ``fused_sweeps_sparse``.  The exit rule is the reference's
+    while_loop's, voted on the device after every block."""
     ce = max(1, st.check_every)
     if isinstance(Kinv, torch.Tensor):
         Kinv = Kinv.contiguous()
-    rho_a1 = rho_a[None, :].contiguous()
-    rho_x1 = rho_x[None, :].contiguous()
-    kernel = _kernel_on(st)
-    if isinstance(A, SparseA) or K is None:
-        ell = A.ell if isinstance(A, SparseA) else dense_ell(A)
-        # the exact K's diagonal part; A'RA is applied through the ELL form
-        diagK = (q2ref + rho_x + st.sigma)[None, :].contiguous()
-        if kernel:
-            # the kernel reads the ELL arrays slot-major; made once per call
-            sweeps = functools.partial(
-                cuda_kernels.fused_sweeps_sparse,
-                ell_t=(A.ell_t() if isinstance(A, SparseA)
-                       else ell_slot_major(ell))
-                if Kinv.device.type == "cuda" else None)
-        else:
-            sweeps = cuda_kernels.fused_sweeps_sparse_plain
-
-        def run(q, cl, cu, lb, ub, dq2, has, g, x, z, zx, y, yx, Ax):
-            return sweeps(q, *ell, Kinv, diagK, cl, cu, lb, ub, rho_a1,
-                          rho_x1, dq2, has, g, x, z, zx, y, yx, Ax, ce,
-                          st.solve_refine, 2, st.sigma, st.alpha)
-    else:
-        A, K = A.contiguous(), K.contiguous()
-        sweeps = (cuda_kernels.fused_sweeps_shared if kernel
-                  else cuda_kernels.fused_sweeps_shared_plain)
-
-        def run(q, cl, cu, lb, ub, dq2, has, g, x, z, zx, y, yx, Ax):
-            return sweeps(q, A, Kinv, K, cl, cu, lb, ub, rho_a1, rho_x1,
-                          dq2, has, g, x, z, zx, y, yx, Ax, ce,
-                          st.solve_refine, 2, st.sigma, st.alpha)
-    aq = q.abs().amax(dim=1)
-    inf = torch.full((), torch.inf, dtype=q.dtype, device=q.device)
-
-    def block(x, z, zx, y, yx, Ax, gamma):
-        g = gamma[:, None].contiguous()
-        dq2 = q2s - g * q2ref[None, :]
-        # batch-global flag for the extra refinement passes, on the device
-        has = (dq2 != 0).any().to(q.dtype).reshape(1, 1)
-        return run(q, cl, cu, lb, ub, dq2, has, g, x, z, zx, y, yx, Ax)
-
-    def residuals(x, z, zx, y, yx, Ax):
-        pri = torch.maximum((Ax - z).abs().amax(dim=1),
-                            (x - zx).abs().amax(dim=1))
-        Aty = _rmv(A, y)
-        Pxv = q2s * x
-        dua = (Pxv + q + Aty + yx).abs().amax(dim=1)
-        prinorm = torch.maximum(Ax.abs().amax(dim=1), z.abs().amax(dim=1))
-        duanorm = torch.maximum(
-            torch.maximum(Pxv.abs().amax(dim=1), Aty.abs().amax(dim=1)), aq)
-        return pri, dua, prinorm, duanorm
-
-    def finite_rows(t):
-        return torch.isfinite(t).all(dim=1)
-
-    s = state
-    Ax_prev = _mv(A, s.x)
-    period = max(1, 128 // ce)
-    while s.k < st.max_iter:
-        if st.sweep_plateau_rtol > 0 and s.stall >= 2:
-            break
-        _LOOP_CHECKS.inc()
-        if bool(_done_mask(s.pri, s.dua, s.prinorm, s.duanorm, st).all()):
-            break
-        x, z, zx, y, yx, _ = block(s.x, s.z, s.zx, s.y, s.yx, Ax_prev,
-                                   s.gamma)
-        # re-anchor the incrementally carried Ax (see admm._admm_core)
-        Ax = _mv(A, x)
-        pri, dua, prinorm, duanorm = residuals(x, z, zx, y, yx, Ax)
-        # Per-scenario divergence guard: a scenario whose iterates left the
-        # finite range (e.g. a dq2 too large for the shared-K refinement to
-        # contract) is frozen at its last finite iterate and reports INF
-        # residuals, so done stays False and nothing downstream sees NaN.
-        # Ax_prev is exactly A @ s.x from the previous re-anchor.
-        finite = (finite_rows(x) & finite_rows(z) & finite_rows(zx)
-                  & finite_rows(y) & finite_rows(yx))
-        bad = ~finite | ~(pri <= BIG) | ~(dua <= BIG)
-        bv = bad[:, None]
-        x = torch.where(bv, s.x, x)
-        z = torch.where(bv, s.z, z)
-        zx = torch.where(bv, s.zx, zx)
-        y = torch.where(bv, s.y, y)
-        yx = torch.where(bv, s.yx, yx)
-        Ax = torch.where(bv, Ax_prev, Ax)
-        pri = torch.where(bad, inf, pri)
-        dua = torch.where(bad, inf, dua)
-        prinorm = torch.where(bad, s.prinorm, prinorm)
-        duanorm = torch.where(bad, s.duanorm, duanorm)
-        # OSQP-style per-scenario gamma adaptation on normalized residual
-        # ratios, every ~128 sweeps (the reference's cadence: adapting at
-        # every checkpoint thrashes)
-        gamma = s.gamma
-        due = ((s.k + ce) // ce) % period == 0
-        if due:
-            done = _done_mask(pri, dua, prinorm, duanorm, st)
-            pri_rel = pri / torch.clamp(prinorm, min=1e-10)
-            dua_rel = dua / torch.clamp(duanorm, min=1e-10)
-            ratio = torch.sqrt(torch.clamp(pri_rel, min=1e-12)
-                               / torch.clamp(dua_rel, min=1e-12))
-            move = (ratio > 5.0) | (ratio < 0.2)
-            gnew = torch.minimum(torch.maximum(
-                s.gamma * torch.clamp(ratio, 0.1, 10.0), glo), ghi)
-            gamma = torch.where(done | ~move, s.gamma, gnew)
-        best, stall = s.best, s.stall
-        if st.sweep_plateau_rtol > 0:
-            best, stall = _plateau_update(s, pri, dua, prinorm, duanorm, st,
-                                          min_k=128 if adaptive else 0)
-            # an actual gamma move changes the iteration: fresh plateau grace
-            if due and bool((move & ~done & (gnew != s.gamma)).any()):
-                best, stall = float("inf"), 0
-        s = _IterState(x, z, zx, y, yx, gamma, pri, dua, prinorm, duanorm,
-                       s.k + ce, best, stall)
-        Ax_prev = Ax
-    return s
+    sparse = isinstance(A, SparseA) or K is None
+    # with the sparse kernel, the exact K's diagonal part in K's place
+    KD = (q2ref + rho_x + st.sigma)[None, :].contiguous() if sparse \
+        else K.contiguous()
+    if not isinstance(A, SparseA):
+        A = A.contiguous()
+    # the dense kernel's mode and what it reads of A, K^-1 and K, made
+    # here once a solve: the graph reads the operand from its buffers
+    mode = operand = None
+    if not sparse and _kernel_on(st) and q.device.type == "cuda":
+        mode, operand = cuda_kernels.shared_plan(q.shape[0], A, Kinv, KD)
+    ops = (q, q2s, q2ref, A, cl, cu, lb, ub, Kinv, KD,
+           rho_a[None, :].contiguous(), rho_x[None, :].contiguous(), glo,
+           ghi, q.abs().amax(dim=1), operand)
+    loop = [*state, _mv(A, state.x), _vote(state, st).to(torch.int32)]
+    min_k = 128 if adaptive else 0
+    out = device_loop.run(
+        functools.partial(_block, st=st, sparse=sparse, mode=mode),
+        ops, loop,
+        SPARSE_BLOCKS_PER_REPLAY if sparse else BLOCKS_PER_REPLAY,
+        -(-st.max_iter // ce), key=("shared", st, sparse, mode, adaptive),
+        phase=lambda b: (gamma_due(b, st), plateau_due(b, st, min_k)))
+    return _IterState(*out[:13])
 
 
 def _median(v):
@@ -362,7 +395,7 @@ def _start(warm, cls, cus, lbs, ubs, gamma):
     inf = torch.full((S,), torch.inf, dtype=dt, device=dev)
     one = torch.ones((S,), dtype=dt, device=dev)
     return _IterState(x0, z0, torch.clamp(x0, lbs, ubs), y0, yx0, gamma,
-                      inf, inf, one, one, 0, float("inf"), 0)
+                      inf, inf, one, one, *_counters(dt, dev))
 
 
 def _gamma_bounds(q2s):
@@ -376,13 +409,14 @@ def _gamma_bounds(q2s):
 
 
 def _solution(state, D, E, cost, iters, st) -> BatchSolution:
+    """``iters``: the sweeps run, a 0-dim device tensor (never read)."""
     x, z = state.x * D[None, :], state.z / E[None, :]
     y = state.y * E[None, :] / cost
     yx = state.yx / D[None, :] / cost
     S = x.shape[0]
     return BatchSolution(
         x=x, z=z, y=y, yx=yx, pri_res=state.pri, dua_res=state.dua,
-        iters=torch.full((S,), iters, dtype=torch.int64, device=x.device),
+        iters=iters.to(torch.int64).expand(S).clone(),
         done=_done_mask(state.pri, state.dua, state.prinorm, state.duanorm,
                         st),
         raw=(x, z, y, yx))
@@ -418,7 +452,7 @@ def _solve_shared_impl(c, q2, A, cl, cu, lb, ub, settings, warm, device,
     state = _start(warm, cls, cus, lbs, ubs,
                    torch.ones((S,), dtype=dt, device=dev))
     base = torch.full((), st.rho, dtype=dt, device=dev)
-    total = 0
+    total = torch.zeros((), dtype=torch.int64, device=dev)
     mult = torch.ones((m,), dtype=dt, device=dev)
     multx = torch.ones((n,), dtype=dt, device=dev)
     rho_a = torch.zeros((m,), dtype=dt, device=dev)
@@ -431,9 +465,10 @@ def _solve_shared_impl(c, q2, A, cl, cu, lb, ub, settings, warm, device,
             rho_x = torch.clamp(rho_x * multx, max=st.rho_row_max)
         Kinv, K, Kd = _factor_shared(q2ref, As, rho_a, rho_x, st.sigma)
         state = _core(qs, q2s, q2ref, As, cls, cus, lbs, ubs,
-                      state._replace(k=0, best=float("inf"), stall=0),
+                      state._replace(**dict(zip(("k", "best", "stall"),
+                                                _counters(dt, dev)))),
                       Kd, K, rho_a, rho_x, glo, ghi, st, adaptive=True)
-        total += state.k
+        total = total + state.k
         done = _done_mask(state.pri, state.dua, state.prinorm,
                           state.duanorm, st)
         eps_pri = st.eps_abs + st.eps_rel * torch.clamp(state.prinorm,

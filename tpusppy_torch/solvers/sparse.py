@@ -243,6 +243,23 @@ class SparseA:
             self._ell_t = ell_slot_major(self.ell)
         return self._ell_t
 
+    def values(self) -> tuple:
+        """The value tensors (A's, its ELL twin's, the wide rows', the
+        slot-major twin's), in the order :meth:`with_values` takes them;
+        the index arrays and the structure are the rest."""
+        _, rv_t, _, cv_t = self.ell_t()
+        return (self.vals, self.ell.rowvals, self.ell.colvals, self.Aw,
+                rv_t, cv_t)
+
+    def with_values(self, vals, rowvals, colvals, Aw, rv_t, cv_t):
+        """This matrix's structure holding other values (a captured CUDA
+        graph's buffers, :mod:`.device_loop`)."""
+        out = self._with(vals, self.ell._replace(rowvals=rowvals,
+                                                 colvals=colvals), Aw)
+        rc_t, _, cr_t, _ = self.ell_t()
+        out._ell_t = (rc_t, rv_t, cr_t, cv_t)
+        return out
+
     # -- matvecs ----------------------------------------------------------
     def matvec(self, x):
         """A x for x (S, n) -> (S, m): the first ``kn`` ELL slots of every

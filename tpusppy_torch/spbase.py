@@ -1,9 +1,9 @@
 """SPBase: scenario ownership, probabilities, options — the runtime root.
 
-Port of ``tpusppy/spbase.py`` without mesh, bundling, bucketing, batch
-caching or canonical ingest: the whole scenario set is built as ONE
-:class:`~tpusppy_torch.ir.ScenarioBatch` and the node-grouping index arrays
-replace per-node communicators.  ``options["device"]`` picks the device the
+Port of ``tpusppy/spbase.py`` without mesh, bundling (which raises),
+bucketing, batch caching or canonical ingest: the whole scenario set is
+built as ONE :class:`~tpusppy_torch.ir.ScenarioBatch` and the node-grouping
+index arrays replace per-node communicators.  ``options["device"]`` picks the device the
 solves run on (CUDA unless ``"cpu"`` is asked for; see
 :func:`tpusppy_torch.resolve_device`).
 """
@@ -18,9 +18,16 @@ from .solvers.admm import ADMMSettings
 
 
 def build_batch(all_scenario_names, scenario_creator,
-                scenario_creator_kwargs=None):
+                scenario_creator_kwargs=None, options=None):
     """Model ingest -> one batched array family.  Returns
-    ``(batch, names)``."""
+    ``(batch, names)``.  ``options``: the PH/SPBase options; bundling
+    (``bundles_per_rank`` > 0) raises until the port has it, since it
+    would change the subproblems solved."""
+    nbundles = int((options or {}).get("bundles_per_rank", 0) or 0)
+    if nbundles > 0:
+        raise NotImplementedError(
+            f"bundles_per_rank={nbundles}: scenario bundling is not ported "
+            "yet (ROADMAP Queue 1)")
     names = list(all_scenario_names)
     problems = [
         scenario_creator(name, **dict(scenario_creator_kwargs or {}))
@@ -30,15 +37,24 @@ def build_batch(all_scenario_names, scenario_creator,
 
 
 def make_admm_settings(options) -> ADMMSettings:
-    """``solver_options`` -> :class:`ADMMSettings`; keys the port's settings
-    do not have (e.g. the reference's ``megastep``) are ignored, except
-    lowered sweep precision, which would change the solve itself and
-    raises until the port has it."""
+    """``solver_options`` -> :class:`ADMMSettings`.  The reference's
+    ``use_pallas`` is the port's ``use_kernel``.  Lowered sweep or matmul
+    precision would change the solve itself and raises until the port has
+    it; other keys the port's settings do not have (e.g. the reference's
+    ``megastep``) are ignored."""
     so = dict(options.get("solver_options") or {})
-    if so.get("sweep_precision") not in (None, "highest"):
-        raise NotImplementedError(
-            f"solver_options sweep_precision={so['sweep_precision']!r}: the "
-            "precision modes are not ported yet (ROADMAP Queue 1 item 8)")
+    for key in ("sweep_precision", "matmul_precision"):
+        if so.get(key) not in (None, "highest"):
+            raise NotImplementedError(
+                f"solver_options {key}={so[key]!r}: the precision modes are "
+                "not ported yet (ROADMAP Queue 1 item 5)")
+    if "use_pallas" in so:
+        use = so.pop("use_pallas")
+        if so.setdefault("use_kernel", use) != use:
+            raise ValueError(
+                f"solver_options use_pallas={use!r} and use_kernel="
+                f"{so['use_kernel']!r} disagree (use_pallas is the "
+                "reference's name for use_kernel)")
     allowed = {f.name for f in ADMMSettings.__dataclass_fields__.values()}
     return ADMMSettings(**{k: v for k, v in so.items() if k in allowed})
 
@@ -66,7 +82,7 @@ class SPBase:
 
         self.batch, self.all_scenario_names = build_batch(
             self.all_scenario_names, scenario_creator,
-            self.scenario_creator_kwargs)
+            self.scenario_creator_kwargs, self.options)
         self.tree = self.batch.tree
         global_toc(
             f"Built scenario batch: {self.batch.num_scenarios} scenarios, "

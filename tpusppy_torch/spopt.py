@@ -207,11 +207,14 @@ class SPOpt(SPBase):
                 and slot.get("factors") is not None
                 and slot.get("sig") == sig
                 and slot.get("age", 0) < refresh_every):
+            # want_converged=False: the convergence vote rides the packed
+            # measurement below instead of a separate done fetch
             with _trace.span(None, "solve.frozen") as _sp:
-                cand = segmented.solve_frozen_segmented(
-                    frozen_fn, args, slot["factors"],
-                    self.admm_settings, warm=slot["warm"])
+                cand, _ = segmented.solve_frozen_segmented(
+                    frozen_fn, args, slot["factors"], self.admm_settings,
+                    warm=slot["warm"], want_converged=False)
                 meas_c = self._fetch_measure(cand)
+                _metrics.inc("solve.sweeps", meas_c["iters"])
                 if _trace.enabled():
                     _sp.add(iters=meas_c["iters"],
                             all_done=meas_c["all_done"])
@@ -229,13 +232,15 @@ class SPOpt(SPBase):
                 _metrics.inc("solve.frozen_rejected")
         if sol is None:
             with _trace.span(None, "solve.refresh"):
-                sol, factors = segmented.solve_factored_segmented(
-                    factored_fn, args, self.admm_settings,
-                    warm=slot.get("warm") if warm else None)
+                sol, factors, _ = segmented.solve_factored_segmented(
+                    frozen_fn, factored_fn, args, self.admm_settings,
+                    warm=slot.get("warm") if warm else None, shared=shared,
+                    want_converged=False)
                 slot["factors"] = factors
                 slot["sig"] = sig
                 slot["age"] = 1
                 meas = self._fetch_measure(sol)
+                _metrics.inc("solve.sweeps", meas["iters"])
             sol, meas = self._rescue_stragglers(
                 sol, args[0], args[1], args[5], args[6], meas=meas)
         # divergence observability: billed on the increase only
