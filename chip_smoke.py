@@ -82,9 +82,14 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM data-sheet rates (dense, at the 700 W limit): f32 outside the
-# tensor cores, f64 on the tensor cores (full IEEE f64; 34 on CUDA cores)
+# tensor cores, f64 on the tensor cores (full IEEE f64; 34 on CUDA cores);
+# the lowered modes' bf16 products at the bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
+BF16_PEAK_FLOPS = 989e12
+#: The card's name and power limit (nvidia-smi), set at the start; every
+#: line of the lowered checks and the precision phase carries it.
+CARD = ""
 EF_GOLDEN = -108390.0
 # uc_lite S=3 golden: the repo's own settings (tests/test_models.py)
 UC_GOLDEN_OPTIONS = {"defaultPHrho": 10.0, "convthresh": 1e-5}
@@ -206,11 +211,20 @@ def shared_sweep_case(S, m, n, dtype, has, seed=0):
             for k in order], sigma
 
 
-def hold_kernel(label, kern, plain, args, flops, tol, dtype, ref=None):
+def hold_kernel(label, kern, plain, args, flops, tol, dtype, ref=None,
+                flops_lo=0, ref_factor=2.0, ref_slack=1e-7, exact=None,
+                exact_gate=False):
     """One kernel call against its plain version on the same inputs, then
     both timed; returns the errors, times and bound.  ``ref`` (f32 cases)
     gives the f64 plain version on the same f32-rounded inputs: the kernel
-    must lie no further from it than twice the plain f32's distance."""
+    must lie no further from it than ``ref_factor`` times the plain f32's
+    distance (plus ``ref_slack``).  ``exact`` (a lowered mode) gives the
+    plain version at "highest" on the same inputs, the control: with
+    ``exact_gate`` the kernel must lie at most LOW_CTRL_RATIO times as far
+    from the lowered plain version as from the exact one (``rms_dist``).
+    ``args`` are the tensors the kernel reads (each counted once);
+    ``flops`` run at the working type's peak, ``flops_lo`` (a lowered
+    mode's bf16 products) at the bf16 tensor-core peak."""
     import torch
 
     from tpusppy_torch.solvers.structured_kkt import KernelWoodbury
@@ -218,6 +232,13 @@ def hold_kernel(label, kern, plain, args, flops, tol, dtype, ref=None):
     def nbytes(a):
         if isinstance(a, KernelWoodbury):
             pat = a.pattern
+            if a.lo:
+                # a lowered mode reads the bf16 copies, and A xt the exact
+                # wide rows
+                return sum(nbytes(t) for t in (
+                    *a.lo, a.wvals, pat.pos, pat.order, pat.binfo_t,
+                    pat.items[4], pat.wcols, pat.wpos, pat.wtrows, pat.ncols,
+                    a.nvals, pat.wrows))
             return sum(nbytes(t) for t in (
                 a.mats, a.dinv, a.wvals, a.wtvals, pat.pos, pat.order,
                 pat.binfo_t, pat.items[a.mats.element_size()],
@@ -237,29 +258,47 @@ def hold_kernel(label, kern, plain, args, flops, tol, dtype, ref=None):
         k64, p64 = max_err(got, r64), max_err(want, r64)
         vs64 = f" kernel-f64={k64:.3e} plain-f64={p64:.3e}"
         del r64
+    ctrl = ""
+    if exact is not None:
+        ex = exact()
+        d_low, d_exact = rms_dist(got, want), rms_dist(got, ex)
+        ctrl = (f" control: rms to lowered {d_low:.3e}, to exact "
+                f"{d_exact:.3e} (ratio {d_low / max(d_exact, 1e-300):.3f}, "
+                + (f"gate {LOW_CTRL_RATIO:.3f})" if exact_gate
+                   else "not gated)"))
+        del ex
     ms, plain_ms = cuda_time_ms(kern), cuda_time_ms(plain)
     # bound: each input read once, each output written once, over the HBM
     # rate; the arithmetic (a multiply-add counts 2) over the peak rate
     nbytes = sum(nbytes(a) for a in args) + sum(nbytes(o) for o in got)
     name = str(dtype).replace("torch.", "")
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[name] * 1e3
+    t_ops = (flops / PEAK_FLOPS[name] + flops_lo / BF16_PEAK_FLOPS) * 1e3
     res = dict(abs_err=abs_err, rel_err=rel_err, ms=ms, plain_ms=plain_ms,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
-               bytes=nbytes, flops=flops)
+               bytes=nbytes, flops=flops, flops_lo=flops_lo)
     print(f"kernel {label} {name}: max_rel_err={rel_err:.3e} "
-          f"(tol {tol:.0e}) max_abs_err={abs_err:.3e}{vs64} "
+          f"(tol {tol:.0e}) max_abs_err={abs_err:.3e}{vs64}{ctrl} "
           f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
           f"bound_ms={res['bound_ms']:.5f} "
-          f"({res['bound_by']}: {nbytes} B, {flops} flop)", flush=True)
+          f"({res['bound_by']}: {nbytes} B, {flops} flop"
+          + (f" + {flops_lo} bf16 flop; {CARD}" if flops_lo else "") + ")",
+          flush=True)
     check(finite, f"{label} {name}: non-finite output")
     check(rel_err < tol, f"{label} {name}: kernel disagrees with plain "
           f"version ({rel_err:.3e} >= {tol:.0e})")
     if ref is not None:
-        check(k64 <= 2.0 * p64 + 1e-7, f"{label} {name}: kernel lies "
-              f"{k64:.3e} from the f64 plain version, the plain f32 "
+        check(k64 <= ref_factor * p64 + ref_slack, f"{label} {name}: kernel "
+              f"lies {k64:.3e} from the f64 plain version, the plain f32 "
               f"{p64:.3e}")
+    if exact is not None:
+        res.update(ctrl_lowered=d_low, ctrl_exact=d_exact)
+        if exact_gate:
+            check(d_low <= LOW_CTRL_RATIO * d_exact, f"{label} {name}: the "
+                  f"kernel lies {d_low:.3e} from the lowered plain version "
+                  f"and {d_exact:.3e} from the exact one: it did not run "
+                  "the mode")
     return res
 
 
@@ -338,6 +377,15 @@ def max_err(got, want):
     (floored at 1), over the six outputs."""
     return max(float((g.double() - w.double()).abs().max()
                      / max(float(w.double().abs().max()), 1.0))
+               for g, w in zip(got, want))
+
+
+def rms_dist(got, want):
+    """Largest over the outputs of ||got - want|| / ||want|| (Frobenius):
+    the bulk of a difference, which a few operands rounded the other way
+    (``max_err``'s largest entries) hardly move."""
+    return max(float((g.double() - w.double()).norm()
+                     / max(float(w.double().norm()), 1e-300))
                for g, w in zip(got, want))
 
 
@@ -433,7 +481,179 @@ def phase_kernels(cuda_kernels):
                 del args
     torch.cuda.empty_cache()
     out["fused_sweeps_sparse"] = phase_sparse_kernel(cuda_kernels)
+    torch.cuda.empty_cache()
+    out["lowered"] = phase_lowered_kernels(cuda_kernels)
     return out
+
+
+#: Lowered kernels against their plain versions on the card (the same
+#: inputs).  Where two sums of a lowered recurrence run in another order,
+#: a last-digit difference can move the bf16 rounding of the next
+#: product's operand to its neighbour (2^-8 of that element at "default",
+#: 2^-16 at "high"), so in f32 the kernels part from their plain versions
+#: at that level, not at the working type's: measured up to 7.1e-3 at
+#: "default" and 1.8e-5 at "high" on an H100 (PERF.md); there the f32
+#: kernel is also held against the f64 plain version (no further from it
+#: than LOW_REF_FACTOR times the plain f32 is).  In f64 each kernel and its
+#: plain version sum the same bf16 products in f64 (pallas_kernels'
+#: preferred_element_type=dt; the structured mode's plain apply too,
+#: cuda_kernels._kernel_dot), and a rounding falls the other way only where
+#: an f64 sum's difference moves its f32 rounding (measured up to 5.9e-9).
+LOW_TOL_F64 = 1e-7
+LOW_TOL_F32 = {"default": 2e-2, "high": 2e-4}
+LOW_REF_FACTOR = 3.0
+LOW_REF_SLACK = 1e-5
+#: The control, so that a kernel that ignores the mode cannot pass: the
+#: plain version at "highest" on the same inputs, from which the kernel
+#: must lie at least 1 / LOW_CTRL_RATIO times as far as from the lowered
+#: plain version (``rms_dist``), in f64 at both modes and in f32 at
+#: "default".  In f32 at "high" it is printed and not gated: bf16x3 keeps
+#: an operand to 2^-17 of it, about what an operand's low part moves by
+#: where an f32 sum's last digit does, so there a kernel and its plain
+#: version part about as far as either lies from the exact version
+#: (ratios measured on an H100 in PERF.md).
+LOW_CTRL_RATIO = 1.0 / 3.0
+
+
+def phase_lowered_kernels(cuda_kernels):
+    """Each kernel at each lowered mode against its plain version at its
+    main path's shape, f32 (also against the f64 plain version) and f64:
+    ``fused_sweeps`` at "default" in its resident (farmer-1000) and
+    streamed (S=64, m=84, n=132) modes, ``fused_sweeps_shared`` at
+    "default" and "high" at uc_lite-1000 (has=1, its streamed mode, the one
+    that takes the lowered modes), ``fused_sweeps_sparse`` at "default" and
+    "high" at uc-1000 (has=1) in its structured and dense modes.  The
+    bound counts the matrices at their bf16 bytes and the lowered products
+    (three a multiply-add at "high") at the bf16 tensor-core peak.  Keys:
+    (kernel, precision, mode, dtype)."""
+    import torch
+
+    from tpusppy_torch.solvers.structured_kkt import lowered_layout
+
+    out = {}
+    n_sweeps, n_refine, alpha = 4, 2, 1.6
+    for (S, m, n, kmode) in ((1000, 28, 44, "resident"),
+                             (64, 84, 132, "streamed")):
+        lo = 2 * S * n_sweeps * (2 * m * n + n * n * (1 + n_refine))
+        hi = 2 * S * n_sweeps * n * n * n_refine
+        for dtype in (torch.float32, torch.float64):
+            args, sigma = sweep_case(S, m, n, dtype)
+            op = cuda_kernels.dense_operand(args[1], args[2], "default")
+            fixed = (n_sweeps, n_refine, sigma, alpha)
+            f32 = dtype == torch.float32
+            out[("fused_sweeps", "default", kmode, dtype)] = hold_lowered(
+                cuda_kernels, "fused_sweeps", "default",
+                cuda_kernels.dense_modes, kmode,
+                f"fused_sweeps[default] S={S} m={m} n={n}",
+                lambda: cuda_kernels.fused_sweeps(
+                    *args, *fixed, precision="default", operand=op),
+                lambda: cuda_kernels.fused_sweeps_plain(
+                    *args, *fixed, precision="default", operand=op),
+                [args[0], *op] + args[3:], hi, lo,
+                LOW_TOL_F32["default"] if f32 else LOW_TOL_F64, dtype,
+                f64_ref(lambda *a: cuda_kernels.fused_sweeps_plain(
+                    *a, *fixed, precision="default"), args, dtype),
+                lambda: cuda_kernels.fused_sweeps_plain(*args, *fixed))
+            del args, op
+    S, m, n, n_extra = 1000, 242, 132, 2
+    n_pass = n_refine + n_extra
+    for prec in ("default", "high"):
+        parts = 1 if prec == "default" else 3
+        lo = 2 * S * n_sweeps * (2 * m * n + (1 + n_pass) * n * n) * parts
+        hi = 2 * S * n_sweeps * n_pass * n * n
+        for dtype in (torch.float32, torch.float64):
+            args, sigma = shared_sweep_case(S, m, n, dtype, 1)
+            _, op = cuda_kernels.shared_plan(S, args[1], args[2], args[3],
+                                             precision=prec)
+            fixed = (n_sweeps, n_refine, n_extra, sigma, alpha)
+            f32 = dtype == torch.float32
+            out[("fused_sweeps_shared", prec, "streamed", dtype)] = \
+                hold_lowered(
+                    cuda_kernels, "fused_sweeps_shared", prec,
+                    cuda_kernels.shared_modes, "streamed",
+                    f"fused_sweeps_shared[{prec}] S={S} m={m} n={n} has=1",
+                    lambda: cuda_kernels.fused_sweeps_shared(
+                        *args, *fixed, precision=prec, operand=op),
+                    lambda: cuda_kernels.fused_sweeps_shared_plain(
+                        *args, *fixed, precision=prec),
+                    [args[0], op, args[3]] + args[4:], hi, lo,
+                    LOW_TOL_F32[prec] if f32 else LOW_TOL_F64, dtype,
+                    f64_ref(lambda *a: cuda_kernels.fused_sweeps_shared_plain(
+                        *a, *fixed, precision=prec), args, dtype),
+                    lambda: cuda_kernels.fused_sweeps_shared_plain(
+                        *args, *fixed))
+            del args, op
+    torch.cuda.empty_cache()
+    pattern = uc_sparse_pattern()
+    n_refine = 1
+    n_pass = n_refine + n_extra
+    n = pattern.shape[1]
+    for kmode in ("structured", "dense"):
+        for prec in ("default", "high"):
+            parts = 1 if prec == "default" else 3
+            for dtype in (torch.float32, torch.float64):
+                args, sp, sigma = sparse_sweep_case(
+                    pattern, S, dtype, 1, structured=kmode == "structured")
+                apply = (n * n if kmode == "dense"
+                         else woodbury_apply_macs(args[5], sp))
+                lo = 2 * S * n_sweeps * (1 + n_pass) * apply * parts
+                hi = 2 * S * n_sweeps * sp.nnz * (2 + 2 * n_pass)
+                ell_t = cuda_kernels.ell_slot_major(args[1:5])
+                fixed = (n_sweeps, n_refine, n_extra, sigma, alpha)
+                if kmode == "structured":
+                    args[5] = lowered_layout(args[5], prec)
+                    op = reads = None
+                else:
+                    op = cuda_kernels.sparse_operand(args[5], prec)
+                    reads = args[:5] + [op] + args[6:]
+                f32 = dtype == torch.float32
+                ref = None
+                if f32:
+                    args64 = [a.double() if torch.is_tensor(a)
+                              and a.is_floating_point() else a for a in args]
+                    if kmode == "structured":
+                        args64[5] = args[5].astype(torch.float64)
+                    ref = (lambda a=args64: cuda_kernels
+                           .fused_sweeps_sparse_plain(*a, *fixed,
+                                                      precision=prec))
+                out[("fused_sweeps_sparse", prec, kmode, dtype)] = \
+                    hold_lowered(
+                        cuda_kernels, "fused_sweeps_sparse", prec,
+                        cuda_kernels.sparse_modes, kmode,
+                        f"fused_sweeps_sparse[{prec}] {kmode} has=1",
+                        lambda: cuda_kernels.fused_sweeps_sparse(
+                            *args, *fixed, precision=prec, ell_t=ell_t,
+                            operand=op),
+                        lambda: cuda_kernels.fused_sweeps_sparse_plain(
+                            *args, *fixed, precision=prec),
+                        reads or args, hi, lo,
+                        LOW_TOL_F32[prec] if f32 else LOW_TOL_F64, dtype,
+                        ref, lambda: cuda_kernels.fused_sweeps_sparse_plain(
+                            *args, *fixed))
+                del args, sp, ref, op
+                torch.cuda.empty_cache()
+    return out
+
+
+def hold_lowered(cuda_kernels, kernel, prec, modes, kmode, label, kern,
+                 plain, reads, flops, flops_lo, tol, dtype, ref, exact):
+    """``hold_mode`` for a kernel at a lowered precision, with the control
+    ``exact`` (the plain version at "highest"; gated as LOW_CTRL_RATIO
+    says): its launches in the check must be counted as lowered at
+    ``prec``."""
+    import torch
+
+    before = dict(cuda_kernels.lowered_launches)
+    res = hold_mode(cuda_kernels, modes, kmode, label, kern, plain, reads,
+                    flops, tol, dtype, ref=ref, flops_lo=flops_lo,
+                    ref_factor=LOW_REF_FACTOR, ref_slack=LOW_REF_SLACK,
+                    exact=exact, exact_gate=dtype == torch.float64
+                    or prec == "default")
+    ran = {k: v - before[k] for k, v in cuda_kernels.lowered_launches.items()}
+    key = f"{kernel}:{prec}"
+    check(ran[key] > 0 and sum(ran.values()) == ran[key],
+          f"{label}: lowered launches {ran}, wanted only {key}")
+    return res
 
 
 def woodbury_apply_macs(lay, sp):
@@ -932,7 +1152,11 @@ def run_path(cuda_kernels, kernel, make_ph, use_kernel, iters, options,
                replays=win.delta("device_loop.replays"),
                captures=win.delta("device_loop.captures"),
                capture_s=win.delta("device_loop.capture_secs"),
-               rescued=win.delta("solve.rescued_scenarios"))
+               rescued=win.delta("solve.rescued_scenarios"),
+               guard_trips=win.delta("precision.guard_trips"),
+               lowered_solves=win.delta("precision.lowered_solves"),
+               lowered_accepted=win.delta("precision.lowered_accepted"),
+               lowered=dict(cuda_kernels.lowered_launches))
     if kernel == "fused_sweeps_sparse":
         check_structured(ph, res)
     elif use_kernel:
@@ -1066,7 +1290,142 @@ def phase_main(cuda_kernels, label, kernel, make_ph, iters, tensor_iters,
     for tag, r in (("kernel", k), ("tensor path", p)):
         check(r["tbound"] <= ef_obj + 1e-6 * abs(ef_obj),
               f"{tag} trivial bound {r['tbound']} above EF {ef_obj}")
+    k["ef"] = ef_obj
     return k
+
+
+#: The precision phase's runs: (label, kernel, (mode, refinement sweeps or
+#: None for the default 64), PH iterations).  Depth is cut to reach frozen
+#: solves (about 20-30 PH iterations; 12 for the slower uc-1000) within
+#: the time limit.  At "default" with 64 refinement sweeps the guard
+#: re-runs every frozen solve at "highest" on all three paths, as the
+#: reference's does (tests/test_torch_precision.py); farmer-1000 runs
+#: again with 400, where lowered "default" results may be taken.
+PRECISION_RUNS = (("farmer-1000 cm=4", "fused_sweeps",
+                   (("default", None), ("default", 400)), 30),
+                  ("uc_lite-1000", "fused_sweeps_shared",
+                   (("default", None), ("high", None)), 30),
+                  ("uc-1000", "fused_sweeps_sparse", (("default", None),),
+                   12))
+#: eobj of a lowered PH run against the "highest" run after as many
+#: iterations, f32.  Measured on an H100 (PERF.md): 0 where the guard
+#: re-ran every lowered frozen solve at "highest" (farmer-1000,
+#: uc_lite-1000 and uc-1000 at "default"), 3.5e-7 at "high" (uc_lite-1000,
+#: no trips, 6 lowered results of 29 taken).  1e-4 leaves room for the
+#: "default" results taken at 400 refinement sweeps.
+PRECISION_EOBJ_TOL = 1e-4
+
+
+def precision_path(label):
+    """``(make_ph, options, solver)`` of a main path by its label."""
+    if label.startswith("farmer"):
+        return (lambda o, ext: farmer_ph(1000, 4, o, extensions=ext),
+                {"defaultPHrho": 1.0, "convthresh": 1e-6}, None)
+    if label.startswith("uc_lite"):
+        return (lambda o, ext: uc_ph(1000, o, extensions=ext),
+                UC_MAIN_OPTIONS, None)
+    return (lambda o, ext: uc_full_ph(1000, o, extensions=ext),
+            UC_MAIN_OPTIONS, UC_SOLVER)
+
+
+def phase_precision(cuda_kernels, main):
+    """PH through ``ph_main()`` with the frozen sweeps lowered
+    (``solver_options["sweep_precision"]``) on the three main paths at full
+    width: farmer-1000 at "default" (with 64 and with 400 refinement
+    sweeps), uc_lite-1000 at "default" and "high", uc-1000 at "default".
+    Each run's launch counts are read around
+    exactly that run: its kernel must have run lowered at the mode (and
+    ``fused_sweeps`` at "high" runs exact, so no farmer run there), with no
+    plain sweep.  Printed beside the same path's "highest" run (``main``,
+    from the main phase when it ran, else run here at the same depth): the
+    PH rate, lowered frozen solves, guard trips, lowered results taken,
+    refinement-phase sweeps, lowered launches by mode, eobj after as many
+    iterations, eobj against the HiGHS EF (farmer, uc_lite) and the
+    trivial bound, which the refresh computes at full precision.  Returns
+    {(label, mode): result} for the default refinement, {(label, mode,
+    sweeps): result} for another."""
+    from tpusppy_torch.ef import solve_ef
+    from tpusppy_torch.solvers import admm
+
+    out = {}
+    for label, kernel, precs, iters in PRECISION_RUNS:
+        make_ph, options, solver = precision_path(label)
+        ref = main.get(label)
+        if ref is None or len(ref["decisions"]) <= iters:
+            _, ref = run_path(cuda_kernels, kernel, make_ph, "auto", iters,
+                              options, solver)
+        ref_eobj = ref["decisions"][iters]["eobj"]
+        for prec, refine in precs:
+            tag = prec if refine is None else f"{prec}, refine {refine}"
+            more = {} if refine is None else {
+                "precision_refine_iters": refine}
+            admm.refinement_sweeps(reset=True)
+            ph, r = run_path(cuda_kernels, kernel, make_ph, "auto", iters,
+                             options, dict(solver or {},
+                                           sweep_precision=prec, **more))
+            r["refine_sweeps"] = admm.refinement_sweeps(reset=True)
+            lowered = {k: v for k, v in r["lowered"].items() if v}
+            rel = abs(r["eobj"] - ref_eobj) / abs(ref_eobj)
+            print(f"precision {label} [{tag}] f32: "
+                  f"ph_it_per_s={r['rate']:.3f} (highest "
+                  f"{ref['rate']:.3f}) lowered_frozen_solves="
+                  f"{r['lowered_solves']:.0f} guard_trips="
+                  f"{r['guard_trips']:.0f} lowered_accepted="
+                  f"{r['lowered_accepted']:.0f} "
+                  f"refine_sweeps={r['refine_sweeps']} "
+                  f"lowered_launches={lowered} launches={r['launches']} "
+                  f"sweep_blocks_per_iter={r['sweep_blocks_per_iter']:.2f} "
+                  f"eobj={r['eobj']:.4f} tbound={r['tbound']:.4f}; highest "
+                  f"after {iters} iterations eobj={ref_eobj:.4f} tbound="
+                  f"{ref['tbound']:.4f}, rel {rel:.3e} (tol "
+                  f"{PRECISION_EOBJ_TOL:.0e}); {CARD}", flush=True)
+            check(r["launches"] > 0 and r["plain_calls"] == 0,
+                  f"precision {label} [{tag}]: launches {r['launches']}, "
+                  f"plain sweeps {r['plain_calls']}")
+            key = f"{kernel}:{prec}"
+            check(lowered.get(key, 0) > 0 and set(lowered) == {key},
+                  f"precision {label} [{tag}]: lowered launches {lowered}, "
+                  f"wanted {key}")
+            check(r["iters"] == iters, f"precision {label} [{tag}] ran "
+                  f"{r['iters']} of {iters} PH iterations")
+            check(r["lowered_solves"] > 0 and r["guard_trips"]
+                  + r["lowered_accepted"] <= r["lowered_solves"],
+                  f"precision {label} [{tag}]: {r['lowered_solves']} "
+                  f"lowered frozen solves, {r['guard_trips']} guard trips, "
+                  f"{r['lowered_accepted']} accepted")
+            check(rel <= PRECISION_EOBJ_TOL, f"precision {label} [{tag}]: "
+                  f"eobj {r['eobj']} parts from the highest run's "
+                  f"{ref_eobj} by {rel:.3e}")
+            ef_obj = ref.get("ef")
+            if label.startswith(("farmer", "uc_lite")):
+                if ef_obj is None:
+                    ef_obj = ref["ef"] = solve_ef(ph.batch, solver="highs")[0]
+                rel_ef = abs(r["eobj"] - ef_obj) / abs(ef_obj)
+                print(f"precision {label} [{tag}]: eobj vs EF {ef_obj:.4f} "
+                      f"rel {rel_ef:.3e}; {CARD}", flush=True)
+                check(rel_ef <= 1e-2, f"precision {label} [{tag}]: eobj "
+                      f"{r['eobj']} not within 1e-2 of EF {ef_obj}")
+                check(r["tbound"] <= ef_obj + 1e-6 * abs(ef_obj),
+                      f"precision {label} [{tag}]: trivial bound "
+                      f"{r['tbound']} above EF {ef_obj}")
+            else:
+                # no EF at S=1000: the bound is the refresh's, at full
+                # precision in both runs
+                check(abs(r["tbound"] - ref["tbound"])
+                      <= 1e-6 * abs(ref["tbound"]),
+                      f"precision {label} [{tag}]: trivial bound "
+                      f"{r['tbound']} against the highest run's "
+                      f"{ref['tbound']}")
+            out[(label, prec) if refine is None
+                else (label, prec, refine)] = r
+    # at "default" the guard re-runs most frozen solves at "highest", as
+    # the reference's does; the eobj checks must still see lowered results
+    accepted = sum(r["lowered_accepted"] for r in out.values())
+    print(f"precision: {accepted:.0f} lowered frozen solves accepted over "
+          f"{sum(r['lowered_solves'] for r in out.values()):.0f}; {CARD}",
+          flush=True)
+    check(accepted > 0, "precision: no lowered frozen solve was accepted")
+    return out
 
 
 def kernel_line(name, source, replaces, launches, res):
@@ -1077,7 +1436,8 @@ def kernel_line(name, source, replaces, launches, res):
             "bound_by": res["bound_by"], "library_ms": None}
 
 
-PHASES = ("kernels", "golden", "loop", "farmer", "uc_lite", "uc")
+PHASES = ("kernels", "golden", "loop", "farmer", "uc_lite", "uc",
+          "precision")
 
 
 def main(argv=None) -> int:
@@ -1105,12 +1465,15 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
+    global CARD
+    main_runs = {}
     try:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip()
         print(smi, flush=True)
+        CARD = f"[{smi}]"
         print(f"card: {torch.cuda.get_device_name(0)} x "
               f"{torch.cuda.device_count()}, torch {torch.__version__}, "
               f"CUDA {torch.version.cuda}", flush=True)
@@ -1119,9 +1482,18 @@ def main(argv=None) -> int:
         print(f"build: {', '.join(cuda_kernels.build_log)} in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
         for name, log in cuda_kernels.build_log.items():
-            for line in log.splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  {name}: {line.strip()}", flush=True)
+            regs = [int(w) for line in log.splitlines()
+                    if "registers" in line
+                    for w, nxt in zip(line.split(), line.split()[1:])
+                    if nxt == "registers,"]
+            spills = [line.strip() for line in log.splitlines()
+                      if "spill stores" in line
+                      and not line.strip().startswith("0 bytes stack")]
+            print(f"  {name}: {len(regs)} kernels, at most "
+                  f"{max(regs, default=0)} registers a thread, "
+                  f"{len(spills)} with a stack or spills"
+                  + (f" (largest: {max(spills, key=len)})" if spills
+                     else ""), flush=True)
         if "kernels" in phases:
             kres = phase_kernels(cuda_kernels)
             print(f"[{time.perf_counter() - t_all:.1f} s] kernels done",
@@ -1135,21 +1507,25 @@ def main(argv=None) -> int:
             print(f"[{time.perf_counter() - t_all:.1f} s] loop done",
                   flush=True)
         if "farmer" in phases:
-            farmer = phase_main(
+            farmer = main_runs["farmer-1000 cm=4"] = phase_main(
                 cuda_kernels, "farmer-1000 cm=4", "fused_sweeps",
                 lambda o, ext: farmer_ph(1000, 4, o, extensions=ext), 100,
                 25, {"defaultPHrho": 1.0, "convthresh": 1e-6})
         if "uc_lite" in phases:
-            uc_lite = phase_main(
+            uc_lite = main_runs["uc_lite-1000"] = phase_main(
                 cuda_kernels, "uc_lite-1000", "fused_sweeps_shared",
                 lambda o, ext: uc_ph(1000, o, extensions=ext), 60, 10,
                 UC_MAIN_OPTIONS)
         if "uc" in phases:
-            uc = phase_main(
+            uc = main_runs["uc-1000"] = phase_main(
                 cuda_kernels, "uc-1000", "fused_sweeps_sparse",
                 lambda o, ext: uc_full_ph(1000, o, extensions=ext), 30,
                 10, UC_MAIN_OPTIONS, solver=UC_SOLVER,
                 ef=False)
+        if "precision" in phases:
+            prec = phase_precision(cuda_kernels, main_runs)
+            print(f"[{time.perf_counter() - t_all:.1f} s] precision done",
+                  flush=True)
     except PhaseError as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -1172,6 +1548,21 @@ def main(argv=None) -> int:
                     "tpusppy/solvers/pallas_kernels.py:423",
                     uc["launches"],
                     kres["fused_sweeps_sparse"][("structured", f32, 1)]),
+    ] + [
+        # each kernel at each lowered mode, on its main path's mode: the
+        # launches of the precision phase's run at that mode
+        kernel_line(f"{name}[{mode}]", f"tpusppy_torch/csrc/{name}.cu",
+                    f"tpusppy/solvers/pallas_kernels.py:{line}",
+                    prec[(label, mode)]["lowered"][f"{name}:{mode}"],
+                    kres["lowered"][(name, mode, kmode, f32)])
+        for name, mode, kmode, label, line in (
+            ("fused_sweeps", "default", "resident", "farmer-1000 cm=4", 90),
+            ("fused_sweeps_shared", "default", "streamed", "uc_lite-1000",
+             276),
+            ("fused_sweeps_shared", "high", "streamed", "uc_lite-1000",
+             276),
+            ("fused_sweeps_sparse", "default", "structured", "uc-1000",
+             469))
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -274,11 +274,27 @@ def test_shared_wrapper_on_cpu_runs_plain_and_launches_nothing():
 
 @pytest.mark.parametrize("precision", ["high", "default", "bf16"])
 def test_shared_wrapper_refuses_lowered_precision(precision):
+    """The lowered modes are ported: on CPU tensors the wrapper at "high"
+    or "default" runs the plain version at that mode (bitwise the same
+    result, and not the exact one); a mode the reference does not have
+    ("bf16") is still refused by both."""
     c, sigma = _shared_case(4, 6, 5, 1)
-    for fn in (cuda_kernels.fused_sweeps_shared,
-               cuda_kernels.fused_sweeps_shared_plain):
-        with pytest.raises(ValueError, match="Queue 1 item 5"):
-            fn(*_shared_args(c), 2, 2, 2, sigma, 1.6, precision=precision)
+    if precision == "bf16":
+        for fn in (cuda_kernels.fused_sweeps_shared,
+                   cuda_kernels.fused_sweeps_shared_plain):
+            with pytest.raises(ValueError, match="must be one of"):
+                fn(*_shared_args(c), 2, 2, 2, sigma, 1.6,
+                   precision=precision)
+        return
+    got = cuda_kernels.fused_sweeps_shared(*_shared_args(c), 2, 2, 2, sigma,
+                                           1.6, precision=precision)
+    want = cuda_kernels.fused_sweeps_shared_plain(
+        *_shared_args(c), 2, 2, 2, sigma, 1.6, precision=precision)
+    exact = cuda_kernels.fused_sweeps_shared_plain(*_shared_args(c), 2, 2, 2,
+                                                   sigma, 1.6)
+    for g, w, e in zip(got, want, exact):
+        assert torch.equal(g, w)
+    assert max(float((g - e).abs().max()) for g, e in zip(got, exact)) > 0
 
 
 def test_usable_shared_takes_every_tpu_shape():

@@ -361,9 +361,10 @@ def test_state_carry_reproduces_next_iteration():
 
 
 def test_missing_engines_raise():
-    """What the port still leaves out raises and runs no substitute:
-    lowered sweep precision.  A shared A the reference uploads as SparseA
-    now solves, on the sparse engine, and factors without K are taken."""
+    """A shared A the reference uploads as SparseA solves, on the sparse
+    engine, and factors without K are taken.  The lowered sweep modes are
+    taken; a mode the reference does not have raises and runs no
+    substitute."""
     from tpusppy_torch.ir import LinearModelBuilder
     from tpusppy_torch.scenario_tree import ScenarioNode
     from tpusppy_torch.solvers.sparse import SparseA
@@ -388,8 +389,10 @@ def test_missing_engines_raise():
     assert isinstance(opt._device_consts(torch.float64)[0], SparseA)
     assert x.shape == (2, 2000) and np.isfinite(x).all()
     assert cuda_kernels.plain_calls["fused_sweeps_sparse"] > 0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match="must be one of"):
         make_admm_settings({"solver_options": {"sweep_precision": "bf16"}})
+    assert make_admm_settings({"solver_options": {
+        "sweep_precision": "default"}}).sweep_precision == "default"
     assert make_admm_settings({"solver_options": {
         "factors_keep_K": False}}) == TSettings(factors_keep_K=False)
     assert make_admm_settings({"solver_options": {

@@ -358,9 +358,20 @@ def test_sparse_wrapper_on_cpu_runs_plain_and_counts_cover_it():
         assert torch.equal(g, w)
     assert cuda_kernels.launches["fused_sweeps_sparse"] == 0
     assert cuda_kernels.plain_calls["fused_sweeps_sparse"] == 2
-    with pytest.raises(ValueError, match="Queue 1 item 5"):
+    # the lowered modes: the wrapper on CPU tensors runs the plain version
+    # at the mode; a mode the reference does not have raises
+    for prec in ("default", "high"):
+        got = cuda_kernels.fused_sweeps_sparse(*_sparse_args(c), 2, 1, 2,
+                                               sigma, 1.6, precision=prec)
+        want = cuda_kernels.fused_sweeps_sparse_plain(
+            *_sparse_args(c), 2, 1, 2, sigma, 1.6, precision=prec)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert cuda_kernels.launches["fused_sweeps_sparse"] == 0
+    assert cuda_kernels.plain_calls["fused_sweeps_sparse"] == 6
+    with pytest.raises(ValueError, match="must be one of"):
         cuda_kernels.fused_sweeps_sparse(*_sparse_args(c), 2, 1, 2, sigma,
-                                         1.6, precision="default")
+                                         1.6, precision="bf16")
 
 
 def test_usable_sparse_gate():

@@ -73,13 +73,29 @@
 // returns where it is set, before any barrier or copy, so a block past the
 // loop's exit costs one launch; the graph's commit then keeps the old state.
 //
+// The mixed-precision mode (prec 1, the TPU kernel's "default" branch,
+// pallas_kernels.py:90-112): A and K^-1 arrive in bf16 (made once per set
+// of matrices by the wrapper, cuda_kernels.dense_operand) and stay bf16 in
+// shared memory and the stage panels, an entry widened to the working
+// type as it is read; the vector operand of each A', K^-1 and A product is
+// rounded to bf16 (through f32, round to nearest even, also in f64 runs)
+// once, into the work vector the product reads (v, r), and the products
+// and sums run in the working type; K stays in the working type and the
+// defect rhs - K xt is exact.  The bytes a scenario moves fall from
+// (mn + 2n^2) to (mn + n^2) * 2 + n^2 * itemsize (0.65x at farmer's shape
+// in f32), and the resident mode's buffers shrink with them.  The TPU
+// kernel's "high" is its exact path (the per-scenario products have no
+// MXU passes to save), so this kernel has no "high" of its own.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libfused_sweeps.so fused_sweeps.cu
 // Bound to PyTorch with ctypes (tpusppy_torch/solvers/cuda_kernels.py).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -116,9 +132,16 @@ __host__ __device__ inline long long array_len(int a, int m, int n) {
   return a < 10 ? n : m;
 }
 
+// Bytes of one entry of array a: A and K^-1 (a < 2) are bf16 in the
+// mixed-precision mode (msz 2), everything else the working type.
+__host__ __device__ inline int elem_bytes(int a, int isz, int msz) {
+  return a < 2 ? msz : isz;
+}
+
 // Bytes of array a's slot: its span may start up to 15 bytes before it.
-__host__ __device__ inline long long slot_bytes(int a, int m, int n, int isz) {
-  return r16(array_len(a, m, n) * isz) + 16;
+__host__ __device__ inline long long slot_bytes(int a, int m, int n, int isz,
+                                                int msz) {
+  return r16(array_len(a, m, n) * elem_bytes(a, isz, msz)) + 16;
 }
 
 // Byte offsets of the resident mode's shared memory (cuda_kernels.
@@ -127,12 +150,14 @@ __host__ __device__ inline long long slot_bytes(int a, int m, int n, int isz) {
 // buffers of kArrays slots.
 struct ResLayout {
   long long work, buf, buf_bytes, total;
-  __host__ __device__ ResLayout(int m, int n, int isz) {
+  __host__ __device__ ResLayout(int m, int n, int isz, int msz) {
     work = 16 + 4 * kArrays;
     buf = work + 3 * r16(static_cast<long long>(n) * isz) +
           r16(static_cast<long long>(m) * isz);
     buf_bytes = 0;
-    for (int a = 0; a < kArrays; ++a) buf_bytes += slot_bytes(a, m, n, isz);
+    for (int a = 0; a < kArrays; ++a) {
+      buf_bytes += slot_bytes(a, m, n, isz, msz);
+    }
     total = buf + 2 * buf_bytes;  // with two buffers
   }
 };
@@ -214,6 +239,25 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
+// A matrix entry as the working type: bf16 entries (the mixed-precision
+// mode's A and K^-1) widened exactly, others as they are.
+template <typename T>
+__device__ __forceinline__ T widen(T v) {
+  return v;
+}
+template <typename T>
+__device__ __forceinline__ T widen(__nv_bfloat16 v) {
+  return static_cast<T>(__bfloat162float(v));
+}
+
+// v rounded to bf16 through f32 (round to nearest even), kept in T: the
+// TPU kernel's rnd(), and pallas_kernels' cast chain.
+template <typename T>
+__device__ __forceinline__ T rnd(T v) {
+  return static_cast<T>(
+      __bfloat162float(__float2bfloat16_rn(static_cast<float>(v))));
+}
+
 // out(o) = sum_{k < kd} M[o * ld + k] * in[k] for o < O (M row-major),
 // then epi(o, out): a thread an output row, for all rows the block's
 // threads take in turn.  Thread o starts its walk along the row at
@@ -222,7 +266,8 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 // two collide (the rows keep the natural stride the bulk copy gives them);
 // its terms go to two sums (alternate terms) that meet at the end.  The
 // resident mode takes only shapes whose rows are short (a scenario's
-// matrices fit shared memory twice), so the chains stay short.
+// matrices fit shared memory twice), so the chains stay short.  M may hold
+// bf16 entries (MT), widened to T as they are read.
 template <typename T>
 struct Vec16;
 template <>
@@ -234,82 +279,138 @@ struct Vec16<double> {
   using type = double2;
 };
 
-template <typename T, typename Epi>
-__device__ __forceinline__ void rows_dot(const T* M, int ld, const T* in,
+// Four consecutive values of `in` (16-byte aligned) as T.
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, T (&o)[4]) {
+  if constexpr (std::is_same_v<T, float>) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    o[0] = a.x;
+    o[1] = a.y;
+    o[2] = a.z;
+    o[3] = a.w;
+  } else {
+    const double2 a = reinterpret_cast<const double2*>(p)[0];
+    const double2 b = reinterpret_cast<const double2*>(p)[1];
+    o[0] = a.x;
+    o[1] = a.y;
+    o[2] = b.x;
+    o[3] = b.y;
+  }
+}
+
+template <typename T, typename MT, typename Epi>
+__device__ __forceinline__ void rows_dot(const MT* M, int ld, const T* in,
                                          int O, int kd, Epi epi) {
-  using V = typename Vec16<T>::type;
-  constexpr int W = 16 / sizeof(T);
-  // 16-byte rows (the usual case: farmer's n=44 in f32 and f64): a thread
-  // reads its row and the broadcast `in` 16 bytes at a time
-  const bool vec = ld % W == 0 &&
-                   ((reinterpret_cast<uintptr_t>(M) |
-                     reinterpret_cast<uintptr_t>(in)) & 15) == 0;
   const int d = (ld & 1) ? 2 : 1;
-  for (int o = threadIdx.x; o < O; o += blockDim.x) {
-    const T* row = M + static_cast<long long>(o) * ld;
-    T s0 = T(0), s1 = T(0);
+  if constexpr (std::is_same_v<T, MT>) {
+    using V = typename Vec16<T>::type;
+    constexpr int W = 16 / sizeof(T);
+    // 16-byte rows (the usual case: farmer's n=44 in f32 and f64): a
+    // thread reads its row and the broadcast `in` 16 bytes at a time
+    const bool vec = ld % W == 0 &&
+                     ((reinterpret_cast<uintptr_t>(M) |
+                       reinterpret_cast<uintptr_t>(in)) & 15) == 0;
     if (vec) {
-      const V* rv = reinterpret_cast<const V*>(row);
-      const V* iv = reinterpret_cast<const V*>(in);
-      const int kv = kd / W;
+      for (int o = threadIdx.x; o < O; o += blockDim.x) {
+        const T* row = M + static_cast<long long>(o) * ld;
+        T s0 = T(0), s1 = T(0);
+        const V* rv = reinterpret_cast<const V*>(row);
+        const V* iv = reinterpret_cast<const V*>(in);
+        const int kv = kd / W;
 #pragma unroll 4
-      for (int t = 0; t < kv; ++t) {
-        const V a = rv[t], b = iv[t];
-        if constexpr (W == 4) {
-          s0 += a.x * b.x;
-          s1 += a.y * b.y;
-          s0 += a.z * b.z;
-          s1 += a.w * b.w;
-        } else {
-          s0 += a.x * b.x;
-          s1 += a.y * b.y;
+        for (int t = 0; t < kv; ++t) {
+          const V a = rv[t], b = iv[t];
+          if constexpr (W == 4) {
+            s0 += a.x * b.x;
+            s1 += a.y * b.y;
+            s0 += a.z * b.z;
+            s1 += a.w * b.w;
+          } else {
+            s0 += a.x * b.x;
+            s1 += a.y * b.y;
+          }
         }
+        for (int k = kv * W; k < kd; ++k) s0 += row[k] * in[k];
+        epi(o, s0 + s1);
       }
-      for (int k = kv * W; k < kd; ++k) s0 += row[k] * in[k];
-      epi(o, s0 + s1);
-      continue;
+      return;
     }
+  } else {
+    // bf16 rows whose length is a multiple of 4 (farmer's n=44): a thread
+    // reads four entries (8 bytes) and four values of `in` at a time
+    const bool vec = ld % 4 == 0 &&
+                     (reinterpret_cast<uintptr_t>(M) & 7) == 0 &&
+                     (reinterpret_cast<uintptr_t>(in) & 15) == 0;
+    if (vec) {
+      for (int o = threadIdx.x; o < O; o += blockDim.x) {
+        const MT* row = M + static_cast<long long>(o) * ld;
+        T s0 = T(0), s1 = T(0);
+        const uint2* rv = reinterpret_cast<const uint2*>(row);
+        const int kv = kd / 4;
+#pragma unroll 4
+        for (int t = 0; t < kv; ++t) {
+          const uint2 raw = rv[t];
+          const float2 a = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+          const float2 b = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+          T iv[4];
+          load4<T>(in + 4 * t, iv);
+          s0 += static_cast<T>(a.x) * iv[0];
+          s1 += static_cast<T>(a.y) * iv[1];
+          s0 += static_cast<T>(b.x) * iv[2];
+          s1 += static_cast<T>(b.y) * iv[3];
+        }
+        for (int k = kv * 4; k < kd; ++k) s0 += widen<T>(row[k]) * in[k];
+        epi(o, s0 + s1);
+      }
+      return;
+    }
+  }
+  for (int o = threadIdx.x; o < O; o += blockDim.x) {
+    const MT* row = M + static_cast<long long>(o) * ld;
+    T s0 = T(0), s1 = T(0);
     const int r0 = kd > 0 ? (o * d) % kd : 0;
     int k = r0;
 #pragma unroll 2
     for (; k + 1 < kd; k += 2) {
-      s0 += row[k] * in[k];
-      s1 += row[k + 1] * in[k + 1];
+      s0 += widen<T>(row[k]) * in[k];
+      s1 += widen<T>(row[k + 1]) * in[k + 1];
     }
-    if (k < kd) s0 += row[k] * in[k];
+    if (k < kd) s0 += widen<T>(row[k]) * in[k];
     for (k = 0; k + 1 < r0; k += 2) {
-      s0 += row[k] * in[k];
-      s1 += row[k + 1] * in[k + 1];
+      s0 += widen<T>(row[k]) * in[k];
+      s1 += widen<T>(row[k + 1]) * in[k + 1];
     }
-    if (k < r0) s0 += row[k] * in[k];
+    if (k < r0) s0 += widen<T>(row[k]) * in[k];
     epi(o, s0 + s1);
   }
 }
 
 // out(j) = sum_{i < kd} M[i * ld + j] * in[i] for j < O: a thread an output
 // column; a warp reads consecutive words of a row, and `in` is a broadcast.
-template <typename T, typename Epi>
-__device__ __forceinline__ void cols_dot(const T* M, int ld, const T* in,
+template <typename T, typename MT, typename Epi>
+__device__ __forceinline__ void cols_dot(const MT* M, int ld, const T* in,
                                          int O, int kd, Epi epi) {
   for (int j = threadIdx.x; j < O; j += blockDim.x) {
-    const T* col = M + j;
+    const MT* col = M + j;
     T s0 = T(0), s1 = T(0);
     int i = 0;
 #pragma unroll 2
     for (; i + 1 < kd; i += 2) {
-      s0 += col[static_cast<long long>(i) * ld] * in[i];
-      s1 += col[static_cast<long long>(i + 1) * ld] * in[i + 1];
+      s0 += widen<T>(col[static_cast<long long>(i) * ld]) * in[i];
+      s1 += widen<T>(col[static_cast<long long>(i + 1) * ld]) * in[i + 1];
     }
-    if (i < kd) s0 += col[static_cast<long long>(i) * ld] * in[i];
+    if (i < kd) s0 += widen<T>(col[static_cast<long long>(i) * ld]) * in[i];
     epi(j, s0 + s1);
   }
 }
 
 // The inputs of one sweep block, as the launcher passes them.
-template <typename T>
 struct In {
-  const T* a[kArrays];  // per scenario: A, K^-1, K, q, lb, ub, rho_x, x, zx,
-                        // yx, cl, cu, rho_a, z, y, Ax (slot order)
+  const void* a[kArrays];  // per scenario: A, K^-1, K, q, lb, ub, rho_x, x,
+                           // zx, yx, cl, cu, rho_a, z, y, Ax (slot order);
+                           // A and K^-1 bf16 in the mixed-precision mode
 };
 
 template <typename T>
@@ -322,28 +423,33 @@ struct Out {
   T* Ax;
 };
 
-// Scenario s's array a.
-template <typename T>
-__device__ __forceinline__ const T* scen(const In<T>& in, int a, long long s,
+// Scenario s's array a, as U (MT for A and K^-1, T for the rest).
+template <typename U>
+__device__ __forceinline__ const U* scen(const In& in, int a, long long s,
                                          int m, int n) {
-  return in.a[a] + s * array_len(a, m, n);
+  return static_cast<const U*>(in.a[a]) + s * array_len(a, m, n);
 }
 
-template <typename T>
+template <typename T, typename MT>
 __global__ void __launch_bounds__(kThreads) fused_sweeps_resident(
-    In<T> in, Out<T> out, const int* __restrict__ stop, int S, int m, int n,
+    In in, Out<T> out, const int* __restrict__ stop, int S, int m, int n,
     int n_sweeps, int n_refine, int nbuf, T sigma, T alpha, T beta) {
   // the solve loop's stop flag: a stopped block returns before it touches
   // shared memory or a barrier, and leaves the outputs unwritten
   if (*stop) return;
+  constexpr bool kLow = !std::is_same_v<T, MT>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const ResLayout L(m, n, sizeof(T));
+  const ResLayout L(m, n, sizeof(T), sizeof(MT));
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
   T* rhs = reinterpret_cast<T*>(smem_raw + L.work);
   T* xt = rhs + r16(static_cast<long long>(n) * sizeof(T)) / sizeof(T);
   T* r = xt + r16(static_cast<long long>(n) * sizeof(T)) / sizeof(T);
   T* v = r + r16(static_cast<long long>(n) * sizeof(T)) / sizeof(T);
   const int tid = threadIdx.x, nt = blockDim.x;
+  // the mixed-precision mode rounds each product's vector operand to bf16
+  // once, where the work vector is written (v, r); the rhs and x-tilde stay
+  // exact and their rounded copies go to r
+  auto op = [](T t) { return kLow ? rnd(t) : t; };
 
   // each array's slot in a buffer, computed once
   int* slot_off = reinterpret_cast<int*>(smem_raw + 16);
@@ -351,13 +457,12 @@ __global__ void __launch_bounds__(kThreads) fused_sweeps_resident(
     int off = 0;
     for (int a = 0; a < kArrays; ++a) {
       slot_off[a] = off;
-      off += static_cast<int>(slot_bytes(a, m, n, sizeof(T)));
+      off += static_cast<int>(slot_bytes(a, m, n, sizeof(T), sizeof(MT)));
     }
   }
   __syncthreads();
   auto slot = [&](int b, int a) {
-    return reinterpret_cast<T*>(smem_raw + L.buf + b * L.buf_bytes +
-                                slot_off[a]);
+    return smem_raw + L.buf + b * L.buf_bytes + slot_off[a];
   };
   // thread 0 asks for the block's k-th scenario in buffer k % nbuf
   auto issue_scenario = [&](int k) {
@@ -366,8 +471,13 @@ __global__ void __launch_bounds__(kThreads) fused_sweeps_resident(
     const int b = k % nbuf;
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     for (int a = 0; a < kArrays; ++a) {
-      span_copy(slot(b, a), scen(in, a, s, m, n), array_len(a, m, n),
-                bars + b);
+      if (a < 2) {
+        span_copy(reinterpret_cast<MT*>(slot(b, a)), scen<MT>(in, a, s, m, n),
+                  array_len(a, m, n), bars + b);
+      } else {
+        span_copy(reinterpret_cast<T*>(slot(b, a)), scen<T>(in, a, s, m, n),
+                  array_len(a, m, n), bars + b);
+      }
     }
     mbar_arrive(bars + b);
   };
@@ -388,10 +498,16 @@ __global__ void __launch_bounds__(kThreads) fused_sweeps_resident(
     const long long s = blockIdx.x + static_cast<long long>(k) * gridDim.x;
     if (s >= S) break;
     const int b = k % nbuf;
-    auto at = [&](int a) { return landed(slot(b, a), scen(in, a, s, m, n)); };
-    const T *A = at(0), *Ki = at(1), *K = at(2), *q = at(3), *lb = at(4),
-            *ub = at(5), *rx = at(6), *cl = at(10), *cu = at(11),
-            *ra = at(12);
+    auto at = [&](int a) {
+      return landed(reinterpret_cast<T*>(slot(b, a)), scen<T>(in, a, s, m, n));
+    };
+    auto atm = [&](int a) {
+      return landed(reinterpret_cast<MT*>(slot(b, a)),
+                    scen<MT>(in, a, s, m, n));
+    };
+    const MT *A = atm(0), *Ki = atm(1);
+    const T *K = at(2), *q = at(3), *lb = at(4), *ub = at(5), *rx = at(6),
+            *cl = at(10), *cu = at(11), *ra = at(12);
     T *x = at(7), *zx = at(8), *yx = at(9), *z = at(13), *y = at(14),
       *Ax = at(15);
     wait_scenario(k);
@@ -404,24 +520,26 @@ __global__ void __launch_bounds__(kThreads) fused_sweeps_resident(
       zx[j] = zxn;
       x[j] = xa + beta * x[j];
     };
-    for (int i = tid; i < m; i += nt) v[i] = ra[i] * z[i] - y[i];
+    for (int i = tid; i < m; i += nt) v[i] = op(ra[i] * z[i] - y[i]);
     __syncthreads();
     for (int sweep = 0; sweep < n_sweeps; ++sweep) {
       // rhs = sigma x - q + A'v + (rho_x zx - yx)
       cols_dot(A, n, v, n, m, [=](int j, T acc) {
-        rhs[j] = ((sigma * x[j] - q[j]) + acc) + (rx[j] * zx[j] - yx[j]);
+        const T rh = ((sigma * x[j] - q[j]) + acc) + (rx[j] * zx[j] - yx[j]);
+        rhs[j] = rh;
+        if (kLow) r[j] = rnd(rh);
       });
       __syncthreads();
       // xt = K^-1 rhs, then refinement against the exact K; the last apply
       // also updates x, zx, yx
-      rows_dot(Ki, n, rhs, n, n, [=](int j, T acc) {
+      rows_dot(Ki, n, kLow ? r : rhs, n, n, [=](int j, T acc) {
         xt[j] = acc;
         if (n_refine == 0) x_update(j, acc);
       });
       __syncthreads();
       for (int pass = 0; pass < n_refine; ++pass) {
         rows_dot(K, n, xt, n, n,
-               [=](int j, T acc) { r[j] = rhs[j] - acc; });
+                 [=](int j, T acc) { r[j] = op(rhs[j] - acc); });
         __syncthreads();
         rows_dot(Ki, n, r, n, n, [=](int j, T acc) {
           const T t = xt[j] + acc;
@@ -430,15 +548,21 @@ __global__ void __launch_bounds__(kThreads) fused_sweeps_resident(
         });
         __syncthreads();
       }
+      const T* xin = xt;
+      if constexpr (kLow) {
+        for (int j = tid; j < n; j += nt) r[j] = rnd(xt[j]);
+        __syncthreads();
+        xin = r;
+      }
       // Axt = A xt, each row's z, y, Ax update, and the next sweep's v
-      rows_dot(A, n, xt, m, n, [=](int i, T acc) {
+      rows_dot(A, n, xin, m, n, [=](int i, T acc) {
         const T axt = alpha * acc;
         const T za = axt + beta * z[i];
         const T zn = clip(za + y[i] / ra[i], cl[i], cu[i]);
         y[i] = y[i] + ra[i] * (za - zn);
         z[i] = zn;
         Ax[i] = axt + beta * Ax[i];
-        v[i] = ra[i] * zn - y[i];
+        v[i] = op(ra[i] * zn - y[i]);
       });
       __syncthreads();
     }
@@ -468,17 +592,18 @@ struct Item {
   long long e0, e1;
 };
 
-template <typename T>
+template <typename T, typename MT>
 __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_streamed(
-    In<T> in, Out<T> out, T* __restrict__ scratch,
-    const int* __restrict__ stop, int S, int m, int n, int n_sweeps,
-    int n_refine, T sigma, T alpha, T beta) {
+    In in, Out<T> out, T* __restrict__ scratch, const int* __restrict__ stop,
+    int S, int m, int n, int n_sweeps, int n_refine, T sigma, T alpha,
+    T beta) {
   if (*stop) return;  // the stop flag, as in fused_sweeps_resident
+  constexpr bool kLow = !std::is_same_v<T, MT>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const StreamLayout L(m, n, sizeof(T));
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
-  T* stage[2] = {reinterpret_cast<T*>(smem_raw + L.stage),
-                 reinterpret_cast<T*>(smem_raw + L.stage + L.stage_bytes)};
+  unsigned char* stage[2] = {smem_raw + L.stage,
+                             smem_raw + L.stage + L.stage_bytes};
   const long long nv = r16(static_cast<long long>(n) * sizeof(T)) / sizeof(T);
   const long long mv = r16(static_cast<long long>(m) * sizeof(T)) / sizeof(T);
   T* rhs = L.vec_smem ? reinterpret_cast<T*>(smem_raw + L.work)
@@ -489,6 +614,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_streamed(
   T* v = t + nv;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+  // a panel holds kStageBytes of the working type's entries (fewer bytes
+  // of bf16 entries)
   const long long PE = kStageBytes / static_cast<long long>(sizeof(T));
   const long long LA = static_cast<long long>(m) * n;
   const long long LK = static_cast<long long>(n) * n;
@@ -498,6 +625,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_streamed(
   const long long my_scens =
       blockIdx.x < S ? (S - 1 - blockIdx.x) / gridDim.x + 1 : 0;
   const long long total = my_scens * per_scen;
+  auto op = [](T u) { return kLow ? rnd(u) : u; };
 
   auto item = [&](long long it) {
     Item d;
@@ -522,12 +650,26 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_streamed(
     d.e1 = d.e0 + PE < len ? d.e0 + PE : len;
     return d;
   };
+  // where element e0 of the item's matrix panel sits in its stage buffer
+  auto panel = [&](const Item& d, long long it) -> const void* {
+    if (d.mat == 2) {
+      return landed(reinterpret_cast<T*>(stage[it & 1]),
+                    scen<T>(in, 2, d.s, m, n) + d.e0);
+    }
+    return landed(reinterpret_cast<MT*>(stage[it & 1]),
+                  scen<MT>(in, d.mat, d.s, m, n) + d.e0);
+  };
   auto issue = [&](long long it) {
     const Item d = item(it);
     uint64_t* bar = bars + (it & 1);
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    span_copy(stage[it & 1], scen(in, d.mat, d.s, m, n) + d.e0, d.e1 - d.e0,
-              bar);
+    if (d.mat == 2) {
+      span_copy(reinterpret_cast<T*>(stage[it & 1]),
+                scen<T>(in, 2, d.s, m, n) + d.e0, d.e1 - d.e0, bar);
+    } else {
+      span_copy(reinterpret_cast<MT*>(stage[it & 1]),
+                scen<MT>(in, d.mat, d.s, m, n) + d.e0, d.e1 - d.e0, bar);
+    }
     mbar_arrive(bar);
   };
 
@@ -546,14 +688,13 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_streamed(
       if (tid == 0 && it + 1 < total) issue(it + 1);
       mbar_wait(bars + (it & 1), static_cast<uint32_t>((it >> 1) & 1));
       const Item d = item(it);
-      const T* src = scen(in, d.mat, d.s, m, n) + d.e0;
-      f(landed(stage[it & 1], src), d.e0, d.e1);
+      f(panel(d, it), d.e0, d.e1);
       __syncthreads();  // the stage buffer is free
     }
   };
   // out[o] += sum_k M[o][k] in[k] over the panel's part of each row (row
   // length kd): a warp a row segment, its lanes' sums meeting by shuffles.
-  auto rows_panel = [&](const T* pan, long long e0, long long e1, int kd,
+  auto rows_panel = [&](auto* pan, long long e0, long long e1, int kd,
                         const T* vin, T* vout) {
     const long long o0 = e0 / kd, o1 = (e1 - 1) / kd;
     for (long long o = o0 + warp; o <= o1; o += nw) {
@@ -564,7 +705,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_streamed(
         const long long ke = b - kb < 32 * kSumBlock ? b : kb + 32 * kSumBlock;
         T blk = T(0);
         for (long long e = kb; e < ke; e += 32) {
-          blk += pan[e - e0] * vin[e - o * kd];
+          blk += widen<T>(pan[e - e0]) * vin[e - o * kd];
         }
         acc += blk;
       }
@@ -574,76 +715,85 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_streamed(
       if (lane == 0) vout[o] += acc;
     }
   };
+  auto as_m = [](const void* p) { return static_cast<const MT*>(p); };
+  auto as_t = [](const void* p) { return static_cast<const T*>(p); };
 
   for (long long k = 0; k < my_scens; ++k) {
     const long long s = blockIdx.x + k * gridDim.x;
     const long long on = s * n, om = s * m;
-    const T* q = scen(in, 3, s, m, n);
-    const T* lb = scen(in, 4, s, m, n);
-    const T* ub = scen(in, 5, s, m, n);
-    const T* rx = scen(in, 6, s, m, n);
-    const T* cl = scen(in, 10, s, m, n);
-    const T* cu = scen(in, 11, s, m, n);
-    const T* ra = scen(in, 12, s, m, n);
+    const T* q = scen<T>(in, 3, s, m, n);
+    const T* lb = scen<T>(in, 4, s, m, n);
+    const T* ub = scen<T>(in, 5, s, m, n);
+    const T* rx = scen<T>(in, 6, s, m, n);
+    const T* cl = scen<T>(in, 10, s, m, n);
+    const T* cu = scen<T>(in, 11, s, m, n);
+    const T* ra = scen<T>(in, 12, s, m, n);
     T *x = out.x + on, *zx = out.zx + on, *yx = out.yx + on;
     T *z = out.z + om, *y = out.y + om, *Ax = out.Ax + om;
     // the state moves into the outputs, which carry it across sweeps
     for (int j = tid; j < n; j += nt) {
-      x[j] = scen(in, 7, s, m, n)[j];
-      zx[j] = scen(in, 8, s, m, n)[j];
-      yx[j] = scen(in, 9, s, m, n)[j];
+      x[j] = scen<T>(in, 7, s, m, n)[j];
+      zx[j] = scen<T>(in, 8, s, m, n)[j];
+      yx[j] = scen<T>(in, 9, s, m, n)[j];
     }
     for (int i = tid; i < m; i += nt) {
-      z[i] = scen(in, 13, s, m, n)[i];
-      y[i] = scen(in, 14, s, m, n)[i];
-      Ax[i] = scen(in, 15, s, m, n)[i];
+      z[i] = scen<T>(in, 13, s, m, n)[i];
+      y[i] = scen<T>(in, 14, s, m, n)[i];
+      Ax[i] = scen<T>(in, 15, s, m, n)[i];
     }
     __syncthreads();
     for (int sweep = 0; sweep < n_sweeps; ++sweep) {
-      for (int i = tid; i < m; i += nt) v[i] = ra[i] * z[i] - y[i];
+      for (int i = tid; i < m; i += nt) v[i] = op(ra[i] * z[i] - y[i]);
       for (int j = tid; j < n; j += nt) rhs[j] = T(0);
       __syncthreads();
       // A'v: each panel's rows added into the columns' sums
-      stream_pass(NA, [=](const T* pan, long long e0, long long e1) {
+      stream_pass(NA, [=](const void* p, long long e0, long long e1) {
+        const MT* pan = as_m(p);
         const long long i0 = e0 / n, i1 = (e1 - 1) / n;
         for (int j = tid; j < n; j += nt) {
           T acc = T(0);
           for (long long i = i0; i <= i1; ++i) {
             const long long e = i * n + j;
-            if (e >= e0 && e < e1) acc += pan[e - e0] * v[i];
+            if (e >= e0 && e < e1) acc += widen<T>(pan[e - e0]) * v[i];
           }
           rhs[j] += acc;
         }
       });
       for (int j = tid; j < n; j += nt) {
         rhs[j] = ((sigma * x[j] - q[j]) + rhs[j]) + (rx[j] * zx[j] - yx[j]);
+        // the rounded rhs, the K^-1 operand, in r (free until the defect)
+        if (kLow) r[j] = rnd(rhs[j]);
         xt[j] = T(0);
       }
       __syncthreads();
-      stream_pass(NK, [=](const T* pan, long long e0, long long e1) {
-        rows_panel(pan, e0, e1, n, rhs, xt);
+      stream_pass(NK, [=](const void* p, long long e0, long long e1) {
+        rows_panel(as_m(p), e0, e1, n, kLow ? r : rhs, xt);
       });
       for (int pass = 0; pass < n_refine; ++pass) {
         for (int j = tid; j < n; j += nt) t[j] = T(0);
         __syncthreads();
-        stream_pass(NK, [=](const T* pan, long long e0, long long e1) {
-          rows_panel(pan, e0, e1, n, xt, t);
+        stream_pass(NK, [=](const void* p, long long e0, long long e1) {
+          rows_panel(as_t(p), e0, e1, n, xt, t);
         });
         for (int j = tid; j < n; j += nt) {
-          r[j] = rhs[j] - t[j];
+          r[j] = op(rhs[j] - t[j]);
           t[j] = T(0);
         }
         __syncthreads();
-        stream_pass(NK, [=](const T* pan, long long e0, long long e1) {
-          rows_panel(pan, e0, e1, n, r, t);
+        stream_pass(NK, [=](const void* p, long long e0, long long e1) {
+          rows_panel(as_m(p), e0, e1, n, r, t);
         });
         for (int j = tid; j < n; j += nt) xt[j] += t[j];
         __syncthreads();
       }
+      // the A xt operand: x-tilde, rounded into r in the mixed mode
+      for (int j = tid; j < n; j += nt) {
+        if (kLow) r[j] = rnd(xt[j]);
+      }
       for (int i = tid; i < m; i += nt) v[i] = T(0);
       __syncthreads();
-      stream_pass(NA, [=](const T* pan, long long e0, long long e1) {
-        rows_panel(pan, e0, e1, n, xt, v);
+      stream_pass(NA, [=](const void* p, long long e0, long long e1) {
+        rows_panel(as_m(p), e0, e1, n, kLow ? r : xt, v);
       });
       // relaxed primal/dual updates: each thread owns its indices
       for (int j = tid; j < n; j += nt) {
@@ -671,10 +821,12 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_streamed(
 // per kernel and shape.
 template <typename K>
 int blocks_per_sm(K kern, int threads, long long smem, int* out) {
-  static long long seen[4][3];
+  static const void* seen_fn[8];
+  static long long seen[8][3];
   static int nseen = 0;
+  const void* fn = reinterpret_cast<const void*>(kern);
   for (int i = 0; i < nseen; ++i) {
-    if (seen[i][0] == smem && seen[i][1] == threads) {
+    if (seen_fn[i] == fn && seen[i][0] == smem && seen[i][1] == threads) {
       *out = static_cast<int>(seen[i][2]);
       return 0;
     }
@@ -688,7 +840,8 @@ int blocks_per_sm(K kern, int threads, long long smem, int* out) {
                                                       static_cast<size_t>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (nb < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int i = nseen < 4 ? nseen++ : 3;
+  const int i = nseen < 8 ? nseen++ : 7;
+  seen_fn[i] = fn;
   seen[i][0] = smem;
   seen[i][1] = threads;
   seen[i][2] = nb;
@@ -696,23 +849,17 @@ int blocks_per_sm(K kern, int threads, long long smem, int* out) {
   return 0;
 }
 
-template <typename T>
-int launch(void* const* inp, void* const* outp, const int* stop, int S,
-           int m, int n, int n_sweeps, int n_refine, int mode, int nsm,
-           double sigma, double alpha, void* stream) {
-  if (S < 1 || n < 1 || m < 0 || nsm < 1 || mode < 0 || mode > 1 ||
-      stop == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  In<T> in;
+template <typename T, typename MT>
+int launch_mat(void* const* inp, void* const* outp, const int* stop, int S,
+               int m, int n, int n_sweeps, int n_refine, int mode, int nsm,
+               double sigma, double alpha, void* stream) {
+  In in;
   // the wrapper's order: q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, x, z,
   // zx, y, yx, Ax; slot order: A, K^-1, K, q, lb, ub, rho_x, x, zx, yx, cl,
   // cu, rho_a, z, y, Ax
   const int order[kArrays] = {1, 2, 3, 0, 6, 7, 9, 10, 12, 14, 4, 5, 8, 11,
                               13, 15};
-  for (int a = 0; a < kArrays; ++a) {
-    in.a[a] = static_cast<const T*>(inp[order[a]]);
-  }
+  for (int a = 0; a < kArrays; ++a) in.a[a] = inp[order[a]];
   Out<T> out{static_cast<T*>(outp[0]), static_cast<T*>(outp[1]),
              static_cast<T*>(outp[2]), static_cast<T*>(outp[3]),
              static_cast<T*>(outp[4]), static_cast<T*>(outp[5])};
@@ -721,7 +868,7 @@ int launch(void* const* inp, void* const* outp, const int* stop, int S,
           be = static_cast<T>(1.0 - alpha);
   int nb = 0, err = 0;
   if (mode == 0) {
-    const ResLayout L(m, n, sizeof(T));
+    const ResLayout L(m, n, sizeof(T), sizeof(MT));
     if (L.total > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
     // a thread an output row or column
     const int widest = m > n ? m : n;
@@ -733,13 +880,14 @@ int launch(void* const* inp, void* const* outp, const int* stop, int S,
     // SM overlap each other's copies (measured faster at farmer's shape,
     // where one buffer fits twice as many blocks).
     const long long one = L.buf + L.buf_bytes;
-    err = blocks_per_sm(fused_sweeps_resident<T>, threads, one, &nb);
+    err = blocks_per_sm(fused_sweeps_resident<T, MT>, threads, one, &nb);
     if (err != 0) return err;
     int nbuf = 1;
     long long smem = one;
     if (S > static_cast<long long>(nsm) * nb) {
       int nb2 = 0;
-      err = blocks_per_sm(fused_sweeps_resident<T>, threads, L.total, &nb2);
+      err = blocks_per_sm(fused_sweeps_resident<T, MT>, threads, L.total,
+                          &nb2);
       if (err != 0) return err;
       if (2 * nb2 > nb) {
         nbuf = 2;
@@ -749,18 +897,35 @@ int launch(void* const* inp, void* const* outp, const int* stop, int S,
     }
     const long long want = static_cast<long long>(nsm) * nb;
     const int grid = static_cast<int>(S < want ? S : want);
-    fused_sweeps_resident<T><<<grid, threads, smem, st>>>(
+    fused_sweeps_resident<T, MT><<<grid, threads, smem, st>>>(
         in, out, stop, S, m, n, n_sweeps, n_refine, nbuf, sg, al, be);
   } else {
     const StreamLayout L(m, n, sizeof(T));
-    err = blocks_per_sm(fused_sweeps_streamed<T>, kThreads, L.total, &nb);
+    err = blocks_per_sm(fused_sweeps_streamed<T, MT>, kThreads, L.total, &nb);
     if (err != 0) return err;
     const int grid = S < nsm ? S : nsm;
-    fused_sweeps_streamed<T><<<grid, kThreads, L.total, st>>>(
+    fused_sweeps_streamed<T, MT><<<grid, kThreads, L.total, st>>>(
         in, out, static_cast<T*>(outp[6]), stop, S, m, n, n_sweeps,
         n_refine, sg, al, be);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(void* const* inp, void* const* outp, const int* stop, int S,
+           int m, int n, int n_sweeps, int n_refine, int mode, int nsm,
+           int prec, double sigma, double alpha, void* stream) {
+  if (S < 1 || n < 1 || m < 0 || nsm < 1 || mode < 0 || mode > 1 ||
+      prec < 0 || prec > 1 || stop == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (prec == 1) {
+    return launch_mat<T, __nv_bfloat16>(inp, outp, stop, S, m, n, n_sweeps,
+                                        n_refine, mode, nsm, sigma, alpha,
+                                        stream);
+  }
+  return launch_mat<T, T>(inp, outp, stop, S, m, n, n_sweeps, n_refine, mode,
+                          nsm, sigma, alpha, stream);
 }
 
 }  // namespace
@@ -768,27 +933,31 @@ int launch(void* const* inp, void* const* outp, const int* stop, int S,
 extern "C" {
 
 // in:  q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, x, z, zx, y, yx, Ax
+//      (prec 1: A and Kinv bf16, the rest the working type)
 // out: x, z, zx, y, yx, Ax, then (streamed mode) the work-vector scratch,
 //      min(S, nsm) * (4 n + m) values padded to 16 bytes per vector, unless
 //      they fit shared memory
 // stop: a device int, the solve loop's stop flag; where it is set every
 // block returns at once and the outputs are left unwritten.
 // mode: 0 resident, 1 streamed (cuda_kernels.dense_layout); nsm: the
-// card's SM count.  Returns the cudaError_t of the launch (0 on success).
+// card's SM count; prec: 0 exact, 1 the mixed-precision mode ("default").
+// Returns the cudaError_t of the launch (0 on success).
 int tpusppy_fused_sweeps_f32(void* const* in, void* const* out,
                              const int* stop, int S, int m, int n,
                              int n_sweeps, int n_refine, int mode, int nsm,
-                             double sigma, double alpha, void* stream) {
+                             int prec, double sigma, double alpha,
+                             void* stream) {
   return launch<float>(in, out, stop, S, m, n, n_sweeps, n_refine, mode, nsm,
-                       sigma, alpha, stream);
+                       prec, sigma, alpha, stream);
 }
 
 int tpusppy_fused_sweeps_f64(void* const* in, void* const* out,
                              const int* stop, int S, int m, int n,
                              int n_sweeps, int n_refine, int mode, int nsm,
-                             double sigma, double alpha, void* stream) {
+                             int prec, double sigma, double alpha,
+                             void* stream) {
   return launch<double>(in, out, stop, S, m, n, n_sweeps, n_refine, mode,
-                        nsm, sigma, alpha, stream);
+                        nsm, prec, sigma, alpha, stream);
 }
 
 }  // extern "C"

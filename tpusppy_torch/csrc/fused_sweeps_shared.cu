@@ -1,7 +1,8 @@
 // Fused shared-A ADMM sweep block for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU Pallas kernel tpusppy/solvers/pallas_kernels.py
-// `_shared_sweeps_kernel` / `fused_sweeps_shared` (at precision "highest").
+// `_shared_sweeps_kernel` / `fused_sweeps_shared`, at each of its
+// precisions ("highest", and the lowered modes of the streamed mode).
 // It runs one `n_sweeps` block of the shared-A engine's sweep
 // (tpusppy_torch/solvers/shared_admm.py `_core`), where every scenario
 // shares ONE constraint matrix A (m, n) and ONE x-update system K (n, n)
@@ -71,6 +72,19 @@
 // partial sums are added in a fixed order.  The state vectors stay in the
 // output buffers in device memory, so no shape limit comes from m.
 //
+// The mixed-precision modes (PREC 1 "default", 2 "high"; the TPU kernel's
+// `_pdot` on `_prep_mat`'s splits, pallas_kernels.py:233-308) run in the
+// streamed mode (cuda_kernels.shared_mode sends them there): the A', K^-1
+// and A xt products take their matrix as its bf16 parts M1 (and M2), made
+// once per set of matrices by the wrapper (cuda_kernels.shared_lowered)
+// and read through L2 (K^-1's parts from shared memory where they fit),
+// and their operand as its bf16 parts u1 (and u2), split once where the
+// operand is written; "default" sums u1 M1, "high" (bf16x3) u1 M1 + u1 M2
+// + u2 M1, every bf16 product exact and the sums in the working type.  The
+// K defect stays exact.  The products run on CUDA cores (a tensor-core
+// path is later work), so "default" costs what "highest" does and "high"
+// three products a product.
+//
 // What was measured (scripts/port_shared_ablation.py, chip_smoke.py,
 // PERF.md; H100 SXM at 700 W): in the streamed mode at uc_lite's shape the
 // products themselves take most of the call (the K^-1 and K applies 0.13
@@ -96,6 +110,7 @@
 // Bound to PyTorch with ctypes (tpusppy_torch/solvers/cuda_kernels.py).
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -189,30 +204,99 @@ __device__ __forceinline__ Tile<T, SB> column_dot(const T* in, const T* M,
   return acc;
 }
 
-// out = in @ M for the tile, in (SB, kd) and M (kd, O) row-major; then
-// epi(o, acc) for every output column o, with acc the column's SB scenario
-// values.  When O leaves threads over, the reduction over k is split among
-// G groups of threads whose partial sums meet in `part` (G * O * SB values)
-// and are added in group order.  Ends with a barrier; every thread of the
-// block must call it.
-template <typename T, int SB, bool kShared, typename Epi>
-__device__ __forceinline__ void contract(const T* in, const T* M, int kd,
-                                         int O, T* part, Epi epi) {
+// A bf16 matrix entry as f32: from shared memory (kShared) or through the
+// read-only cache.
+template <bool kShared>
+__device__ __forceinline__ float bf16_at(const __nv_bfloat16* p) {
+  if constexpr (kShared) {
+    return __bfloat162float(*p);
+  } else {
+    return __bfloat162float(
+        __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+  }
+}
+
+// The mixed-precision column_dot (pallas_kernels._pdot): the operand comes
+// as its bf16 parts u1 (in1) and, with kHigh, u2 (in2), held in T, and M as
+// its bf16 parts M1, M2; "default" sums u1 M1, "high" (bf16x3) u1 M1 + u1 M2
+// + u2 M1, the low-low product dropped.  Every product of two bf16 values
+// is exact in f32 and f64, and the sums run in T (the TPU kernel's
+// preferred_element_type=dt), u1 M1 and the two cross products in separate
+// sums added at the end, as the reference adds its three products.
+template <typename T, int SB, bool kShared, bool kHigh>
+__device__ __forceinline__ Tile<T, SB> column_dot_lo(
+    const T* in1, const T* in2, const __nv_bfloat16* M1,
+    const __nv_bfloat16* M2, int k0, int k1, int ncol, int col) {
+  Tile<T, SB> acc, lo;
+#pragma unroll
+  for (int s = 0; s < SB; ++s) acc.v[s] = lo.v[s] = T(0);
+  for (int kb = k0; kb < k1; kb += kSumBlock) {
+    const int ke = k1 - kb < kSumBlock ? k1 : kb + kSumBlock;
+    Tile<T, SB> blk, blo;
+#pragma unroll
+    for (int s = 0; s < SB; ++s) blk.v[s] = blo.v[s] = T(0);
+#pragma unroll 4
+    for (int k = kb; k < ke; ++k) {
+      const long long at = static_cast<long long>(k) * ncol + col;
+      const T m1 = static_cast<T>(bf16_at<kShared>(M1 + at));
+      const Tile<T, SB> v1 = load_tile<T, SB>(in1 + k * SB);
+#pragma unroll
+      for (int s = 0; s < SB; ++s) blk.v[s] += v1.v[s] * m1;
+      if constexpr (kHigh) {
+        const T m2 = static_cast<T>(bf16_at<kShared>(M2 + at));
+        const Tile<T, SB> v2 = load_tile<T, SB>(in2 + k * SB);
+#pragma unroll
+        for (int s = 0; s < SB; ++s) {
+          blo.v[s] += v1.v[s] * m2;
+          blo.v[s] += v2.v[s] * m1;
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < SB; ++s) {
+      acc.v[s] += blk.v[s];
+      lo.v[s] += blo.v[s];
+    }
+  }
+  if constexpr (kHigh) {
+#pragma unroll
+    for (int s = 0; s < SB; ++s) acc.v[s] += lo.v[s];
+  }
+  return acc;
+}
+
+// v's bf16 parts (through f32, round to nearest even), held in T: u1 =
+// bf16(f32(v)), u2 = bf16(f32(v) - u1) (the subtraction is exact in f32).
+template <typename T>
+__device__ __forceinline__ void split_bf16(T v, T& u1, T& u2) {
+  const float f = static_cast<float>(v);
+  const float h = __bfloat162float(__float2bfloat16_rn(f));
+  u1 = static_cast<T>(h);
+  u2 = static_cast<T>(__bfloat162float(__float2bfloat16_rn(f - h)));
+}
+
+// out = in @ M for the tile, in (SB, kd) and M (kd, O) row-major, with
+// col(k0, k1, o) the sum over k0 <= k < k1 of output column o's SB values;
+// then epi(o, acc) for every output column o, with acc the column's SB
+// scenario values.  When O leaves threads over, the reduction over k is
+// split among G groups of threads whose partial sums meet in `part` (G * O
+// * SB values) and are added in group order.  Ends with a barrier; every
+// thread of the block must call it.
+template <typename T, int SB, typename Col, typename Epi>
+__device__ __forceinline__ void contract_cols(int kd, int O, T* part, Col col,
+                                              Epi epi) {
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int W = (O + 31) / 32 * 32;
   const int G = W >= nt ? 1 : nt / W;
   if (G == 1) {
-    for (int o = tid; o < O; o += nt) {
-      epi(o, column_dot<T, SB, kShared>(in, M, 0, kd, O, o));
-    }
+    for (int o = tid; o < O; o += nt) epi(o, col(0, kd, o));
     __syncthreads();
     return;
   }
   const int g = tid / W, o = tid - g * W;
   if (g < G && o < O) {
-    const Tile<T, SB> acc = column_dot<T, SB, kShared>(
-        in, M, kd * g / G, kd * (g + 1) / G, O, o);
+    const Tile<T, SB> acc = col(kd * g / G, kd * (g + 1) / G, o);
     T* dst = part + (static_cast<long long>(g) * O + o) * SB;
 #pragma unroll
     for (int s = 0; s < SB; ++s) dst[s] = acc.v[s];
@@ -231,10 +315,35 @@ __device__ __forceinline__ void contract(const T* in, const T* M, int kd,
   __syncthreads();
 }
 
-template <typename T, int SB>
+// The exact product: in @ M with M in the working type.
+template <typename T, int SB, bool kShared, typename Epi>
+__device__ __forceinline__ void contract(const T* in, const T* M, int kd,
+                                         int O, T* part, Epi epi) {
+  contract_cols<T, SB>(kd, O, part, [&](int k0, int k1, int o) {
+    return column_dot<T, SB, kShared>(in, M, k0, k1, O, o);
+  }, epi);
+}
+
+// The mixed-precision product: (in1, in2) @ (M1, M2), column_dot_lo's.
+template <typename T, int SB, bool kShared, bool kHigh, typename Epi>
+__device__ __forceinline__ void contract_lo(const T* in1, const T* in2,
+                                            const __nv_bfloat16* M1,
+                                            const __nv_bfloat16* M2, int kd,
+                                            int O, T* part, Epi epi) {
+  contract_cols<T, SB>(kd, O, part, [&](int k0, int k1, int o) {
+    return column_dot_lo<T, SB, kShared, kHigh>(in1, in2, M1, M2, k0, k1, O,
+                                                o);
+  }, epi);
+}
+
+// PREC: 0 exact ("highest"), 1 "default" (one bf16 product), 2 "high"
+// (bf16x3).  At PREC > 0 `mats` is the wrapper's bf16 operand
+// (cuda_kernels.shared_lowered): part p at mats + p (2 m n + n n), holding
+// A (m, n), A' (n, m) and K^-1 (n, n); at PREC 0 it is A' in T.
+template <typename T, int SB, int PREC>
 __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_shared_kernel(
     const T* __restrict__ q, const T* __restrict__ A,
-    const T* __restrict__ At, const T* __restrict__ Kinv,
+    const void* __restrict__ mats, const T* __restrict__ Kinv,
     const T* __restrict__ K, const T* __restrict__ cl,
     const T* __restrict__ cu, const T* __restrict__ lb,
     const T* __restrict__ ub, const T* __restrict__ rho_a,
@@ -250,15 +359,42 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_shared_kernel(
     T beta) {
   if (*stop) return;  // the solve loop's stop flag (see the top)
   using V = Tile<T, SB>;
+  constexpr bool kLow = PREC > 0, kHigh = PREC == 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* gs = reinterpret_cast<T*>(smem_raw);  // (SB) the tile's gammas
   T* srhs = gs + SB;         // (n, SB) rhs, first the A'v partial sums
   T* sw = srhs + n * SB;     // (n, SB) the K^-1 input: rhs/g, then r/g
+                             // (its bf16 part u1 in the mixed modes)
   T* sxt = sw + n * SB;      // (n, SB) x-tilde
   T* sv = sxt + n * SB;      // (chunk, SB) a chunk of v = g rho_a z - y
+                             // (its part u1 in the mixed modes)
   T* part = sv + chunk * SB; // (kThreads, SB) split-k partial sums
-  T* sKinv = part + kThreads * SB;                  // (n, n) if resident & 1
-  T* sK = sKinv + ((resident & 1) ? n * n : 0);     // (n, n) if resident & 2
+  // the mixed modes: the operands' second parts u2, then K where it fits,
+  // then K^-1's bf16 parts where they fit; the exact mode: K^-1, then K
+  T* sw2 = part + kThreads * SB;              // (n, SB) u2 of the K^-1 or
+                                              // A xt operand
+  T* sv2 = sw2 + (kLow ? n * SB : 0);         // (chunk, SB) u2 of v
+  T* sKinv = part + kThreads * SB;            // (n, n) if resident & 1
+  T* sK = sKinv + ((resident & 1) ? n * n : 0);  // (n, n) if resident & 2
+  const __nv_bfloat16* sKi1 = nullptr;
+  const __nv_bfloat16* sKi2 = nullptr;
+  if constexpr (kLow) {
+    sK = sv2 + chunk * SB;
+    __nv_bfloat16* kp = reinterpret_cast<__nv_bfloat16*>(
+        sK + ((resident & 2) ? n * n : 0));
+    sKi1 = kp;
+    sKi2 = kp + static_cast<long long>(n) * n;
+  }
+  const long long mn = static_cast<long long>(m) * n;
+  const long long per_part = 2 * mn + static_cast<long long>(n) * n;
+  const __nv_bfloat16* lo = static_cast<const __nv_bfloat16*>(mats);
+  const __nv_bfloat16* A1 = lo;
+  const __nv_bfloat16* At1 = lo + mn;
+  const __nv_bfloat16* Ki1 = lo + 2 * mn;
+  const __nv_bfloat16* A2 = A1 + per_part;
+  const __nv_bfloat16* At2 = At1 + per_part;
+  const __nv_bfloat16* Ki2 = Ki1 + per_part;
+  const T* At = static_cast<const T*>(mats);
 
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -283,8 +419,18 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_shared_kernel(
     Ax[om + e] = Ax_in[om + e];
   }
   if (resident & 1) {
+    if constexpr (kLow) {
+      __nv_bfloat16* d1 = const_cast<__nv_bfloat16*>(sKi1);
+      __nv_bfloat16* d2 = const_cast<__nv_bfloat16*>(sKi2);
 #pragma unroll 8
-    for (int e = tid; e < n * n; e += nt) sKinv[e] = __ldg(Kinv + e);
+      for (int e = tid; e < n * n; e += nt) {
+        d1[e] = Ki1[e];
+        if (kHigh) d2[e] = Ki2[e];
+      }
+    } else {
+#pragma unroll 8
+      for (int e = tid; e < n * n; e += nt) sKinv[e] = __ldg(Kinv + e);
+    }
   }
   if (resident & 2) {
 #pragma unroll 8
@@ -294,11 +440,18 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_shared_kernel(
   const int n_pass = n_refine + (has[0] > T(0) ? n_extra : 0);
   __syncthreads();
 
-  auto apply_kinv = [&](const T* in, auto epi) {
-    if (resident & 1) {
-      contract<T, SB, true>(in, sKinv, n, n, part, epi);
+  // xt (= or +=) K^-1 w: the mixed modes read w's parts (sw, sw2)
+  auto apply_kinv = [&](auto epi) {
+    if constexpr (kLow) {
+      if (resident & 1) {
+        contract_lo<T, SB, true, kHigh>(sw, sw2, sKi1, sKi2, n, n, part, epi);
+      } else {
+        contract_lo<T, SB, false, kHigh>(sw, sw2, Ki1, Ki2, n, n, part, epi);
+      }
+    } else if (resident & 1) {
+      contract<T, SB, true>(sw, sKinv, n, n, part, epi);
     } else {
-      contract<T, SB, false>(in, Kinv, n, n, part, epi);
+      contract<T, SB, false>(sw, Kinv, n, n, part, epi);
     }
   };
   auto apply_k = [&](const T* in, auto epi) {
@@ -306,6 +459,14 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_shared_kernel(
       contract<T, SB, true>(in, sK, n, n, part, epi);
     } else {
       contract<T, SB, false>(in, K, n, n, part, epi);
+    }
+  };
+  // the K^-1 operand w at slot d: itself, or its bf16 parts
+  auto put_w = [&](int d, T w) {
+    if constexpr (kLow) {
+      split_bf16(w, sw[d], sw2[d]);
+    } else {
+      sw[d] = w;
     }
   };
 
@@ -322,15 +483,25 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_shared_kernel(
           const long long r = om + static_cast<long long>(s) * m + i0 + ii;
           v = gs[s] * rho_a[i0 + ii] * z[r] - y[r];
         }
-        sv[ii * SB + s] = v;
+        if constexpr (kLow) {
+          split_bf16(v, sv[ii * SB + s], sv2[ii * SB + s]);
+        } else {
+          sv[ii * SB + s] = v;
+        }
       }
       __syncthreads();
-      contract<T, SB, false>(sv, A + static_cast<long long>(i0) * n, cn, n,
-                             part, [&](int j, const V& acc) {
+      auto add = [&](int j, const V& acc) {
 #pragma unroll
-                               for (int s = 0; s < SB; ++s)
-                                 srhs[j * SB + s] += acc.v[s];
-                             });
+        for (int s = 0; s < SB; ++s) srhs[j * SB + s] += acc.v[s];
+      };
+      if constexpr (kLow) {
+        const long long off = static_cast<long long>(i0) * n;
+        contract_lo<T, SB, false, kHigh>(sv, sv2, A1 + off, A2 + off, cn, n,
+                                         part, add);
+      } else {
+        contract<T, SB, false>(sv, A + static_cast<long long>(i0) * n, cn, n,
+                               part, add);
+      }
     }
     __syncthreads();
     // rhs = ((g sigma x - q) + A'v) + (g rho_x zx - yx); w = rhs / g
@@ -345,11 +516,11 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_shared_kernel(
         w = rhs / g;
       }
       srhs[j * SB + s] = rhs;
-      sw[j * SB + s] = w;
+      put_w(j * SB + s, w);
     }
     __syncthreads();
     // xt = K^-1 w
-    apply_kinv(sw, [&](int j, const V& acc) {
+    apply_kinv([&](int j, const V& acc) {
 #pragma unroll
       for (int s = 0; s < SB; ++s) sxt[j * SB + s] = acc.v[s];
     });
@@ -361,16 +532,17 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_shared_kernel(
           const T d =
               s < ns ? dq2[on + static_cast<long long>(s) * n + j] : T(0);
           const T xt = sxt[j * SB + s];
-          sw[j * SB + s] =
-              (srhs[j * SB + s] - (gs[s] * acc.v[s] + d * xt)) / gs[s];
+          put_w(j * SB + s,
+                (srhs[j * SB + s] - (gs[s] * acc.v[s] + d * xt)) / gs[s]);
         }
       });
-      apply_kinv(sw, [&](int j, const V& acc) {
+      apply_kinv([&](int j, const V& acc) {
 #pragma unroll
         for (int s = 0; s < SB; ++s) sxt[j * SB + s] += acc.v[s];
       });
     }
-    // x, zx, yx updates; nothing below writes x-tilde
+    // x, zx, yx updates; nothing below writes x-tilde (the mixed modes put
+    // its bf16 parts, the A xt operand, in sw and sw2)
     for (int e = tid; e < ns * n; e += nt) {
       const int s = e / n, j = e - s * n;
       const long long r = on + e;
@@ -383,7 +555,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_shared_kernel(
       x[r] = xt + beta * x[r];
     }
     // Axt = xt A' (At is A transposed), and each row's z, y, Ax update
-    contract<T, SB, false>(sxt, At, n, m, part, [&](int i, const V& acc) {
+    auto row_update = [&](int i, const V& acc) {
       const T ra0 = rho_a[i];
 #pragma unroll
       for (int s = 0; s < SB; ++s) {
@@ -398,23 +570,41 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_shared_kernel(
           Ax[r] = axt + beta * Ax[r];
         }
       }
-    });
+    };
+    if constexpr (kLow) {
+      for (int e = tid; e < n * SB; e += nt) split_bf16(sxt[e], sw[e], sw2[e]);
+      __syncthreads();
+      contract_lo<T, SB, false, kHigh>(sw, sw2, At1, At2, n, m, part,
+                                       row_update);
+    } else {
+      contract<T, SB, false>(sxt, At, n, m, part, row_update);
+    }
   }
 }
 
-template <typename T, int SB>
+template <typename T, int SB, int PREC>
 int launch_tile(void* const* in, void* const* out, const int* stop, int S,
                 int m, int n, int chunk, int n_sweeps, int n_refine,
                 int n_extra, double sigma, double alpha, void* stream) {
   // cuda_kernels.shared_smem_bytes mirrors this: the tile's buffers, then
-  // K^-1 and, after it, K, each where it still fits
-  size_t smem =
-      sizeof(T) * SB * (1 + 3 * static_cast<size_t>(n) + chunk + kThreads);
+  // K^-1 and, after it, K, each where it still fits; the mixed modes keep
+  // the operands' second parts (one more n-vector, a second chunk) and
+  // K^-1 as its bf16 parts
+  size_t smem, kin;
+  if (PREC > 0) {
+    smem = sizeof(T) * SB *
+           (1 + 4 * static_cast<size_t>(n) + 2 * static_cast<size_t>(chunk) +
+            kThreads);
+    kin = 2 * (PREC == 2 ? 2 : 1) * static_cast<size_t>(n) * n;
+  } else {
+    smem = sizeof(T) * SB * (1 + 3 * static_cast<size_t>(n) + chunk + kThreads);
+    kin = sizeof(T) * static_cast<size_t>(n) * n;
+  }
   const size_t mat = sizeof(T) * static_cast<size_t>(n) * n;
   int resident = 0;
-  if (smem + mat <= kSmemLimit) {
+  if (smem + kin <= kSmemLimit) {
     resident |= 1;
-    smem += mat;
+    smem += kin;
     if (smem + mat <= kSmemLimit) {
       resident |= 2;
       smem += mat;
@@ -425,7 +615,7 @@ int launch_tile(void* const* in, void* const* out, const int* stop, int S,
   static size_t smem_set = 48 * 1024;
   if (smem > smem_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        fused_sweeps_shared_kernel<T, SB>,
+        fused_sweeps_shared_kernel<T, SB, PREC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = smem;
@@ -433,9 +623,9 @@ int launch_tile(void* const* in, void* const* out, const int* stop, int S,
   auto c = [&](int k) { return static_cast<const T*>(in[k]); };
   auto o = [&](int k) { return static_cast<T*>(out[k]); };
   const int grid = (S + SB - 1) / SB;
-  fused_sweeps_shared_kernel<T, SB>
+  fused_sweeps_shared_kernel<T, SB, PREC>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          c(0), c(1), c(2), c(3), c(4), c(5), c(6), c(7), c(8), c(9), c(10),
+          c(0), c(1), in[2], c(3), c(4), c(5), c(6), c(7), c(8), c(9), c(10),
           c(11), c(12), c(13), c(14), c(15), c(16), c(17), c(18), c(19),
           o(0), o(1), o(2), o(3), o(4), o(5), stop, S, m, n, chunk, resident,
           n_sweeps, n_refine, n_extra, static_cast<T>(sigma), static_cast<T>(alpha),
@@ -443,26 +633,51 @@ int launch_tile(void* const* in, void* const* out, const int* stop, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int PREC>
+int launch_prec(void* const* in, void* const* out, const int* stop, int S,
+                int m, int n, int sb, int chunk, int n_sweeps, int n_refine,
+                int n_extra, double sigma, double alpha, void* stream) {
+  // cuda_kernels.SHARED_TILES mirrors these cases; the lowered modes are
+  // built for tiles of 8, 4 and 2 (cuda_kernels._streamed_layout asks no
+  // smaller tile of them)
+  switch (sb) {
+    case 8:
+      return launch_tile<T, 8, PREC>(in, out, stop, S, m, n, chunk, n_sweeps,
+                                     n_refine, n_extra, sigma, alpha, stream);
+    case 4:
+      return launch_tile<T, 4, PREC>(in, out, stop, S, m, n, chunk, n_sweeps,
+                                     n_refine, n_extra, sigma, alpha, stream);
+    case 2:
+      return launch_tile<T, 2, PREC>(in, out, stop, S, m, n, chunk, n_sweeps,
+                                     n_refine, n_extra, sigma, alpha, stream);
+    default:
+      break;
+  }
+  if constexpr (PREC == 0) {
+    if (sb == 1) {
+      return launch_tile<T, 1, 0>(in, out, stop, S, m, n, chunk, n_sweeps,
+                                  n_refine, n_extra, sigma, alpha, stream);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T>
 int launch(void* const* in, void* const* out, const int* stop, int S, int m,
            int n, int sb, int chunk, int n_sweeps, int n_refine, int n_extra,
-           double sigma, double alpha, void* stream) {
+           int prec, double sigma, double alpha, void* stream) {
   if (S < 1 || n < 1 || m < 0 || chunk < 1 || stop == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // cuda_kernels.SHARED_TILES mirrors these cases
-  switch (sb) {
-    case 8:
-      return launch_tile<T, 8>(in, out, stop, S, m, n, chunk, n_sweeps,
-                               n_refine, n_extra, sigma, alpha, stream);
-    case 4:
-      return launch_tile<T, 4>(in, out, stop, S, m, n, chunk, n_sweeps,
-                               n_refine, n_extra, sigma, alpha, stream);
-    case 2:
-      return launch_tile<T, 2>(in, out, stop, S, m, n, chunk, n_sweeps,
+  switch (prec) {
+    case 0:
+      return launch_prec<T, 0>(in, out, stop, S, m, n, sb, chunk, n_sweeps,
                                n_refine, n_extra, sigma, alpha, stream);
     case 1:
-      return launch_tile<T, 1>(in, out, stop, S, m, n, chunk, n_sweeps,
+      return launch_prec<T, 1>(in, out, stop, S, m, n, sb, chunk, n_sweeps,
+                               n_refine, n_extra, sigma, alpha, stream);
+    case 2:
+      return launch_prec<T, 2>(in, out, stop, S, m, n, sb, chunk, n_sweeps,
                                n_refine, n_extra, sigma, alpha, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -1220,27 +1435,32 @@ extern "C" {
 
 // Streamed mode.
 // in:  q, A, At, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, dq2, has, gamma,
-//      x, z, zx, y, yx, Ax   (At: A transposed, (n, m) row-major)
+//      x, z, zx, y, yx, Ax   (At: A transposed, (n, m) row-major; at prec
+//      1 or 2 the wrapper's bf16 operand in its place,
+//      cuda_kernels.shared_lowered)
 // out: x, z, zx, y, yx, Ax
 // stop: a device int, the solve loop's stop flag; where it is set every
 // block returns at once and the outputs are left unwritten.
+// prec: 0 exact, 1 "default" (bf16), 2 "high" (bf16x3).
 // Returns the cudaError_t of the launch (0 on success).
 int tpusppy_fused_sweeps_shared_f32(void* const* in, void* const* out,
                                     const int* stop, int S, int m, int n,
                                     int sb, int chunk, int n_sweeps,
-                                    int n_refine, int n_extra, double sigma,
-                                    double alpha, void* stream) {
+                                    int n_refine, int n_extra, int prec,
+                                    double sigma, double alpha,
+                                    void* stream) {
   return launch<float>(in, out, stop, S, m, n, sb, chunk, n_sweeps, n_refine,
-                       n_extra, sigma, alpha, stream);
+                       n_extra, prec, sigma, alpha, stream);
 }
 
 int tpusppy_fused_sweeps_shared_f64(void* const* in, void* const* out,
                                     const int* stop, int S, int m, int n,
                                     int sb, int chunk, int n_sweeps,
-                                    int n_refine, int n_extra, double sigma,
-                                    double alpha, void* stream) {
+                                    int n_refine, int n_extra, int prec,
+                                    double sigma, double alpha,
+                                    void* stream) {
   return launch<double>(in, out, stop, S, m, n, sb, chunk, n_sweeps,
-                        n_refine, n_extra, sigma, alpha, stream);
+                        n_refine, n_extra, prec, sigma, alpha, stream);
 }
 
 // Cluster-resident mode.

@@ -1,7 +1,8 @@
 // Fused sparse shared-A ADMM sweep block for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU Pallas kernel tpusppy/solvers/pallas_kernels.py
-// `_sparse_sweeps_kernel` / `fused_sweeps_sparse` (at precision "highest").
+// `_sparse_sweeps_kernel` / `fused_sweeps_sparse`, at each of its
+// precisions ("highest", and the lowered modes below).
 // It runs one `n_sweeps` block of the shared-A engine's sweep
 // (tpusppy_torch/solvers/shared_admm.py `_core`) on a sparse shared A held
 // in padded-ELL form (rows: rowcols/rowvals (m, kr); columns:
@@ -83,6 +84,26 @@
 // block-wide barriers and its slice traffic beside a few hundred
 // multiply-adds a thread.
 //
+// The mixed-precision modes (PREC 1 "default", 2 "high"; the TPU kernel's
+// lowered K^-1 applies, pallas_kernels.py:469-474): only the K^-1 applies
+// are lowered, the ELL products, A xt and the matrix-free defect stay
+// exact.  Each product of the apply takes its operand as its bf16 parts
+// (u1 = bf16(f32(u)), u2 = bf16(f32(u) - u1)) and its matrix as its parts
+// (M1, M2), "default" summing u1 M1 and "high" (bf16x3) u1 M1 + u1 M2 +
+// u2 M1, every bf16 product exact and the sums in the working type.  Dense
+// mode: K^-1 arrives as its bf16 parts (cuda_kernels.sparse_operand), the
+// K^-1 input's parts in two shared vectors.  Structured mode: the stored
+// blocks and C^-1 arrive as bf16 entries or bf16 pairs (both parts of an
+// entry side by side, so one bulk copy brings a panel's two parts;
+// structured_kkt.lowered_layout), staged through the same pipeline at 2 or
+// 4 bytes an entry; a block's input slice lands in shared memory as its
+// two parts; the one-variable inverses and the wide rows' values of the
+// Woodbury products come as their parts, and their operands split as they
+// are read.  The final t - B^-1 w' stays exact.  The sums run in the
+// working type, as pallas_kernels._pdot's do and as the plain version's
+// do (cuda_kernels._kernel_dot); the reference's XLA path (kinv_apply at
+// the mode) sums each lowered product in f32, the same thing in f32.
+//
 // The stop flag: the solve loop runs its sweep blocks as CUDA-graph
 // replays (tpusppy_torch/solvers/device_loop.py) and keeps its exit vote in
 // a device int that stays set once set.  Every block of either mode reads
@@ -93,6 +114,7 @@
 //        -Xcompiler -fPIC -o libfused_sweeps_sparse.so fused_sweeps_sparse.cu
 // Bound to PyTorch with ctypes (tpusppy_torch/solvers/cuda_kernels.py).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -246,17 +268,118 @@ __device__ __forceinline__ Cols<T, SB, CW> column_dot(
   return acc;
 }
 
+// CW consecutive bf16 entries of one row (2 CW bytes, aligned), as f32.
+template <int CW>
+__device__ __forceinline__ void load_row_bf16(const __nv_bfloat16* p,
+                                              float (&out)[CW]) {
+  if constexpr (CW == 4) {
+    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 b =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    out[0] = a.x;
+    out[1] = a.y;
+    out[2] = b.x;
+    out[3] = b.y;
+  } else if constexpr (CW == 2) {
+    const unsigned int raw = __ldg(reinterpret_cast<const unsigned int*>(p));
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
+    out[0] = a.x;
+    out[1] = a.y;
+  } else {
+    out[0] = __bfloat162float(__ushort_as_bfloat16(
+        __ldg(reinterpret_cast<const unsigned short*>(p))));
+  }
+}
+
+// The mixed-precision column_dot of the dense mode: the operand as its
+// bf16 parts u1 (in1) and, with kHigh, u2 (in2), held in T; K^-1 as its
+// bf16 parts M1, M2 (n, n) each; "default" sums u1 M1, "high" u1 M1 +
+// u1 M2 + u2 M1 (the two cross products in a sum of their own, added at
+// the end).  Every product is exact; the sums run in T.
+template <typename T, int SB, int CW, bool kHigh>
+__device__ __forceinline__ Cols<T, SB, CW> column_dot_lo(
+    const T* in1, const T* in2, const __nv_bfloat16* __restrict__ M1,
+    const __nv_bfloat16* __restrict__ M2, int k0, int k1, int ncol,
+    int col0) {
+  Cols<T, SB, CW> acc, lo;
+#pragma unroll
+  for (int w = 0; w < CW; ++w)
+#pragma unroll
+    for (int s = 0; s < SB; ++s) acc.v[w][s] = lo.v[w][s] = T(0);
+  for (int kb = k0; kb < k1; kb += kSumBlock) {
+    const int ke = k1 - kb < kSumBlock ? k1 : kb + kSumBlock;
+    Cols<T, SB, CW> blk, blo;
+#pragma unroll
+    for (int w = 0; w < CW; ++w)
+#pragma unroll
+      for (int s = 0; s < SB; ++s) blk.v[w][s] = blo.v[w][s] = T(0);
+#pragma unroll 4
+    for (int k = kb; k < ke; ++k) {
+      const long long at = static_cast<long long>(k) * ncol + col0;
+      float m1[CW];
+      load_row_bf16<CW>(M1 + at, m1);
+      const Tile<T, SB> v1 = load_tile<T, SB>(in1 + k * SB);
+#pragma unroll
+      for (int w = 0; w < CW; ++w)
+#pragma unroll
+        for (int s = 0; s < SB; ++s) {
+          blk.v[w][s] += v1.v[s] * static_cast<T>(m1[w]);
+        }
+      if constexpr (kHigh) {
+        float m2[CW];
+        load_row_bf16<CW>(M2 + at, m2);
+        const Tile<T, SB> v2 = load_tile<T, SB>(in2 + k * SB);
+#pragma unroll
+        for (int w = 0; w < CW; ++w)
+#pragma unroll
+          for (int s = 0; s < SB; ++s) {
+            blo.v[w][s] += v1.v[s] * static_cast<T>(m2[w]);
+            blo.v[w][s] += v2.v[s] * static_cast<T>(m1[w]);
+          }
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < CW; ++w)
+#pragma unroll
+      for (int s = 0; s < SB; ++s) {
+        acc.v[w][s] += blk.v[w][s];
+        lo.v[w][s] += blo.v[w][s];
+      }
+  }
+  if constexpr (kHigh) {
+#pragma unroll
+    for (int w = 0; w < CW; ++w)
+#pragma unroll
+      for (int s = 0; s < SB; ++s) acc.v[w][s] += lo.v[w][s];
+  }
+  return acc;
+}
+
+// v's bf16 parts (through f32, round to nearest even), held in T: u1 =
+// bf16(f32(v)), u2 = bf16(f32(v) - u1) (the subtraction is exact in f32).
+template <typename T>
+__device__ __forceinline__ void split_bf16(T v, T& u1, T& u2) {
+  const float f = static_cast<float>(v);
+  const float h = __bfloat162float(__float2bfloat16_rn(f));
+  u1 = static_cast<T>(h);
+  u2 = static_cast<T>(__bfloat162float(__float2bfloat16_rn(f - h)));
+}
+
 // out = in @ M for the tile, in (SB, kd) in shared memory and M (kd, O)
-// row-major in device memory, O a multiple of CW; then epi(o, acc) for
+// row-major in device memory, O a multiple of CW, with col(k0, k1, c0) the
+// sums over k0 <= k < k1 of the CW columns from c0; then epi(o, acc) for
 // every output column o, with acc the column's SB scenario values.  When
 // the columns leave threads over (O < nt), the reduction over k is split
 // among G groups of threads, each taking the O / CW column groups, whose
 // partial sums meet in `part` (G * O * SB values, at most nt * SB since
 // G <= nt / O) and are added in group order.  Ends with a barrier; every
 // thread of the block must call it.
-template <typename T, int SB, int CW, typename Epi>
-__device__ __forceinline__ void contract(const T* in, const T* M, int kd,
-                                         int O, T* part, Epi epi) {
+template <typename T, int SB, int CW, typename Col, typename Epi>
+__device__ __forceinline__ void contract(int kd, int O, T* part, Col col,
+                                         Epi epi) {
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int groups = O / CW;
@@ -265,8 +388,7 @@ __device__ __forceinline__ void contract(const T* in, const T* M, int kd,
   const int G = Wc >= nt ? 1 : nt / Wc;
   if (G == 1) {
     for (int c = tid; c < groups; c += nt) {
-      const Cols<T, SB, CW> acc = column_dot<T, SB, CW>(in, M, 0, kd, O,
-                                                        c * CW);
+      const Cols<T, SB, CW> acc = col(0, kd, c * CW);
 #pragma unroll
       for (int w = 0; w < CW; ++w) {
         Tile<T, SB> t;
@@ -280,8 +402,7 @@ __device__ __forceinline__ void contract(const T* in, const T* M, int kd,
   }
   const int g = tid / W, c = tid - g * W;
   if (g < G && c < groups) {
-    const Cols<T, SB, CW> acc = column_dot<T, SB, CW>(
-        in, M, kd * g / G, kd * (g + 1) / G, O, c * CW);
+    const Cols<T, SB, CW> acc = col(kd * g / G, kd * (g + 1) / G, c * CW);
 #pragma unroll
     for (int w = 0; w < CW; ++w) {
       T* dst = part + (static_cast<long long>(g) * O + c * CW + w) * SB;
@@ -360,13 +481,69 @@ __device__ __forceinline__ Tile<T, SB> ell_dot(const int* __restrict__ idx,
   return acc;
 }
 
+// The lowered ell_dot of the Woodbury products: the operand split into its
+// bf16 parts as it is read, the values as their parts (a1 from vals1, a2
+// from vals2, both (k, rows) slot-major and held in T); "default" sums
+// a1 u1, "high" a1 u1 + a1 u2 + a2 u1, slot by slot, the cross products in
+// a sum of their own added at the end.
+template <typename T, int SB, bool kHigh>
+__device__ __forceinline__ Tile<T, SB> ell_dot_lo(const int* __restrict__ idx,
+                                                  const T* __restrict__ vals1,
+                                                  const T* __restrict__ vals2,
+                                                  int jb, int k, int rows,
+                                                  int r, const T* in) {
+  Tile<T, SB> acc, lo;
+#pragma unroll
+  for (int s = 0; s < SB; ++s) acc.v[s] = lo.v[s] = T(0);
+  for (int j = jb; j < k; ++j) {
+    const long long at = static_cast<long long>(j) * rows + r;
+    const T a1 = __ldg(vals1 + at);
+    const T a2 = kHigh ? __ldg(vals2 + at) : T(0);
+    const Tile<T, SB> v = load_tile<T, SB>(
+        in + static_cast<long long>(__ldg(idx + at)) * SB);
+#pragma unroll
+    for (int s = 0; s < SB; ++s) {
+      T u1, u2;
+      split_bf16(v.v[s], u1, u2);
+      acc.v[s] += a1 * u1;
+      if (kHigh) {
+        lo.v[s] += a1 * u2;
+        lo.v[s] += a2 * u1;
+      }
+    }
+  }
+  if constexpr (kHigh) {
+#pragma unroll
+    for (int s = 0; s < SB; ++s) acc.v[s] += lo.v[s];
+  }
+  return acc;
+}
+
+// u * d at the mode: exact at PREC 0; else u's parts against d's (d1, and
+// d2 at "high"), as one lowered one-by-one product.
+template <typename T, int PREC>
+__device__ __forceinline__ T scale_lo(T u, T d1, T d2) {
+  if constexpr (PREC == 0) {
+    return u * d1;
+  } else {
+    T u1, u2;
+    split_bf16(u, u1, u2);
+    T out = u1 * d1;
+    if constexpr (PREC == 2) out += u1 * d2 + u2 * d1;
+    return out;
+  }
+}
+
 // ---- the structured (block/Woodbury) mode ----------------------------------
 
 // The structured operand (structured_kkt.KernelWoodbury and its
 // WoodburyPattern) and the tile scratch it needs; unused in the dense mode.
+// At a lowered mode `mats` holds bf16 entries (PREC 1) or bf16 pairs
+// (PREC 2), and dinv, wvals_lo and wtvals their P bf16 parts in T, part 2
+// after part 1 (P = PREC); wvals (A xt's wide rows) stays exact.
 template <typename T>
 struct Wb {
-  const T* mats;         // the blocks, then C^-1, each (ld, ld) row-major
+  const void* mats;      // the blocks, then C^-1, each (ld, ld) row-major
   const int* pos;        // (n) each variable's position
   const int* order;      // (n) the variable at each position
   const int* items;      // (nitems, 3) panels: block, first row, rows
@@ -380,9 +557,10 @@ struct Wb {
   const int* ncols;      // (kn, m) narrow rows' first slots; -1: a wide row
   const T* nvals;        // (kn, m) their values
   const int* wrows;      // (r) the wide rows' ids
+  const T* wvals_lo;     // (kw, r) the values of A_w t (exact: wvals)
   T* sw;                 // scratch: each tile's K^-1 input (n, SB)
   T* sw2;                // scratch: each tile's second (n, SB) vector
-  int r, kn, kw, kwc, nb, nitems, pd, stage_elems, bmax;
+  int r, kn, kw, kwc, nb, nitems, pd, stage_bytes, bmax;
 };
 
 // Values a 16-byte-aligned region of e values takes.
@@ -390,6 +568,37 @@ template <typename T>
 __host__ __device__ constexpr long long pad16(long long e) {
   return (e * static_cast<long long>(sizeof(T)) + 15) / 16 * 16 /
          static_cast<long long>(sizeof(T));
+}
+
+__host__ __device__ constexpr long long r16(long long bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
+// A stored entry of the structured operand at each mode: the working type,
+// a bf16 entry, or a bf16 pair (its two parts).
+template <typename T, int PREC>
+struct Entry {
+  using type = std::conditional_t<
+      PREC == 0, T,
+      std::conditional_t<PREC == 1, __nv_bfloat16, __nv_bfloat162>>;
+};
+
+// An entry's parts as T (the second zero below "high").
+template <typename T>
+__device__ __forceinline__ void parts(T e, T& m1, T& m2) {
+  m1 = e;
+  m2 = T(0);
+}
+template <typename T>
+__device__ __forceinline__ void parts(__nv_bfloat16 e, T& m1, T& m2) {
+  m1 = static_cast<T>(__bfloat162float(e));
+  m2 = T(0);
+}
+template <typename T>
+__device__ __forceinline__ void parts(__nv_bfloat162 e, T& m1, T& m2) {
+  const float2 f = __bfloat1622float2(e);
+  m1 = static_cast<T>(f.x);
+  m2 = static_cast<T>(f.y);
 }
 
 // f64 tensor-core tiles of 16 columns one warp may own (ld <= 512).
@@ -425,27 +634,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // call) sits in stage[it & 1] once full[it & 1] completes its phase
 // (it >> 1) & 1.  One apply walks L = nitems + P items: the P block panels,
 // the C^-1 panels, the P block panels again.
-template <typename T>
 struct Pipe {
   uint64_t* full;
-  T* stage[2];
+  unsigned char* stage[2];
   long long it;
   long long total;
   int L;
 };
 
 template <typename T>
-__device__ __forceinline__ int pipe_row(const Wb<T>& wb, const Pipe<T>& pp,
+__device__ __forceinline__ int pipe_row(const Wb<T>& wb, const Pipe& pp,
                                         long long it) {
   const int j = static_cast<int>(it % pp.L);
   return j < wb.nitems ? j : j - wb.nitems;
 }
 
-// Thread 0 requests item `it`: one bulk copy of the panel's rows into its
-// stage buffer, which every thread has finished reading (a barrier lies
-// between the last read and this call).
-template <typename T>
-__device__ __forceinline__ void pipe_issue(const Wb<T>& wb, Pipe<T>& pp,
+// Thread 0 requests item `it`: one bulk copy of the panel's rows (entries
+// of type E) into its stage buffer, which every thread has finished
+// reading (a barrier lies between the last read and this call).
+template <typename T, typename E>
+__device__ __forceinline__ void pipe_issue(const Wb<T>& wb, Pipe& pp,
                                            long long it) {
   const int row = pipe_row(wb, pp, it);
   const int b = __ldg(wb.items + 3 * row);
@@ -453,9 +661,10 @@ __device__ __forceinline__ void pipe_issue(const Wb<T>& wb, Pipe<T>& pp,
   const int rows = __ldg(wb.items + 3 * row + 2);
   const int off = __ldg(wb.binfo + 4 * b);
   const int ld = __ldg(wb.binfo + 4 * b + 2);
-  const uint32_t bytes = static_cast<uint32_t>(rows) * ld * sizeof(T);
+  const uint32_t bytes = static_cast<uint32_t>(rows) * ld * sizeof(E);
   uint64_t* bar = pp.full + (it & 1);
-  const T* src = wb.mats + off + static_cast<long long>(row0) * ld;
+  const E* src = static_cast<const E*>(wb.mats) + off +
+                 static_cast<long long>(row0) * ld;
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   asm volatile(
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
@@ -505,10 +714,17 @@ __device__ __forceinline__ int product_groups(int ld, int nt) {
 // land in shared memory in commit(), so their latency hides behind the
 // products).  Every thread of the block calls it; it begins with a
 // barrier, and the caller puts one between the epilogue's writes and
-// their readers.
-template <typename T, int SB, typename Pre, typename Commit, typename Epi>
-__device__ void run_block(const Wb<T>& wb, Pipe<T>& pp, int b, const T* in,
-                          T* part, Pre pre, Commit commit, Epi epi) {
+// their readers.  At a lowered PREC `in` holds the input's bf16 part u1
+// and `in2` its part u2 (read at "high"), and the staged entries are bf16
+// (pairs at "high"): the products u1 M1 (+ u1 M2 + u2 M1), the cross
+// products in sums of their own.
+template <typename T, int SB, int PREC, typename Pre, typename Commit,
+          typename Epi>
+__device__ void run_block(const Wb<T>& wb, Pipe& pp, int b, const T* in,
+                          const T* in2, T* part, Pre pre, Commit commit,
+                          Epi epi) {
+  using E = typename Entry<T, PREC>::type;
+  constexpr bool kHigh = PREC == 2;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int size = __ldg(wb.binfo + 4 * b + 1);
@@ -525,37 +741,46 @@ __device__ void run_block(const Wb<T>& wb, Pipe<T>& pp, int b, const T* in,
     // else warp, warp + nw (at most kTilesPerWarp)
     const int t0 = G > 1 ? warp % ntile : warp;
     const int ntw = G > 1 ? 1 : (ntile - warp + nw - 1) / nw;
-    double d[kTilesPerWarp][4];
+    double d[kTilesPerWarp][4], dl[kTilesPerWarp][4];
 #pragma unroll
     for (int c = 0; c < kTilesPerWarp; ++c)
 #pragma unroll
-      for (int v = 0; v < 4; ++v) d[c][v] = 0.0;
+      for (int v = 0; v < 4; ++v) d[c][v] = dl[c][v] = 0.0;
     for (int row0 = 0; row0 < ld;) {
       const int rows = __ldg(wb.items + 3 * pipe_row(wb, pp, pp.it) + 2);
-      if (tid == 0 && pp.it + 1 < pp.total) pipe_issue(wb, pp, pp.it + 1);
+      if (tid == 0 && pp.it + 1 < pp.total) {
+        pipe_issue<T, E>(wb, pp, pp.it + 1);
+      }
       mbar_wait(pp.full + (pp.it & 1), static_cast<uint32_t>((pp.it >> 1) & 1));
-      const double* st = pp.stage[pp.it & 1];
+      const E* st = reinterpret_cast<const E*>(pp.stage[pp.it & 1]);
       if (gi < G) {
         const int nks = rows / 16;
         const int ks1 = nks * (gi + 1) / G;
         for (int ks = nks * gi / G; ks < ks1; ++ks) {
           // A[t][k] = M[k][t] (16 columns x 16 rows), B[k][s] = in[k][s]
           const int kb = 16 * ks + tq;
-          double b[4];
+          double b[4], b2[4];
 #pragma unroll
           for (int v = 0; v < 4; ++v) {
-            b[v] = g8 < SB ? in[(row0 + kb + 4 * v) * SB + g8] : 0.0;
+            const int at = (row0 + kb + 4 * v) * SB + g8;
+            b[v] = g8 < SB ? in[at] : 0.0;
+            b2[v] = kHigh && g8 < SB ? in2[at] : 0.0;
           }
 #pragma unroll
           for (int c = 0; c < kTilesPerWarp; ++c) {
             if (c < ntw) {
               const int col = (t0 + c * nw) * 16 + g8;
-              double a[8];
+              double a[8], a2[8];
 #pragma unroll
               for (int v = 0; v < 8; ++v) {
-                a[v] = st[(kb + 4 * (v >> 1)) * ld + col + 8 * (v & 1)];
+                parts(st[(kb + 4 * (v >> 1)) * ld + col + 8 * (v & 1)], a[v],
+                      a2[v]);
               }
               dmma(d[c], a, b);
+              if constexpr (kHigh) {
+                dmma(dl[c], a2, b);
+                dmma(dl[c], a, b2);
+              }
             }
           }
         }
@@ -569,7 +794,7 @@ __device__ void run_block(const Wb<T>& wb, Pipe<T>& pp, int b, const T* in,
             for (int v = 0; v < 4; ++v) {
               const int t = (t0 + c * nw) * 16 + g8 + 8 * (v >> 1);
               const int s = 2 * tq + (v & 1);
-              if (s < SB) part[(gi * ld + t) * SB + s] = d[c][v];
+              if (s < SB) part[(gi * ld + t) * SB + s] = d[c][v] + dl[c][v];
             }
           }
         }
@@ -580,27 +805,40 @@ __device__ void run_block(const Wb<T>& wb, Pipe<T>& pp, int b, const T* in,
     }
   } else {
     const int gi = tid / ld, t = tid - gi * ld;
-    T acc[SB];
+    T acc[SB], lo[SB];
 #pragma unroll
-    for (int s = 0; s < SB; ++s) acc[s] = T(0);
+    for (int s = 0; s < SB; ++s) acc[s] = lo[s] = T(0);
     for (int row0 = 0; row0 < ld;) {
       const int rows = __ldg(wb.items + 3 * pipe_row(wb, pp, pp.it) + 2);
-      if (tid == 0 && pp.it + 1 < pp.total) pipe_issue(wb, pp, pp.it + 1);
+      if (tid == 0 && pp.it + 1 < pp.total) {
+        pipe_issue<T, E>(wb, pp, pp.it + 1);
+      }
       mbar_wait(pp.full + (pp.it & 1), static_cast<uint32_t>((pp.it >> 1) & 1));
-      const T* st = pp.stage[pp.it & 1];
+      const E* st = reinterpret_cast<const E*>(pp.stage[pp.it & 1]);
       if (gi < G) {
         const int k1 = rows * (gi + 1) / G;
         for (int k = rows * gi / G; k < k1; ++k) {
-          const T mk = st[k * ld + t];
+          T mk, mk2;
+          parts(st[k * ld + t], mk, mk2);
           const Tile<T, SB> v = load_tile<T, SB>(in + (row0 + k) * SB);
 #pragma unroll
           for (int s = 0; s < SB; ++s) acc[s] += v.v[s] * mk;
+          if constexpr (kHigh) {
+            const Tile<T, SB> v2 = load_tile<T, SB>(in2 + (row0 + k) * SB);
+#pragma unroll
+            for (int s = 0; s < SB; ++s) {
+              lo[s] += v.v[s] * mk2;
+              lo[s] += v2.v[s] * mk;
+            }
+          }
         }
       }
       row0 += rows;
       if (row0 >= ld && gi < G) {
 #pragma unroll
-        for (int s = 0; s < SB; ++s) part[(gi * ld + t) * SB + s] = acc[s];
+        for (int s = 0; s < SB; ++s) {
+          part[(gi * ld + t) * SB + s] = kHigh ? acc[s] + lo[s] : acc[s];
+        }
       }
       if (row0 >= ld) commit();
       __syncthreads();  // the stage buffer is free; `part` is complete
@@ -637,42 +875,57 @@ __device__ __forceinline__ Slice<T, SB> load_slice(const T* src, int p0,
   return sl;
 }
 
-template <typename T, int SB>
-__device__ __forceinline__ void store_slice(T* dst, const Slice<T, SB>& sl,
-                                            int ld) {
+// The slice into shared memory: as it is (PREC 0), or as its bf16 parts,
+// u1 to dst and u2 to dst2 (the block product's operand at a lowered
+// mode).
+template <typename T, int SB, int PREC>
+__device__ __forceinline__ void store_slice(T* dst, T* dst2,
+                                            const Slice<T, SB>& sl, int ld) {
   const int tid = threadIdx.x, nt = blockDim.x;
 #pragma unroll
   for (int i = 0; i < SB; ++i) {
     const int e = tid + i * nt;
-    if (e < ld * SB) dst[e] = sl.v[i];
+    if (e < ld * SB) {
+      if constexpr (PREC == 0) {
+        dst[e] = sl.v[i];
+      } else {
+        split_bf16(sl.v[i], dst[e], dst2[e]);
+      }
+    }
   }
 }
 
 // buf = B^-1 buf over the dense blocks, in place, for the tile's vector
 // `buf` in device memory (by position): each block's slice goes through
-// shared memory (gb, two bmax-row buffers, by block parity), the next
-// block's slice on its way while the current one multiplies.  Ends before
-// the barrier that makes the last block's writes visible.
-template <typename T, int SB>
-__device__ void block_pass(const Wb<T>& wb, Pipe<T>& pp, T* buf, T* gb,
+// shared memory (gb, two bmax-row buffers, by block parity; gb2 its
+// second parts at a lowered mode), the next block's slice on its way while
+// the current one multiplies.  Ends before the barrier that makes the last
+// block's writes visible.
+template <typename T, int SB, int PREC>
+__device__ void block_pass(const Wb<T>& wb, Pipe& pp, T* buf, T* gb, T* gb2,
                            T* part) {
   if (wb.nb == 0) return;
   const long long gbs = pad16<T>(static_cast<long long>(wb.bmax) * SB);
-  store_slice<T, SB>(gb, load_slice<T, SB>(buf, __ldg(wb.binfo + 3),
-                                           __ldg(wb.binfo + 1)),
-                     __ldg(wb.binfo + 2));
+  store_slice<T, SB, PREC>(gb, gb2,
+                           load_slice<T, SB>(buf, __ldg(wb.binfo + 3),
+                                             __ldg(wb.binfo + 1)),
+                           __ldg(wb.binfo + 2));
   for (int b = 0; b < wb.nb; ++b) {
     const int p0 = __ldg(wb.binfo + 4 * b + 3);
     const bool more = b + 1 < wb.nb;
     const int* nx = wb.binfo + 4 * (b + 1);
     Slice<T, SB> next;
-    run_block<T, SB>(
-        wb, pp, b, gb + (b & 1) * gbs, part,
+    run_block<T, SB, PREC>(
+        wb, pp, b, gb + (b & 1) * gbs, gb2 + (b & 1) * gbs, part,
         [&] {
           if (more) next = load_slice<T, SB>(buf, __ldg(nx + 3), __ldg(nx + 1));
         },
         [&] {
-          if (more) store_slice<T, SB>(gb + ((b + 1) & 1) * gbs, next, __ldg(nx + 2));
+          if (more) {
+            store_slice<T, SB, PREC>(gb + ((b + 1) & 1) * gbs,
+                                     gb2 + ((b + 1) & 1) * gbs, next,
+                                     __ldg(nx + 2));
+          }
         },
         [&](int t, int s, T v) {
           buf[(static_cast<long long>(p0) + t) * SB + s] = v;
@@ -684,28 +937,44 @@ __device__ void block_pass(const Wb<T>& wb, Pipe<T>& pp, T* buf, T* gb,
 // tile's scratch sw (by position), which ends holding t = B^-1 w; sw2, a
 // second such scratch, takes w' = A_w' C^-1 A_w t and then B^-1 w'; y =
 // t - B^-1 w' goes to x-tilde (by variable), assigned or added.  Every
-// thread calls it; it ends with a barrier.
-template <typename T, int SB>
-__device__ void wb_apply(const Wb<T>& wb, Pipe<T>& pp, T* sw, T* sw2,
-                         T* sxt, T* gb, T* su, T* sv, T* part, int n,
+// thread calls it; it ends with a barrier.  At a lowered PREC each
+// product's operand is split into its bf16 parts (gb2 and su2 hold the
+// second parts of a block's and of C^-1's input) and the one-variable
+// inverses and the wide rows' values come as parts; t - B^-1 w' is exact.
+template <typename T, int SB, int PREC>
+__device__ void wb_apply(const Wb<T>& wb, Pipe& pp, T* sw, T* sw2, T* sxt,
+                         T* gb, T* gb2, T* su, T* su2, T* sv, T* part, int n,
                          bool add) {
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   using V = Tile<T, SB>;
+  constexpr bool kHigh = PREC == 2;
+  const int nd = n - wb.pd;
   // t = B^-1 w: the one-variable components scale in place, then the blocks
-  for (int e = tid; e < (n - wb.pd) * SB; e += nt) {
-    sw[static_cast<long long>(wb.pd) * SB + e] *= __ldg(wb.dinv + e / SB);
+  for (int e = tid; e < nd * SB; e += nt) {
+    const int i = e / SB;
+    T& w = sw[static_cast<long long>(wb.pd) * SB + e];
+    w = scale_lo<T, PREC>(w, __ldg(wb.dinv + i),
+                          kHigh ? __ldg(wb.dinv + nd + i) : T(0));
   }
-  block_pass<T, SB>(wb, pp, sw, gb, part);
+  block_pass<T, SB, PREC>(wb, pp, sw, gb, gb2, part);
   __syncthreads();
   // u = A_w t over the wide rows' lists, each row's slots split among H
   // threads whose partial sums meet in `part` in order (zero past r)
   const int ldc = __ldg(wb.binfo + 4 * wb.nb + 2);
   const int H = wb.r > 0 && nt / wb.r > 1 ? nt / wb.r : 1;
+  const long long nwv = static_cast<long long>(wb.kw) * wb.r;
   for (int e = tid; e < H * wb.r; e += nt) {
     const int h = e / wb.r, q = e - h * wb.r;
-    const V u = ell_dot<T, SB>(wb.wpos, wb.wvals, wb.kw * h / H,
-                               wb.kw * (h + 1) / H, wb.r, q, sw);
+    V u;
+    if constexpr (PREC == 0) {
+      u = ell_dot<T, SB>(wb.wpos, wb.wvals_lo, wb.kw * h / H,
+                         wb.kw * (h + 1) / H, wb.r, q, sw);
+    } else {
+      u = ell_dot_lo<T, SB, kHigh>(wb.wpos, wb.wvals_lo, wb.wvals_lo + nwv,
+                                   wb.kw * h / H, wb.kw * (h + 1) / H, wb.r,
+                                   q, sw);
+    }
 #pragma unroll
     for (int s = 0; s < SB; ++s) part[e * SB + s] = u.v[s];
   }
@@ -716,25 +985,37 @@ __device__ void wb_apply(const Wb<T>& wb, Pipe<T>& pp, T* sw, T* sw2,
     if (q < wb.r) {
       for (int h = 0; h < H; ++h) u += part[h * wb.r * SB + e];
     }
-    su[e] = u;
+    if constexpr (PREC == 0) {
+      su[e] = u;
+    } else {
+      split_bf16(u, su[e], su2[e]);
+    }
   }
   // v = C^-1 u
-  run_block<T, SB>(wb, pp, wb.nb, su, part, [] {}, [] {},
-                   [&](int t, int s, T v) { sv[t * SB + s] = v; });
+  run_block<T, SB, PREC>(wb, pp, wb.nb, su, su2, part, [] {}, [] {},
+                         [&](int t, int s, T v) { sv[t * SB + s] = v; });
   __syncthreads();
   // w' = A_w' v by position (the one-variable components' B^-1 w' too)
+  const long long nwt = static_cast<long long>(wb.kwc) * n;
   for (int p = tid; p < n; p += nt) {
-    V wq = ell_dot<T, SB>(wb.wtrows, wb.wtvals, 0, wb.kwc, n, p, sv);
+    V wq;
+    if constexpr (PREC == 0) {
+      wq = ell_dot<T, SB>(wb.wtrows, wb.wtvals, 0, wb.kwc, n, p, sv);
+    } else {
+      wq = ell_dot_lo<T, SB, kHigh>(wb.wtrows, wb.wtvals, wb.wtvals + nwt, 0,
+                                    wb.kwc, n, p, sv);
+    }
     if (p >= wb.pd) {
-      const T di = __ldg(wb.dinv + p - wb.pd);
+      const T d1 = __ldg(wb.dinv + p - wb.pd);
+      const T d2 = kHigh ? __ldg(wb.dinv + nd + p - wb.pd) : T(0);
 #pragma unroll
-      for (int s = 0; s < SB; ++s) wq.v[s] *= di;
+      for (int s = 0; s < SB; ++s) wq.v[s] = scale_lo<T, PREC>(wq.v[s], d1, d2);
     }
 #pragma unroll
     for (int s = 0; s < SB; ++s) sw2[static_cast<long long>(p) * SB + s] = wq.v[s];
   }
   __syncthreads();
-  block_pass<T, SB>(wb, pp, sw2, gb, part);
+  block_pass<T, SB, PREC>(wb, pp, sw2, gb, gb2, part);
   __syncthreads();
   // y = t - B^-1 w', to x-tilde by variable
   for (int e = tid; e < n * SB; e += nt) {
@@ -853,11 +1134,11 @@ __device__ __forceinline__ void rows_of_A(const int* __restrict__ rowcols,
   }
 }
 
-template <typename T, int SB, int CW, bool WB>
+template <typename T, int SB, int CW, bool WB, int PREC>
 __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_sparse_kernel(
     const T* __restrict__ q, const int* __restrict__ rowcols,
     const T* __restrict__ rowvals, const int* __restrict__ colrows,
-    const T* __restrict__ colvals, const T* __restrict__ Kinv,
+    const T* __restrict__ colvals, const void* __restrict__ Kinv,
     const T* __restrict__ diagK, const T* __restrict__ cl,
     const T* __restrict__ cu, const T* __restrict__ lb,
     const T* __restrict__ ub, const T* __restrict__ rho_a,
@@ -873,33 +1154,41 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_sparse_kernel(
     int n_sweeps, int n_refine, int n_extra, T sigma, T alpha, T beta) {
   if (*stop) return;  // the solve loop's stop flag (see the top)
   using V = Tile<T, SB>;
+  constexpr bool kLow = PREC > 0, kHigh = PREC == 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  // dense: gammas, the K^-1 input w, x-tilde, split-k partial sums;
-  // structured: two mbarriers, gammas, x-tilde, two stage buffers, the
-  // block products' partial sums, two buffers of a block's input, u and v
-  // (each region 16-byte aligned; cuda_kernels.sparse_smem_bytes mirrors
-  // both)
-  T *gs, *sw = nullptr, *sxt, *part;
-  T *gb = nullptr, *su = nullptr, *sv2 = nullptr;
-  Pipe<T> pp{};
+  // dense: gammas, the K^-1 input w, x-tilde, split-k partial sums (and
+  // w's second bf16 part at a lowered mode); structured: two mbarriers,
+  // gammas, x-tilde, two stage buffers, the block products' partial sums,
+  // two buffers of a block's input, u and v (and at a lowered mode the
+  // second bf16 parts of the two input buffers and of u); each region
+  // 16-byte aligned; cuda_kernels.sparse_smem_bytes mirrors both
+  T *gs, *sw = nullptr, *sw2 = nullptr, *sxt, *part;
+  T *gb = nullptr, *gb2 = nullptr, *su = nullptr, *su2 = nullptr;
+  T *sv2 = nullptr;
+  Pipe pp{};
   if constexpr (WB) {
+    const long long bv = pad16<T>(static_cast<long long>(wb.bmax) * SB);
     pp.full = reinterpret_cast<uint64_t*>(smem_raw);
     gs = reinterpret_cast<T*>(smem_raw + 16);
     sxt = gs + pad16<T>(SB);
-    pp.stage[0] = sxt + pad16<T>(static_cast<long long>(n) * SB);
-    pp.stage[1] = pp.stage[0] + pad16<T>(wb.stage_elems);
-    part = pp.stage[1] + pad16<T>(wb.stage_elems);
+    pp.stage[0] = reinterpret_cast<unsigned char*>(
+        sxt + pad16<T>(static_cast<long long>(n) * SB));
+    pp.stage[1] = pp.stage[0] + r16(wb.stage_bytes);
+    part = reinterpret_cast<T*>(pp.stage[1] + r16(wb.stage_bytes));
     gb = part + pad16<T>(static_cast<long long>(
                     nt > wb.bmax ? nt : wb.bmax) * SB);
-    su = gb + 2 * pad16<T>(static_cast<long long>(wb.bmax) * SB);
-    sv2 = su + pad16<T>(static_cast<long long>(wb.bmax) * SB);
+    su = gb + 2 * bv;
+    sv2 = su + bv;
+    gb2 = sv2 + bv;
+    su2 = gb2 + 2 * bv;
   } else {
     gs = reinterpret_cast<T*>(smem_raw);
     sw = gs + SB;
     sxt = sw + n * SB;
     part = sxt + n * SB;
+    sw2 = part + kThreads * SB;
   }
 
   const long long s0 = static_cast<long long>(blockIdx.x) * SB;
@@ -943,29 +1232,47 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_sparse_kernel(
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
     __syncthreads();
-    if (tid == 0 && pp.total > 0) pipe_issue(wb, pp, 0);
+    if (tid == 0 && pp.total > 0) {
+      pipe_issue<T, typename Entry<T, PREC>::type>(wb, pp, 0);
+    }
   }
   __syncthreads();
 
-  // the K^-1 input w of index j, scenario s
-  auto w_at = [&](int j, int s) -> T& {
+  // the K^-1 input w of index j, scenario s: by position in the structured
+  // mode's scratch (its products split it as they read it), or in shared
+  // memory, as its bf16 parts at a lowered mode
+  auto put_w = [&](int j, int s, T w) {
     if constexpr (WB) {
-      return swg[static_cast<long long>(__ldg(wb.pos + j)) * SB + s];
+      swg[static_cast<long long>(__ldg(wb.pos + j)) * SB + s] = w;
+    } else if constexpr (kLow) {
+      split_bf16(w, sw[j * SB + s], sw2[j * SB + s]);
     } else {
-      return sw[j * SB + s];
+      sw[j * SB + s] = w;
     }
   };
   // xt = K^-1 w (add: xt += K^-1 w); ends with a barrier
   auto apply = [&](bool add) {
-    if constexpr (WB) {
-      wb_apply<T, SB>(wb, pp, swg, swg2, sxt, gb, su, sv2, part, n, add);
-    } else {
-      contract<T, SB, CW>(sw, Kinv, n, n, part, [&](int j, const V& acc) {
+    auto epi = [&](int j, const V& acc) {
 #pragma unroll
-        for (int s = 0; s < SB; ++s) {
-          sxt[j * SB + s] = add ? sxt[j * SB + s] + acc.v[s] : acc.v[s];
-        }
-      });
+      for (int s = 0; s < SB; ++s) {
+        sxt[j * SB + s] = add ? sxt[j * SB + s] + acc.v[s] : acc.v[s];
+      }
+    };
+    if constexpr (WB) {
+      wb_apply<T, SB, PREC>(wb, pp, swg, swg2, sxt, gb, gb2, su, su2, sv2,
+                            part, n, add);
+    } else if constexpr (kLow) {
+      const __nv_bfloat16* K1 = static_cast<const __nv_bfloat16*>(Kinv);
+      const __nv_bfloat16* K2 = K1 + static_cast<long long>(n) * n;
+      contract<T, SB, CW>(n, n, part, [&](int k0, int k1, int c0) {
+        return column_dot_lo<T, SB, CW, kHigh>(sw, sw2, K1, K2, k0, k1, n,
+                                               c0);
+      }, epi);
+    } else {
+      const T* K0 = static_cast<const T*>(Kinv);
+      contract<T, SB, CW>(n, n, part, [&](int k0, int k1, int c0) {
+        return column_dot<T, SB, CW>(sw, K0, k0, k1, n, c0);
+      }, epi);
     }
   };
 
@@ -1020,7 +1327,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_sparse_kernel(
           w = rhs / g;
         }
         srhs[static_cast<long long>(j) * SB + s] = rhs;
-        w_at(j, s) = w;
+        put_w(j, s, w);
       }
     }
     __syncthreads();
@@ -1063,7 +1370,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_sparse_kernel(
             const T g = gs[s];
             w = (rs[s] - (g * kx + ds[s] * xt)) / g;
           }
-          w_at(j, s) = w;
+          put_w(j, s, w);
         }
       }
       __syncthreads();
@@ -1148,33 +1455,35 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sweeps_sparse_kernel(
 }
 
 // Shared memory of one block: cuda_kernels.sparse_smem_bytes mirrors both.
-template <typename T, int SB, bool WB>
+template <typename T, int SB, bool WB, int PREC>
 size_t smem_bytes(int n, const Wb<T>& wb) {
   if constexpr (WB) {
     const long long nt = kThreads;
     const long long e = pad16<T>(SB) + pad16<T>(static_cast<long long>(n) * SB) +
-                        2 * pad16<T>(wb.stage_elems) +
                         pad16<T>((nt > wb.bmax ? nt : wb.bmax) * SB) +
-                        4 * pad16<T>(static_cast<long long>(wb.bmax) * SB);
-    return 16 + sizeof(T) * static_cast<size_t>(e);
+                        (PREC > 0 ? 7 : 4) *
+                            pad16<T>(static_cast<long long>(wb.bmax) * SB);
+    return 16 + sizeof(T) * static_cast<size_t>(e) +
+           2 * static_cast<size_t>(r16(wb.stage_bytes));
   } else {
-    return sizeof(T) * SB * (1 + 2 * static_cast<size_t>(n) + kThreads);
+    return sizeof(T) * SB *
+           (1 + (PREC > 0 ? 3 : 2) * static_cast<size_t>(n) + kThreads);
   }
 }
 
-template <typename T, int SB, int CW, bool WB>
+template <typename T, int SB, int CW, bool WB, int PREC>
 int launch_tile(void* const* in, void* const* out, Wb<T> wb, const int* stop,
                 int S, int m, int n, int kr, int kc, int n_sweeps,
                 int n_refine, int n_extra, double sigma, double alpha,
                 void* stream) {
-  const size_t smem = smem_bytes<T, SB, WB>(n, wb);
+  const size_t smem = smem_bytes<T, SB, WB, PREC>(n, wb);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   // raised once to the largest size asked, so that a launch captured into
   // a CUDA graph after a first (warm-up) launch makes no attribute call
   static size_t smem_set = 48 * 1024;
   if (smem > smem_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        fused_sweeps_sparse_kernel<T, SB, CW, WB>,
+        fused_sweeps_sparse_kernel<T, SB, CW, WB, PREC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = smem;
@@ -1183,9 +1492,9 @@ int launch_tile(void* const* in, void* const* out, Wb<T> wb, const int* stop,
   auto ci = [&](int k) { return static_cast<const int*>(in[k]); };
   auto o = [&](int k) { return static_cast<T*>(out[k]); };
   const int grid = (S + SB - 1) / SB;
-  fused_sweeps_sparse_kernel<T, SB, CW, WB>
+  fused_sweeps_sparse_kernel<T, SB, CW, WB, PREC>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          c(0), ci(1), c(2), ci(3), c(4), c(5), c(6), c(7), c(8), c(9),
+          c(0), ci(1), c(2), ci(3), c(4), in[5], c(6), c(7), c(8), c(9),
           c(10), c(11), c(12), c(13), c(14), c(15), c(16), c(17), c(18),
           c(19), c(20), c(21), o(0), o(1), o(2), o(3), o(4), o(5), o(6),
           o(7), wb, stop, S, m, n, kr, kc, n_sweeps, n_refine, n_extra,
@@ -1196,92 +1505,140 @@ int launch_tile(void* const* in, void* const* out, Wb<T> wb, const int* stop,
 
 // Dense mode: K^-1 columns per thread, the widest vector load (up to
 // kMaxCW values) whose width divides n, so that every row of K^-1 starts
-// aligned.
-template <typename T, int SB, int CWmax>
+// aligned.  The lowered modes take one column a thread (no main path runs
+// them, and one width keeps their build and registers small).
+template <typename T, int SB, int CWmax, int PREC>
 int launch_cols(void* const* in, void* const* out, const int* stop, int S,
                 int m, int n, int kr, int kc, int n_sweeps, int n_refine,
                 int n_extra, double sigma, double alpha, void* stream) {
-  if constexpr (CWmax > 1) {
-    if (n % CWmax != 0) {
-      return launch_cols<T, SB, CWmax / 2>(in, out, stop, S, m, n, kr, kc,
-                                           n_sweeps, n_refine, n_extra,
-                                           sigma, alpha, stream);
+  if constexpr (PREC > 0 && CWmax > 1) {
+    return launch_cols<T, SB, 1, PREC>(in, out, stop, S, m, n, kr, kc,
+                                       n_sweeps, n_refine, n_extra, sigma,
+                                       alpha, stream);
+  } else {
+    if constexpr (CWmax > 1) {
+      if (n % CWmax != 0) {
+        return launch_cols<T, SB, CWmax / 2, PREC>(in, out, stop, S, m, n,
+                                                   kr, kc, n_sweeps,
+                                                   n_refine, n_extra, sigma,
+                                                   alpha, stream);
+      }
     }
+    return launch_tile<T, SB, CWmax, false, PREC>(
+        in, out, Wb<T>{}, stop, S, m, n, kr, kc, n_sweeps, n_refine,
+        n_extra, sigma, alpha, stream);
   }
-  return launch_tile<T, SB, CWmax, false>(in, out, Wb<T>{}, stop, S, m, n,
-                                          kr, kc, n_sweeps, n_refine,
-                                          n_extra, sigma, alpha, stream);
 }
 
-template <typename T, int SB>
+template <typename T, int SB, int PREC>
 int launch_mode(void* const* in, void* const* out, const Wb<T>* wb,
                 const int* stop, int S, int m, int n, int kr, int kc,
                 int n_sweeps, int n_refine, int n_extra, double sigma,
                 double alpha, void* stream) {
   if (wb == nullptr) {
-    return launch_cols<T, SB, kMaxCW<T>>(in, out, stop, S, m, n, kr, kc,
-                                         n_sweeps, n_refine, n_extra, sigma,
-                                         alpha, stream);
+    return launch_cols<T, SB, kMaxCW<T>, PREC>(in, out, stop, S, m, n, kr,
+                                               kc, n_sweeps, n_refine,
+                                               n_extra, sigma, alpha, stream);
   }
-  return launch_tile<T, SB, 1, true>(in, out, *wb, stop, S, m, n, kr, kc,
-                                     n_sweeps, n_refine, n_extra, sigma,
-                                     alpha, stream);
+  return launch_tile<T, SB, 1, true, PREC>(in, out, *wb, stop, S, m, n, kr,
+                                           kc, n_sweeps, n_refine, n_extra,
+                                           sigma, alpha, stream);
 }
 
-template <typename T>
-int launch(void* const* in, void* const* out, const Wb<T>* wb,
-           const int* stop, int S, int m, int n, int kr, int kc, int sb,
-           int n_sweeps, int n_refine, int n_extra, double sigma,
-           double alpha, void* stream) {
-  if (S < 1 || n < 1 || m < 0 || kr < 1 || kc < 1 || stop == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  // cuda_kernels.SPARSE_TILES mirrors these cases
-  switch (sb) {
-    case 8:
-      return launch_mode<T, 8>(in, out, wb, stop, S, m, n, kr, kc,
-                               n_sweeps, n_refine, n_extra, sigma, alpha,
-                               stream);
-    case 4:
-      return launch_mode<T, 4>(in, out, wb, stop, S, m, n, kr, kc,
-                               n_sweeps, n_refine, n_extra, sigma, alpha,
-                               stream);
-    case 2:
-      return launch_mode<T, 2>(in, out, wb, stop, S, m, n, kr, kc,
-                               n_sweeps, n_refine, n_extra, sigma, alpha,
-                               stream);
+template <typename T, int SB>
+int launch_lowered(void* const* in, void* const* out, const Wb<T>* wb,
+                   const int* stop, int S, int m, int n, int kr, int kc,
+                   int n_sweeps, int n_refine, int n_extra, int prec,
+                   double sigma, double alpha, void* stream) {
+  switch (prec) {
     case 1:
-      return launch_mode<T, 1>(in, out, wb, stop, S, m, n, kr, kc,
-                               n_sweeps, n_refine, n_extra, sigma, alpha,
-                               stream);
+      return launch_mode<T, SB, 1>(in, out, wb, stop, S, m, n, kr, kc,
+                                   n_sweeps, n_refine, n_extra, sigma, alpha,
+                                   stream);
+    case 2:
+      return launch_mode<T, SB, 2>(in, out, wb, stop, S, m, n, kr, kc,
+                                   n_sweeps, n_refine, n_extra, sigma, alpha,
+                                   stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The structured operand from the launch's pointers (in[22..34], the
+// The lowered modes are built for tiles of 8, 4 and 2 scenarios
+// (cuda_kernels.usable_sparse asks no smaller tile of them).
+template <typename T, int SB>
+int launch_sb(void* const* in, void* const* out, const Wb<T>* wb,
+              const int* stop, int S, int m, int n, int kr, int kc,
+              int n_sweeps, int n_refine, int n_extra, int prec, double sigma,
+              double alpha, void* stream) {
+  if (prec == 0) {
+    return launch_mode<T, SB, 0>(in, out, wb, stop, S, m, n, kr, kc,
+                                 n_sweeps, n_refine, n_extra, sigma, alpha,
+                                 stream);
+  }
+  if constexpr (SB < 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    return launch_lowered<T, SB>(in, out, wb, stop, S, m, n, kr, kc,
+                                 n_sweeps, n_refine, n_extra, prec, sigma,
+                                 alpha, stream);
+  }
+}
+
+template <typename T>
+int launch(void* const* in, void* const* out, const Wb<T>* wb,
+           const int* stop, int S, int m, int n, int kr, int kc, int sb,
+           int n_sweeps, int n_refine, int n_extra, int prec, double sigma,
+           double alpha, void* stream) {
+  if (S < 1 || n < 1 || m < 0 || kr < 1 || kc < 1 || stop == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the dense mode's lowered K^-1 rows are read 2 CW bytes at a time
+  if (wb == nullptr && prec > 0 &&
+      reinterpret_cast<uintptr_t>(in[5]) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // cuda_kernels.SPARSE_TILES mirrors these cases
+  switch (sb) {
+    case 8:
+      return launch_sb<T, 8>(in, out, wb, stop, S, m, n, kr, kc, n_sweeps,
+                             n_refine, n_extra, prec, sigma, alpha, stream);
+    case 4:
+      return launch_sb<T, 4>(in, out, wb, stop, S, m, n, kr, kc, n_sweeps,
+                             n_refine, n_extra, prec, sigma, alpha, stream);
+    case 2:
+      return launch_sb<T, 2>(in, out, wb, stop, S, m, n, kr, kc, n_sweeps,
+                             n_refine, n_extra, prec, sigma, alpha, stream);
+    case 1:
+      return launch_sb<T, 1>(in, out, wb, stop, S, m, n, kr, kc, n_sweeps,
+                             n_refine, n_extra, prec, sigma, alpha, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The structured operand from the launch's pointers (in[22..35], the
 // scratch out[8], out[9]) and sizes; checks what the kernel relies on.
 template <typename T>
 int launch_wb(void* const* in, void* const* out, const int* stop, int S,
               int m, int n, int kr, int kc, int sb, int n_sweeps,
-              int n_refine, int n_extra, double sigma, double alpha, int r,
-              int kn, int kw, int kwc, int nb, int nitems, int pd,
-              int stage_elems, int bmax, void* stream) {
+              int n_refine, int n_extra, int prec, double sigma,
+              double alpha, int r, int kn, int kw, int kwc, int nb,
+              int nitems, int pd, int stage_bytes, int bmax, void* stream) {
   if (r < 0 || kn < 1 || kw < 1 || kwc < 1 || nb < 0 || nitems < 1 ||
-      pd < 0 || pd > n || stage_elems < 1 || bmax < 16 || bmax > kThreads ||
-      bmax % 16 != 0 || stage_elems * sizeof(T) >= (1u << 20) ||
+      pd < 0 || pd > n || stage_bytes < 1 || bmax < 16 || bmax > kThreads ||
+      bmax % 16 != 0 || stage_bytes >= (1 << 20) ||
       reinterpret_cast<uintptr_t>(in[5]) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto c = [&](int k) { return static_cast<const T*>(in[k]); };
   auto ci = [&](int k) { return static_cast<const int*>(in[k]); };
-  const Wb<T> wb{c(5),   ci(22), ci(23), ci(24), ci(25), c(26), ci(27),
+  const Wb<T> wb{in[5],  ci(22), ci(23), ci(24), ci(25), c(26), ci(27),
                  c(28),  ci(29), ci(30), c(31),  ci(32), c(33), ci(34),
-                 static_cast<T*>(out[8]), static_cast<T*>(out[9]), r, kn, kw,
-                 kwc, nb, nitems, pd,
-                 stage_elems, bmax};
+                 c(35),  static_cast<T*>(out[8]), static_cast<T*>(out[9]),
+                 r, kn, kw, kwc, nb, nitems, pd, stage_bytes, bmax};
   return launch<T>(in, out, &wb, stop, S, m, n, kr, kc, sb, n_sweeps,
-                   n_refine, n_extra, sigma, alpha, stream);
+                   n_refine, n_extra, prec, sigma, alpha, stream);
 }
 
 }  // namespace
@@ -1292,55 +1649,63 @@ extern "C" {
 // in:  q, rowcols, rowvals, colrows, colvals, Kinv, diagK, cl, cu, lb, ub,
 //      rho_a, rho_x, dq2, has, gamma, x, z, zx, y, yx, Ax
 //      (the ELL arrays slot-major: rowcols/rowvals (kr, m), colrows/colvals
-//       (kc, n); rowcols, colrows int32; the rest T)
+//       (kc, n); rowcols, colrows int32; Kinv at prec 1 or 2 its bf16
+//       parts (prec, n, n), 16-byte aligned; the rest T)
 // out: x, z, zx, y, yx, Ax, then the scratch rhs (tiles * n * sb) and
 //      m-vector (tiles * m * sb)
 // stop: a device int, the solve loop's stop flag; where it is set every
 // block returns at once and the outputs are left unwritten.
+// prec: 0 exact, 1 "default" (bf16), 2 "high" (bf16x3) K^-1 applies.
 // Returns the cudaError_t of the launch (0 on success).
 int tpusppy_fused_sweeps_sparse_f32(void* const* in, void* const* out,
                                     const int* stop, int S, int m, int n,
                                     int kr, int kc, int sb, int n_sweeps,
-                                    int n_refine, int n_extra, double sigma,
-                                    double alpha, void* stream) {
+                                    int n_refine, int n_extra, int prec,
+                                    double sigma, double alpha,
+                                    void* stream) {
   return launch<float>(in, out, nullptr, stop, S, m, n, kr, kc, sb,
-                       n_sweeps, n_refine, n_extra, sigma, alpha, stream);
+                       n_sweeps, n_refine, n_extra, prec, sigma, alpha,
+                       stream);
 }
 
 int tpusppy_fused_sweeps_sparse_f64(void* const* in, void* const* out,
                                     const int* stop, int S, int m, int n,
                                     int kr, int kc, int sb, int n_sweeps,
-                                    int n_refine, int n_extra, double sigma,
-                                    double alpha, void* stream) {
+                                    int n_refine, int n_extra, int prec,
+                                    double sigma, double alpha,
+                                    void* stream) {
   return launch<double>(in, out, nullptr, stop, S, m, n, kr, kc, sb,
-                        n_sweeps, n_refine, n_extra, sigma, alpha, stream);
+                        n_sweeps, n_refine, n_extra, prec, sigma, alpha,
+                        stream);
 }
 
 // Structured mode: in as the dense mode with the flat blocks and C^-1
-// (`mats`, 16-byte aligned) in place of Kinv, then pos, order, items,
-// binfo, dinv, wcols, wvals, wpos, wtrows, wtvals, ncols, nvals, wrows
-// (int32 index arrays, T values; structured_kkt.KernelWoodbury); out as
-// the dense mode,
-// then two scratch n-vectors (tiles * n * sb each): the K^-1 input, and
-// the Woodbury correction.
+// (`mats`, 16-byte aligned: T entries, or at prec 1 bf16 entries and at
+// prec 2 bf16 pairs) in place of Kinv, then pos, order, items, binfo,
+// dinv, wcols, wvals, wpos, wtrows, wtvals, ncols, nvals, wrows, wvals_lo
+// (int32 index arrays, T values; structured_kkt.KernelWoodbury; at prec 1
+// or 2 dinv, wtvals and wvals_lo are their prec bf16 parts, wvals_lo the
+// values of A_w t, wvals those of A xt's wide rows); out as the dense
+// mode, then two scratch n-vectors (tiles * n * sb each): the K^-1 input,
+// and the Woodbury correction.  stage_bytes: the largest panel's bytes.
 int tpusppy_fused_sweeps_sparse_wb_f32(
     void* const* in, void* const* out, const int* stop, int S, int m, int n,
     int kr, int kc, int sb, int n_sweeps, int n_refine, int n_extra,
-    double sigma, double alpha, int r, int kn, int kw, int kwc, int nb,
-    int nitems, int pd, int stage_elems, int bmax, void* stream) {
+    int prec, double sigma, double alpha, int r, int kn, int kw, int kwc,
+    int nb, int nitems, int pd, int stage_bytes, int bmax, void* stream) {
   return launch_wb<float>(in, out, stop, S, m, n, kr, kc, sb, n_sweeps,
-                          n_refine, n_extra, sigma, alpha, r, kn, kw, kwc, nb,
-                          nitems, pd, stage_elems, bmax, stream);
+                          n_refine, n_extra, prec, sigma, alpha, r, kn, kw,
+                          kwc, nb, nitems, pd, stage_bytes, bmax, stream);
 }
 
 int tpusppy_fused_sweeps_sparse_wb_f64(
     void* const* in, void* const* out, const int* stop, int S, int m, int n,
     int kr, int kc, int sb, int n_sweeps, int n_refine, int n_extra,
-    double sigma, double alpha, int r, int kn, int kw, int kwc, int nb,
-    int nitems, int pd, int stage_elems, int bmax, void* stream) {
+    int prec, double sigma, double alpha, int r, int kn, int kw, int kwc,
+    int nb, int nitems, int pd, int stage_bytes, int bmax, void* stream) {
   return launch_wb<double>(in, out, stop, S, m, n, kr, kc, sb, n_sweeps,
-                           n_refine, n_extra, sigma, alpha, r, kn, kw, kwc,
-                           nb, nitems, pd, stage_elems, bmax, stream);
+                           n_refine, n_extra, prec, sigma, alpha, r, kn, kw,
+                           kwc, nb, nitems, pd, stage_bytes, bmax, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 """Batched OSQP-style ADMM QP/LP solver in PyTorch — the subproblem engine.
 
-Port of ``tpusppy/solvers/admm.py`` at ``sweep_precision=None``.  The whole
+Port of ``tpusppy/solvers/admm.py``.  The whole
 scenario batch is solved by one batched program: batched Cholesky
 factorizations (``torch.linalg``), an inner sweep loop whose
 ``check_every``-sweep blocks run in the hand-written ``fused_sweeps`` CUDA
@@ -29,6 +29,21 @@ stop flag a replay, counted as ``admm.loop_checks``), the restart
 is no dense ``P`` term.  Every entry point takes ``device=``; without it,
 the device of the first tensor argument, else CUDA
 (:func:`tpusppy_torch.resolve_device`).
+
+The mixed-precision frozen sweep (doc/precision.md,
+``ADMMSettings.sweep_precision``): :func:`solve_batch_frozen` runs a sweep
+phase at "default" (bf16) or "high" (bf16x3) with the defect against K,
+every residual, the Ax re-anchor and the vote exact, then, where it did not
+converge, a full-precision refinement phase of ``precision_refine_iters``
+sweeps on the same factors (:func:`_frozen_sweep_phases`); the host guard
+(:func:`precision_guard_trips`) sends a parked lowered solve back to
+"highest".  Refresh and adaptive solves, polish and the bounds are never
+lowered.  As in the reference, the kernel runs "default" lowered and "high"
+exact (``fused_sweeps``' per-scenario products have no passes to save,
+``pallas_kernels.py:73-76``), while the tensor path (``use_kernel=False``)
+runs both through :func:`.precision.contract`, "high" as bf16x3: a test
+with the kernel on holds the kernel's mode, one with it off the
+reference's XLA sweep.
 """
 
 from __future__ import annotations
@@ -41,7 +56,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from . import cuda_kernels, device_loop
+from . import cuda_kernels, device_loop, hostsync, precision
 from .cuda_kernels import matvec as _mv
 from .cuda_kernels import rmatvec as _rmv
 
@@ -94,12 +109,30 @@ class ADMMSettings:
     # Shared-A factors keep the dense K for refinement (False drops it from
     # SharedFactors; frozen solves then refine matrix-free through A).
     factors_keep_K: bool = True
+    # Mixed-precision frozen sweep (doc/precision.md): None or "highest"
+    # leaves every path exact; "default" (bf16) or "high" (bf16x3) runs
+    # the frozen sweep phase lowered with the x-update defect, every
+    # residual and the Ax re-anchor exact, then, if not eps-converged, a
+    # full-precision refinement phase of ``precision_refine_iters`` sweeps
+    # on the same factors.  Refresh/adaptive solves and bounds never lower.
+    sweep_precision: str | None = None
+    precision_refine_iters: int = 64
+    # Host guard (spopt._solve_amortized): a lowered frozen solve whose
+    # worst residual exceeds ``precision_guard`` x the last full-precision
+    # refresh floor (and is not converged) re-runs at "highest" on the same
+    # factors.  <= 0 disables.
+    precision_guard: float = 10.0
 
     def tdtype(self) -> torch.dtype:
         dt = getattr(torch, self.dtype, None)
         if not isinstance(dt, torch.dtype):
             raise ValueError(f"unknown dtype {self.dtype!r}")
         return dt
+
+    def sweep_mode(self) -> str:
+        """Effective frozen-sweep precision (the port has no lowered
+        ``matmul_precision``: its solves are exact outside the sweep)."""
+        return self.sweep_precision or "highest"
 
 
 class BatchSolution(NamedTuple):
@@ -219,13 +252,23 @@ def _factor(q2, A, rho_a, rho_x, sigma):
     return _explicit_inverse(K), K
 
 
-def _chol_solve(LK, b, refine=2):
-    """K^-1 b via the explicit inverse + refinement against the exact K."""
+def _chol_solve(LK, b, refine=2, prec=None):
+    """K^-1 b via the explicit inverse + refinement against the exact K.
+    ``prec``: None or "highest" is exact; a lowered mode runs the K^-1
+    applies at that mode (:func:`.precision.contract`) while the defect
+    ``b - K x`` stays exact (defect at full precision, correction at
+    low)."""
     Kinv, K = LK
-    x = _mv(Kinv, b)
+    if not precision.is_low(prec):
+        x = _mv(Kinv, b)
+        for _ in range(refine):
+            r = b - _mv(K, x)
+            x = x + _mv(Kinv, r)
+        return x
+    x = precision.contract("snk,sk->sn", Kinv, b, prec)
     for _ in range(refine):
-        r = b - _mv(K, x)
-        x = x + _mv(Kinv, r)
+        r = b - precision.contract("snk,sk->sn", K, x, "highest")
+        x = x + precision.contract("snk,sk->sn", Kinv, r, prec)
     return x
 
 
@@ -303,23 +346,69 @@ def _residuals(q, q2, A, aq, x, z, zx, y, yx, Ax):
     return pri, dua, prinorm, duanorm
 
 
-def _block(ops, cur, plateau, st: ADMMSettings):
+def _kernel_prec(prec) -> str:
+    """The mode ``fused_sweeps`` runs for a sweep phase at ``prec``, the
+    reference's ``kprec`` (``tpusppy/solvers/admm.py:521-527``): "default"
+    lowered, anything else exact."""
+    return "default" if prec == "default" else "highest"
+
+
+def _xla_sweeps(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, x, z, zx, y,
+                yx, Ax, n_sweeps, n_refine, sigma, alpha, prec, stop=None):
+    """The reference's XLA sweep at a lowered ``prec`` (``_admm_core``'s
+    ``sweep`` with ``lo = precision.contract(..., prec)``): the tensor
+    path's block (``use_kernel=False``) at "default" and "high" (bf16x3),
+    the A', K^-1 and A products lowered, the K defect exact.  Returns the
+    inputs where ``stop`` is set, as the plain versions do."""
+    cuda_kernels.plain_calls["fused_sweeps"] += 1
+    state_in = (x, z, zx, y, yx, Ax)
+    sigma, alpha, beta = float(sigma), float(alpha), 1.0 - float(alpha)
+
+    def lo(spec, a, b):
+        return precision.contract(spec, a, b, prec)
+
+    for _ in range(n_sweeps):
+        rhs = (sigma * x - q + lo("smn,sm->sn", A, rho_a * z - y)
+               + (rho_x * zx - yx))
+        xt = _chol_solve((Kinv, K), rhs, refine=n_refine, prec=prec)
+        Axt = lo("smn,sn->sm", A, xt)
+        x_new = alpha * xt + beta * x
+        Ax_new = alpha * Axt + beta * Ax
+        za_arg = alpha * Axt + beta * z + y / rho_a
+        z_new = torch.clamp(za_arg, cl, cu)
+        y_new = y + rho_a * (alpha * Axt + beta * z - z_new)
+        zx_arg = alpha * xt + beta * zx + yx / rho_x
+        zx_new = torch.clamp(zx_arg, lb, ub)
+        yx_new = yx + rho_x * (alpha * xt + beta * zx - zx_new)
+        x, z, zx, y, yx, Ax = x_new, z_new, zx_new, y_new, yx_new, Ax_new
+    return cuda_kernels._gate(stop, state_in, (x, z, zx, y, yx, Ax))
+
+
+def _block(ops, cur, plateau, st: ADMMSettings, prec="highest"):
     """One sweep block of the dense engine's loop, in place on ``cur``
     (the :class:`_IterState` fields, the carried Ax, the stop flag): the
-    ``check_every`` sweeps in ``fused_sweeps`` gated by the flag, one true
-    matvec that re-anchors Ax (the relaxation, alpha=1.6, amplifies
-    carried rounding across sweeps), the residuals, the plateau update
-    where the block ends a window (``plateau``, :func:`plateau_due`), the
-    commit (nothing where the flag was set), then the exit vote."""
-    q, q2, A, cl, cu, lb, ub, Kinv, K, rho_a, rho_x, aq = ops
+    ``check_every`` sweeps in ``fused_sweeps`` gated by the flag (at the
+    kernel mode of ``prec``, :func:`_kernel_prec`, on the operand made for
+    it; with the kernel off, the plain version, or at a lowered ``prec``
+    the reference's XLA sweep), one exact matvec that re-anchors Ax (the
+    relaxation, alpha=1.6, amplifies carried rounding across sweeps), the
+    residuals, the plateau update where the block ends a window
+    (``plateau``, :func:`plateau_due`), the commit (nothing where the flag
+    was set), then the exit vote."""
+    q, q2, A, cl, cu, lb, ub, Kinv, K, rho_a, rho_x, aq, operand = ops
     s = _IterState(*cur[:12])
     Ax, flag = cur[12], cur[13]
-    sweeps = (cuda_kernels.fused_sweeps if _kernel_on(st)
-              else cuda_kernels.fused_sweeps_plain)
     ce = max(1, st.check_every)
-    x, z, zx, y, yx, _ = sweeps(
-        q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, s.x, s.z, s.zx, s.y,
-        s.yx, Ax, ce, st.solve_refine, st.sigma, st.alpha, stop=flag)
+    args = (q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, s.x, s.z, s.zx,
+            s.y, s.yx, Ax, ce, st.solve_refine, st.sigma, st.alpha)
+    if _kernel_on(st):
+        x, z, zx, y, yx, _ = cuda_kernels.fused_sweeps(
+            *args, _kernel_prec(prec), operand=operand, stop=flag)
+    elif precision.is_low(prec):
+        x, z, zx, y, yx, _ = _xla_sweeps(*args, prec, stop=flag)
+    else:
+        x, z, zx, y, yx, _ = cuda_kernels.fused_sweeps_plain(*args,
+                                                             stop=flag)
     Ax = _mv(A, x)
     pri, dua, prinorm, duanorm = _residuals(q, q2, A, aq, x, z, zx, y, yx,
                                             Ax)
@@ -332,19 +421,26 @@ def _block(ops, cur, plateau, st: ADMMSettings):
 
 
 def _admm_core(q, q2, A, cl, cu, lb, ub, state: _IterState, LK, rho_a,
-               rho_x, st: ADMMSettings) -> _IterState:
+               rho_x, st: ADMMSettings, prec=None) -> _IterState:
     """Inner ADMM sweep loop at fixed rho, on the device
     (:mod:`.device_loop`, :func:`_block`).  Returns the final state.  The
     exit rule is the reference's while_loop's: max_iter, eps, the plateau
-    stall, voted on the device after every block."""
+    stall, voted on the device after every block.  ``prec``: the sweep
+    phase's mode (None is "highest"); residuals and the re-anchor stay
+    exact whatever it is.  The kernel's lowered operand is made here, once
+    a solve, before any capture."""
+    prec = precision.canon(prec)
     S, _, n = A.shape
     ce = max(1, st.check_every)
-    ops = (q, q2, A, cl, cu, lb, ub, LK[0].contiguous(), LK[1].contiguous(),
-           rho_a, rho_x.expand(S, n).contiguous(), q.abs().amax(dim=1))
+    Kinv, K = LK[0].contiguous(), LK[1].contiguous()
+    operand = (cuda_kernels.dense_operand(A, Kinv, _kernel_prec(prec))
+               if _kernel_on(st) else None)
+    ops = (q, q2, A, cl, cu, lb, ub, Kinv, K, rho_a,
+           rho_x.expand(S, n).contiguous(), q.abs().amax(dim=1), operand)
     loop = [*state, _mv(A, state.x), _vote(state, st).to(torch.int32)]
-    out = device_loop.run(functools.partial(_block, st=st), ops, loop,
-                          BLOCKS_PER_REPLAY, -(-st.max_iter // ce),
-                          key=("admm", st),
+    out = device_loop.run(functools.partial(_block, st=st, prec=prec), ops,
+                          loop, BLOCKS_PER_REPLAY, -(-st.max_iter // ce),
+                          key=("admm", st, prec),
                           phase=lambda b: plateau_due(b, st))
     return _IterState(*out[:12])
 
@@ -679,6 +775,58 @@ def solve_batch_factored(c, q2, A, cl, cu, lb, ub,
                        want_factors=True)
 
 
+def _frozen_sweep_phases(run_core, state0, settings: ADMMSettings):
+    """The frozen sweep of both engines (their ``_IterState``s both carry
+    k, best and stall, which is all this touches); ``run_core(state, st,
+    prec)`` runs one engine core.
+
+    Full precision: one core run.  Lowered (``settings.sweep_precision``):
+    a bf16 or bf16x3 sweep phase (its residuals exact, so its eps vote is
+    real), then a full-precision refinement phase of at most
+    ``precision_refine_iters`` sweeps on the same factors, which sweeps
+    nothing when phase 1 converged (its loop's first vote stops it).  The
+    residuals and ``done`` always come from exact measurements; the sweep
+    count adds up across the phases.  The refinement phase's settings are
+    equal from call to call (a frozen dataclass compares by value), so its
+    captured graphs are reused."""
+    if not precision.is_low(settings.sweep_precision):
+        return run_core(state0, settings, None)
+    state = run_core(state0, settings,
+                     precision.canon(settings.sweep_precision))
+    if settings.precision_refine_iters > 0:
+        k1 = state.k
+        st_r = dataclasses.replace(
+            settings, max_iter=int(settings.precision_refine_iters))
+        state = run_core(_fresh(state), st_r, "highest")
+        _tally(state.k)
+        state = state._replace(k=state.k + k1)
+    return state
+
+
+#: Sweeps the refinement phases ran, per device, summed on the device (no
+#: host read on the solve path); :func:`refinement_sweeps` reads them.
+_refine_tally: dict = {}
+
+
+def _tally(k):
+    t = _refine_tally.get(k.device)
+    if t is None:
+        t = _refine_tally[k.device] = torch.zeros((), dtype=torch.int64,
+                                                  device=k.device)
+    t.add_(k)
+
+
+def refinement_sweeps(reset=False) -> int:
+    """Sweeps run by the mixed-precision refinement phases so far, over
+    every device (one host read each); ``reset`` zeroes the tally."""
+    total = 0
+    for t in _refine_tally.values():
+        total += int(hostsync.fetch(t))
+        if reset:
+            t.zero_()
+    return total
+
+
 def solve_batch_frozen(c, q2, A, cl, cu, lb, ub, factors: Factors,
                        settings: ADMMSettings = ADMMSettings(), warm=None,
                        polish=False, device=None) -> BatchSolution:
@@ -686,7 +834,8 @@ def solve_batch_frozen(c, q2, A, cl, cu, lb, ub, factors: Factors,
     recomputation, factorization or rho adaptation.  Valid while
     (A, q2, bounds) are unchanged since the refresh; the residual-based loop
     still enforces accuracy.  ``polish=True`` also polishes the final
-    iterate (honoring ``settings.polish``)."""
+    iterate (honoring ``settings.polish``).  ``settings.sweep_precision``
+    runs the mixed-precision sweep (:func:`_frozen_sweep_phases`)."""
     device = resolve_device(device, factors.Kinv, A, c)
     want_masks = polish and settings.polish
     c, q2, A, cl, cu, lb, ub, masks = _prep(
@@ -704,9 +853,13 @@ def solve_batch_frozen(c, q2, A, cl, cu, lb, ub, factors: Factors,
     else:
         x0, z0, y0, yx0 = warm
     state0 = _initial_state(x0, z0, torch.clamp(x0, lbs, ubs), y0, yx0)
-    state = _admm_core(qs, q2s, As, cls, cus, lbs, ubs, state0,
-                       (factors.Kinv, factors.K), factors.rho_a,
-                       factors.rho_x, settings)
+
+    def run_core(st0, st, prec):
+        return _admm_core(qs, q2s, As, cls, cus, lbs, ubs, st0,
+                          (factors.Kinv, factors.K), factors.rho_a,
+                          factors.rho_x, st, prec)
+
+    state = _frozen_sweep_phases(run_core, state0, settings)
     raw = _unscale(state, D, E, cost)
     if want_masks:
         state = _polish(state, qs, q2s, As, cls, cus, lbs, ubs, masks,
@@ -719,6 +872,38 @@ def stop_stats(sol: BatchSolution):
     dt = sol.pri_res.dtype
     return torch.stack([sol.iters.max().to(dt), sol.pri_res.max(),
                         sol.dua_res.max(), sol.done.all().to(dt)])
+
+
+def precision_guard_trips(sol: BatchSolution, settings: ADMMSettings,
+                          ref_worst=None, stats=None) -> bool:
+    """Host guard of the mixed-precision frozen path: True when a lowered
+    frozen solve must re-run at full precision.  It is not eps-converged
+    AND its worst residual exceeds ``precision_guard`` x the reference
+    floor, the worst residual of the last full-precision refresh of the
+    same family (``ref_worst``), floored at eps; a non-finite residual
+    always trips, a converged solve never.  Plateau families, whose
+    full-precision floor is far above eps, never trip on residuals full
+    precision could not beat either.
+
+    ``stats``: an already fetched ``(worst residual, all_done)`` pair, so
+    the guard costs no fetch; without it the guard makes one
+    :func:`stop_stats` fetch."""
+    if not settings.sweep_precision or settings.sweep_precision == "highest":
+        return False
+    if settings.precision_guard <= 0:
+        return False
+    if stats is not None:
+        worst, all_done = float(stats[0]), bool(stats[1])
+    else:
+        st4 = hostsync.fetch(stop_stats(sol))
+        worst, all_done = float(max(st4[1], st4[2])), bool(st4[3])
+    if all_done:
+        return False
+    if not np.isfinite(worst):
+        return True
+    floor = max(settings.eps_abs, settings.eps_rel)
+    bar = settings.precision_guard * max(float(ref_worst or 0.0), floor)
+    return worst > bar
 
 
 def measure_pack(sol: BatchSolution):

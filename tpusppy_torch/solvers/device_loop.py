@@ -65,8 +65,10 @@ _REPLAYS = _metrics.counter("device_loop.replays")
 _BLOCKS = _metrics.counter("device_loop.blocks")
 
 #: Captured loops kept (least recently used dropped first); each holds its
-#: graphs' memory pools and its buffers.
-CACHE_SIZE = 4
+#: graphs' memory pools and its buffers.  A lowered PH run keys four loops
+#: on one engine (the refresh, the lowered phase, the refinement phase and
+#: the guard's full-precision re-run), and a process may drive several.
+CACHE_SIZE = 8
 
 _cache: collections.OrderedDict = collections.OrderedDict()
 _streams: dict = {}

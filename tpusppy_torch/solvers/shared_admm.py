@@ -42,8 +42,17 @@ reading one stop flag a replay, counted as ``admm.loop_checks``), as in
 Python loop that reads nothing from the device; the sparse engines' sweep
 blocks always run in the fused kernel, which applies the Woodbury operator
 as the reference's XLA path does (the reference's Pallas kernel takes its
-densified matrix).  Not ported yet: ``sweep_precision`` (ROADMAP Queue 1
-item 5).
+densified matrix).
+
+The mixed-precision frozen sweep (``ADMMSettings.sweep_precision``,
+doc/precision.md): :func:`solve_shared_frozen` runs
+:func:`.admm._frozen_sweep_phases`.  A lowered phase hands its mode to both
+kernels (``kernel_prec``: "default" or "high", bf16x3 in the kernels too):
+the dense A's A', A and K^-1 products lowered, the K defect exact; on a
+SparseA only the K^-1 applies.  With the kernel off the tensor path is the
+reference's XLA block (:func:`_xla_sweeps`: ``mv_lo``/``rmv_lo`` at the
+mode on a dense A and exact on a SparseA, :func:`_solve_shared_K` with an
+exact ``Kmul``).  Residuals, the re-anchor and the vote stay exact.
 """
 
 from __future__ import annotations
@@ -54,13 +63,17 @@ from typing import NamedTuple
 import torch
 
 from .. import resolve_device
-from . import cuda_kernels, device_loop
+from . import cuda_kernels, device_loop, precision
 from .admm import (ADMMSettings, BatchSolution, BIG, _clean_bounds,
-                   _counters, _done_mask, _explicit_inverse, _kernel_on,
-                   _plateau_update, _residuals, _tensor, _vote, plateau_due)
+                   _counters, _done_mask, _explicit_inverse,
+                   _frozen_sweep_phases, _kernel_on, _plateau_update,
+                   _residuals, _tensor, _vote, plateau_due)
 from .cuda_kernels import matvec as _mv
+from .cuda_kernels import rmatvec as _rmv
 from .sparse import SparseA, dense_ell, ell_slot_major
-from .structured_kkt import factor_structured, woodbury_layout
+from .structured_kkt import (KernelWoodbury, apply_kinv_like,
+                             factor_structured, lowered_layout,
+                             woodbury_layout)
 
 #: Sweep blocks a CUDA-graph replay of the loop runs with a dense shared A
 #: (``fused_sweeps_shared``): 8 divides the gamma cadence (32 blocks at the
@@ -164,6 +177,76 @@ def _factor_shared(q2ref, A, rho_a, rho_x, sigma):
     return Kinv, None if sparse else K, Kinv
 
 
+def _solve_shared_K(Kinv, Kmul, dq2, gamma, b, refine, extra_if_dq2=2,
+                    prec=None):
+    """x with (gamma_s K + diag(dq2_s)) x_s = b_s per scenario, through the
+    shared inverse and refinement against the exact per-scenario system;
+    ``Kmul`` applies the exact K (a dense product, or matrix-free through
+    A).  ``gamma`` (S, 1) scales the whole penalty profile per scenario.
+    The ``extra_if_dq2`` passes run where any dq2 is non-zero, selected on
+    the device (the reference's ``lax.cond``).  ``prec``: the K^-1
+    applies' mode (:func:`.structured_kkt.apply_kinv_like`); ``Kmul``, the
+    defect, stays exact.  The tensor path's x-update at a lowered mode."""
+    def steps(x, k):
+        for _ in range(k):
+            r = b - (gamma * Kmul(x) + dq2 * x)
+            x = x + apply_kinv_like(Kinv, r / gamma, prec)
+        return x
+
+    x = steps(apply_kinv_like(Kinv, b / gamma, prec), refine)
+    if extra_if_dq2 > 0:
+        x = torch.where((dq2 != 0).any(), steps(x, extra_if_dq2), x)
+    return x
+
+
+def _xla_sweeps(q, A, Kinv, K, diagK, cl, cu, lb, ub, rho_a, rho_x, dq2, g,
+                x, z, zx, y, yx, Ax, n_sweeps, n_refine, n_extra, sigma,
+                alpha, prec, stop=None):
+    """The reference's XLA block (``shared_admm._core``'s ``block``) at a
+    lowered ``prec``: the tensor path's (``use_kernel=False``).  On a
+    dense A the A' and A products run at ``prec`` (``mv_lo``/``rmv_lo``,
+    :func:`.precision.contract`); on a :class:`SparseA` they stay exact.
+    The K^-1 applies (a dense inverse or the block/Woodbury operator) run
+    at ``prec`` through :func:`_solve_shared_K`, whose defect ``Kmul`` is
+    exact: a dense product with K, or without K the matrix-free ``diagK x
+    + A'(rho_a A x)`` (``diagK`` (1, n) = q2ref + rho_x + sigma).  ``rho_a``
+    (1, m) and ``rho_x`` (1, n) unscaled, ``g`` (S, 1).  Returns the inputs
+    where ``stop`` is set."""
+    sparse = isinstance(A, SparseA)
+    cuda_kernels.plain_calls["fused_sweeps_sparse" if sparse or K is None
+                             else "fused_sweeps_shared"] += 1
+    state_in = (x, z, zx, y, yx, Ax)
+    if isinstance(Kinv, KernelWoodbury):
+        Kinv = Kinv.bw
+    if sparse:
+        mv_lo, rmv_lo = (lambda v: A.matvec(v)), (lambda v: A.rmatvec(v))
+    else:
+        mv_lo = (lambda v: precision.contract("sn,mn->sm", v, A, prec))
+        rmv_lo = (lambda v: precision.contract("sm,mn->sn", v, A, prec))
+    if K is not None:
+        Kmul = (lambda v: v @ K)
+    else:
+        Kmul = (lambda v: v * diagK + _rmv(A, _mv(A, v) * rho_a))
+    sigma, alpha, beta = float(sigma), float(alpha), 1.0 - float(alpha)
+    sigma_s, rho_a_s, rho_x_s = g * sigma, g * rho_a, g * rho_x
+    for _ in range(n_sweeps):
+        rhs = (sigma_s * x - q + rmv_lo(rho_a_s * z - y)
+               + (rho_x_s * zx - yx))
+        xt = _solve_shared_K(Kinv, Kmul, dq2, g, rhs, n_refine, n_extra,
+                             prec)
+        Axt = mv_lo(xt)
+        x_new = alpha * xt + beta * x
+        Ax_new = alpha * Axt + beta * Ax
+        za_arg = alpha * Axt + beta * z + y / rho_a_s
+        z_new = torch.clamp(za_arg, cl, cu)
+        y_new = y + rho_a_s * (alpha * Axt + beta * z - z_new)
+        zx_arg = alpha * xt + beta * zx + yx / rho_x_s
+        zx_new = torch.clamp(zx_arg, lb, ub)
+        yx_new = yx + rho_x_s * (alpha * xt + beta * zx - zx_new)
+        x, z, zx, y, yx, Ax = x_new, z_new, zx_new, y_new, yx_new, Ax_new
+    return cuda_kernels._gate(stop, state_in, (x, z, zx, y, yx, Ax))
+
+
 def _finite_rows(t):
     return torch.isfinite(t).all(dim=1)
 
@@ -177,12 +260,15 @@ def gamma_due(b, st: ADMMSettings) -> bool:
     return (b + 1) % max(1, 128 // ce) == 0
 
 
-def _block(ops, cur, phase, st: ADMMSettings, sparse, mode):
+def _block(ops, cur, phase, st: ADMMSettings, sparse, mode,
+           prec="highest"):
     """One sweep block of the shared-A loop, in place on ``cur`` (the
     :class:`_IterState` fields, the carried Ax, the stop flag): the
     ``check_every`` sweeps gated by the flag (``fused_sweeps_shared`` in
     ``mode`` on the operand made for it, or with ``sparse``
-    ``fused_sweeps_sparse`` and its matrix-free defect on A's ELL form),
+    ``fused_sweeps_sparse`` and its matrix-free defect on A's ELL form,
+    each at ``prec``; with the kernel off at a lowered ``prec``, the
+    reference's XLA block, :func:`_xla_sweeps`),
     one true matvec that re-anchors Ax, the residuals, the divergence
     guard, the gamma rule and the plateau update where ``phase`` (``(gamma
     due, plateau due)``, :func:`gamma_due`, :func:`.admm.plateau_due`)
@@ -199,7 +285,12 @@ def _block(ops, cur, phase, st: ADMMSettings, sparse, mode):
     # batch-global flag for the extra refinement passes, on the device
     has = (dq2 != 0).any().to(q.dtype).reshape(1, 1)
     fixed = (ce, st.solve_refine, 2, st.sigma, st.alpha)
-    if sparse:
+    if not _kernel_on(st) and precision.is_low(prec):
+        x, z, zx, y, yx, _ = _xla_sweeps(
+            q, A, Kinv, None if sparse else KD, KD if sparse else None, cl,
+            cu, lb, ub, rho_a1, rho_x1, dq2, g, s.x, s.z, s.zx, s.y, s.yx,
+            Ax_prev, *fixed, prec, stop=flag)
+    elif sparse:
         # KD is the exact K's diagonal part; A'RA goes through the ELL form
         ell = A.ell if isinstance(A, SparseA) else dense_ell(A)
         if not _kernel_on(st):
@@ -211,17 +302,17 @@ def _block(ops, cur, phase, st: ADMMSettings, sparse, mode):
             sweep = functools.partial(
                 cuda_kernels.fused_sweeps_sparse,
                 ell_t=(A.ell_t() if isinstance(A, SparseA)
-                       else ell_slot_major(ell)))
+                       else ell_slot_major(ell)), operand=operand)
         x, z, zx, y, yx, _ = sweep(
             q, *ell, Kinv, KD, cl, cu, lb, ub, rho_a1, rho_x1, dq2, has, g,
-            s.x, s.z, s.zx, s.y, s.yx, Ax_prev, *fixed, stop=flag)
+            s.x, s.z, s.zx, s.y, s.yx, Ax_prev, *fixed, prec, stop=flag)
     else:
         sweep = (functools.partial(cuda_kernels.fused_sweeps_shared,
                                    mode=mode, operand=operand)
                  if _kernel_on(st) else cuda_kernels.fused_sweeps_shared_plain)
         x, z, zx, y, yx, _ = sweep(
             q, A, Kinv, KD, cl, cu, lb, ub, rho_a1, rho_x1, dq2, has, g,
-            s.x, s.z, s.zx, s.y, s.yx, Ax_prev, *fixed, stop=flag)
+            s.x, s.z, s.zx, s.y, s.yx, Ax_prev, *fixed, prec, stop=flag)
     # re-anchor the incrementally carried Ax (see admm._block)
     Ax = _mv(A, x)
     pri, dua, prinorm, duanorm = _residuals(q, q2s, A, aq, x, z, zx, y, yx,
@@ -275,7 +366,7 @@ def _block(ops, cur, phase, st: ADMMSettings, sparse, mode):
 
 def _core(q, q2s, q2ref, A, cl, cu, lb, ub, state: _IterState, Kinv, K,
           rho_a, rho_x, glo, ghi, st: ADMMSettings,
-          adaptive=False) -> _IterState:
+          adaptive=False, prec=None) -> _IterState:
     """Inner sweep loop at a fixed shared rho profile, with IN-LOOP
     per-scenario gamma adaptation, on the device (:mod:`.device_loop`,
     :func:`_block`).
@@ -288,7 +379,10 @@ def _core(q, q2s, q2ref, A, cl, cu, lb, ub, state: _IterState, Kinv, K,
     a dense (n, n) K^-1, or a KernelWoodbury (with a SparseA and no K).
     Blocks run in ``fused_sweeps_shared`` when A is dense and K is given,
     else in ``fused_sweeps_sparse``.  The exit rule is the reference's
-    while_loop's, voted on the device after every block."""
+    while_loop's, voted on the device after every block.  ``prec``: the
+    sweep phase's mode (None is "highest"); the kernels' lowered operands
+    are made here, once per set of matrices, before any capture."""
+    prec = precision.canon(prec)
     ce = max(1, st.check_every)
     if isinstance(Kinv, torch.Tensor):
         Kinv = Kinv.contiguous()
@@ -301,18 +395,28 @@ def _core(q, q2s, q2ref, A, cl, cu, lb, ub, state: _IterState, Kinv, K,
     # the dense kernel's mode and what it reads of A, K^-1 and K, made
     # here once a solve: the graph reads the operand from its buffers
     mode = operand = None
-    if not sparse and _kernel_on(st) and q.device.type == "cuda":
-        mode, operand = cuda_kernels.shared_plan(q.shape[0], A, Kinv, KD)
+    if _kernel_on(st) and q.device.type == "cuda":
+        if not sparse:
+            mode, operand = cuda_kernels.shared_plan(q.shape[0], A, Kinv,
+                                                     KD, precision=prec)
+        elif isinstance(Kinv, KernelWoodbury):
+            # the structured operand carries its lowered copies itself
+            if precision.is_low(prec):
+                Kinv = lowered_layout(Kinv, prec)
+        else:
+            operand = cuda_kernels.sparse_operand(Kinv, prec)
     ops = (q, q2s, q2ref, A, cl, cu, lb, ub, Kinv, KD,
            rho_a[None, :].contiguous(), rho_x[None, :].contiguous(), glo,
            ghi, q.abs().amax(dim=1), operand)
     loop = [*state, _mv(A, state.x), _vote(state, st).to(torch.int32)]
     min_k = 128 if adaptive else 0
     out = device_loop.run(
-        functools.partial(_block, st=st, sparse=sparse, mode=mode),
+        functools.partial(_block, st=st, sparse=sparse, mode=mode,
+                          prec=prec),
         ops, loop,
         SPARSE_BLOCKS_PER_REPLAY if sparse else BLOCKS_PER_REPLAY,
-        -(-st.max_iter // ce), key=("shared", st, sparse, mode, adaptive),
+        -(-st.max_iter // ce),
+        key=("shared", st, sparse, mode, adaptive, prec),
         phase=lambda b: (gamma_due(b, st), plateau_due(b, st, min_k)))
     return _IterState(*out[:13])
 
@@ -530,7 +634,8 @@ def solve_shared_frozen(c, q2, A, cl, cu, lb, ub, factors: SharedFactors,
     no Ruiz recomputation, factorization or restarts.  Valid while A and
     the bounds' structure are unchanged; per-scenario q2 drift is absorbed
     by the refinement against gamma K + diag(dq2), matrix-free through A
-    when the factors carry no K."""
+    when the factors carry no K.  ``settings.sweep_precision`` runs the
+    mixed-precision sweep (:func:`.admm._frozen_sweep_phases`)."""
     device = resolve_device(device, factors.q2ref, c)
     c, q2, A, cl, cu, lb, ub, _ = _prep_shared(
         c, q2, A, cl, cu, lb, ub, settings, device, want_masks=False)
@@ -538,8 +643,12 @@ def solve_shared_frozen(c, q2, A, cl, cu, lb, ub, factors: SharedFactors,
     qs, q2s, As, cls, cus, lbs, ubs, warm = _scale_shared(
         c, q2, A, cl, cu, lb, ub, D, E, cost, warm)
     glo, ghi = _gamma_bounds(q2s)
-    state = _core(qs, q2s, factors.q2ref, As, cls, cus, lbs, ubs,
-                  _start(warm, cls, cus, lbs, ubs, factors.gamma),
-                  factors.Kinv_op, factors.K, factors.rho_a,
-                  factors.rho_x, glo, ghi, settings)
+
+    def run_core(st0, st, prec):
+        return _core(qs, q2s, factors.q2ref, As, cls, cus, lbs, ubs, st0,
+                     factors.Kinv_op, factors.K, factors.rho_a,
+                     factors.rho_x, glo, ghi, st, prec=prec)
+
+    state = _frozen_sweep_phases(
+        run_core, _start(warm, cls, cus, lbs, ubs, factors.gamma), settings)
     return _solution(state, D, E, cost, state.k, settings)

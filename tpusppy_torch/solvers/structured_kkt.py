@@ -37,6 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .precision import bf16_parts, canon, contract
 from .sparse import KKTStructure, SparseA, ell_matvec
 
 
@@ -70,17 +71,21 @@ class BlockWoodbury(NamedTuple):
     Cinv: torch.Tensor   # (r, r) inverse Woodbury cap
 
 
-def _bapply(binv: tuple, bvars: tuple, b):
+def _bapply(binv: tuple, bvars: tuple, b, prec=None, dot=contract):
     """B^-1 b for b (..., n): gather per bucket, batched block product,
     scatter back.  Blocks partition the variables, so the scatters never
-    collide (the dummy slot n collides only with itself and is dropped)."""
+    collide (the dummy slot n collides only with itself and is dropped).
+    ``prec``: the block products' precision mode (:mod:`.precision`; the
+    one-variable blocks' too); None or "highest" is exact.  ``dot(spec, a,
+    b, prec)`` makes each product (:func:`~.precision.contract`, or the
+    kernel's own rule in its plain version)."""
     n = b.shape[-1]
     b_pad = torch.cat([b, torch.zeros(b.shape[:-1] + (1,), dtype=b.dtype,
                                       device=b.device)], dim=-1)
     out = torch.zeros_like(b_pad)
     for inv_k, bv_k in zip(binv, bvars):
         g = b_pad[..., bv_k]                        # (..., nb, bs)
-        r = torch.einsum("...kb,kbt->...kt", g, inv_k)
+        r = dot("...kb,kbt->...kt", g, inv_k, prec)
         out[..., bv_k.reshape(-1)] = r.reshape(r.shape[:-2]
                                                + (bv_k.numel(),))
     return out[..., :n]
@@ -118,14 +123,33 @@ def factor_structured(A: SparseA, struct: StructureArrays, dvec, rho_a,
     return BlockWoodbury(binv=binv, bvars=struct.bvars, Aw=Aw, Cinv=Cinv)
 
 
-def kinv_apply(bw: BlockWoodbury, b):
-    """K^-1 b for b (..., n) via the Woodbury identity."""
-    t = _bapply(bw.binv, bw.bvars, b)
-    u = t @ bw.Aw.T
-    v = u @ bw.Cinv
-    w = v @ bw.Aw
-    return t - _bapply(bw.binv, bw.bvars, w)
+def kinv_apply(bw: BlockWoodbury, b, prec=None, dot=contract):
+    """K^-1 b for b (..., n) via the Woodbury identity.  ``prec`` lowers
+    the apply's contractions (the block products and the three Woodbury
+    products, each made by ``dot``: :func:`~.precision.contract`, the
+    reference's, by default); the final ``t - B^-1 w`` stays exact, and
+    the defect against the exact system is the caller's
+    (``shared_admm._solve_shared_K``)."""
+    t = _bapply(bw.binv, bw.bvars, b, prec, dot)
+    if canon(prec) == "highest":
+        u = t @ bw.Aw.T
+        v = u @ bw.Cinv
+        w = v @ bw.Aw
+    else:
+        u = dot("...n,rn->...r", t, bw.Aw, prec)
+        v = dot("...r,rq->...q", u, bw.Cinv, prec)
+        w = dot("...r,rn->...n", v, bw.Aw, prec)
+    return t - _bapply(bw.binv, bw.bvars, w, prec, dot)
 
+
+def apply_kinv_like(Kinv, b, prec=None):
+    """Uniform K^-1 application: a dense (n, n) tensor or a
+    :class:`BlockWoodbury`, at ``prec``."""
+    if isinstance(Kinv, BlockWoodbury):
+        return kinv_apply(Kinv, b, prec)
+    if canon(prec) == "highest":
+        return b @ Kinv
+    return contract("...n,nk->...k", b, Kinv, prec)
 
 
 
@@ -334,7 +358,8 @@ class KernelWoodbury(NamedTuple):
     ``pattern.pd``), ``wvals`` (kw, r) and ``wtvals`` (kwc, n), the wide
     rows' values in the slot orders of ``pattern.wcols`` and
     ``pattern.wtrows``, and ``nvals`` (kn, m), the narrow rows' first
-    slots (zero in a wide row)."""
+    slots (zero in a wide row).  ``lo``: empty, or the copies the kernel
+    reads at a lowered precision (:func:`lowered_layout`)."""
 
     bw: BlockWoodbury
     pattern: WoodburyPattern
@@ -343,6 +368,7 @@ class KernelWoodbury(NamedTuple):
     wvals: torch.Tensor
     wtvals: torch.Tensor
     nvals: torch.Tensor
+    lo: tuple = ()
 
     @property
     def dtype(self):
@@ -360,6 +386,30 @@ class KernelWoodbury(NamedTuple):
             pattern=self.pattern, mats=self.mats.to(dt),
             dinv=self.dinv.to(dt), wvals=self.wvals.to(dt),
             wtvals=self.wtvals.to(dt), nvals=self.nvals.to(dt))
+
+
+def lowered_layout(kw: KernelWoodbury, precision) -> KernelWoodbury:
+    """``kw`` with the copies ``fused_sweeps_sparse`` reads at a lowered
+    ``precision`` in ``lo``: ``mats`` as bf16 (at "default") or as bf16
+    pairs, each entry's two parts side by side (at "high": 2 numel values,
+    one bulk copy bringing both parts of a panel), and ``dinv``, ``wvals``
+    and ``wtvals`` as their P bf16 parts (P = 1 or 2), stacked and held in
+    the working dtype (exact: a bf16 value is a float32 and a float64
+    one).  The parts go through float32 (:func:`~.precision.bf16_parts`).
+    Made outside any CUDA-graph capture, once a solve, by the shared
+    engine's core (``shared_admm._core``)."""
+    prec = canon(precision)
+    if prec == "highest":
+        return kw._replace(lo=())
+    m1, m2 = bf16_parts(kw.mats, prec)
+    mats = m1 if m2 is None else torch.stack([m1, m2], dim=-1).reshape(-1)
+
+    def parts(v):
+        return torch.stack([p.to(v.dtype) for p in bf16_parts(v, prec)
+                            if p is not None])
+
+    return kw._replace(lo=(mats.contiguous(), parts(kw.dinv),
+                           parts(kw.wvals), parts(kw.wtvals)))
 
 
 def woodbury_layout(bw: BlockWoodbury, A: SparseA) -> KernelWoodbury:

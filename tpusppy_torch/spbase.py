@@ -14,6 +14,7 @@ import numpy as np
 
 from . import global_toc, resolve_device
 from .ir import ScenarioBatch
+from .solvers import precision
 from .solvers.admm import ADMMSettings
 
 
@@ -38,16 +39,24 @@ def build_batch(all_scenario_names, scenario_creator,
 
 def make_admm_settings(options) -> ADMMSettings:
     """``solver_options`` -> :class:`ADMMSettings`.  The reference's
-    ``use_pallas`` is the port's ``use_kernel``.  Lowered sweep or matmul
-    precision would change the solve itself and raises until the port has
-    it; other keys the port's settings do not have (e.g. the reference's
-    ``megastep``) are ignored."""
+    ``use_pallas`` is the port's ``use_kernel``.  ``sweep_precision`` takes
+    the modes of :mod:`.solvers.precision` ("default", "high", "highest")
+    or None, with ``precision_refine_iters`` and ``precision_guard``; an
+    unknown mode raises ``ValueError``.  A lowered ``matmul_precision``
+    (the reference's ambient XLA matmul precision, which has no PyTorch
+    counterpart that computes the same: TF32 is not bf16x3) would change
+    the solve itself and raises until the port has it; other keys the
+    port's settings do not have (e.g. the reference's ``megastep``) are
+    ignored."""
     so = dict(options.get("solver_options") or {})
-    for key in ("sweep_precision", "matmul_precision"):
-        if so.get(key) not in (None, "highest"):
-            raise NotImplementedError(
-                f"solver_options {key}={so[key]!r}: the precision modes are "
-                "not ported yet (ROADMAP Queue 1 item 5)")
+    if so.get("matmul_precision") not in (None, "highest"):
+        raise NotImplementedError(
+            f"solver_options matmul_precision={so['matmul_precision']!r}: "
+            "a lowered matmul precision outside the sweep is not ported "
+            "yet (ROADMAP Queue 1 item 5)")
+    if precision.canon(so.get("sweep_precision")) == "highest":
+        # "highest" runs exactly as the default
+        so.pop("sweep_precision", None)
     if "use_pallas" in so:
         use = so.pop("use_pallas")
         if so.setdefault("use_kernel", use) != use:

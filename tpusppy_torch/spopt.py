@@ -14,6 +14,7 @@ megastep, bucketed and in-wheel methods are not part of the port yet.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 
 import numpy as np
@@ -100,6 +101,7 @@ class SPOpt(SPBase):
         self._factors = None         # admm.Factors of the last refresh solve
         self._factors_sig = None
         self._factors_age = 0
+        self._factors_ref_worst = None   # worst residual of the last refresh
         self._n_div_prev = 0
 
     def _device_consts(self, dt):
@@ -164,6 +166,7 @@ class SPOpt(SPBase):
         A_d, cl_d, cu_d = self._device_consts(self.admm_settings.tdtype())
         slot = {"warm": self._warm, "factors": self._factors,
                 "sig": self._factors_sig, "age": self._factors_age,
+                "ref_worst": self._factors_ref_worst,
                 "n_div_prev": self._n_div_prev}
         sol, meas = self._solve_amortized(
             (q, q2, A_d, cl_d, cu_d, b.lb, b.ub), slot, warm,
@@ -172,6 +175,7 @@ class SPOpt(SPBase):
         self._factors = slot["factors"]
         self._factors_sig = slot["sig"]
         self._factors_age = slot["age"]
+        self._factors_ref_worst = slot.get("ref_worst")
         self._n_div_prev = slot["n_div_prev"]
         # everything the iteration reads came back in ONE packed fetch
         self.local_x = meas["x"]
@@ -190,9 +194,16 @@ class SPOpt(SPBase):
     def _solve_amortized(self, args, slot: dict, warm: bool, shared=False):
         """Frozen attempt under a validity signature, else an adaptive
         factored solve + straggler rescue.  ``slot`` carries
-        warm/factors/sig/age; ``args`` is (q, q2, A, cl, cu, lb, ub), with A
-        (m, n) when ``shared`` (the shared-A engine).  Returns
-        ``(sol, meas)``."""
+        warm/factors/sig/age and ``ref_worst``; ``args`` is (q, q2, A, cl,
+        cu, lb, ub), with A (m, n) when ``shared`` (the shared-A engine).
+        A lowered frozen attempt (``sweep_precision``) that the guard
+        (:func:`~.solvers.admm.precision_guard_trips`) finds parked far
+        above the last refresh's full-precision floor (``ref_worst``) is
+        re-run at "highest" on the same factors, counted in
+        ``precision.guard_trips``; ``precision.lowered_solves`` counts the
+        lowered frozen attempts and ``precision.lowered_accepted`` those
+        whose lowered result the solve took.  The refresh always runs at
+        "highest".  Returns ``(sol, meas)``."""
         if shared:
             frozen_fn = shared_admm.solve_shared_frozen
             factored_fn = shared_admm.solve_shared_factored
@@ -218,6 +229,31 @@ class SPOpt(SPBase):
                 if _trace.enabled():
                     _sp.add(iters=meas_c["iters"],
                             all_done=meas_c["all_done"])
+            worst_c = float(max(np.max(meas_c["pri"]),
+                                np.max(meas_c["dua"])))
+            lowered = self.admm_settings.sweep_mode() != "highest"
+            if lowered:
+                _metrics.inc("precision.lowered_solves")
+            if admm.precision_guard_trips(
+                    cand, self.admm_settings, slot.get("ref_worst"),
+                    stats=(worst_c, meas_c["all_done"])):
+                lowered = False     # what follows is the re-run's result
+                # the lowered frozen solve parked far above the family's
+                # full-precision floor: re-run it at "highest" on the same
+                # factors (no refactorization)
+                _metrics.inc("precision.guard_trips")
+                if _trace.enabled():
+                    _trace.instant(None, "precision_guard_trip",
+                                   worst=worst_c,
+                                   ref_worst=slot.get("ref_worst"))
+                st_full = dataclasses.replace(self.admm_settings,
+                                              sweep_precision="highest")
+                with _trace.span(None, "solve.frozen_full_precision"):
+                    cand, _ = segmented.solve_frozen_segmented(
+                        frozen_fn, args, slot["factors"], st_full,
+                        warm=slot["warm"], want_converged=False)
+                    meas_c = self._fetch_measure(cand)
+                    _metrics.inc("solve.sweeps", meas_c["iters"])
             # accept when converged, or when every scenario already sits
             # inside the rescue-tolerance ladder
             tol_lp, tol_qp = self._straggler_tols()
@@ -228,12 +264,21 @@ class SPOpt(SPBase):
                                    & (meas_c["dua"] <= tol_s)))):
                 sol, meas = cand, meas_c
                 slot["age"] = slot.get("age", 0) + 1
+                if lowered:
+                    _metrics.inc("precision.lowered_accepted")
             else:
                 _metrics.inc("solve.frozen_rejected")
         if sol is None:
+            # the refresh runs at full precision end to end (doc/
+            # precision.md: refresh solves are never lowered), so ref_worst
+            # below is a full-precision floor for the guard to anchor on
+            st_adpt = self.admm_settings
+            if st_adpt.sweep_precision not in (None, "highest"):
+                st_adpt = dataclasses.replace(st_adpt,
+                                              sweep_precision="highest")
             with _trace.span(None, "solve.refresh"):
                 sol, factors, _ = segmented.solve_factored_segmented(
-                    frozen_fn, factored_fn, args, self.admm_settings,
+                    frozen_fn, factored_fn, args, st_adpt,
                     warm=slot.get("warm") if warm else None, shared=shared,
                     want_converged=False)
                 slot["factors"] = factors
@@ -241,6 +286,10 @@ class SPOpt(SPBase):
                 slot["age"] = 1
                 meas = self._fetch_measure(sol)
                 _metrics.inc("solve.sweeps", meas["iters"])
+            # the full-precision residual floor of this family at this
+            # operating point: the guard's reference
+            slot["ref_worst"] = float(max(np.max(meas["pri"]),
+                                          np.max(meas["dua"])))
             sol, meas = self._rescue_stragglers(
                 sol, args[0], args[1], args[5], args[6], meas=meas)
         # divergence observability: billed on the increase only
