@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (tpusppy_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernels,golden,loop,farmer,uc_lite,uc]
+    python3 chip_smoke.py [--phases kernels,golden,loop,farmer,uc_lite,uc,
+                                    precision,wheel]
 
 Run from the root of a checkout on a machine with one CUDA device and the
 CUDA toolkit (nvcc).  Phases, each printing a line:
@@ -32,7 +33,8 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    uc_lite S=3 (3 generators, 6 hours) and full-width uc S=10 (30
    generators, 24 hours) PH, each against its HiGHS EF; the uc one also
    on the tensor path, its eobj held to the kernel run's after every
-   iteration;
+   iteration, and as the hub of a wheel whose Lagrangian spoke bounds from
+   donor duals alone: that outer bound at most the EF + 1e-6 |EF|;
 5. loop: the sweep loop on the card (CUDA-graph replays of L blocks, the
    host reading one stop flag a replay) held against L=1 for each engine:
    an adaptive and a frozen solve at each golden's shape in f64 (the same
@@ -62,7 +64,24 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    resident mode, uc_lite-1000 only the streamed mode, the uc paths only
    the structured mode, and keep no dense (n, n) K^-1 in their
    factors; each prints its PH rate, flag reads (``admm.loop_checks``) and
-   host syncs per PH iteration, graph replays and the capture seconds.
+   host syncs per PH iteration, graph replays and the capture seconds;
+7. precision: the main paths with their frozen sweeps lowered;
+8. wheel: the farmer-1000 wheel through ``WheelSpinner.spin()`` (the main
+   path's PH as the hub, 100 iterations at most, rel_gap 1e-3, abs_gap
+   1, with the Lagrangian, XhatShuffle and XhatXbar spokes, each cylinder
+   on a CUDA stream of its own): the certified outer bound at most the
+   HiGHS EF + 1e-6 |EF| and above the hub's trivial bound, the inner
+   bound (an f32 objective at a fixed first stage) within 1e-2 of the EF
+   and above it less 1e-4, outer <= inner, the first stage within the
+   land, every spoke posting a bound, every cylinder launching
+   ``fused_sweeps`` and no other sweep kernel (its thread's own counts),
+   distinct non-default streams, and no graph captures after the hub's
+   halfway iteration; it prints the gap, the hub's PH rate in the wheel
+   beside the farmer phase's alone, where and why the hub stopped, and
+   each cylinder's launches and host syncs.  Then uc-1000's hub and a
+   Lagrangian spoke that bounds from donor duals alone (bench_uc.py's
+   full-scale settings, the budget cut to 60 s): a finite outer bound
+   above the hub's trivial bound, and at least one donor used.
 
 ``--phases`` runs a subset; the result lines print only when all ran.
 Prints a ``{"kernels": [...]}`` line, then as the last line
@@ -839,6 +858,17 @@ def phase_golden(cuda_kernels):
           f"uc golden eobj {k['eobj']} not within 1e-2 of EF {ef_obj}")
     check(k["tbound"] <= ef_obj + 1e-6 * abs(ef_obj),
           f"uc golden trivial bound {k['tbound']} above EF {ef_obj}")
+    # the same PH as the hub of a wheel whose Lagrangian spoke bounds from
+    # donor duals alone: certified against the optimum
+    ws, _, _ = uc_donor_wheel(cuda_kernels, "golden uc S=10", 10,
+                              UC_FULL_GOLDEN_ITERS, UC_FULL_GOLDEN_OPTIONS,
+                              "float64", 1e-8)
+    print(f"golden uc S=10 wheel: outer {ws.BestOuterBound:.6f} against EF "
+          f"{ef_obj:.6f}, rel {(ws.BestOuterBound - ef_obj) / abs(ef_obj):.3e}",
+          flush=True)
+    check(ws.BestOuterBound <= ef_obj + 1e-6 * abs(ef_obj),
+          f"uc golden wheel outer bound {ws.BestOuterBound} above EF "
+          f"{ef_obj}")
 
 
 # the sweep loop's f64 solutions at L and at L=1: the same operations in
@@ -1428,6 +1458,255 @@ def phase_precision(cuda_kernels, main):
     return out
 
 
+#: The farmer-1000 wheel: the main path's PH (f32, eps 1e-5, rho 1) as its
+#: hub, 100 iterations at most, with the Lagrangian, XhatShuffle (3 donors
+#: a pass) and XhatXbar spokes solving in f64, on one card (bench.py's
+#: wheel at the repo's full farmer size).
+WHEEL_ITERS = 100
+WHEEL_HUB = {"rel_gap": 1e-3, "abs_gap": 1.0, "linger_secs": 5.0}
+WHEEL_SOLVER = {"dtype": "float32", "eps_abs": 1e-5, "eps_rel": 1e-5}
+#: uc-1000's hub and Lagrangian spoke: the uc phase's PH, 10 iterations,
+#: the spoke bounding from donor duals alone (bench_uc.py:442-448, the
+#: donors' budget cut from 120 to 60 s to fit the time limit)
+UC_WHEEL_ITERS = 10
+UC_DONORS = {"k": 24, "budget_s": 60, "time_limit": 20}
+
+
+def wheel_dicts(make_opt_kwargs, spokes, hub_options, extensions):
+    """(hub_dict, spoke dicts) of a PH hub and ``spokes`` (spoke class, opt
+    class, more options), each cylinder's opt built from
+    ``make_opt_kwargs()``; the hub's opt takes ``extensions``."""
+    from tpusppy_torch.cylinders import PHHub
+    from tpusppy_torch.opt.ph import PH
+
+    def spoke(sc, oc, extra):
+        kw = make_opt_kwargs()
+        kw["options"].update(extra)
+        return {"spoke_class": sc, "opt_class": oc, "opt_kwargs": kw}
+
+    hub = {"hub_class": PHHub, "hub_kwargs": {"options": hub_options},
+           "opt_class": PH,
+           "opt_kwargs": dict(make_opt_kwargs(), extensions=extensions)}
+    return hub, [spoke(*sp) for sp in spokes]
+
+
+def wheel_clock():
+    """A hub extension that stamps the end of Iter0 and of every
+    iteration, with the graph captures so far (all cylinders)."""
+    from tpusppy_torch.extensions.extension import Extension
+    from tpusppy_torch.obs import metrics
+
+    class WheelClock(Extension):
+        def post_iter0(self):
+            self.opt.stamps = [(0, time.perf_counter(),
+                                metrics.value("device_loop.captures"))]
+
+        def enditer(self):
+            self.opt.stamps.append((self.opt._iter, time.perf_counter(),
+                                    metrics.value("device_loop.captures")))
+
+    return WheelClock
+
+
+def spin(hub, spokes):
+    """Spin a wheel; returns (spinner, wall seconds)."""
+    from tpusppy_torch.spin_the_wheel import WheelSpinner
+
+    t0 = time.perf_counter()
+    ws = WheelSpinner(hub, spokes).spin()
+    return ws, time.perf_counter() - t0
+
+
+def print_cylinders(label, ws, hub_iters):
+    """Each cylinder's launches (its thread's own view), launches per hub
+    iteration, host syncs, solves, host-exact straggler re-solves and
+    stream."""
+    for name, st in ws.stats.items():
+        launches = {f"{t}:{k}": v for (t, k), v in st["launches"].items()}
+        n = st["launches"].get(("launches", "fused_sweeps"), 0) + \
+            st["launches"].get(("launches", "fused_sweeps_sparse"), 0)
+        print(f"{label} {name}: launches={launches} "
+              f"per_hub_iter={n / max(hub_iters, 1):.2f} "
+              f"host_syncs={st['host_syncs']} solves={st['solves']} "
+              f"rescued={st['rescued']} stream={st['stream']}",
+              flush=True)
+
+
+def check_cylinders(label, ws, kernel, spoke_kernel):
+    """The hub launched ``kernel`` and each spoke ``spoke_kernel`` (None:
+    nothing), and no other sweep kernel or plain version, each cylinder on
+    a stream of its own that is not the default."""
+    import torch
+
+    streams = [st["stream"] for st in ws.stats.values()]
+    check(None not in streams and len(set(streams)) == len(streams)
+          and torch.cuda.default_stream().cuda_stream not in streams,
+          f"{label}: the cylinders' streams {streams} are not distinct "
+          "non-default streams")
+    for name, st in ws.stats.items():
+        want = kernel if name.startswith("hub:") else spoke_kernel
+        sweep = {k: v for k, v in st["launches"].items()
+                 if k[0] in ("launches", "plain_calls") and v}
+        check(set(sweep) == ({("launches", want)} if want else set()),
+              f"{label} {name}: launched {sweep}, wanted {want} only")
+    check(not ws.spoke_errors and not ws.hung_spokes,
+          f"{label}: spoke errors {ws.spoke_errors}, hung "
+          f"{ws.hung_spokes}")
+
+
+def farmer_wheel_kwargs(S, cm):
+    from tpusppy_torch.models import farmer
+
+    return {"options": {"defaultPHrho": 1.0, "PHIterLimit": WHEEL_ITERS,
+                        "convthresh": -1.0, "batch_cache": True,
+                        "xhat_looper_options": {"scen_limit": 3},
+                        "solver_options": dict(WHEEL_SOLVER)},
+            "all_scenario_names": farmer.scenario_names_creator(S),
+            "scenario_creator": farmer.scenario_creator,
+            "scenario_creator_kwargs": {"num_scens": S,
+                                        "crops_multiplier": cm}}
+
+
+def uc_wheel_kwargs(S, iters, options, dtype, eps):
+    from tpusppy_torch.models import uc
+
+    return {"options": dict(options, PHIterLimit=iters, batch_cache=True,
+                            lagrangian_dual_donors=dict(UC_DONORS),
+                            lagrangian_skip_solve=True,
+                            solver_options=dict(UC_SOLVER, dtype=dtype,
+                                                eps_abs=eps, eps_rel=eps)),
+            "all_scenario_names": uc.scenario_names_creator(S),
+            "scenario_creator": uc.scenario_creator,
+            "scenario_creator_kwargs": {"num_scens": S,
+                                        "relax_integers": True}}
+
+
+def uc_donor_wheel(cuda_kernels, label, S, iters, options, dtype, eps):
+    """uc at full width: a PH hub and a Lagrangian spoke that bounds from
+    donor duals alone; returns (spinner, wall seconds, donors used)."""
+    from tpusppy_torch.cylinders import LagrangianOuterBound
+    from tpusppy_torch.phbase import PHBase
+    from tpusppy_torch.spbase import clear_batch_cache
+
+    clear_batch_cache()
+    hub, spokes = wheel_dicts(
+        lambda: uc_wheel_kwargs(S, iters, options, dtype, eps),
+        [(LagrangianOuterBound, PHBase, {})], {}, None)
+    ws, wall = spin(hub, spokes)
+    clear_batch_cache()
+    donors = getattr(ws.spoke_comms[0].opt, "donor_duals_used", 0)
+    print(f"{label} hub+Lagrangian wheel {dtype}: outer="
+          f"{ws.BestOuterBound:.6e} (hub trivial bound "
+          f"{ws.opt.trivial_bound:.6e}) hub eobj={ws.opt.Eobjective():.6e} "
+          f"donor duals used={donors} hub iters={ws.spcomm.stopped_at} "
+          f"bounds posted={ws.spoke_comms[0].bounds_posted} "
+          f"wall_s={wall:.2f} gap_wall_secs={ws.gap_wall_secs:.2f}",
+          flush=True)
+    print_cylinders(label, ws, ws.opt._iter)
+    # the spoke skips its batched solve: the donors are its bound
+    check_cylinders(label, ws, "fused_sweeps_sparse", None)
+    check(np.isfinite(ws.BestOuterBound)
+          and ws.BestOuterBound >= ws.opt.trivial_bound,
+          f"{label}: outer bound {ws.BestOuterBound} not finite and above "
+          f"the trivial bound {ws.opt.trivial_bound}")
+    check(donors >= 1, f"{label}: no donor dual was used")
+    return ws, wall, donors
+
+
+def phase_wheel(cuda_kernels, main):
+    """The wheel on the card: the farmer-1000 wheel (PH hub, Lagrangian,
+    XhatShuffle and XhatXbar spokes, each cylinder on a CUDA stream of its
+    own), held to the HiGHS EF, and the uc-1000 hub-and-Lagrangian wheel
+    with donor duals.  ``main``: the main phases' results (the farmer
+    phase's EF and PH rate alone, run here when it did not run)."""
+    from tpusppy_torch.cylinders import (LagrangianOuterBound,
+                                         XhatShuffleInnerBound,
+                                         XhatXbarInnerBound)
+    from tpusppy_torch.ef import solve_ef
+    from tpusppy_torch.phbase import PHBase
+    from tpusppy_torch.spbase import clear_batch_cache
+    from tpusppy_torch.xhat_eval import Xhat_Eval
+
+    label, S, cm = "wheel farmer-1000 cm=4", 1000, 4
+    alone = main.get("farmer-1000 cm=4")
+    if alone is None:
+        _, alone = run_path(cuda_kernels, "fused_sweeps",
+                            lambda o, ext: farmer_ph(S, cm, o,
+                                                     extensions=ext),
+                            "auto", WHEEL_ITERS,
+                            {"defaultPHrho": 1.0, "convthresh": 1e-6})
+    clear_batch_cache()
+    # the spokes' solves are LPs (prox off; nonants fixed).  In f32 they
+    # park at residuals of 1e-3 to 1e-2 at farmer-1000, the reference's
+    # f32 solves as much as the port's (scripts/port_wheel_host.py, and
+    # tests/test_torch_xhat.py against the reference): no candidate passes
+    # the reference's 1e-3 feasibility gate, and the certified Lagrangian
+    # bound of f32 duals falls far below the EF.  So the spokes solve in
+    # f64, still through fused_sweeps, with the reference's defaults: the
+    # 1e-3 gate and at most 64 host-exact straggler rescues a solve
+    spoke_opts = {"solver_options": dict(WHEEL_SOLVER, dtype="float64")}
+    hub, spokes = wheel_dicts(
+        lambda: farmer_wheel_kwargs(S, cm),
+        [(LagrangianOuterBound, PHBase, spoke_opts),
+         (XhatShuffleInnerBound, Xhat_Eval, spoke_opts),
+         (XhatXbarInnerBound, Xhat_Eval, spoke_opts)], WHEEL_HUB,
+        wheel_clock())
+    ws, wall = spin(hub, spokes)
+    clear_batch_cache()
+    ef = alone.get("ef")
+    if ef is None:
+        ef, _ = solve_ef(ws.opt.batch, solver="highs")
+    ob, ib = ws.BestOuterBound, ws.BestInnerBound
+    abs_gap, rel_gap = ws.spcomm.compute_gaps()
+    stamps = ws.opt.stamps
+    it_done, reason = ws.spcomm.stopped_at
+    rate = (stamps[-1][0] / (stamps[-1][1] - stamps[0][1])
+            if len(stamps) > 1 else float("nan"))
+    half = next(c for k, _, c in stamps if k >= it_done // 2)
+    print(f"{label}: outer={ob:.4f} inner={ib:.4f} EF={ef:.4f} "
+          f"(outer-EF)/|EF|={(ob - ef) / abs(ef):.3e} "
+          f"(inner-EF)/|EF|={(ib - ef) / abs(ef):.3e} rel_gap={rel_gap:.3e} "
+          f"abs_gap={abs_gap:.4f} hub trivial bound="
+          f"{ws.opt.trivial_bound:.4f}; hub stopped at iteration {it_done} "
+          f"({reason}); hub PH it/s in the wheel {rate:.3f} against "
+          f"{alone['rate']:.3f} alone; bounds posted "
+          f"{[c.bounds_posted for c in ws.spoke_comms]}; graph captures at "
+          f"hub iteration {it_done // 2}: {half:.0f}, at the end: "
+          f"{stamps[-1][2]:.0f}; wall_s={wall:.2f} "
+          f"gap_wall_secs={ws.gap_wall_secs:.2f} {CARD}", flush=True)
+    print_cylinders(label, ws, it_done)
+    check_cylinders(label, ws, "fused_sweeps", "fused_sweeps")
+    check(np.isfinite(ob) and ob <= ef + 1e-6 * abs(ef),
+          f"{label}: outer bound {ob} not finite and at most EF {ef}")
+    check(ob > ws.opt.trivial_bound, f"{label}: outer bound {ob} not above "
+          f"the hub's trivial bound {ws.opt.trivial_bound}")
+    # the inner bound is an ADMM objective at a fixed first stage, not a
+    # certified number: held to the main path's f32 level
+    check(np.isfinite(ib) and abs(ib - ef) <= 1e-2 * abs(ef)
+          and ib >= ef - 1e-4 * abs(ef),
+          f"{label}: inner bound {ib} not within 1e-2 of EF {ef} (and "
+          "above it less 1e-4)")
+    check(ob <= ib, f"{label}: outer bound {ob} above inner {ib}")
+    cache = ws.local_nonant_cache
+    check(cache is not None and cache[0].sum() <= 500 * cm + 1e-3,
+          f"{label}: the first stage plants more than {500 * cm} acres")
+    check(all(c.bounds_posted > 0 for c in ws.spoke_comms),
+          f"{label}: a spoke posted no bound")
+    check(stamps[-1][2] == half, f"{label}: graph captures grew from "
+          f"{half} at hub iteration {it_done // 2} to {stamps[-1][2]}")
+    out = {"farmer": dict(outer=ob, inner=ib, ef=ef, rel_gap=rel_gap,
+                          abs_gap=abs_gap, rate=rate, alone=alone["rate"],
+                          stopped=(it_done, reason), stats=ws.stats,
+                          gap_wall_secs=ws.gap_wall_secs)}
+
+    ws, wall, donors = uc_donor_wheel(
+        cuda_kernels, "wheel uc-1000", 1000, UC_WHEEL_ITERS,
+        UC_MAIN_OPTIONS, "float32", 1e-5)
+    out["uc"] = dict(outer=ws.BestOuterBound, donors=donors,
+                     trivial=ws.opt.trivial_bound, stats=ws.stats)
+    return out
+
+
 def kernel_line(name, source, replaces, launches, res):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1437,7 +1716,7 @@ def kernel_line(name, source, replaces, launches, res):
 
 
 PHASES = ("kernels", "golden", "loop", "farmer", "uc_lite", "uc",
-          "precision")
+          "precision", "wheel")
 
 
 def main(argv=None) -> int:
@@ -1522,9 +1801,16 @@ def main(argv=None) -> int:
                 lambda o, ext: uc_full_ph(1000, o, extensions=ext), 30,
                 10, UC_MAIN_OPTIONS, solver=UC_SOLVER,
                 ef=False)
+        if phases & {"farmer", "uc_lite", "uc"}:
+            print(f"[{time.perf_counter() - t_all:.1f} s] main paths done",
+                  flush=True)
         if "precision" in phases:
             prec = phase_precision(cuda_kernels, main_runs)
             print(f"[{time.perf_counter() - t_all:.1f} s] precision done",
+                  flush=True)
+        if "wheel" in phases:
+            phase_wheel(cuda_kernels, main_runs)
+            print(f"[{time.perf_counter() - t_all:.1f} s] wheel done",
                   flush=True)
     except PhaseError as e:
         print(f"FAIL: {e}", flush=True)

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Where a PH iteration of the PyTorch/CUDA port spends its time on the card.
 
-    python3 scripts/port_profile.py [--model farmer|uc_lite|uc] [--scens 1000]
-                                    [--crops-multiplier 4]
+    python3 scripts/port_profile.py [--model farmer|uc_lite|uc|wheel]
+                                    [--scens 1000] [--crops-multiplier 4]
                                     [--warm-iters 20] [--iters 5]
+                                    [--spoke-dtype float64]
+                                    [--lagrangian-rescue-cap 64]
 
 Runs PH (float32, eps 1e-5) through ``tpusppy_torch`` on one CUDA device,
 on farmer (``--crops-multiplier``; rho 1, the dense engine), on uc_lite at
@@ -26,6 +28,17 @@ iteration (device kernels, and hand-written kernel launches in the traced
 window, which tell a frozen iteration from a refresh, also by each
 kernel's mode), and the top device kernels by time.  Imports nothing of
 JAX.
+
+``--model wheel`` profiles the farmer wheel instead (the farmer PH as the
+hub of ``WheelSpinner``, with the Lagrangian, XhatShuffle and XhatXbar
+spokes, each cylinder on a CUDA stream of its own, no gap termination):
+the windows are hub iterations while the spokes run, the busy share is
+that of the whole card (every cylinder's kernels), and each cylinder's
+launches per hub iteration, solves and host-exact straggler re-solves are
+added.  The spokes solve in ``--spoke-dtype`` (f64, as in chip_smoke.py's
+wheel) and the Lagrangian rescues at most ``--lagrangian-rescue-cap``
+stragglers a solve (64, the default of the reference and the port), so
+two runs that differ in one of them show what it costs the hub.
 """
 
 import argparse
@@ -57,12 +70,15 @@ def busy_seconds(events):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("farmer", "uc_lite", "uc"),
+    ap.add_argument("--model", choices=("farmer", "uc_lite", "uc", "wheel"),
                     default="farmer")
     ap.add_argument("--scens", type=int, default=1000)
     ap.add_argument("--crops-multiplier", type=int, default=4)
     ap.add_argument("--warm-iters", type=int, default=20)
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--spoke-dtype", choices=("float32", "float64"),
+                    default="float64")
+    ap.add_argument("--lagrangian-rescue-cap", type=int, default=64)
     args = ap.parse_args()
 
     import torch
@@ -79,6 +95,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     S, cm = args.scens, args.crops_multiplier
     solver = {"dtype": "float32", "eps_abs": 1e-5, "eps_rel": 1e-5}
+    if args.model == "wheel":
+        return profile_wheel(args, solver)
     if args.model == "farmer":
         model, rho = farmer, 1.0
         kw = {"num_scens": S, "crops_multiplier": cm}
@@ -133,9 +151,7 @@ def main():
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     sweep_s = sum((e.time_range.end - e.time_range.start) * 1e-6
                   for e in dev if "fused_sweeps" in e.name) / n
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
+    smi = card()
     print(json.dumps({
         "card": smi, "model": args.model, "scens": S,
         "crops_multiplier": cm if args.model == "farmer" else None,
@@ -162,6 +178,107 @@ def main():
                                 ("fused_sweeps_sparse",
                                  cuda_kernels.sparse_modes))},
         "top_kernels_s_per_iter": top}), flush=True)
+    return 0
+
+
+def card():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+
+
+def profile_wheel(args, solver):
+    """The farmer wheel's hub iterations ``warm+1 .. warm+n`` on the host
+    clock, then ``n`` more under ``torch.profiler`` (started and stopped
+    by a hub extension), while the spokes run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpusppy_torch.cylinders import (LagrangianOuterBound, PHHub,
+                                         XhatShuffleInnerBound,
+                                         XhatXbarInnerBound)
+    from tpusppy_torch.extensions.extension import Extension
+    from tpusppy_torch.models import farmer
+    from tpusppy_torch.obs import metrics
+    from tpusppy_torch.opt.ph import PH
+    from tpusppy_torch.phbase import PHBase
+    from tpusppy_torch.spin_the_wheel import WheelSpinner
+    from tpusppy_torch.xhat_eval import Xhat_Eval
+
+    S, cm, w, n = (args.scens, args.crops_multiplier, args.warm_iters,
+                   args.iters)
+    marks = {}
+
+    class Window(Extension):
+        def enditer(self):
+            k = self.opt._iter
+            if k == w:
+                marks["win"] = metrics.window().__enter__()
+                marks["t0"] = time.perf_counter()
+            elif k == w + n:
+                marks["wall"] = (time.perf_counter() - marks["t0"]) / n
+                marks["syncs"] = marks["win"].delta("host_sync.count") / n
+                marks["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                    ProfilerActivity.CUDA])
+                marks["prof"].__enter__()
+                marks["t1"] = time.perf_counter()
+            elif k == w + 2 * n:
+                marks["prof"].__exit__(None, None, None)
+                marks["traced"] = (time.perf_counter() - marks["t1"]) / n
+
+    def okw():
+        return {"options": {"defaultPHrho": 1.0, "PHIterLimit": w + 2 * n,
+                            "convthresh": -1.0, "batch_cache": True,
+                            "xhat_looper_options": {"scen_limit": 3},
+                            "solver_options": dict(solver)},
+                "all_scenario_names": farmer.scenario_names_creator(S),
+                "scenario_creator": farmer.scenario_creator,
+                "scenario_creator_kwargs": {"num_scens": S,
+                                            "crops_multiplier": cm}}
+
+    hub = {"hub_class": PHHub, "hub_kwargs": {"options": {}},
+           "opt_class": PH, "opt_kwargs": dict(okw(), extensions=Window)}
+    spokes = []
+    spoke_solver = dict(solver, dtype=args.spoke_dtype)
+    for sc, oc, extra in ((LagrangianOuterBound, PHBase,
+                           {"straggler_lp_max": args.lagrangian_rescue_cap}),
+                          (XhatShuffleInnerBound, Xhat_Eval, {}),
+                          (XhatXbarInnerBound, Xhat_Eval, {})):
+        kw = okw()
+        kw["options"].update(extra, solver_options=spoke_solver)
+        spokes.append({"spoke_class": sc, "opt_class": oc,
+                       "opt_kwargs": kw})
+    ws = WheelSpinner(hub, spokes).spin()
+    dev = [e for e in marks["prof"].events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        print("FAIL: the profiler recorded no device kernels", flush=True)
+        return 1
+    busy = busy_seconds(dev) / n
+    sweep_s = sum((e.time_range.end - e.time_range.start) * 1e-6
+                  for e in dev if "fused_sweeps" in e.name) / n
+    iters = ws.opt._iter
+    print(json.dumps({
+        "card": card(), "model": "wheel", "scens": S, "crops_multiplier": cm,
+        "spoke_dtype": args.spoke_dtype,
+        "lagrangian_rescue_cap": args.lagrangian_rescue_cap,
+        "iters": n, "hub_wall_s_per_iter": marks["wall"],
+        "traced_wall_s_per_iter": marks["traced"],
+        "device_busy_s_per_iter": busy,
+        "idle_share": 1.0 - busy / marks["wall"],
+        "idle_share_of_traced_wall": 1.0 - busy / marks["traced"],
+        "device_kernels_per_iter": len(dev) / n,
+        "sweep_kernel_s_per_iter": sweep_s,
+        "hub_host_syncs_per_iter_all_cylinders": marks["syncs"],
+        "launches_per_hub_iter": {
+            name: {f"{t}:{k}": v / iters for (t, k), v in
+                   st["launches"].items() if t == "launches"}
+            for name, st in ws.stats.items()},
+        "host_syncs_per_hub_iter": {name: st["host_syncs"] / iters
+                                    for name, st in ws.stats.items()},
+        "solves": {name: st["solves"] for name, st in ws.stats.items()},
+        "rescued": {name: st["rescued"] for name, st in ws.stats.items()}}),
+        flush=True)
     return 0
 
 

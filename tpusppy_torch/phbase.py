@@ -9,7 +9,9 @@ the batched ADMM solve.
 
 The device-resident megastep (N iterations per dispatch) is not part of this
 slice: every iteration runs the legacy loop, the path the reference takes
-under ``solver_options={"megastep": 1}``.
+under ``solver_options={"megastep": 1}``.  In a wheel the opt object's
+``spcomm`` (its hub or spoke communicator) syncs after Iter0 and after every
+iteration and may end the loop (``is_converged``).
 """
 
 from __future__ import annotations
@@ -66,6 +68,16 @@ class PHBase(SPOpt):
         return ((num / den)[self.nid_sk, kidx],
                 (sqnum / den)[self.nid_sk, kidx])
 
+    @property
+    def sync_version(self):
+        """Monotone token of the hub-visible PH state (W, nonants,
+        iteration): the hub's mailbox writes skip when it has not
+        advanced."""
+        return (self._iter, getattr(self, "_state_version", 0))
+
+    def _bump_state_version(self):
+        self._state_version = getattr(self, "_state_version", 0) + 1
+
     def Compute_Xbar(self, verbose=False):
         """Per-node weighted averages of nonants (phbase.py:27-107)."""
         xk = self._nonants_cached()
@@ -77,6 +89,7 @@ class PHBase(SPOpt):
         """Dual update W += rho (x - xbar) (phbase.py:293-318)."""
         xk = self._nonants_cached()
         self.W = self.W + self.rho * (xk - self.xbars)
+        self._bump_state_version()
         if verbose:
             global_toc(f"W[0][:8]={self.W[0][:8]}")
 
@@ -163,6 +176,9 @@ class PHBase(SPOpt):
         self.Update_W()
         self.conv = self.convergence_diff()
         self.extobject.post_iter0()
+        if self.spcomm is not None:
+            self.spcomm.sync()
+            self.extobject.post_iter0_after_sync()
         global_toc(
             f"Iter0 trivial bound {self.trivial_bound:.4f} conv {self.conv:.3e}",
             self.options.get("display_progress", False),
@@ -194,6 +210,12 @@ class PHBase(SPOpt):
             if _trace.enabled():
                 _sp.add(iter=k, conv=self.conv)
             self.extobject.enditer()
+        if self.spcomm is not None:
+            self.spcomm.sync()
+            self.extobject.enditer_after_sync()
+            if self.spcomm.is_converged():
+                global_toc("Cylinder termination", True)
+                return None
         if self.options.get("display_progress", False):
             global_toc(f"PH iter {k} conv {self.conv:.6e} "
                        f"Eobj {self.Eobjective():.4f}")

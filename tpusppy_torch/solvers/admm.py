@@ -360,7 +360,7 @@ def _xla_sweeps(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, x, z, zx, y,
     path's block (``use_kernel=False``) at "default" and "high" (bf16x3),
     the A', K^-1 and A products lowered, the K defect exact.  Returns the
     inputs where ``stop`` is set, as the plain versions do."""
-    cuda_kernels.plain_calls["fused_sweeps"] += 1
+    cuda_kernels.bump("plain_calls", "fused_sweeps")
     state_in = (x, z, zx, y, yx, Ax)
     sigma, alpha, beta = float(sigma), float(alpha), 1.0 - float(alpha)
 
@@ -522,8 +522,10 @@ def _solve_scaled(q, q2, A, cl, cu, lb, ub, warm, masks, st: ADMMSettings):
 
 def _solve_linear(M, rhs):
     """Batched ``solve(M, rhs)``; a singular system yields NaN for that
-    scenario instead of raising (JAX's behaviour)."""
-    sol, info = torch.linalg.solve_ex(M, rhs.unsqueeze(-1))
+    scenario instead of raising (JAX's behaviour).  On the card it waits
+    for any other thread's graph capture to end, which it would break."""
+    with device_loop.outside_capture(M.device):
+        sol, info = torch.linalg.solve_ex(M, rhs.unsqueeze(-1))
     return torch.where((info == 0)[:, None], sol.squeeze(-1), torch.nan)
 
 

@@ -34,7 +34,17 @@ PyTorch transcription of the same recurrence (the CPU path, and the oracle
 the kernel is held against on the card).  There is no fallback on failure.
 Launches are counted per kernel and, for each kernel's modes, per mode; a
 launch captured into a CUDA graph is counted by each replay of the graph
-(:func:`counts`, :func:`add_counts`, used by :mod:`.device_loop`).
+(:func:`counts`, :func:`add_counts`, used by :mod:`.device_loop`).  Each
+count is kept process-wide (the module's tables) and in a view of the
+calling thread (``counts(local=True)``), so the cylinders of a wheel, each
+on a thread of its own, read their own launches.
+
+Cylinders launch the kernels concurrently, each from its own CUDA stream
+(every wrapper launches on the current stream).  What the wrappers keep
+between calls belongs to an *owner* (:func:`owned_by`; by default the
+calling thread): the operand made of a set of matrices (:func:`_cached`) is
+kept per owner, and :mod:`.device_loop` keys its captured loops by owner,
+so no two cylinders share buffers, graphs or operands.
 
 Every wrapper and plain version takes ``precision``, a mode of
 :mod:`.precision` (an unknown one raises ``ValueError``), at which the
@@ -67,6 +77,7 @@ module loads.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -158,22 +169,78 @@ _lib_lock = threading.Lock()
 build_log: dict = {}
 
 
+_count_lock = threading.Lock()
+_local = threading.local()
+#: Every thread's view of the counts, by thread ident.
+_views: dict = {}
+
+
+def _view() -> dict:
+    """The calling thread's count tables (made on first use)."""
+    v = getattr(_local, "counts", None)
+    if v is None:
+        v = _local.counts = {t: dict.fromkeys(d, 0)
+                             for t, d in _COUNTS.items()}
+        with _count_lock:
+            _views[threading.get_ident()] = v
+    return v
+
+
+def bump(table, key, n=1):
+    """Count ``n`` in ``table`` (a name of :data:`_COUNTS`) under ``key``,
+    process-wide and in the calling thread's view."""
+    view = _view()
+    with _count_lock:
+        _COUNTS[table][key] += n
+        view[table][key] += n
+
+
 def reset_counts():
-    for d in _COUNTS.values():
-        for k in d:
-            d[k] = 0
+    """Zero every count, process-wide and in every thread's view."""
+    with _count_lock:
+        for tables in (_COUNTS, *_views.values()):
+            for d in tables.values():
+                for k in d:
+                    d[k] = 0
 
 
-def counts() -> dict:
-    """Every launch and plain-call count, flat: ``{(table, key): n}``."""
-    return {(t, k): v for t, d in _COUNTS.items() for k, v in d.items()}
+def counts(local=False) -> dict:
+    """Every launch and plain-call count, flat: ``{(table, key): n}``;
+    ``local``: the calling thread's view."""
+    tables = _view() if local else _COUNTS
+    with _count_lock:
+        return {(t, k): v for t, d in tables.items() for k, v in d.items()}
 
 
 def add_counts(delta: dict):
     """Add a :func:`counts`-shaped delta (what one CUDA-graph replay
-    launches) to the counts."""
-    for (t, k), v in delta.items():
-        _COUNTS[t][k] += v
+    launches) to the counts and to the calling thread's view."""
+    view = _view()
+    with _count_lock:
+        for (t, k), v in delta.items():
+            _COUNTS[t][k] += v
+            view[t][k] += v
+
+
+def current_owner():
+    """The owner of what the wrappers and the sweep loop keep between
+    calls: the token of the innermost :func:`owned_by`, else the calling
+    thread."""
+    tok = getattr(_local, "owner", None)
+    return ("thread", threading.get_ident()) if tok is None else tok
+
+
+@contextlib.contextmanager
+def owned_by(token):
+    """Run the body as ``token``'s (any hashable; a wheel passes each
+    cylinder's opt object): its operands and captured loops are its own.
+    :func:`.device_loop.release` frees them."""
+    prev = getattr(_local, "owner", None)
+    _local.owner = token
+    try:
+        yield
+    finally:
+        _local.owner = prev
 
 
 def _gate(stop, ins, outs):
@@ -186,7 +253,8 @@ def _gate(stop, ins, outs):
     return tuple(torch.where(stopped, i, o) for i, o in zip(ins, outs))
 
 
-#: A clear stop flag per device, for wrappers called without one.
+#: A clear stop flag per device and stream, for wrappers called without
+#: one (made and first read on the same stream).
 _CLEAR: dict = {}
 
 
@@ -194,9 +262,11 @@ def _stop_ptr(stop, dev):
     """The stop flag's device pointer, checked: a one-element int32 tensor
     on the kernel's device (a clear one where ``stop`` is None)."""
     if stop is None:
-        stop = _CLEAR.get(dev)
+        key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+        stop = _CLEAR.get(key)
         if stop is None:
-            stop = _CLEAR[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+            stop = _CLEAR.setdefault(
+                key, torch.zeros(1, dtype=torch.int32, device=dev))
     if stop.numel() != 1 or stop.dtype != torch.int32 or stop.device != dev:
         raise ValueError(f"stop must be one int32 on {dev}; got "
                          f"{tuple(stop.shape)} {stop.dtype} on {stop.device}")
@@ -296,31 +366,45 @@ def _prec_code(precision) -> int:
     return {"highest": 0, "default": 1, "high": 2}[canon(precision)]
 
 
-#: The last operand each maker made: (its tensors, their versions, the
-#: key, the operand); holding the tensors keeps their identity unique.
+#: The last operand each maker made for each owner, by (owner, name):
+#: (its tensors, their versions, the key, the operand); holding the tensors
+#: keeps their identity unique.
 _operand_cache: dict = {}
+_operand_lock = threading.Lock()
 
 
 def _cached(name, tensors, key, make):
     """``make()``, the operand a kernel reads of ``tensors``, kept and
     handed out again while the same tensors, none written since (their
-    version counters), ask with the same ``key``; one kept per ``name``.
-    Refused inside a CUDA-graph capture: a captured loop makes its operand
-    before the capture and hands it to the wrapper."""
+    version counters), ask with the same ``key``; one kept per ``name`` and
+    owner (:func:`current_owner`), so cylinders that alternate do not
+    repack each other's.  Refused inside a CUDA-graph capture: a captured
+    loop makes its operand before the capture and hands it to the
+    wrapper."""
     if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
         raise RuntimeError(
             f"{name} inside a CUDA-graph capture takes the operand made "
             "before it")
+    slot = (current_owner(), name)
     versions = tuple(_version(t) for t in tensors)
-    hit = _operand_cache.get(name)
+    with _operand_lock:
+        hit = _operand_cache.get(slot)
     if hit is not None and None not in versions:
         ts, ver, k, op = hit
         if k == key and ver == versions and all(
                 a is b for a, b in zip(ts, tensors)):
             return op
     op = make()
-    _operand_cache[name] = (tuple(tensors), versions, key, op)
+    with _operand_lock:
+        _operand_cache[slot] = (tuple(tensors), versions, key, op)
     return op
+
+
+def release_operands(token):
+    """Drop every operand kept for the owner ``token``."""
+    with _operand_lock:
+        for slot in [k for k in _operand_cache if k[0] == token]:
+            del _operand_cache[slot]
 
 
 def dense_operand(A, Kinv, precision="default"):
@@ -352,7 +436,7 @@ def fused_sweeps_plain(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
     the working dtype, the defect ``rhs - K xt`` exact; "high" is the exact
     path, as the TPU kernel's."""
     lowered = _dense_lowered(precision)
-    plain_calls["fused_sweeps"] += 1
+    bump("plain_calls", "fused_sweeps")
     state_in = (x, z, zx, y, yx, Ax)
     dt = A.dtype
     Km = Kinv
@@ -708,7 +792,7 @@ def fused_sweeps_shared_plain(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
     call through float32, the operand at every product, the products summed
     in the working dtype); the defect against K stays exact."""
     prec = canon(precision)
-    plain_calls["fused_sweeps_shared"] += 1
+    bump("plain_calls", "fused_sweeps_shared")
     state_in = (x, z, zx, y, yx, Ax)
     g = gamma
     sigma, alpha, beta = float(sigma), float(alpha), 1.0 - float(alpha)
@@ -874,7 +958,7 @@ def fused_sweeps_sparse_plain(q, rowcols, rowvals, colrows, colvals, Kinv,
     ``t - B^-1 w`` exact; the ELL products and the matrix-free defect stay
     exact."""
     prec = canon(precision)
-    plain_calls["fused_sweeps_sparse"] += 1
+    bump("plain_calls", "fused_sweeps_sparse")
     state_in = (x, z, zx, y, yx, Ax)
     rc_t, rv_t, cr_t, cv_t = ell_slot_major((rowcols, rowvals, colrows,
                                              colvals))
@@ -1010,7 +1094,7 @@ def _launch(name, dt, ins, outs, stop, *scalars, entry=0):
         err = fn(in_ptrs, out_ptrs, stop, *scalars, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    launches[name] += 1
+    bump("launches", name)
 
 
 @functools.lru_cache(maxsize=None)
@@ -1064,9 +1148,9 @@ def fused_sweeps(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
     _launch("fused_sweeps", dt, ins, ptrs, stop, S, m, n, int(n_sweeps),
             int(n_refine), mode, nsm, int(lowered), float(sigma),
             float(alpha))
-    dense_modes[lay["mode"]] += 1
+    bump("dense_modes", lay["mode"])
     if lowered:
-        lowered_launches["fused_sweeps:default"] += 1
+        bump("lowered_launches", "fused_sweeps:default")
     return outs
 
 
@@ -1180,9 +1264,9 @@ def fused_sweeps_shared(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, dq2,
         _launch("fused_sweeps_shared", dt, ins, outs, stop, S, m, n,
                 lay["sb"], lay["chunk"], *fixed[:3], _prec_code(prec),
                 *fixed[3:])
-    shared_modes[lay["mode"]] += 1
+    bump("shared_modes", lay["mode"])
     if prec != "highest":
-        lowered_launches[f"fused_sweeps_shared:{prec}"] += 1
+        bump("lowered_launches", f"fused_sweeps_shared:{prec}")
     return outs
 
 
@@ -1276,7 +1360,7 @@ def fused_sweeps_sparse(q, rowcols, rowvals, colrows, colvals, Kinv, diagK,
              parts, float(sigma), float(alpha))
     if wb is None:
         _launch("fused_sweeps_sparse", dt, ins, outs + scratch, stop, *fixed)
-        sparse_modes["dense"] += 1
+        bump("sparse_modes", "dense")
     else:
         pat = wb.pattern
         items, stage = _wb_stage(wb, 4 if dt == torch.float32 else 8, prec)
@@ -1306,7 +1390,7 @@ def fused_sweeps_sparse(q, rowcols, rowvals, colrows, colvals, Kinv, diagK,
         _launch("fused_sweeps_sparse", dt, ins + lay, outs + scratch, stop,
                 *fixed, r, pat.kn, kw, kwc, pat.nb, items.shape[0], pat.pd,
                 stage, pat.bmax, entry=1)
-        sparse_modes["structured"] += 1
+        bump("sparse_modes", "structured")
     if parts:
-        lowered_launches[f"fused_sweeps_sparse:{prec}"] += 1
+        bump("lowered_launches", f"fused_sweeps_sparse:{prec}")
     return outs

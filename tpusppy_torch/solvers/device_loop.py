@@ -38,6 +38,20 @@ On the CPU the same blocks run eagerly, ``L`` a replay, with the same
 replay queued ahead of each flag read, so the CPU tests hold the graph
 body and the protocol themselves.
 
+Several cylinders of a wheel run solves at once, each on a thread and a
+CUDA stream of its own.  A captured loop belongs to its owner
+(:func:`.cuda_kernels.current_owner`: the cylinder's token, else the
+calling thread) and is keyed by it, so two cylinders of the same shapes
+never share buffers or graphs; each owner keeps its own ``CACHE_SIZE``
+loops, so no owner evicts another's, and :func:`release` frees an owner's
+loops when its cylinder ends.  A capture runs on a capture stream of the
+calling thread, claimed (:func:`claim_stream`) so that no other thread's
+stream is the same, in ``capture_error_mode="thread_local"`` (another
+thread's allocation or synchronisation during it is no fault), never
+beside a call that another thread's capture makes fail
+(:func:`outside_capture`), and records the launches of the capturing
+thread alone (``cuda_kernels.counts(local=True)``).
+
 Counters: ``device_loop.captures`` (graphs captured) and
 ``device_loop.capture_secs`` (host time of the captures and their
 warm-ups), ``device_loop.warmups`` (blocks run with the flag set before a
@@ -49,7 +63,10 @@ also a ``host_sync.count``).
 from __future__ import annotations
 
 import collections
+import contextlib
+import threading
 import time
+import weakref
 
 import torch
 
@@ -64,14 +81,31 @@ _WARMUPS = _metrics.counter("device_loop.warmups")
 _REPLAYS = _metrics.counter("device_loop.replays")
 _BLOCKS = _metrics.counter("device_loop.blocks")
 
-#: Captured loops kept (least recently used dropped first); each holds its
-#: graphs' memory pools and its buffers.  A lowered PH run keys four loops
-#: on one engine (the refresh, the lowered phase, the refinement phase and
-#: the guard's full-precision re-run), and a process may drive several.
+#: Captured loops kept per owner (least recently used dropped first); each
+#: holds its graphs' memory pools and its buffers.  A lowered PH run keys
+#: four loops on one engine (the refresh, the lowered phase, the
+#: refinement phase and the guard's full-precision re-run), and an owner
+#: may drive several.
 CACHE_SIZE = 8
 
-_cache: collections.OrderedDict = collections.OrderedDict()
-_streams: dict = {}
+#: owner -> OrderedDict of signature -> _Captured.
+_cache: dict = {}
+_cache_lock = threading.Lock()
+_local = threading.local()
+
+#: Held by a capture from its warm-up to its end, and by
+#: :func:`outside_capture` around the calls that fail on the card while
+#: another thread captures, in thread_local mode too: a batched
+#: ``torch.linalg.solve_ex`` raises "operation not permitted when stream is
+#: capturing" there (a wheel's hub polishing while its spokes captured).
+_capture_lock = threading.RLock()
+
+#: Draws from PyTorch's stream pool before :func:`claim_stream` gives up
+#: (two turns of its 32 streams a priority).
+STREAM_DRAWS = 64
+#: ``cuda_stream`` handles of the streams claimed and not yet freed.
+_claimed: set = set()
+_claim_lock = threading.Lock()
 
 
 def commit(stop: torch.Tensor, state, new):
@@ -194,22 +228,78 @@ def _signature(ops, state, L, key):
 
 
 def _entry(block, ops, state, L, key):
+    """The calling owner's captured loop for this signature (made, and the
+    owner's least recently used dropped past ``CACHE_SIZE``, on a miss)."""
     sig = _signature(ops, state, L, key)
-    entry = _cache.get(sig)
-    if entry is None:
-        entry = _Captured(block, ops, state)
-        _cache[sig] = entry
-        while len(_cache) > CACHE_SIZE:
-            _cache.popitem(last=False)
-    else:
-        _cache.move_to_end(sig)
+    owner = cuda_kernels.current_owner()
+    with _cache_lock:
+        loops = _cache.setdefault(owner, collections.OrderedDict())
+        entry = loops.get(sig)
+        if entry is not None:
+            loops.move_to_end(sig)
+            return entry
+    entry = _Captured(block, ops, state)
+    with _cache_lock:
+        loops = _cache.setdefault(owner, collections.OrderedDict())
+        loops[sig] = entry
+        while len(loops) > CACHE_SIZE:
+            loops.popitem(last=False)
     return entry
 
 
+def release(token):
+    """Free every captured loop and kernel operand of the owner
+    ``token`` (a cylinder that has ended)."""
+    with _cache_lock:
+        _cache.pop(token, None)
+    cuda_kernels.release_operands(token)
+
+
+@contextlib.contextmanager
+def outside_capture(device):
+    """Run the body while no thread of the process captures a graph (a
+    no-op off the card)."""
+    if device.type != "cuda":
+        yield
+        return
+    with _capture_lock:
+        yield
+
+
+def claim_stream(dev, make=None):
+    """A CUDA stream on ``dev`` that no other claimant holds until
+    :func:`free_stream`.  ``torch.cuda.Stream()`` hands out the streams of
+    a fixed pool in turn, so two streams made far apart can be one and the
+    same: a cylinder's stream could be another thread's capture stream,
+    and its work would then be issued into that capture.  ``make``: the
+    stream factory (default ``torch.cuda.Stream(dev)``)."""
+    make = make or (lambda: torch.cuda.Stream(dev))
+    with _claim_lock:
+        for _ in range(STREAM_DRAWS):
+            s = make()
+            if s.cuda_stream not in _claimed:
+                _claimed.add(s.cuda_stream)
+                return s
+    raise RuntimeError(f"no free CUDA stream on {dev} in {STREAM_DRAWS} "
+                       f"draws from the pool ({len(_claimed)} claimed)")
+
+
+def free_stream(s):
+    """End the claim on ``s`` (from :func:`claim_stream`)."""
+    with _claim_lock:
+        _claimed.discard(s.cuda_stream)
+
+
 def _capture_stream(dev):
-    s = _streams.get(dev)
+    """The calling thread's capture stream on ``dev``, claimed until the
+    thread's object is gone."""
+    streams = getattr(_local, "streams", None)
+    if streams is None:
+        streams = _local.streams = {}
+    s = streams.get(dev)
     if s is None:
-        s = _streams[dev] = torch.cuda.Stream(dev)
+        s = streams[dev] = claim_stream(dev)
+        weakref.finalize(threading.current_thread(), free_stream, s)
     return s
 
 
@@ -247,7 +337,7 @@ class _Captured:
         dev = self.state[-1].device
         stream = _capture_stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
+        with _capture_lock, torch.cuda.stream(stream):
             # warm-up: one block of each phase with the flag set runs
             # every lazy set-up (libraries, handles, kernel attributes)
             # outside the capture, and changes no state
@@ -255,9 +345,9 @@ class _Captured:
             phases = list(dict.fromkeys(pattern))
             for ph in phases:
                 self.block(self.ops, self.state, ph)
-            before = cuda_kernels.counts()
+            before = cuda_kernels.counts(local=True)
             graph = torch.cuda.CUDAGraph()
-            graph.capture_begin()
+            graph.capture_begin(capture_error_mode="thread_local")
             try:
                 for ph in pattern:
                     self.block(self.ops, self.state, ph)
@@ -270,7 +360,7 @@ class _Captured:
             graph.capture_end()
         torch.cuda.current_stream(dev).wait_stream(stream)
         # the launches captured did not run: each replay counts them
-        after = cuda_kernels.counts()
+        after = cuda_kernels.counts(local=True)
         delta = {k: after[k] - before[k] for k in after
                  if after[k] != before[k]}
         cuda_kernels.add_counts({k: -v for k, v in delta.items()})

@@ -9,10 +9,16 @@ while further device work is already queued (the device sweep loop reads a
 replay's stop flag with the next replay in flight): the host still blocks,
 the device does not, so only the other fetches' time counts in
 ``host_sync.blocked_secs``, and ``host_sync.overlapped`` counts the rest.
+
+Trackers opened with :func:`track` count the fetches of the calling thread
+alone (``tpusppy/solvers/hostsync.py``): the cylinders of a wheel run on
+threads of their own, so each one's fetches land only in its own trackers.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 
 import numpy as np
@@ -26,6 +32,46 @@ _CTR_OVERLAPPED = _metrics.counter("host_sync.overlapped")
 _CTR_BLOCKED = _metrics.counter("host_sync.blocked_secs")
 _CTR_FETCH = _metrics.counter("host_sync.fetch_secs")
 
+_local = threading.local()
+
+
+def _stack():
+    st = getattr(_local, "stack", None)
+    if st is None:
+        st = _local.stack = []
+    return st
+
+
+class SyncTracker:
+    """Counts one thread's fetches and the host time spent in them;
+    ``blocked_secs`` only that of the fetches not ``overlapped``."""
+
+    def __init__(self):
+        self.count = 0
+        self.overlapped = 0
+        self.blocked_secs = 0.0
+        self.fetch_secs = 0.0
+
+    def add(self, secs: float, overlapped: bool):
+        self.count += 1
+        self.fetch_secs += secs
+        if overlapped:
+            self.overlapped += 1
+        else:
+            self.blocked_secs += secs
+
+
+@contextlib.contextmanager
+def track():
+    """Open a tracker for the calling thread; trackers nest (a fetch lands
+    in every tracker its thread has open, and in no other thread's)."""
+    t = SyncTracker()
+    _stack().append(t)
+    try:
+        yield t
+    finally:
+        _stack().remove(t)
+
 
 def _to_host(x):
     if isinstance(x, torch.Tensor):
@@ -37,6 +83,8 @@ def _to_host(x):
 
 def _bill(t0, overlapped):
     dt = time.perf_counter() - t0
+    for tr in _stack():
+        tr.add(dt, overlapped)
     _CTR_COUNT.inc(1)
     _CTR_FETCH.inc(dt)
     if overlapped:

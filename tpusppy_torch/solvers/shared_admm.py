@@ -213,8 +213,8 @@ def _xla_sweeps(q, A, Kinv, K, diagK, cl, cu, lb, ub, rho_a, rho_x, dq2, g,
     (1, m) and ``rho_x`` (1, n) unscaled, ``g`` (S, 1).  Returns the inputs
     where ``stop`` is set."""
     sparse = isinstance(A, SparseA)
-    cuda_kernels.plain_calls["fused_sweeps_sparse" if sparse or K is None
-                             else "fused_sweeps_shared"] += 1
+    cuda_kernels.bump("plain_calls", "fused_sweeps_sparse"
+                      if sparse or K is None else "fused_sweeps_shared")
     state_in = (x, z, zx, y, yx, Ax)
     if isinstance(Kinv, KernelWoodbury):
         Kinv = Kinv.bw

@@ -1,14 +1,18 @@
 """SPBase: scenario ownership, probabilities, options — the runtime root.
 
-Port of ``tpusppy/spbase.py`` without mesh, bundling (which raises),
-bucketing, batch caching or canonical ingest: the whole scenario set is
-built as ONE :class:`~tpusppy_torch.ir.ScenarioBatch` and the node-grouping
-index arrays replace per-node communicators.  ``options["device"]`` picks the device the
+Port of ``tpusppy/spbase.py`` without mesh, bundling or bucketing (which
+raise) or canonical ingest: the whole scenario set is built as ONE
+:class:`~tpusppy_torch.ir.ScenarioBatch` and the node-grouping index arrays
+replace per-node communicators.  With ``options["batch_cache"]`` the
+cylinders of a wheel that build the same family share one batch.  ``options["device"]`` picks the device the
 solves run on (CUDA unless ``"cpu"`` is asked for; see
 :func:`tpusppy_torch.resolve_device`).
 """
 
 from __future__ import annotations
+
+import hashlib
+import threading
 
 import numpy as np
 
@@ -18,17 +22,46 @@ from .solvers import precision
 from .solvers.admm import ADMMSettings
 
 
+#: (creator, names, kwargs, bundling) -> batch, for ``batch_cache``.
+_BATCH_CACHE: dict = {}
+_BATCH_LOCK = threading.Lock()
+
+
+def clear_batch_cache():
+    with _BATCH_LOCK:
+        _BATCH_CACHE.clear()
+
+
+def _kwargs_key(kwargs: dict) -> tuple:
+    """Exact cache key of scenario_creator_kwargs: numpy arrays by shape,
+    dtype and the hash of their bytes (a repr truncates long arrays)."""
+    parts = []
+    for k in sorted(kwargs):
+        v = kwargs[k]
+        if isinstance(v, np.ndarray):
+            h = hashlib.sha1(np.ascontiguousarray(v).tobytes()).hexdigest()
+            parts.append((k, "ndarray", v.shape, str(v.dtype), h))
+        else:
+            parts.append((k, repr(v)))
+    return tuple(parts)
+
+
 def build_batch(all_scenario_names, scenario_creator,
                 scenario_creator_kwargs=None, options=None):
     """Model ingest -> one batched array family.  Returns
     ``(batch, names)``.  ``options``: the PH/SPBase options; bundling
-    (``bundles_per_rank`` > 0) raises until the port has it, since it
-    would change the subproblems solved."""
+    (``bundles_per_rank`` > 0) and shape bucketing (``shape_buckets``)
+    raise until the port has them, since they would change the
+    subproblems solved."""
     nbundles = int((options or {}).get("bundles_per_rank", 0) or 0)
     if nbundles > 0:
         raise NotImplementedError(
             f"bundles_per_rank={nbundles}: scenario bundling is not ported "
             "yet (ROADMAP Queue 1)")
+    if (options or {}).get("shape_buckets"):
+        raise NotImplementedError(
+            "shape_buckets: shape bucketing is not ported yet (ROADMAP "
+            "Queue 1 item 4)")
     names = list(all_scenario_names)
     problems = [
         scenario_creator(name, **dict(scenario_creator_kwargs or {}))
@@ -49,6 +82,11 @@ def make_admm_settings(options) -> ADMMSettings:
     port's settings do not have (e.g. the reference's ``megastep``) are
     ignored."""
     so = dict(options.get("solver_options") or {})
+    if int(so.get("megastep", 1) or 1) > 1:
+        raise NotImplementedError(
+            f"solver_options megastep={so['megastep']}: the megastep is not "
+            "ported yet (ROADMAP Queue 1 item 3); the port runs the legacy "
+            "per-iteration loop (megastep 1)")
     if so.get("matmul_precision") not in (None, "highest"):
         raise NotImplementedError(
             f"solver_options matmul_precision={so['matmul_precision']!r}: "
@@ -88,10 +126,9 @@ class SPBase:
         self.scenario_creator = scenario_creator
         self.scenario_creator_kwargs = dict(scenario_creator_kwargs or {})
         self.verbose = self.options.get("verbose", False)
+        self.spcomm = None      # attached by an SPCommunicator in a wheel
 
-        self.batch, self.all_scenario_names = build_batch(
-            self.all_scenario_names, scenario_creator,
-            self.scenario_creator_kwargs, self.options)
+        self._build_or_share_batch()
         self.tree = self.batch.tree
         global_toc(
             f"Built scenario batch: {self.batch.num_scenarios} scenarios, "
@@ -103,12 +140,40 @@ class SPBase:
         self.nid_sk = self.tree.nid_sk()
         self.admm_settings = make_admm_settings(self.options)
 
+    def _build_or_share_batch(self):
+        """Build the batch, or with ``options["batch_cache"]`` take the one
+        an earlier object built from the same creator, names and kwargs
+        (``tpusppy/spbase.py:181-200``): the solve paths only read it, and
+        fixing copies the bounds it changes."""
+        if not self.options.get("batch_cache"):
+            self.batch, self.all_scenario_names = build_batch(
+                self.all_scenario_names, self.scenario_creator,
+                self.scenario_creator_kwargs, self.options)
+            return
+        key = (self.scenario_creator, tuple(self.all_scenario_names),
+               _kwargs_key(self.scenario_creator_kwargs),
+               int(self.options.get("bundles_per_rank", 0) or 0),
+               bool(self.options.get("shape_buckets", False)))
+        with _BATCH_LOCK:
+            hit = _BATCH_CACHE.get(key)
+        if hit is None:
+            hit = build_batch(self.all_scenario_names, self.scenario_creator,
+                              self.scenario_creator_kwargs, self.options)
+            with _BATCH_LOCK:
+                hit = _BATCH_CACHE.setdefault(key, hit)
+        self.batch, names = hit
+        self.all_scenario_names = list(names)
+
     def _options_check(self, required, options=None):
         """Hard check for required options (spbase.py:524-531)."""
         options = self.options if options is None else options
         missing = [k for k in required if k not in options]
         if missing:
             raise RuntimeError(f"Missing required options: {missing}")
+
+    @property
+    def is_minimizing(self):
+        return True  # the IR is always stated as minimization
 
     @property
     def probs(self) -> np.ndarray:

@@ -8,14 +8,19 @@ unconverged.  A batch with a shared constraint matrix (``A_shared``) runs the
 shared-A engine (:mod:`.solvers.shared_admm`) on the single (m, n) matrix,
 dense or, when large and very sparse, as a :class:`~.solvers.sparse.SparseA`
 (the sparse and structured-KKT engines).
-Expectations are probability-weighted contractions on the host.  The
-megastep, bucketed and in-wheel methods are not part of the port yet.
+Expectations are probability-weighted contractions on the host.
+Fixing (:meth:`SPOpt.fix_nonants`) clamps the nonant columns' bounds for the
+solves and the certified bounds that follow, and
+:meth:`SPOpt.dual_donor_bounds` certifies outer bounds from a few
+host-exact donor duals.  The megastep, bucketed and in-wheel methods are
+not part of the port yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import time
 
 import numpy as np
 import scipy.sparse as sp
@@ -103,6 +108,10 @@ class SPOpt(SPBase):
         self._factors_age = 0
         self._factors_ref_worst = None   # worst residual of the last refresh
         self._n_div_prev = 0
+        self._fixed_lb = None        # nonant fixing overlay (S, n) or None
+        self._fixed_ub = None
+        self.solves = 0              # solve_loop calls
+        self.rescued_scenarios = 0   # host-exact straggler re-solves
 
     def _device_consts(self, dt):
         """Device-resident (A, cl, cu), cached on batch identity/version:
@@ -160,16 +169,18 @@ class SPOpt(SPBase):
         ext = getattr(self, "extobject", None)
         if ext is not None:
             ext.pre_solve()
+        self.solves += 1
         b = self.batch
         q = b.c if q is None else q
         q2 = b.q2 if q2 is None else q2
+        lb, ub = self._bounds()
         A_d, cl_d, cu_d = self._device_consts(self.admm_settings.tdtype())
         slot = {"warm": self._warm, "factors": self._factors,
                 "sig": self._factors_sig, "age": self._factors_age,
                 "ref_worst": self._factors_ref_worst,
                 "n_div_prev": self._n_div_prev}
         sol, meas = self._solve_amortized(
-            (q, q2, A_d, cl_d, cu_d, b.lb, b.ub), slot, warm,
+            (q, q2, A_d, cl_d, cu_d, lb, ub), slot, warm,
             shared=b.A_shared is not None)
         self._warm = slot["warm"]
         self._factors = slot["factors"]
@@ -409,6 +420,7 @@ class SPOpt(SPBase):
             done[s] = True
             n_resc += 1
         if n_resc:
+            self.rescued_scenarios += n_resc
             _metrics.inc("solve.rescued_scenarios", n_resc)
             global_toc(
                 f"straggler rescue: {n_resc}/{b.num_scenarios} scenarios "
@@ -442,6 +454,7 @@ class SPOpt(SPBase):
         b = self.batch
         q = b.c if q is None else q
         q2 = b.q2 if q2 is None else q2
+        lb, ub = self._bounds()
         x, _, y, _ = self._warm
         dt = self.admm_settings.tdtype()
         A_d, cl_d, cu_d = self._device_consts(dt)
@@ -449,9 +462,129 @@ class SPOpt(SPBase):
         def t(v):
             return admm._tensor(v, dt, self.device)
 
-        args = (t(q), t(q2), A_d, cl_d, cu_d, t(b.lb), t(b.ub), t(y), t(x))
+        args = (t(q), t(q2), A_d, cl_d, cu_d, t(lb), t(ub), t(y), t(x))
         dvals, margin = _certified_dual_eval(args)
         return dvals - margin + b.const
+
+    def dual_donor_bounds(self, q=None, q2=None, k=16, budget_s=90.0,
+                          time_limit=30.0,
+                          refresh_every=4) -> np.ndarray | None:
+        """(S,) certified bounds from exact donor duals, transferred batch
+        wide (``tpusppy/spopt.py:1291-1406``).  Weak duality accepts any y
+        for any scenario: ``k`` donor scenarios are solved host-exact
+        (HiGHS, with their own objective rows of ``q``), and each donor's
+        dual is evaluated against every scenario on the device
+        (:func:`_certified_dual_eval` on the engine's device constants, a
+        :class:`SparseA` where the batch went up as one), keeping the
+        per-scenario best.  The duals are cached: a y found for an earlier
+        W certifies any later q, so the host LPs run again only every
+        ``refresh_every``-th call.  ``time_limit`` caps each donor LP,
+        ``budget_s`` all of a refresh's.  Returns None when no donor dual
+        is available (every LP failed)."""
+        from .solvers import scipy_backend
+
+        b = self.batch
+        q = np.asarray(b.c if q is None else q, dtype=float)
+        q2 = np.asarray(b.q2 if q2 is None else q2, dtype=float)
+        lb, ub = (np.asarray(v) for v in self._bounds())
+        S = b.num_scenarios
+        if self._warm is not None:
+            x_hint = np.asarray(self._warm[0])
+        else:
+            # no batched solve yet (the Lagrangian spoke may skip it): a
+            # hint sized from the finite problem data keeps the X-cap box
+            # far outside any reachable optimizer
+            finite_max = 1.0
+            for arr in (b.cl, b.cu, lb, ub):
+                fa = np.abs(arr[np.isfinite(arr)])
+                if fa.size:
+                    finite_max = max(finite_max, float(fa.max()))
+            x_hint = np.full((S, b.num_vars), finite_max)
+        cache = getattr(self, "_donor_dual_cache", None)
+        age = getattr(self, "_donor_dual_age", 0)
+        if cache is None or age >= max(1, int(refresh_every)):
+            sel = np.unique(
+                np.linspace(0, S - 1, min(int(k), S)).astype(int))
+            A_csr = (sp.csr_matrix(b.A_shared)
+                     if b.A_shared is not None else None)
+            deadline = time.monotonic() + float(budget_s)
+            cache = []
+            for s_k in sel:
+                remaining = deadline - time.monotonic()
+                if remaining <= 1.0:
+                    break
+                res = scipy_backend.solve_lp_with_duals(
+                    q[s_k], A_csr if A_csr is not None else b.A[s_k],
+                    b.cl[s_k], b.cu[s_k], lb[s_k], ub[s_k],
+                    time_limit=min(float(time_limit), remaining))
+                if not res.feasible or res.duals is None:
+                    continue
+                obj_k = float(q[s_k] @ res.x)
+                cache.append(_pick_dual_sign(
+                    q[s_k], b.A[s_k], b.cl[s_k], b.cu[s_k],
+                    lb[s_k], ub[s_k], res.duals, res.x, obj_k))
+            if not cache:
+                # nothing new: keep the previous duals (still
+                # certificates), or leave the cache unset so the next call
+                # retries
+                prev = getattr(self, "_donor_dual_cache", None)
+                if prev:
+                    cache = prev
+                else:
+                    self._donor_dual_cache = None
+                    self._donor_dual_age = 0
+                    return None
+            self._donor_dual_cache = cache
+            age = 0
+        self._donor_dual_age = age + 1
+        self.donor_duals_used = len(cache)
+        dt = self.admm_settings.tdtype()
+        A_d, cl_d, cu_d = self._device_consts(dt)
+
+        def t(v):
+            return admm._tensor(v, dt, self.device)
+
+        lb_d, ub_d, q_d, q2_d, xh_d = (t(v) for v in (lb, ub, q, q2, x_hint))
+        const = np.asarray(np.broadcast_to(b.const, (S,)))
+        best = None
+        for y_k in cache:
+            y_tiled = t(y_k).expand(S, y_k.size)
+            args = (q_d, q2_d, A_d, cl_d, cu_d, lb_d, ub_d, y_tiled, xh_d)
+            dvals, margin = _certified_dual_eval(args)
+            dv = dvals - margin + const
+            best = dv if best is None else np.maximum(best, dv)
+        return best
+
+    # ---- nonant fixing (tpusppy/spopt.py:1490-1513) -------------------------
+    def _bounds(self):
+        """(lb, ub) of the solves: the batch's, or the fixing overlay."""
+        b = self.batch
+        return (b.lb if self._fixed_lb is None else self._fixed_lb,
+                b.ub if self._fixed_ub is None else self._fixed_ub)
+
+    def restore_nonants(self):
+        """Drop the fixing overlay."""
+        self._fixed_lb = None
+        self._fixed_ub = None
+
+    def fix_nonants(self, cache):
+        """Clamp the nonant columns to a candidate, lb = ub = value, for the
+        solves and certified bounds until :meth:`restore_nonants`.
+        ``cache``: (K,) one candidate for every scenario, or (S, K).
+        Integer nonants are rounded."""
+        b = self.batch
+        cache = np.asarray(cache, dtype=float)
+        if cache.ndim == 1:
+            cache = np.broadcast_to(cache, (b.num_scenarios, cache.shape[0]))
+        idx = self.tree.nonant_indices
+        ints = b.is_int[idx]
+        if np.any(ints):
+            cache = np.where(ints[None, :], np.round(cache), cache)
+        lb = b.lb.copy()
+        ub = b.ub.copy()
+        lb[:, idx] = cache
+        ub[:, idx] = cache
+        self._fixed_lb, self._fixed_ub = lb, ub
 
     def _feas_tol(self) -> float:
         """The feasibility-gate tolerance: option ``feas_tol`` floored at
