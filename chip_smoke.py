@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (tpusppy_torch) once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases kernels,golden,loop,farmer,uc_lite,uc,
-                                    precision,wheel]
+                                    megastep,precision,wheel]
 
 Run from the root of a checkout on a machine with one CUDA device and the
 CUDA toolkit (nvcc).  Phases, each printing a line:
@@ -47,7 +47,10 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    (farmer-1000, uc_lite-1000 in the streamed mode, uc_lite at S=128 in
    the cluster-resident mode, uc-1000 with its structured operand): the
    second solve captures nothing and matches a fresh capture;
-6. main paths, each with the launch counts and host syncs read around
+6. main paths at the default solver options, so that PH runs its frozen
+   iterations in megastep windows (N = 15: the refresh every 16
+   iterations runs in the legacy body), each with the launch counts and
+   host syncs read around
    exactly that run, then the first iterations of the same PH on the
    batched tensor path (eobj held to the kernel run's after as many
    iterations, with both runs' eobj and solve-loop decisions printed side
@@ -64,9 +67,27 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    resident mode, uc_lite-1000 only the streamed mode, the uc paths only
    the structured mode, and keep no dense (n, n) K^-1 in their
    factors; each prints its PH rate, flag reads (``admm.loop_checks``) and
-   host syncs per PH iteration, graph replays and the capture seconds;
-7. precision: the main paths with their frozen sweeps lowered;
-8. wheel: the farmer-1000 wheel through ``WheelSpinner.spin()`` (the main
+   host syncs per PH iteration, graph replays and the capture seconds.
+   Each run prints first whether it runs windows or the legacy loop;
+7. megastep: each main path's windows against the same PH in the legacy
+   loop (``solver_options={"megastep": 1}``): farmer-1000 and
+   uc_lite-1000 eobj after as many iterations (100, 30) within 1e-4,
+   uc-1000 (12) within 1e-3 (f32 rounding alone parts two uc-1000 runs by
+   1.2e-4), the uc S=10 f64 golden after each of 5 iterations within
+   1e-7; every run's windows, window and legacy iterations adding up to
+   the iterations run, its kernel launched from inside the windows, host
+   syncs an iteration by kind (flag reads, packed fetches, other) and PH
+   rate under both protocols.  Then two hub-only wheels (a PHHub with
+   ``in_wheel_bounds`` and no spoke): farmer-1000 (f32, 100 iterations at
+   most, rel_gap 1e-3), whose outer bound is at most the EF + 1e-6 |EF|,
+   inner within 1e-2 of the EF and above it less 1e-4, outer <= inner,
+   with a bound pass run and no spoke thread, and the uc S=10 f64 golden,
+   its outer bound at most its EF + 1e-6 |EF|; each prints which source
+   supplied each bound;
+8. precision: the main paths with their frozen sweeps lowered, in the
+   legacy loop (the guard's full-precision re-run is the legacy frozen
+   path's), against the megastep phase's legacy runs;
+9. wheel: the farmer-1000 wheel through ``WheelSpinner.spin()`` (the main
    path's PH as the hub, 100 iterations at most, rel_gap 1e-3, abs_gap
    1, with the Lagrangian, XhatShuffle and XhatXbar spokes, each cylinder
    on a CUDA stream of its own): the certified outer bound at most the
@@ -77,7 +98,8 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    ``fused_sweeps`` and no other sweep kernel (its thread's own counts),
    distinct non-default streams, and no graph captures after the hub's
    halfway iteration; it prints the gap, the hub's PH rate in the wheel
-   beside the farmer phase's alone, where and why the hub stopped, and
+   (its hub runs windows) beside the hub-only wheel's and the farmer
+   phase's alone, where and why the hub stopped, and
    each cylinder's launches and host syncs.  Then uc-1000's hub and a
    Lagrangian spoke that bounds from donor duals alone (bench_uc.py's
    full-scale settings, the budget cut to 60 s): a finite outer bound
@@ -741,33 +763,32 @@ def phase_sparse_kernel(cuda_kernels, S=1000):
     return out
 
 
-def farmer_ph(S, cm, options, extensions=None):
+def farmer_ph(S, cm, options, ph_class=None):
+    """farmer PH; ``ph_class``: a PH subclass (:func:`clocked`)."""
     from tpusppy_torch.models import farmer
     from tpusppy_torch.opt.ph import PH
 
-    return PH(options, farmer.scenario_names_creator(S),
-              farmer.scenario_creator,
-              scenario_creator_kwargs={"num_scens": S,
-                                       "crops_multiplier": cm},
-              extensions=extensions)
+    return (ph_class or PH)(options, farmer.scenario_names_creator(S),
+                            farmer.scenario_creator,
+                            scenario_creator_kwargs={"num_scens": S,
+                                                     "crops_multiplier": cm})
 
 
-def uc_ph(S, options, extensions=None, **kw):
+def uc_ph(S, options, ph_class=None, **kw):
     """uc_lite PH (LP relaxation) on its shared-A engine; ``kw`` goes to
     the scenario creator (num_gens, horizon)."""
     from tpusppy_torch.models import uc_lite
     from tpusppy_torch.opt.ph import PH
 
-    ph = PH(options, uc_lite.scenario_names_creator(S),
-            uc_lite.scenario_creator,
-            scenario_creator_kwargs=dict(kw, num_scens=S,
-                                         relax_integers=True),
-            extensions=extensions)
+    ph = (ph_class or PH)(options, uc_lite.scenario_names_creator(S),
+                          uc_lite.scenario_creator,
+                          scenario_creator_kwargs=dict(
+                              kw, num_scens=S, relax_integers=True))
     check(ph.batch.A_shared is not None, "uc_lite batch is not shared-A")
     return ph
 
 
-def uc_full_ph(S, options, extensions=None):
+def uc_full_ph(S, options, ph_class=None):
     """uc PH (models/uc.py at its full width, 30 generators x 24 hours; LP
     relaxation) on the structured-KKT engine: the shared A goes up as a
     SparseA with its block/Woodbury structure."""
@@ -777,9 +798,10 @@ def uc_full_ph(S, options, extensions=None):
     from tpusppy_torch.opt.ph import PH
     from tpusppy_torch.solvers.sparse import SparseA
 
-    ph = PH(options, uc.scenario_names_creator(S), uc.scenario_creator,
-            scenario_creator_kwargs={"num_scens": S, "relax_integers": True},
-            extensions=extensions)
+    ph = (ph_class or PH)(options, uc.scenario_names_creator(S),
+                          uc.scenario_creator,
+                          scenario_creator_kwargs={"num_scens": S,
+                                                   "relax_integers": True})
     A_d = ph._device_consts(ph.admm_settings.tdtype())[0]
     check(isinstance(A_d, SparseA) and A_d.structure is not None
           and A_d.device.type == "cuda" and A_d.dtype == getattr(
@@ -833,7 +855,7 @@ def phase_golden(cuda_kernels):
                               (False, UC_FULL_TENSOR_ITERS)):
         ph, runs[use_kernel] = run_path(
             cuda_kernels, "fused_sweeps_sparse",
-            lambda o, ext: uc_full_ph(10, o, extensions=ext), use_kernel,
+            lambda o, cls: uc_full_ph(10, o, ph_class=cls), use_kernel,
             iters, UC_FULL_GOLDEN_OPTIONS, UC_SOLVER, dtype="float64",
             eps=1e-8)
     k, p = runs["auto"], runs[False]
@@ -869,6 +891,7 @@ def phase_golden(cuda_kernels):
     check(ws.BestOuterBound <= ef_obj + 1e-6 * abs(ef_obj),
           f"uc golden wheel outer bound {ws.BestOuterBound} above EF "
           f"{ef_obj}")
+    return {"uc10_ef": ef_obj}
 
 
 # the sweep loop's f64 solutions at L and at L=1: the same operations in
@@ -1096,6 +1119,30 @@ def swap_factors(cuda_kernels, which, S):
           f"parts from a fresh capture by {diff:.3e}")
 
 
+def clocked(base, on_iter):
+    """A subclass of the PH class ``base`` that calls ``on_iter(opt, meas)``
+    after Iter0 (``meas`` None), after each legacy iteration (None) and
+    after each megastep window (its unpacked measurement).  It records
+    without an extension: a PH with an extension runs the legacy loop."""
+
+    class Clocked(base):
+        def Iter0(self):
+            tb = super().Iter0()
+            on_iter(self, None)
+            return tb
+
+        def _iterk_one(self, k, convthresh):
+            out = super()._iterk_one(k, convthresh)
+            on_iter(self, None)
+            return out
+
+        def _apply_megastep_meas(self, k, meas):
+            super()._apply_megastep_meas(k, meas)
+            on_iter(self, meas)
+
+    return Clocked
+
+
 def run_path(cuda_kernels, kernel, make_ph, use_kernel, iters, options,
              solver=None, dtype="float32", eps=1e-5):
     """One path's PH (f32 at eps 1e-5 unless told); returns (ph, results)
@@ -1104,8 +1151,8 @@ def run_path(cuda_kernels, kernel, make_ph, use_kernel, iters, options,
     ``solver``: more solver options."""
     import torch
 
-    from tpusppy_torch.extensions.extension import Extension
     from tpusppy_torch.obs import metrics
+    from tpusppy_torch.opt.ph import PH
 
     opts = dict(options, PHIterLimit=iters,
                 solver_options=dict(solver or {}, dtype=dtype,
@@ -1118,43 +1165,45 @@ def run_path(cuda_kernels, kernel, make_ph, use_kernel, iters, options,
                 metrics.value("solve.frozen_rejected"),
                 metrics.value("solve.rescued_scenarios"))
 
-    class Clock(Extension):
-        """Stamps the end of Iter0, so the PH rate excludes it, and records
-        after Iter0 and every iteration the eobj and the decisions that
+    def on_iter(opt, meas):
+        """After Iter0 and every iteration: the eobj and the decisions that
         can part two runs: sweep blocks (a plateau or eps exit), whether
         the factors were refreshed, frozen solves refused, scenarios
-        rescued (and, in Iter0, which)."""
-
-        def record(self):
-            opt = self.opt
-            now = counts()
-            blocks, rejected, rescued = (a - b for a, b in zip(now,
-                                                               self.base))
-            self.base = now
-            opt.decisions.append(dict(
-                eobj=opt.Eobjective(), blocks=blocks,
-                refresh=opt._factors_age == 1, rejected=rejected,
-                rescued=rescued))
-
-        def pre_iter0(self):
-            self.base = counts()
-            self.opt.decisions = []
-
-        def post_iter0(self):
+        rescued (and, in Iter0, which).  A window's iterations come from
+        its packed measurement: the device's eobj, its sweeps over
+        check_every."""
+        if meas is None and opt._iter == 0:
             torch.cuda.synchronize()
-            opt = self.opt
             opt.t_iter0_done = time.perf_counter()
             # a rescue leaves exactly zero residuals
             opt.iter0_rescued = np.flatnonzero((opt.pri_res == 0)
                                                & (opt.dua_res == 0))
-            self.record()
+        now = counts()
+        blocks, rejected, rescued = (a - b for a, b in zip(now, opt.base))
+        opt.base = now
+        if meas is None:
+            opt.decisions.append(dict(
+                eobj=opt.Eobjective(), blocks=blocks,
+                refresh=opt._factors_age == 1, rejected=rejected,
+                rescued=rescued))
+            return
+        ce = max(1, opt.admm_settings.check_every)
+        for i in range(meas["executed"]):
+            opt.decisions.append(dict(
+                eobj=float(meas["eobj"][i]), blocks=meas["iters"][i] / ce,
+                refresh=False, rejected=0, rescued=0))
 
-        def enditer(self):
-            self.record()
-
-    ph = make_ph(opts, Clock)
+    ph = make_ph(opts, clocked(PH, on_iter))
+    ph.base = counts()
+    ph.decisions = []
+    n_req = ph._megastep_request()
+    print(f"{kernel} use_kernel={use_kernel} dtype={dtype}: "
+          + (f"megastep windows of N={n_req}" if n_req else
+             "the legacy per-iteration loop (megastep "
+             f"{ph.admm_settings.megastep})"), flush=True)
     torch.cuda.synchronize()
     cuda_kernels.reset_counts()
+    ph.base = counts()
     with metrics.window() as win:
         t0 = time.perf_counter()
         _, eobj, _ = ph.ph_main()
@@ -1167,7 +1216,25 @@ def run_path(cuda_kernels, kernel, make_ph, use_kernel, iters, options,
     n_it = max(ph._iter, 1)
     # every device-to-host read, the sweep loop's flag reads among them
     syncs = win.delta("host_sync.count")
-    res = dict(eobj=eobj, decisions=ph.decisions,
+    checks = win.delta("admm.loop_checks")
+    megasteps = win.delta("dispatch.megasteps")
+    res = dict(eobj=eobj, n_req=n_req, megasteps=megasteps,
+               # the last measurement's worst residual against the frozen
+               # acceptance ladder a window starts behind
+               worst_residual=float(max(np.max(ph.pri_res),
+                                        np.max(ph.dua_res))),
+               tol_qp=ph._straggler_tols()[1],
+               mega_iters=win.delta("dispatch.mega_iterations"),
+               legacy_iters=ph.solves - 1,
+               refresh_hits=win.delta("megastep.refresh_hits"),
+               window_launches={k: v for (t, k), v in
+                                ph.window_launches.items()
+                                if t == "launches"},
+               # host syncs an iteration: the sweep loops' flag reads, the
+               # windows' packed fetches and every other fetch
+               flag_reads_per_iter=checks / n_it,
+               packed_fetches_per_iter=megasteps / n_it,
+               other_syncs_per_iter=(syncs - checks - megasteps) / n_it, decisions=ph.decisions,
                iter0_rescued=ph.iter0_rescued, tbound=ph.trivial_bound, conv=ph.conv,
                iters=ph._iter, wall_s=t2 - t0, iter0_s=t1 - t0,
                loop_s=t2 - t1, rate=ph._iter / (t2 - t1),
@@ -1178,7 +1245,7 @@ def run_path(cuda_kernels, kernel, make_ph, use_kernel, iters, options,
                sweep_blocks_per_iter=win.delta("solve.sweeps") / max(
                    1, ph.admm_settings.check_every) / n_it,
                syncs_per_iter=syncs / n_it,
-               loop_checks_per_iter=win.delta("admm.loop_checks") / n_it,
+               loop_checks_per_iter=checks / n_it,
                replays=win.delta("device_loop.replays"),
                captures=win.delta("device_loop.captures"),
                capture_s=win.delta("device_loop.capture_secs"),
@@ -1349,16 +1416,16 @@ PRECISION_EOBJ_TOL = 1e-4
 def precision_path(label):
     """``(make_ph, options, solver)`` of a main path by its label."""
     if label.startswith("farmer"):
-        return (lambda o, ext: farmer_ph(1000, 4, o, extensions=ext),
+        return (lambda o, cls: farmer_ph(1000, 4, o, ph_class=cls),
                 {"defaultPHrho": 1.0, "convthresh": 1e-6}, None)
     if label.startswith("uc_lite"):
-        return (lambda o, ext: uc_ph(1000, o, extensions=ext),
+        return (lambda o, cls: uc_ph(1000, o, ph_class=cls),
                 UC_MAIN_OPTIONS, None)
-    return (lambda o, ext: uc_full_ph(1000, o, extensions=ext),
+    return (lambda o, cls: uc_full_ph(1000, o, ph_class=cls),
             UC_MAIN_OPTIONS, UC_SOLVER)
 
 
-def phase_precision(cuda_kernels, main):
+def phase_precision(cuda_kernels, main, legacy):
     """PH through ``ph_main()`` with the frozen sweeps lowered
     (``solver_options["sweep_precision"]``) on the three main paths at full
     width: farmer-1000 at "default" (with 64 and with 400 refinement
@@ -1366,8 +1433,12 @@ def phase_precision(cuda_kernels, main):
     Each run's launch counts are read around
     exactly that run: its kernel must have run lowered at the mode (and
     ``fused_sweeps`` at "high" runs exact, so no farmer run there), with no
-    plain sweep.  Printed beside the same path's "highest" run (``main``,
-    from the main phase when it ran, else run here at the same depth): the
+    plain sweep.  Every run here is the legacy loop (megastep 1): the
+    phase measures the guard, whose full-precision re-run only the legacy
+    frozen path has (a megastep window sends a trip to the next refresh).
+    Printed beside the same path's "highest" legacy run (``legacy``, from
+    the megastep phase when it ran, else run here at the same depth; the
+    EF from ``main``): the
     PH rate, lowered frozen solves, guard trips, lowered results taken,
     refinement-phase sweeps, lowered launches by mode, eobj after as many
     iterations, eobj against the HiGHS EF (farmer, uc_lite) and the
@@ -1377,13 +1448,18 @@ def phase_precision(cuda_kernels, main):
     from tpusppy_torch.ef import solve_ef
     from tpusppy_torch.solvers import admm
 
+    print("precision: every run in the legacy loop (megastep 1), where "
+          "the guard re-runs a tripped lowered solve at full precision",
+          flush=True)
     out = {}
     for label, kernel, precs, iters in PRECISION_RUNS:
         make_ph, options, solver = precision_path(label)
-        ref = main.get(label)
+        solver = dict(solver or {}, megastep=1)
+        ref = legacy.get(label)
         if ref is None or len(ref["decisions"]) <= iters:
             _, ref = run_path(cuda_kernels, kernel, make_ph, "auto", iters,
                               options, solver)
+        ef_obj = main.get(label, {}).get("ef")
         ref_eobj = ref["decisions"][iters]["eobj"]
         for prec, refine in precs:
             tag = prec if refine is None else f"{prec}, refine {refine}"
@@ -1391,8 +1467,8 @@ def phase_precision(cuda_kernels, main):
                 "precision_refine_iters": refine}
             admm.refinement_sweeps(reset=True)
             ph, r = run_path(cuda_kernels, kernel, make_ph, "auto", iters,
-                             options, dict(solver or {},
-                                           sweep_precision=prec, **more))
+                             options, dict(solver, sweep_precision=prec,
+                                           **more))
             r["refine_sweeps"] = admm.refinement_sweeps(reset=True)
             lowered = {k: v for k, v in r["lowered"].items() if v}
             rel = abs(r["eobj"] - ref_eobj) / abs(ref_eobj)
@@ -1426,10 +1502,9 @@ def phase_precision(cuda_kernels, main):
             check(rel <= PRECISION_EOBJ_TOL, f"precision {label} [{tag}]: "
                   f"eobj {r['eobj']} parts from the highest run's "
                   f"{ref_eobj} by {rel:.3e}")
-            ef_obj = ref.get("ef")
             if label.startswith(("farmer", "uc_lite")):
                 if ef_obj is None:
-                    ef_obj = ref["ef"] = solve_ef(ph.batch, solver="highs")[0]
+                    ef_obj = solve_ef(ph.batch, solver="highs")[0]
                 rel_ef = abs(r["eobj"] - ef_obj) / abs(ef_obj)
                 print(f"precision {label} [{tag}]: eobj vs EF {ef_obj:.4f} "
                       f"rel {rel_ef:.3e}; {CARD}", flush=True)
@@ -1472,10 +1547,11 @@ UC_WHEEL_ITERS = 10
 UC_DONORS = {"k": 24, "budget_s": 60, "time_limit": 20}
 
 
-def wheel_dicts(make_opt_kwargs, spokes, hub_options, extensions):
+def wheel_dicts(make_opt_kwargs, spokes, hub_options, hub_opt_class=None):
     """(hub_dict, spoke dicts) of a PH hub and ``spokes`` (spoke class, opt
     class, more options), each cylinder's opt built from
-    ``make_opt_kwargs()``; the hub's opt takes ``extensions``."""
+    ``make_opt_kwargs()``; the hub's opt is a ``hub_opt_class`` (PH by
+    default)."""
     from tpusppy_torch.cylinders import PHHub
     from tpusppy_torch.opt.ph import PH
 
@@ -1485,27 +1561,24 @@ def wheel_dicts(make_opt_kwargs, spokes, hub_options, extensions):
         return {"spoke_class": sc, "opt_class": oc, "opt_kwargs": kw}
 
     hub = {"hub_class": PHHub, "hub_kwargs": {"options": hub_options},
-           "opt_class": PH,
-           "opt_kwargs": dict(make_opt_kwargs(), extensions=extensions)}
+           "opt_class": hub_opt_class or PH, "opt_kwargs": make_opt_kwargs()}
     return hub, [spoke(*sp) for sp in spokes]
 
 
 def wheel_clock():
-    """A hub extension that stamps the end of Iter0 and of every
-    iteration, with the graph captures so far (all cylinders)."""
-    from tpusppy_torch.extensions.extension import Extension
+    """A hub PH class (:func:`clocked`) that stamps the end of Iter0, of
+    every legacy iteration and of every window with the graph captures so
+    far (all cylinders)."""
     from tpusppy_torch.obs import metrics
+    from tpusppy_torch.opt.ph import PH
 
-    class WheelClock(Extension):
-        def post_iter0(self):
-            self.opt.stamps = [(0, time.perf_counter(),
-                                metrics.value("device_loop.captures"))]
+    def stamp(opt, meas):
+        if meas is None and opt._iter == 0:
+            opt.stamps = []
+        opt.stamps.append((opt._iter, time.perf_counter(),
+                           metrics.value("device_loop.captures")))
 
-        def enditer(self):
-            self.opt.stamps.append((self.opt._iter, time.perf_counter(),
-                                    metrics.value("device_loop.captures")))
-
-    return WheelClock
+    return clocked(PH, stamp)
 
 
 def spin(hub, spokes):
@@ -1591,7 +1664,7 @@ def uc_donor_wheel(cuda_kernels, label, S, iters, options, dtype, eps):
     clear_batch_cache()
     hub, spokes = wheel_dicts(
         lambda: uc_wheel_kwargs(S, iters, options, dtype, eps),
-        [(LagrangianOuterBound, PHBase, {})], {}, None)
+        [(LagrangianOuterBound, PHBase, {})], {})
     ws, wall = spin(hub, spokes)
     clear_batch_cache()
     donors = getattr(ws.spoke_comms[0].opt, "donor_duals_used", 0)
@@ -1613,12 +1686,14 @@ def uc_donor_wheel(cuda_kernels, label, S, iters, options, dtype, eps):
     return ws, wall, donors
 
 
-def phase_wheel(cuda_kernels, main):
+def phase_wheel(cuda_kernels, main, hub_only=None):
     """The wheel on the card: the farmer-1000 wheel (PH hub, Lagrangian,
     XhatShuffle and XhatXbar spokes, each cylinder on a CUDA stream of its
     own), held to the HiGHS EF, and the uc-1000 hub-and-Lagrangian wheel
     with donor duals.  ``main``: the main phases' results (the farmer
-    phase's EF and PH rate alone, run here when it did not run)."""
+    phase's EF and PH rate alone, run here when it did not run);
+    ``hub_only``: the megastep phase's hub-only farmer wheel, whose hub
+    rate prints beside this wheel's."""
     from tpusppy_torch.cylinders import (LagrangianOuterBound,
                                          XhatShuffleInnerBound,
                                          XhatXbarInnerBound)
@@ -1631,8 +1706,8 @@ def phase_wheel(cuda_kernels, main):
     alone = main.get("farmer-1000 cm=4")
     if alone is None:
         _, alone = run_path(cuda_kernels, "fused_sweeps",
-                            lambda o, ext: farmer_ph(S, cm, o,
-                                                     extensions=ext),
+                            lambda o, cls: farmer_ph(S, cm, o,
+                                                     ph_class=cls),
                             "auto", WHEEL_ITERS,
                             {"defaultPHrho": 1.0, "convthresh": 1e-6})
     clear_batch_cache()
@@ -1675,6 +1750,10 @@ def phase_wheel(cuda_kernels, main):
           f"{stamps[-1][2]:.0f}; wall_s={wall:.2f} "
           f"gap_wall_secs={ws.gap_wall_secs:.2f} {CARD}", flush=True)
     print_cylinders(label, ws, it_done)
+    if hub_only is not None:
+        print(f"farmer-1000 hub PH it/s: in the three-spoke wheel {rate:.3f}, "
+              f"in the hub-only in-wheel wheel {hub_only['rate']:.3f}, alone "
+              f"{alone['rate']:.3f} {CARD}", flush=True)
     check_cylinders(label, ws, "fused_sweeps", "fused_sweeps")
     check(np.isfinite(ob) and ob <= ef + 1e-6 * abs(ef),
           f"{label}: outer bound {ob} not finite and at most EF {ef}")
@@ -1707,6 +1786,214 @@ def phase_wheel(cuda_kernels, main):
     return out
 
 
+#: The megastep phase's legacy runs (megastep 1) of the main paths, each
+#: cut to the depth the precision phase reads them at.
+LEGACY_ITERS = {"farmer-1000 cm=4": 30, "uc_lite-1000": 30, "uc-1000": 12}
+#: uc's frozen iterates never meet the frozen acceptance ladder (1e-2) at
+#: bench_uc.py's settings: its refresh leaves stalled QP scenarios the host
+#: rescue does not take (n = 2928 > 2000), every legacy frozen attempt is
+#: refused, and so no window starts (the reference's gate too).  The uc
+#: windows are run with the ladder off in both protocols.
+UC_NO_LADDER = {"straggler_tol_qp": 1e30}
+#: megastep against legacy, eobj after as many iterations: f32 at the main
+#: paths' level; uc-1000 at 1e-3, since f32 rounding alone parts two
+#: uc-1000 runs by up to 1.2e-4 (ROADMAP Queue 3, scripts/port_uc_parity.py)
+#: and the window assembles the PH objective on the device in f32 where the
+#: legacy loop does it on the host in f64; the f64 golden at 1e-7
+MEGA_EOBJ_TOL = {"farmer-1000 cm=4": 1e-4, "uc_lite-1000": 1e-4,
+                 "uc-1000": 1e-3}
+MEGA_F64_TOL = 1e-7
+
+
+def print_protocol(label, k):
+    """A run's host syncs a PH iteration by kind, and its windows."""
+    print(f"{label} [{'megastep N=%d' % k['n_req'] if k['n_req'] else 'legacy'}]"
+          f": ph_it_per_s={k['rate']:.3f} host_syncs_per_iter="
+          f"{k['syncs_per_iter']:.3f} (flag reads "
+          f"{k['flag_reads_per_iter']:.3f}, packed fetches "
+          f"{k['packed_fetches_per_iter']:.3f}, other "
+          f"{k['other_syncs_per_iter']:.3f}) megasteps={k['megasteps']:.0f} "
+          f"mega_iterations={k['mega_iters']:.0f} legacy_iterations="
+          f"{k['legacy_iters']} refresh_hits={k['refresh_hits']:.0f} "
+          f"window_launches={k['window_launches']} {CARD}", flush=True)
+
+
+def hold_megastep(label, kernel, k, legacy, tol, windows=True):
+    """A main path's megastep run ``k`` against its ``legacy`` run: the
+    windows ran (with ``windows``; else the gate that kept them from
+    starting is printed and held: the last measurement never clean),
+    every iteration is counted once, the kernel launched from inside the
+    windows, and eobj after as many iterations agrees."""
+    print_protocol(label, k)
+    print_protocol(label, legacy)
+    n = legacy["iters"]
+    a, b = k["decisions"][n]["eobj"], legacy["decisions"][n]["eobj"]
+    rel = abs(a - b) / abs(b)
+    print(f"{label}: eobj after {n} iterations, megastep {a:.6f} legacy "
+          f"{b:.6f}, rel {rel:.3e} (tol {tol:.0e})", flush=True)
+    check(k["n_req"] >= 2, f"{label}: the default run asked for no window")
+    check(k["mega_iters"] + k["legacy_iters"] == k["iters"],
+          f"{label}: {k['mega_iters']} window and {k['legacy_iters']} "
+          f"legacy iterations for {k['iters']} run")
+    if windows:
+        check(k["megasteps"] > 0,
+              f"{label}: the default run ran no megastep window")
+        check(k["window_launches"].get(kernel, 0) > 0,
+              f"{label}: {kernel} did not launch from inside a window "
+              f"({k['window_launches']})")
+    else:
+        print(f"{label}: no window started: the readiness gate wants the "
+              f"last measurement clean, and its worst residual "
+              f"{k['worst_residual']:.3e} stays above the acceptance "
+              f"ladder {k['tol_qp']:.0e} (every legacy frozen attempt is "
+              "refused too), so every iteration ran the legacy body",
+              flush=True)
+        check(k["megasteps"] == 0 and k["worst_residual"] > k["tol_qp"],
+              f"{label}: windows {k['megasteps']}, worst residual "
+              f"{k['worst_residual']} against {k['tol_qp']}")
+    check(legacy["megasteps"] == 0 and legacy["n_req"] == 0,
+          f"{label}: the megastep 1 run ran windows")
+    check(rel <= tol, f"{label}: megastep and legacy eobj differ by {rel:.3e}")
+    return rel
+
+
+def inwheel_wheel(cuda_kernels, label, make_opt_kwargs, kernel, iters):
+    """A PH hub with in_wheel_bounds and no spoke; returns (spinner, the
+    hub's PH rate, bound passes)."""
+    from tpusppy_torch.obs import metrics
+    from tpusppy_torch.spbase import clear_batch_cache
+
+    def kwargs():
+        kw = make_opt_kwargs()
+        kw["options"].update(in_wheel_bounds=True, PHIterLimit=iters)
+        return kw
+
+    clear_batch_cache()
+    hub, _ = wheel_dicts(kwargs, [], {"rel_gap": 1e-3}, wheel_clock())
+    with metrics.window() as w:
+        ws, wall = spin(hub, [])
+        passes = w.delta("megastep.bound_passes")
+        infeasible = w.delta("megastep.bound_pass_infeasible")
+        rescues = w.delta("megastep.bound_rescues")
+    clear_batch_cache()
+    opt, stamps = ws.opt, ws.opt.stamps
+    rate = (stamps[-1][0] / (stamps[-1][1] - stamps[0][1])
+            if len(stamps) > 1 else float("nan"))
+    it_done, reason = ws.spcomm.stopped_at
+    ob, ib = ws.BestOuterBound, ws.BestInnerBound
+    outer_src = ("M" if ob == getattr(opt, "inwheel_outer_bound", None)
+                 else "T (the trivial bound)")
+    print(f"{label} hub-only in-wheel wheel: outer={ob:.6f} (from "
+          f"{outer_src}) inner={ib:.6f} (from "
+          f"{getattr(opt, 'inwheel_inner_source', 'none')}) hub stopped at "
+          f"iteration {it_done} ({reason}); bound passes {passes:.0f}, "
+          f"infeasible evaluations {infeasible:.0f}, host rescues "
+          f"{rescues:.0f}; hub PH it/s {rate:.3f}; spokes "
+          f"{len(ws.spoke_comms)}; wall_s={wall:.2f} {CARD}", flush=True)
+    print_cylinders(label, ws, it_done)
+    check(not ws.spoke_comms and list(ws.stats) == ["hub:PHHub"],
+          f"{label}: a spoke ran ({list(ws.stats)})")
+    check(passes > 0, f"{label}: no in-wheel bound pass ran")
+    check(ws.stats["hub:PHHub"]["launches"].get(("launches", kernel), 0)
+          > 0, f"{label}: the hub launched no {kernel}")
+    return ws, rate
+
+
+def phase_megastep(cuda_kernels, main, golden):
+    """The megastep against the legacy loop on every path, the window's
+    host syncs, each kernel launched from inside windows, and hub-only
+    wheels certified by the windows' own bound passes.  ``main``: the
+    main phases' runs (megastep auto), ``golden``: the uc S=10 golden's
+    EF.  uc's windows run with the acceptance ladder off
+    (:data:`UC_NO_LADDER`).  Returns the legacy runs and the hub-only
+    farmer wheel's results."""
+    from tpusppy_torch.ef import solve_ef
+
+    out = {"legacy": {}}
+    paths = (("farmer-1000 cm=4", "fused_sweeps",
+              lambda o, cls: farmer_ph(1000, 4, o, ph_class=cls),
+              {"defaultPHrho": 1.0, "convthresh": 1e-6}, None, 100),
+             ("uc_lite-1000", "fused_sweeps_shared",
+              lambda o, cls: uc_ph(1000, o, ph_class=cls), UC_MAIN_OPTIONS,
+              None, 60),
+             ("uc-1000", "fused_sweeps_sparse",
+              lambda o, cls: uc_full_ph(1000, o, ph_class=cls),
+              UC_MAIN_OPTIONS, UC_SOLVER, 30))
+    for label, kernel, make_ph, options, solver, iters in paths:
+        k = main.get(label)
+        if k is None:
+            _, k = run_path(cuda_kernels, kernel, make_ph, "auto", iters,
+                            options, solver)
+        _, legacy = run_path(cuda_kernels, kernel, make_ph, "auto",
+                             LEGACY_ITERS[label], options,
+                             dict(solver or {}, megastep=1))
+        out["legacy"][label] = legacy
+        hold_megastep(label, kernel, k, legacy, MEGA_EOBJ_TOL[label],
+                      windows=kernel != "fused_sweeps_sparse")
+
+    # uc's windows, the ladder off in both protocols: uc-1000 in f32, and
+    # the f64 golden after each of its first iterations
+    make1000 = paths[2][2]
+    runs = [run_path(cuda_kernels, "fused_sweeps_sparse", make1000, "auto",
+                     LEGACY_ITERS["uc-1000"], UC_MAIN_OPTIONS | UC_NO_LADDER,
+                     dict(UC_SOLVER, megastep=mega))[1] for mega in (0, 1)]
+    hold_megastep("uc-1000, ladder off", "fused_sweeps_sparse", *runs,
+                  MEGA_EOBJ_TOL["uc-1000"])
+    make10 = (lambda o, cls: uc_full_ph(10, o, ph_class=cls))
+    g, legacy = (run_path(cuda_kernels, "fused_sweeps_sparse", make10,
+                          "auto", UC_FULL_TENSOR_ITERS,
+                          UC_FULL_GOLDEN_OPTIONS | UC_NO_LADDER,
+                          dict(UC_SOLVER, megastep=mega), dtype="float64",
+                          eps=1e-8)[1] for mega in (0, 1))
+    rels = [abs(a["eobj"] - b["eobj"]) / abs(b["eobj"])
+            for a, b in zip(g["decisions"][1:], legacy["decisions"][1:])]
+    print(f"golden uc S=10 f64, ladder off: megastep against legacy eobj "
+          f"rel diff after each of iterations 1-{UC_FULL_TENSOR_ITERS}: "
+          f"{['%.3e' % r for r in rels]} (tol {MEGA_F64_TOL:.0e})",
+          flush=True)
+    hold_megastep("golden uc S=10 f64, ladder off", "fused_sweeps_sparse",
+                  g, legacy, MEGA_F64_TOL)
+    check(len(rels) == UC_FULL_TENSOR_ITERS and max(rels) <= MEGA_F64_TOL,
+          f"golden uc S=10 f64: megastep and legacy eobj differ by {rels}")
+
+    # hub-only wheels: the windows' bound passes certify with no spoke
+    label, S, cm = "megastep farmer-1000 cm=4", 1000, 4
+    ef = main.get("farmer-1000 cm=4", {}).get("ef")
+    ws, rate = inwheel_wheel(cuda_kernels, label,
+                             lambda: farmer_wheel_kwargs(S, cm),
+                             "fused_sweeps", WHEEL_ITERS)
+    if ef is None:
+        ef, _ = solve_ef(ws.opt.batch, solver="highs")
+    ob, ib = ws.BestOuterBound, ws.BestInnerBound
+    print(f"{label} hub-only wheel against EF {ef:.4f}: (outer-EF)/|EF|="
+          f"{(ob - ef) / abs(ef):.3e} (inner-EF)/|EF|="
+          f"{(ib - ef) / abs(ef):.3e}", flush=True)
+    check(np.isfinite(ob) and ob <= ef + 1e-6 * abs(ef),
+          f"{label}: outer bound {ob} not finite and at most EF {ef}")
+    check(np.isfinite(ib) and abs(ib - ef) <= 1e-2 * abs(ef)
+          and ib >= ef - 1e-4 * abs(ef),
+          f"{label}: inner bound {ib} not within 1e-2 of EF {ef} (and "
+          "above it less 1e-4)")
+    check(ob <= ib, f"{label}: outer bound {ob} above inner {ib}")
+    out["farmer_wheel"] = dict(outer=ob, inner=ib, ef=ef, rate=rate)
+
+    ef10 = golden.get("uc10_ef")
+    ws, _ = inwheel_wheel(
+        cuda_kernels, "megastep golden uc S=10 f64, ladder off",
+        lambda: uc_wheel_kwargs(10, UC_FULL_GOLDEN_ITERS,
+                                UC_FULL_GOLDEN_OPTIONS | UC_NO_LADDER,
+                                "float64", 1e-8),
+        "fused_sweeps_sparse", UC_FULL_GOLDEN_ITERS)
+    if ef10 is None:
+        ef10, _ = solve_ef(ws.opt.batch, solver="highs")
+    ob = ws.BestOuterBound
+    print(f"megastep golden uc S=10 hub-only wheel: outer {ob:.6f} against "
+          f"EF {ef10:.6f}, rel {(ob - ef10) / abs(ef10):.3e}", flush=True)
+    check(ob <= ef10 + 1e-6 * abs(ef10),
+          f"golden uc S=10 in-wheel outer bound {ob} above EF {ef10}")
+    return out
+
+
 def kernel_line(name, source, replaces, launches, res):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1716,7 +2003,7 @@ def kernel_line(name, source, replaces, launches, res):
 
 
 PHASES = ("kernels", "golden", "loop", "farmer", "uc_lite", "uc",
-          "precision", "wheel")
+          "megastep", "precision", "wheel")
 
 
 def main(argv=None) -> int:
@@ -1777,8 +2064,9 @@ def main(argv=None) -> int:
             kres = phase_kernels(cuda_kernels)
             print(f"[{time.perf_counter() - t_all:.1f} s] kernels done",
                   flush=True)
+        golden, mega = {}, {"legacy": {}}
         if "golden" in phases:
-            phase_golden(cuda_kernels)
+            golden = phase_golden(cuda_kernels)
             print(f"[{time.perf_counter() - t_all:.1f} s] goldens done",
                   flush=True)
         if "loop" in phases:
@@ -1788,28 +2076,32 @@ def main(argv=None) -> int:
         if "farmer" in phases:
             farmer = main_runs["farmer-1000 cm=4"] = phase_main(
                 cuda_kernels, "farmer-1000 cm=4", "fused_sweeps",
-                lambda o, ext: farmer_ph(1000, 4, o, extensions=ext), 100,
+                lambda o, cls: farmer_ph(1000, 4, o, ph_class=cls), 100,
                 25, {"defaultPHrho": 1.0, "convthresh": 1e-6})
         if "uc_lite" in phases:
             uc_lite = main_runs["uc_lite-1000"] = phase_main(
                 cuda_kernels, "uc_lite-1000", "fused_sweeps_shared",
-                lambda o, ext: uc_ph(1000, o, extensions=ext), 60, 10,
+                lambda o, cls: uc_ph(1000, o, ph_class=cls), 60, 10,
                 UC_MAIN_OPTIONS)
         if "uc" in phases:
             uc = main_runs["uc-1000"] = phase_main(
                 cuda_kernels, "uc-1000", "fused_sweeps_sparse",
-                lambda o, ext: uc_full_ph(1000, o, extensions=ext), 30,
+                lambda o, cls: uc_full_ph(1000, o, ph_class=cls), 30,
                 10, UC_MAIN_OPTIONS, solver=UC_SOLVER,
                 ef=False)
         if phases & {"farmer", "uc_lite", "uc"}:
             print(f"[{time.perf_counter() - t_all:.1f} s] main paths done",
                   flush=True)
+        if "megastep" in phases:
+            mega = phase_megastep(cuda_kernels, main_runs, golden)
+            print(f"[{time.perf_counter() - t_all:.1f} s] megastep done",
+                  flush=True)
         if "precision" in phases:
-            prec = phase_precision(cuda_kernels, main_runs)
+            prec = phase_precision(cuda_kernels, main_runs, mega["legacy"])
             print(f"[{time.perf_counter() - t_all:.1f} s] precision done",
                   flush=True)
         if "wheel" in phases:
-            phase_wheel(cuda_kernels, main_runs)
+            phase_wheel(cuda_kernels, main_runs, mega.get("farmer_wheel"))
             print(f"[{time.perf_counter() - t_all:.1f} s] wheel done",
                   flush=True)
     except PhaseError as e:

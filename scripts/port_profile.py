@@ -4,6 +4,8 @@
     python3 scripts/port_profile.py [--model farmer|uc_lite|uc|wheel]
                                     [--scens 1000] [--crops-multiplier 4]
                                     [--warm-iters 20] [--iters 5]
+                                    [--megastep 0|1] [--in-wheel]
+                                    [--no-ladder]
                                     [--spoke-dtype float64]
                                     [--lagrangian-rescue-cap 64]
 
@@ -13,14 +15,22 @@ its defaults (LP relaxation; rho 500, the shared-A engine) or on uc at its
 full width (30 generators x 24 hours, LP relaxation; rho 500 and
 bench_uc.py's solver settings, the structured-KKT engine): Iter0 and
 ``--warm-iters`` iterations, then ``--iters`` iterations timed on the host
-clock, then ``--iters`` more under ``torch.profiler``.
+clock, then ``--iters`` more under ``torch.profiler``, each window through
+``iterk_loop`` at ``--megastep`` (0, the default: megastep windows of 15
+between the refreshes, every 16 iterations; 1: the legacy loop), so
+``--warm-iters 16 --iters 16`` times one refresh and one whole window.
+uc's frozen iterates never meet the frozen acceptance ladder at these
+settings, so its windows never start (chip_smoke.py, phase ``megastep``):
+``--no-ladder`` turns the ladder off (``straggler_tol_qp`` 1e30) in either
+protocol.
 Prints one JSON line: the card, the untraced window's wall seconds per
 iteration, device-busy seconds per iteration in the traced window (the union
 of kernel intervals on the timeline), the idle share (busy against the
 UNTRACED wall, since the profiler slows the host), the hand-written sweep
 kernels' device seconds per iteration, host syncs (every device-to-host
 read, the sweep loop's stop-flag reads among them, counted apart as loop
-checks), CUDA-graph replays and captures of the sweep loop and the host
+checks, and the windows' packed fetches), CUDA-graph replays and captures
+of the sweep loop and the host
 seconds its captures took, the blocks its replays ran (gated ones
 included) and the blocks that swept (all in the untraced window), kernel
 launches per
@@ -38,7 +48,11 @@ launches per hub iteration, solves and host-exact straggler re-solves are
 added.  The spokes solve in ``--spoke-dtype`` (f64, as in chip_smoke.py's
 wheel) and the Lagrangian rescues at most ``--lagrangian-rescue-cap``
 stragglers a solve (64, the default of the reference and the port), so
-two runs that differ in one of them show what it costs the hub.
+two runs that differ in one of them show what it costs the hub.  With
+``--in-wheel`` the wheel is the hub alone with ``in_wheel_bounds``: its
+windows certify with their own bound pass, and no spoke runs.  The hub's
+windows are marked at window ends, so each timed span covers whole
+windows from the first end at or past its start.
 """
 
 import argparse
@@ -79,6 +93,9 @@ def main():
     ap.add_argument("--spoke-dtype", choices=("float32", "float64"),
                     default="float64")
     ap.add_argument("--lagrangian-rescue-cap", type=int, default=64)
+    ap.add_argument("--megastep", type=int, choices=(0, 1), default=0)
+    ap.add_argument("--in-wheel", action="store_true")
+    ap.add_argument("--no-ladder", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -94,7 +111,8 @@ def main():
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     S, cm = args.scens, args.crops_multiplier
-    solver = {"dtype": "float32", "eps_abs": 1e-5, "eps_rel": 1e-5}
+    solver = {"dtype": "float32", "eps_abs": 1e-5, "eps_rel": 1e-5,
+              "megastep": args.megastep}
     if args.model == "wheel":
         return profile_wheel(args, solver)
     if args.model == "farmer":
@@ -109,8 +127,9 @@ def main():
         solver.update(max_iter=200, restarts=2, scaling_iters=6,
                       solve_refine=1, sweep_plateau_rtol=0.05,
                       sweep_plateau_window=8)
+    ladder = {"straggler_tol_qp": 1e30} if args.no_ladder else {}
     ph = PH({"defaultPHrho": rho, "PHIterLimit": args.warm_iters,
-             "convthresh": 0.0, "solver_options": solver},
+             "convthresh": 0.0, "solver_options": solver, **ladder},
             model.scenario_names_creator(S), model.scenario_creator,
             scenario_creator_kwargs=kw)
     ph.ph_main()
@@ -118,8 +137,8 @@ def main():
     n = args.iters
 
     def run_iters():
-        for _ in range(n):
-            ph._iterk_one(ph._iter + 1, 0.0)
+        ph.options["PHIterLimit"] = ph._iter + n
+        ph.iterk_loop()
         torch.cuda.synchronize()
 
     with metrics.window() as win:
@@ -130,7 +149,8 @@ def main():
     untraced = {k: win.delta(k) / n for k in (
         "host_sync.count", "admm.loop_checks", "device_loop.replays",
         "device_loop.blocks", "device_loop.captures",
-        "device_loop.capture_secs", "solve.sweeps")}
+        "device_loop.capture_secs", "solve.sweeps", "dispatch.megasteps",
+        "dispatch.mega_iterations")}
     cuda_kernels.reset_counts()
     with profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -155,13 +175,17 @@ def main():
     print(json.dumps({
         "card": smi, "model": args.model, "scens": S,
         "crops_multiplier": cm if args.model == "farmer" else None,
-        "iters": n,
+        "iters": n, "megastep": args.megastep,
+        "no_ladder": args.no_ladder,
+        "window_n": ph._megastep_request(),
         "wall_s_per_iter": wall, "traced_wall_s_per_iter": traced_wall,
         "device_busy_s_per_iter": busy, "idle_share": 1.0 - busy / wall,
         "device_kernels_per_iter": len(dev) / n,
         "sweep_kernel_s_per_iter": sweep_s,
         "host_syncs_per_iter": untraced["host_sync.count"],
         "loop_checks_per_iter": untraced["admm.loop_checks"],
+        "packed_fetches_per_iter": untraced["dispatch.megasteps"],
+        "window_iterations_per_iter": untraced["dispatch.mega_iterations"],
         "graph_replays_per_iter": untraced["device_loop.replays"],
         "blocks_replayed_per_iter": untraced["device_loop.blocks"],
         "sweep_blocks_per_iter": untraced["solve.sweeps"] / max(
@@ -188,16 +212,18 @@ def card():
 
 
 def profile_wheel(args, solver):
-    """The farmer wheel's hub iterations ``warm+1 .. warm+n`` on the host
-    clock, then ``n`` more under ``torch.profiler`` (started and stopped
-    by a hub extension), while the spokes run."""
+    """The farmer wheel's hub iterations from the first iteration end at
+    or past ``warm`` to the first at or past ``warm + n`` on the host
+    clock, then to the first at or past ``warm + 2n`` under
+    ``torch.profiler`` (started and stopped at the hub's iteration ends:
+    each legacy iteration and each window), while the spokes run.  With
+    ``--in-wheel`` the hub runs alone with ``in_wheel_bounds``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from tpusppy_torch.cylinders import (LagrangianOuterBound, PHHub,
                                          XhatShuffleInnerBound,
                                          XhatXbarInnerBound)
-    from tpusppy_torch.extensions.extension import Extension
     from tpusppy_torch.models import farmer
     from tpusppy_torch.obs import metrics
     from tpusppy_torch.opt.ph import PH
@@ -209,26 +235,38 @@ def profile_wheel(args, solver):
                    args.iters)
     marks = {}
 
-    class Window(Extension):
-        def enditer(self):
-            k = self.opt._iter
-            if k == w:
-                marks["win"] = metrics.window().__enter__()
-                marks["t0"] = time.perf_counter()
-            elif k == w + n:
-                marks["wall"] = (time.perf_counter() - marks["t0"]) / n
-                marks["syncs"] = marks["win"].delta("host_sync.count") / n
-                marks["prof"] = profile(activities=[ProfilerActivity.CPU,
-                                                    ProfilerActivity.CUDA])
-                marks["prof"].__enter__()
-                marks["t1"] = time.perf_counter()
-            elif k == w + 2 * n:
-                marks["prof"].__exit__(None, None, None)
-                marks["traced"] = (time.perf_counter() - marks["t1"]) / n
+    def mark(k):
+        if "k0" not in marks and k >= w:
+            marks.update(k0=k, win=metrics.window().__enter__(),
+                         t0=time.perf_counter())
+        elif "k1" not in marks and "k0" in marks and k >= w + n:
+            span = k - marks["k0"]
+            marks.update(k1=k, wall=(time.perf_counter() - marks["t0"])
+                         / span,
+                         syncs=marks["win"].delta("host_sync.count") / span,
+                         prof=profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA]))
+            marks["prof"].__enter__()
+            marks["t1"] = time.perf_counter()
+        elif "k2" not in marks and "k1" in marks and k >= w + 2 * n:
+            marks["prof"].__exit__(None, None, None)
+            marks.update(k2=k, traced=(time.perf_counter() - marks["t1"])
+                         / (k - marks["k1"]))
+
+    class Marked(PH):
+        def _iterk_one(self, k, convthresh):
+            out = super()._iterk_one(k, convthresh)
+            mark(self._iter)
+            return out
+
+        def _apply_megastep_meas(self, k, meas):
+            super()._apply_megastep_meas(k, meas)
+            mark(self._iter)
 
     def okw():
-        return {"options": {"defaultPHrho": 1.0, "PHIterLimit": w + 2 * n,
+        return {"options": {"defaultPHrho": 1.0, "PHIterLimit": w + 3 * n,
                             "convthresh": -1.0, "batch_cache": True,
+                            "in_wheel_bounds": args.in_wheel,
                             "xhat_looper_options": {"scen_limit": 3},
                             "solver_options": dict(solver)},
                 "all_scenario_names": farmer.scenario_names_creator(S),
@@ -237,39 +275,55 @@ def profile_wheel(args, solver):
                                             "crops_multiplier": cm}}
 
     hub = {"hub_class": PHHub, "hub_kwargs": {"options": {}},
-           "opt_class": PH, "opt_kwargs": dict(okw(), extensions=Window)}
+           "opt_class": Marked, "opt_kwargs": okw()}
     spokes = []
     spoke_solver = dict(solver, dtype=args.spoke_dtype)
     for sc, oc, extra in ((LagrangianOuterBound, PHBase,
                            {"straggler_lp_max": args.lagrangian_rescue_cap}),
                           (XhatShuffleInnerBound, Xhat_Eval, {}),
                           (XhatXbarInnerBound, Xhat_Eval, {})):
+        if args.in_wheel:
+            break
         kw = okw()
-        kw["options"].update(extra, solver_options=spoke_solver)
+        kw["options"].update(extra, in_wheel_bounds=False,
+                             solver_options=spoke_solver)
         spokes.append({"spoke_class": sc, "opt_class": oc,
                        "opt_kwargs": kw})
-    ws = WheelSpinner(hub, spokes).spin()
+    with metrics.window() as whole:
+        ws = WheelSpinner(hub, spokes).spin()
+        passes = whole.delta("megastep.bound_passes")
+        rescues = whole.delta("megastep.bound_rescues")
+    if "k2" not in marks:
+        print(f"FAIL: the hub's iteration ends {marks} never passed "
+              f"{w + 2 * n}", flush=True)
+        return 1
     dev = [e for e in marks["prof"].events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
         print("FAIL: the profiler recorded no device kernels", flush=True)
         return 1
-    busy = busy_seconds(dev) / n
+    span = marks["k2"] - marks["k1"]
+    busy = busy_seconds(dev) / span
     sweep_s = sum((e.time_range.end - e.time_range.start) * 1e-6
-                  for e in dev if "fused_sweeps" in e.name) / n
+                  for e in dev if "fused_sweeps" in e.name) / span
     iters = ws.opt._iter
     print(json.dumps({
         "card": card(), "model": "wheel", "scens": S, "crops_multiplier": cm,
+        "megastep": args.megastep, "window_n": ws.opt._megastep_request(),
+        "in_wheel": args.in_wheel, "spokes": len(spokes),
         "spoke_dtype": args.spoke_dtype,
         "lagrangian_rescue_cap": args.lagrangian_rescue_cap,
-        "iters": n, "hub_wall_s_per_iter": marks["wall"],
+        "timed_hub_iterations": [marks["k0"], marks["k1"], marks["k2"]],
+        "hub_wall_s_per_iter": marks["wall"],
         "traced_wall_s_per_iter": marks["traced"],
         "device_busy_s_per_iter": busy,
         "idle_share": 1.0 - busy / marks["wall"],
         "idle_share_of_traced_wall": 1.0 - busy / marks["traced"],
-        "device_kernels_per_iter": len(dev) / n,
+        "device_kernels_per_iter": len(dev) / span,
         "sweep_kernel_s_per_iter": sweep_s,
         "hub_host_syncs_per_iter_all_cylinders": marks["syncs"],
+        "bound_passes": passes, "bound_rescues": rescues,
+        "outer": ws.BestOuterBound, "inner": ws.BestInnerBound,
         "launches_per_hub_iter": {
             name: {f"{t}:{k}": v / iters for (t, k), v in
                    st["launches"].items() if t == "launches"}

@@ -6,7 +6,10 @@ Threads run ``solve_batch`` and PH iterations at once on farmer batches of
 the same shape with different objectives (and a thread that allocates and
 solves batched linear systems meanwhile, so that on the card captures
 overlap both); in f64 every result equals, bitwise, the same call run
-alone.  The CPU cases hold the Python
+alone.  A PH hub running megastep windows (captured window steps, frozen
+solves carrying the window's stop word) beside a spoke thread's frozen
+solves of the same shape is bitwise its solo run too, and on the card its
+windows agree with the legacy loop to 1e-9.  The CPU cases hold the Python
 side (counts, trackers, caches); the ``cuda`` case holds the streams and the
 CUDA-graph captures and skips without a card.  This file imports no JAX.
 """
@@ -290,3 +293,114 @@ def test_concurrent_solves_match_solo_on_the_card():
             assert v.get(("launches", "fused_sweeps"), 0) > 0
             assert {k for k in v if k[0] in ("launches", "plain_calls")} \
                 == {("launches", "fused_sweeps")}
+
+
+#: Solver settings of the window cases: fewer restarts and sweeps.
+QUICK = {"restarts": 2, "max_iter": 400}
+
+
+def _hub(device):
+    """A PH hub whose iterations 2-4 run as a megastep window (solo or
+    beside the spoke): W, x, conv and eobj, and what its windows
+    launched.  Short solves (:data:`QUICK`) keep the CPU run brief."""
+    ph = PH({"defaultPHrho": 1.0, "PHIterLimit": 4, "convthresh": -1.0,
+             "device": device, "solver_refresh_every": 4,
+             "solver_options": QUICK},
+            farmer.scenario_names_creator(S), farmer.scenario_creator,
+            scenario_creator_kwargs=KW)
+    with cuda_kernels.owned_by(ph):
+        _, eobj, _ = ph.ph_main()
+    device_loop.release(ph)
+    launched = sum(ph.window_launches.values())
+    return [ph.W, ph.local_x, np.array([ph.conv, eobj])], launched
+
+
+def _spoke(device, owner):
+    """A spoke's work: a factored solve, then frozen solves on its factors
+    for objectives that drift as PH's do."""
+    (args, _), = _problems(device)[:1]
+    st = admm.ADMMSettings(**QUICK)
+    with cuda_kernels.owned_by(owner):
+        sol, fac = admm.solve_batch_factored(*args, settings=st,
+                                             device=device)
+        out = [np.asarray(sol.x.cpu())]
+        warm = sol.raw
+        for k in range(2):
+            c = args[0] * (1.0 + 0.01 * (k + 1))
+            sol = admm.solve_batch_frozen(c, *args[1:], fac, settings=st,
+                                          warm=warm, device=device)
+            warm = sol.raw
+            out.append(np.asarray(sol.x.cpu()))
+    device_loop.release(owner)
+    return out
+
+
+def _hub_beside_spoke(device):
+    solo_hub, launched = _hub(device)
+    solo_spoke = _spoke(device, "spoke-solo")
+    results, errors = {}, []
+
+    def run(name, fn):
+        stream = (device_loop.claim_stream(torch.device(device))
+                  if device != "cpu" else None)
+        try:
+            torch.set_num_threads(1)
+            with (torch.cuda.stream(stream) if stream is not None
+                  else contextlib.nullcontext()):
+                results[name] = fn()
+            if stream is not None:
+                stream.synchronize()
+                device_loop.free_stream(stream)
+        except Exception as e:          # reported below
+            errors.append((name, e))
+
+    ts = [threading.Thread(target=run, args=("hub", lambda: _hub(device))),
+          threading.Thread(target=run,
+                           args=("spoke", lambda: _spoke(device, "spoke")))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in ts)
+    assert not errors, errors
+    hub, launched_c = results["hub"]
+    assert launched > 0 and launched_c == launched
+    for a, b in zip(hub, solo_hub):
+        assert np.array_equal(a, b)
+    for a, b in zip(results["spoke"], solo_spoke):
+        assert np.array_equal(a, b)
+
+
+def test_windows_beside_a_spoke_match_solo_on_the_cpu():
+    _hub_beside_spoke("cpu")
+
+
+@pytest.mark.cuda
+def test_windows_beside_a_spoke_match_solo_on_the_card():
+    _cuda()
+    _hub_beside_spoke("cuda")
+
+
+@pytest.mark.cuda
+def test_windows_match_the_legacy_loop_on_the_card():
+    """f64 on the card: the hub's windows against the legacy loop, W and
+    xbars to 1e-9 (the objective is assembled on the device in one and on
+    the host in the other)."""
+    _cuda()
+    runs = []
+    for mega in (0, 1):
+        ph = PH({"defaultPHrho": 1.0, "PHIterLimit": 12,
+                 "convthresh": -1.0, "device": "cuda",
+                 "solver_refresh_every": 4,
+                 "solver_options": {"megastep": mega}},
+                farmer.scenario_names_creator(S), farmer.scenario_creator,
+                scenario_creator_kwargs=KW)
+        ph.ph_main()
+        runs.append(ph)
+    mega, legacy = runs
+    assert sum(mega.window_launches.values()) > 0
+    assert not legacy.window_launches
+    for name in ("W", "xbars"):
+        a, b = getattr(mega, name), getattr(legacy, name)
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-9 * max(1.0, np.abs(b).max()))

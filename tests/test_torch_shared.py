@@ -396,7 +396,8 @@ def test_missing_engines_raise():
     assert make_admm_settings({"solver_options": {
         "factors_keep_K": False}}) == TSettings(factors_keep_K=False)
     assert make_admm_settings({"solver_options": {
-        "sweep_precision": "highest", "megastep": 1}}) == TSettings()
+        "sweep_precision": "highest", "megastep": 1}}) == TSettings(
+            megastep=1)
 
 
 def test_uc_ph_without_a_device_raises_when_no_gpu(monkeypatch):

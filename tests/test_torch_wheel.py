@@ -403,7 +403,7 @@ def test_owners_of_one_signature_get_distinct_loops(monkeypatch):
 def _unported_cases():
     def megastep():
         PH({"defaultPHrho": 1.0, "PHIterLimit": 1, "device": "cpu",
-            "solver_options": {"megastep": 4}},
+            "megastep_autotune": True},
            farmer.scenario_names_creator(3), farmer.scenario_creator,
            scenario_creator_kwargs={"num_scens": 3})
 
@@ -452,7 +452,7 @@ def _unported_cases():
                       "opt_kwargs": okw, "hub_kwargs": {"options": {}}},
                      []).spin()
 
-    return [(megastep, "Queue 1 item 3"), (checkpoint, "Queue 1 item 7"),
+    return [(megastep, "Queue 1 item 5"), (checkpoint, "Queue 1 item 7"),
             (resume, "Queue 1 item 7"), (milp_lift, "Queue 1 item 6"),
             (donor_milp, "Queue 1 item 6"), (integer_dive, "Queue 1 item 6"),
             (multiprocess, "Queue 1 item 7"),

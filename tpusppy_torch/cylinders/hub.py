@@ -8,6 +8,12 @@ checks, tracks the best inner/outer bounds, and terminates the wheel on
 ``rel_gap`` / ``abs_gap`` / ``max_stalled_iters`` by broadcasting the kill
 sentinel.
 
+Bound source chars: a spoke's class char, ``'T'`` the trivial bound, ``'X'``
+an in-hub xhat incumbent, and ``'M'`` an in-wheel bound, the megastep's
+bound pass (``PHBase._consume_inwheel_bounds``) landing through the same
+typed ``OuterBoundUpdate``/``InnerBoundUpdate``, so gaps and termination
+treat it as a spoke bound: a hub with no spokes certifies by itself.
+
 Not ported yet: the spoke supervisor, checkpoints and resume, preemption
 (ROADMAP Queue 1 item 7, resilience and serving), and the cross-scenario,
 APH and L-shaped hubs (Queue 1 item 7); an option only those read raises.

@@ -10,9 +10,9 @@ fresh W; with ``lagrangian_dual_donors`` the bound also takes host-exact
 donor duals (:meth:`~tpusppy_torch.spopt.SPOpt.dual_donor_bounds`), and
 with ``lagrangian_skip_solve`` it comes from the donors alone.
 
-Not ported yet: the MILP lift and ascent of integer families (ROADMAP Queue
-1 item 6), which raise when asked for on one, and ``in_wheel_outer_bound``,
-which waits for the megastep (Queue 1 item 3).
+:func:`in_wheel_outer_bound` is the host twin of the megastep's in-wheel
+outer bound.  Not ported yet: the MILP lift and ascent of integer families
+(ROADMAP Queue 1 item 6), which raise when asked for on one.
 """
 
 from __future__ import annotations
@@ -22,6 +22,21 @@ import numpy as np
 from .. import global_toc
 from ..obs import metrics as _metrics
 from .spoke import OuterBoundWSpoke
+
+
+def in_wheel_outer_bound(opt) -> float:
+    """The Lagrangian outer bound of ``opt``'s CURRENT state without a
+    fresh solve: the W-augmented objective (W on, prox off) through the
+    weak-duality assembly with the warm state's row duals.  The host twin
+    of the bound the megastep's in-wheel pass computes on the device
+    (``parallel.sharded._bound_pass_terms``).  Syncs stale host mirrors
+    first; needs a prior solve."""
+    if getattr(opt, "_host_state_stale", False):
+        opt._sync_host_state()
+    b = opt.batch
+    q = np.array(b.c, copy=True)
+    q[:, opt.tree.nonant_indices] += np.asarray(opt.W, dtype=float)
+    return opt.Edualbound(q=q, q2=b.q2)
 
 
 def _has_ints(opt) -> bool:

@@ -6,9 +6,9 @@ probability-weighted per-node mean of the hub's nonants (xbar), with
 integer slots rounded — nonanticipative by construction, and often good
 once PH is nearly converged.
 
-Not ported yet: ``in_wheel_inner_bound``, which waits for the megastep
-(ROADMAP Queue 1 item 3), and the integer families' rounding ladder
-(Queue 1 item 6): an integer family evaluates the thresholds it is given.
+:func:`in_wheel_inner_bound` is the host twin of the megastep's in-wheel
+inner bound.  Not ported yet: the integer families' rounding ladder (ROADMAP
+Queue 1 item 6): an integer family evaluates the thresholds it is given.
 """
 
 from __future__ import annotations
@@ -57,6 +57,54 @@ def xbar_candidate(opt, xk: np.ndarray, threshold: float = 0.5) -> np.ndarray:
     cand = xbar_nk[opt.nid_sk, kidx]
     return candidate_rule(opt.batch, opt.tree.nonant_indices, cand,
                           threshold)
+
+
+def in_wheel_inner_bound(opt, threshold: float = 0.5, feas_tol=None):
+    """The xhat-at-xbar inner bound of ``opt``'s CURRENT state: the host
+    twin of the megastep's in-wheel pass (``parallel.sharded.
+    _bound_pass_terms``).  The candidate is ``opt.xbars`` through
+    :func:`candidate_rule`, clamped onto the nonant columns and evaluated
+    by ONE frozen solve on the cached factors under the PH-augmented
+    objective (same minimizer on the clamped box, matching factors); the
+    PLAIN expected objective is reported.  Returns ``(inner, feas_mass)``,
+    the mass of scenarios whose primal residual is under ``feas_tol``
+    (``inner`` is an incumbent only when it is 1).  Needs frozen-ready
+    state."""
+    from ..solvers import admm, hostsync, shared_admm
+
+    if getattr(opt, "_host_state_stale", False):
+        opt._sync_host_state()
+    if opt._factors is None or opt._warm is None:
+        raise RuntimeError("in_wheel_inner_bound requires frozen-ready "
+                           "state (a prior refresh solve)")
+    b = opt.batch
+    nid = np.asarray(opt.tree.nonant_indices)
+    cand, lb, ub = clamp_candidate(b, nid, np.array(opt.xbars, dtype=float),
+                                   threshold)
+    q, q2 = opt._augmented_q()
+    st = opt.admm_settings
+    dt = st.tdtype()
+    A_d, cl_d, cu_d = opt._device_consts(dt)
+
+    def t(v):
+        return admm._tensor(v, dt, opt.device)
+
+    x, z, y, yx = (t(v) for v in opt._warm)
+    x0 = x.clone()
+    x0[:, nid] = t(cand)
+    args = (t(q), t(q2), A_d, cl_d, cu_d, t(lb), t(ub))
+    frozen = (shared_admm.solve_shared_frozen if b.A_shared is not None
+              else admm.solve_batch_frozen)
+    sol = frozen(*args, factors=opt._factors, settings=st,
+                 warm=(x0, z, y, yx))
+    xs, pri = hostsync.fetch((sol.x, sol.pri_res))
+    obj = (np.einsum("sn,sn->s", np.asarray(b.c), xs)
+           + 0.5 * np.einsum("sn,sn->s", np.asarray(b.q2), xs * xs)
+           + np.broadcast_to(np.asarray(b.const), (b.num_scenarios,)))
+    if feas_tol is None:
+        feas_tol = opt._inwheel_feas_tol()
+    probs = np.asarray(opt.probs, dtype=float)
+    return float(probs @ obj), float(probs @ (pri < feas_tol))
 
 
 class XhatXbarInnerBound(InnerBoundNonantSpoke):

@@ -2,8 +2,16 @@
 
 A standard-library copy of the counter half of ``tpusppy/obs/metrics.py``:
 what the solve loop and the host-sync wrapper feed (``host_sync.*``,
-``admm.loop_checks``, ``solve.*``).  Each update is one lock and a float add.
-Scoped measurements read deltas through :func:`window`.
+``admm.loop_checks``, ``solve.*``), and the reference's megastep counters:
+``dispatch.megasteps`` (windows run, one packed fetch each),
+``dispatch.mega_iterations`` (PH iterations they accepted),
+``dispatch.flops`` (model flops, :mod:`..solvers.flops`),
+``megastep.refresh_hits`` (windows that sent the next iteration to the
+refresh), ``megastep.rejected_iterations``, ``megastep.bound_passes``,
+``megastep.bound_pass_infeasible``, ``megastep.bound_rescues`` and
+``phstate.boundary_fetches`` (host-mirror fetches of lean windows).  Each
+update is one lock and a float add.  Scoped measurements read deltas
+through :func:`window`.
 """
 
 from __future__ import annotations

@@ -7,21 +7,75 @@ contraction and ``convergence_diff`` the scaled L1 deviation from xbar.  The
 augmented objective ``W.x + (rho/2)(x - xbar)^2`` is a (q, q2) override for
 the batched ADMM solve.
 
-The device-resident megastep (N iterations per dispatch) is not part of this
-slice: every iteration runs the legacy loop, the path the reference takes
-under ``solver_options={"megastep": 1}``.  In a wheel the opt object's
+The wheel megastep is the default, as in the reference: where its gates
+allow (:meth:`PHBase._megastep_request`), ``iterk_loop`` runs the frozen
+iterations in windows of N (:mod:`.parallel.sharded`), the PH update on the
+device and one packed fetch a window, and the legacy per-iteration body
+refreshes between windows.  ``solver_options={"megastep": 1}`` keeps the
+legacy loop throughout, ``{"megastep": k}`` asks for N = k.  With the
+``in_wheel_bounds`` option each window ends with the Lagrangian outer and
+xhat-at-xbar inner bound pass, posted to the hub as source ``'M'``, so a
+hub with no spokes certifies a gap by itself.  In a wheel the opt object's
 ``spcomm`` (its hub or spoke communicator) syncs after Iter0 and after every
-iteration and may end the loop (``is_converged``).
+legacy iteration or window and may end the loop (``is_converged``).
+
+Not ported yet, and raising ``NotImplementedError`` when asked for: the
+autotuned window width and bound cadence (``megastep_autotune``,
+``in_wheel_bound_autotune``, ``in_wheel_int_autotune``; ROADMAP Queue 1
+item 5), the batched integer sweep and host escalation of an integer
+family's in-wheel bounds (Queue 1 item 6), and the bucketed megastep
+(Queue 1 item 7; no batch of the port is bucketed, so the reference's
+``_mega_age`` and ``_megastep_dispatch``, which route a bucketed batch,
+have no counterpart: a window reads ``_factors_age`` and calls
+``_megastep_solve``).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import scipy.sparse as sp
+import torch
 
 from . import global_toc
+from .obs import metrics as _metrics
 from .obs import trace as _trace
+from .solvers import hostsync, segmented
 from .spopt import SPOpt
 from .extensions.extension import Extension
+
+#: PH options that only parts not ported yet read.
+UNPORTED_OPTIONS = {
+    "megastep_autotune": "Queue 1 item 5 (the autotuner)",
+    "in_wheel_bound_autotune": "Queue 1 item 5 (the autotuner)",
+    "in_wheel_int_autotune": "Queue 1 item 5 (the autotuner)",
+}
+
+
+def _check_options(opt):
+    """Raise on an option only a part not ported yet reads; an integer
+    family's in-wheel bounds take the batched integer sweep and the host
+    escalation unless both are turned off."""
+    for name, item in UNPORTED_OPTIONS.items():
+        if opt.options.get(name):
+            raise NotImplementedError(
+                f"option {name!r} is not ported yet (ROADMAP {item})")
+    if not opt.options.get("in_wheel_bounds"):
+        return
+    ints = np.asarray(opt.batch.is_int, bool)
+    for name, armed in (
+            ("in_wheel_int_sweep", ints[opt.tree.nonant_indices].any()),
+            ("integer_escalation", ints.any())):
+        if armed and opt.options.get(name, True):
+            raise NotImplementedError(
+                f"in_wheel_bounds on an integer family ({name} on): the "
+                "batched integer sweep and host escalation are not ported "
+                f"yet (ROADMAP Queue 1 item 6); set {name}: False")
+
+
+def _feas_slack(S: int, dt) -> float:
+    """The all-scenarios gate's slack on a feasible probability mass: an
+    all-feasible sum of S probabilities in ``dt`` lands ~S eps below 1."""
+    return max(1e-9, 4.0 * int(S) * float(torch.finfo(dt).eps))
 
 
 class PHBase(SPOpt):
@@ -45,6 +99,7 @@ class PHBase(SPOpt):
 
         # node-membership one-hot for the xbar contraction: (S, K, N)
         self._onehot = self.tree.onehot_sk_n()
+        _check_options(self)
 
     # ---- reductions ---------------------------------------------------------
     def _nonants_cached(self) -> np.ndarray:
@@ -137,7 +192,7 @@ class PHBase(SPOpt):
             # plateau: check the worst offenders host-exactly
             from .solvers import scipy_backend
 
-            tol = self._feas_tol()
+            tol = self._inwheel_feas_tol()
             pri0 = np.asarray(self.pri_res)
             bad = np.flatnonzero(~(pri0 <= tol))
             key = np.where(np.isnan(pri0[bad]), np.inf, pri0[bad])
@@ -185,17 +240,381 @@ class PHBase(SPOpt):
         )
         return self.trivial_bound
 
+    # ---- the wheel megastep (N frozen iterations a window) ------------------
+    def _megastep_request(self) -> int:
+        """The window width N (>= 2) when megastep windows may drive this
+        hub's iterations, else 0 (the legacy loop throughout).
+
+        Gates, each falling back to legacy: ``ADMMSettings.megastep`` (1 is
+        legacy); the trivial extension (a callout per iteration cannot run
+        inside a window); no nonant fixing; W and prox on; a frozen
+        cadence (``solver_refresh_every`` > 2).  N is the megastep setting
+        when it is above 1, else the refresh window ``refresh_every - 1``
+        (one legacy refresh and one window per cadence block), within the
+        card's cap (:func:`.solvers.segmented.megastep_cap`).  The H100 has
+        no segmentation regime, so no shape is sent to legacy."""
+        st = self.admm_settings
+        req = int(st.megastep or 0)
+        if req == 1:
+            return 0
+        if type(self.extobject) is not Extension:
+            return 0
+        if self._fixed_lb is not None or self._fixed_ub is not None:
+            return 0
+        if not (self.W_on and self.prox_on):
+            return 0
+        refresh_every = self._refresh_every()
+        if refresh_every <= 2:
+            return 0
+        cap = self._megastep_cap_with_bounds(
+            lambda bp: segmented.megastep_cap(bound_pass=bp))
+        n_sel = req if req > 1 else refresh_every - 1
+        n_sel = min(n_sel, refresh_every - 1, cap)
+        return n_sel if n_sel >= 2 else 0
+
+    def _mega_slots_ready(self, refresh_every) -> bool:
+        """Factors and warm state present, not aged out, and the factors'
+        validity signature matching the PH objective's."""
+        if self._factors is None or self._warm is None:
+            return False
+        if self._factors_age >= refresh_every:
+            return False
+        return self._solve_sig(self._augmented_q2(), *self._bounds()) \
+            == self._factors_sig
+
+    # ---- in-wheel certification ---------------------------------------------
+    def _megastep_cap_with_bounds(self, cap_fn):
+        """The window cap with the bound pass's reservation; where the
+        reservation would leave no megastep (a cap under 2), in-wheel
+        certification is declined for this family, loudly, and the plain
+        cap kept."""
+        if not self._inwheel_on():
+            return cap_fn(False)
+        cap = cap_fn(1)
+        if cap >= 2:
+            return cap
+        cap_plain = cap_fn(False)
+        if cap_plain >= 2 and not getattr(self, "_inwheel_cap_declined",
+                                          False):
+            self._inwheel_cap_declined = True
+            global_toc(
+                "in_wheel_bounds: the bound pass's reservation would leave "
+                "no megastep for this shape: in-wheel certification "
+                "declined (bound spokes remain the certification path)",
+                True)
+        return cap_plain
+
+    def _inwheel_on(self) -> bool:
+        """Whether windows run the bound pass: option ``in_wheel_bounds``,
+        minimization only (the weak-duality assembly and the feasibility
+        gate are minimization's, like the spokes they replace)."""
+        if not self.options.get("in_wheel_bounds"):
+            return False
+        if getattr(self, "_inwheel_cap_declined", False):
+            return False
+        if not self.is_minimizing:
+            if not getattr(self, "_inwheel_min_warned", False):
+                self._inwheel_min_warned = True
+                global_toc(
+                    "in_wheel_bounds: maximization families are not "
+                    "supported (bound spokes remain the certification "
+                    "path): disabled", True)
+            return False
+        return True
+
+    def _inwheel_inner_ok(self) -> bool:
+        """Whether the in-wheel INNER bound may be taken: every integer
+        column is a nonant slot (the candidate rounds those; a
+        second-stage integer would need the integer evaluation)."""
+        ok = getattr(self, "_inwheel_inner_ok_cache", None)
+        if ok is None:
+            free = np.ones(self.batch.num_vars, dtype=bool)
+            free[self.tree.nonant_indices] = False
+            ok = not np.asarray(self.batch.is_int, bool)[free].any()
+            self._inwheel_inner_ok_cache = ok
+            if not ok:
+                global_toc(
+                    "in_wheel_bounds: second-stage integer columns: the "
+                    "in-wheel INNER bound is not certified (outer only)",
+                    True)
+        return ok
+
+    def _inwheel_every(self) -> int:
+        """Bound-pass cadence in windows: ``in_wheel_bound_every``, else
+        every window."""
+        every = self.options.get("in_wheel_bound_every")
+        return max(1, int(every)) if every else 1
+
+    def _consume_inwheel_bounds(self, meas):
+        """Install one window's bound evidence through the hub's typed
+        updates (source char ``'M'``), so gaps and termination see it as
+        they see spoke bounds; tracked on the opt too for runs without a
+        hub.  The inner bound is offered only when the evaluation was
+        feasible on the whole batch (the all-scenarios rule, with a
+        dtype-aware slack); a miss counts in
+        ``megastep.bound_pass_infeasible`` and may run the host rescue."""
+        if not meas.get("bound_computed"):
+            return
+        c = self.spcomm
+        ob = float(meas["bound_outer"])
+        if np.isfinite(ob):
+            if ob > getattr(self, "inwheel_outer_bound", -np.inf):
+                self.inwheel_outer_bound = ob
+            if c is not None and hasattr(c, "OuterBoundUpdate"):
+                c.OuterBoundUpdate(ob, char='M')
+        slack = _feas_slack(self.batch.num_scenarios,
+                            self.admm_settings.tdtype())
+        feasible = meas["bound_inner_feas"] >= 1.0 - slack
+        if feasible and self._inwheel_inner_ok():
+            self.inwheel_inner_source = "M"
+            self._offer_inwheel_inner(float(meas["bound_inner_obj"]))
+        elif not feasible:
+            _metrics.inc("megastep.bound_pass_infeasible")
+            self._maybe_inwheel_rescue()
+
+    def _offer_inwheel_inner(self, ib: float, char: str = 'M'):
+        """Track and install one certified in-wheel incumbent value."""
+        if not np.isfinite(ib):
+            return
+        if ib < getattr(self, "inwheel_inner_bound", np.inf):
+            self.inwheel_inner_bound = ib
+        c = self.spcomm
+        if c is not None and hasattr(c, "InnerBoundUpdate"):
+            c.InnerBoundUpdate(ib, char=char)
+
+    def _maybe_inwheel_rescue(self):
+        """Cadence gate in front of :meth:`_inwheel_host_rescue`: the
+        first feasibility-gate miss, then every ``in_wheel_rescue_every``-th
+        (default 4: a rescue is S host LPs).  A declined rescue retries
+        after a growing backoff (the next miss, then 2 on, ... up to the
+        cadence).  ``in_wheel_host_rescue=False`` turns it off."""
+        if not self.options.get("in_wheel_host_rescue", True):
+            return
+        if not self._inwheel_inner_ok():
+            return
+        every = max(1, int(self.options.get("in_wheel_rescue_every", 4)))
+        miss = getattr(self, "_inwheel_gate_misses", 0)
+        self._inwheel_gate_misses = miss + 1
+        if miss < getattr(self, "_inwheel_next_rescue", 0):
+            return
+        ib = self._inwheel_host_rescue()
+        if ib is None:
+            declines = getattr(self, "_inwheel_rescue_declines", 0) + 1
+            self._inwheel_rescue_declines = declines
+            self._inwheel_next_rescue = miss + min(declines, every)
+        else:
+            self._inwheel_next_rescue = miss + every
+            self.inwheel_inner_source = "host rescue"
+            self._offer_inwheel_inner(ib)
+
+    def _inwheel_host_rescue(self):
+        """The host solver's inner bound of the SAME candidate the device
+        pass evaluates (the consensus xbars through the single candidate rule,
+        :func:`.cylinders.xhatxbar_bounder.clamp_candidate`), by
+        per-scenario host solves: f32 clamped evaluations park above the
+        feasibility gate (ROADMAP Queue 3), and the rescue certifies what
+        the device pass cannot.  Returns the bound, or None where a
+        scenario is infeasible at the candidate or the host solver fails
+        (a rescue declines, it never ends the wheel)."""
+        from .cylinders.xhatxbar_bounder import clamp_candidate
+
+        if getattr(self, "_host_state_stale", False):
+            self._sync_host_state()
+        _metrics.inc("megastep.bound_rescues")
+        b = self.batch
+        try:
+            cand, _, _ = clamp_candidate(
+                b, self.tree.nonant_indices,
+                np.asarray(self.xbars, dtype=float),
+                self._inwheel_threshold())
+            return self._inwheel_eval_candidate_host(cand)
+        except Exception as e:      # a failed rescue declines, loudly
+            global_toc(f"in-wheel host rescue failed ({e!r}): declined",
+                       True)
+            return None
+
+    def _inwheel_eval_candidate_host(self, cand_sk):
+        """Expected objective of one fixed (S, K) candidate by per-scenario
+        host solves: HiGHS for an LP scenario, the exact host QP for a
+        quadratic one.  None when any scenario is infeasible.
+
+        HiGHS runs at a primal feasibility tolerance of the batched
+        solver's own ``eps_abs`` (floored at HiGHS's default, 1e-7): the
+        candidate is a consensus of eps-accurate solutions, and a row that
+        couples nonant columns alone (farmer's land row) carries that noise
+        into the fixed candidate (2e-6 over at farmer-1000 in f32, where
+        HiGHS's default refuses every scenario).  The value of a candidate
+        that far off the row differs from a feasible one's by the row's
+        dual times the violation."""
+        from .solvers import scipy_backend
+
+        feas_tol = max(1e-7, float(self.admm_settings.eps_abs))
+        b = self.batch
+        nid = self.tree.nonant_indices
+        lb = np.array(b.lb, copy=True)
+        ub = np.array(b.ub, copy=True)
+        lb[:, nid] = cand_sk
+        ub[:, nid] = cand_sk
+        const = np.broadcast_to(np.asarray(b.const, float),
+                                (b.num_scenarios,))
+        # a shared-A family converts its one matrix to CSR once
+        A_csr = (sp.csr_matrix(b.A_shared) if b.A_shared is not None
+                 else None)
+        objs = np.empty(b.num_scenarios)
+        for s in range(b.num_scenarios):
+            A_s = b.A[s] if A_csr is None else A_csr
+            if np.asarray(b.q2[s]).any():
+                r = scipy_backend.solve_qp_with_duals(
+                    b.c[s], b.q2[s], b.A[s], b.cl[s], b.cu[s], lb[s], ub[s],
+                    const=const[s])
+            else:
+                r = scipy_backend.solve_lp_with_duals(
+                    b.c[s], A_s, b.cl[s], b.cu[s], lb[s], ub[s],
+                    const=const[s], feas_tol=feas_tol)
+            if not np.isfinite(r.obj):
+                return None
+            objs[s] = r.obj
+        return float(np.asarray(self.probs, float) @ objs)
+
+    # ---- windows in the loop ------------------------------------------------
+    def _megastep_window(self, k, max_iters, convthresh, n_req):
+        """One window starting at iteration ``k``: returns ``(executed,
+        conv_hit)``; ``executed == 0`` means the slot was not ready (stale
+        or aged factors, an unclean last measurement, or a first iterate
+        the window rejected) and the caller runs a legacy iteration, which
+        refreshes and rescues."""
+        refresh_every = self._refresh_every()
+        if not self._mega_slots_ready(refresh_every):
+            return 0, False
+        # the last measurement must be clean, as the legacy frozen path's
+        # acceptance test; an eps-converged batch is clean whatever its
+        # residual ladder says
+        pri, dua = self.pri_res, self.dua_res
+        if pri is None or dua is None:
+            return 0, False
+        _, tol_qp = self._straggler_tols()
+        if not bool(np.all((pri <= tol_qp) & (dua <= tol_qp))):
+            if not getattr(self, "_last_all_done", False):
+                return 0, False
+        n_live = min(n_req, refresh_every - self._factors_age,
+                     max_iters - k + 1)
+        if n_live < 1:
+            return 0, False
+        bound_live = None
+        if self._inwheel_on():
+            wc = getattr(self, "_mega_window_count", 0)
+            self._mega_window_count = wc + 1
+            bound_live = (wc % self._inwheel_every() == 0)
+        meas = self._megastep_solve(n_req, n_live, convthresh, self.W,
+                                    self.xbars, self.rho,
+                                    bound_live=bound_live)
+        if bound_live is not None:
+            # valid on whatever state the window ended with, the incoming
+            # one too when its first iterate was rejected
+            self._consume_inwheel_bounds(meas)
+        executed = meas["executed"]
+        if executed == 0:
+            return 0, False
+        self._apply_megastep_meas(k, meas)
+        # a window the acceptance test cut short is not convergence
+        return executed, bool(self.conv < convthresh)
+
+    def _apply_megastep_meas(self, k, meas):
+        """Install a window's measurement as the host PH state (copies).  A
+        lean measurement leaves the host mirrors of x, W and xbars STALE
+        until :meth:`_sync_host_state`; the residuals and the scalar
+        stats install either way."""
+        executed = meas["executed"]
+        full = "W" in meas
+        if full:
+            self.W = np.array(meas["W"], dtype=float)
+            self.xbars = np.array(meas["xbars"], dtype=float)
+            self.local_x = np.array(meas["x"], dtype=float)
+        else:
+            self._host_state_stale = True
+        self.pri_res = np.array(meas["pri"], dtype=float)
+        self.dua_res = np.array(meas["dua"], dtype=float)
+        self._last_all_done = bool(np.all(meas["done"]))
+        if full:
+            # xsqbars is not packed: its host twin from the window's x
+            _, self.xsqbars = self._node_avgs(self._nonants_cached())
+        self.conv = float(meas["conv"][executed - 1])
+        self._iter = k + executed - 1
+        self._bump_state_version()
+        global_toc(
+            f"PH megastep {k}..{self._iter} conv {self.conv:.6e}",
+            self.options.get("display_progress", False))
+
+    def _sync_host_state(self):
+        """Refresh the host mirrors of x, W and xbars from the device state
+        of lean windows: ONE fetch, counted in
+        ``phstate.boundary_fetches``, at the boundaries that read them
+        (hub payloads, the legacy iteration, the end of the loop, the host
+        rescue).  A no-op when the mirrors are current."""
+        st = self._dev_state
+        if st is None or not getattr(self, "_host_state_stale", False):
+            self._host_state_stale = False
+            return
+        W, xbars, x = hostsync.fetch((st.W, st.xbars, st.x))
+        self.W = np.array(W, dtype=float)
+        self.xbars = np.array(xbars, dtype=float)
+        self.local_x = np.array(x, dtype=float)
+        self._host_state_stale = False
+        _, self.xsqbars = self._node_avgs(self._nonants_cached())
+        self._bump_state_version()
+        _metrics.inc("phstate.boundary_fetches")
+        if _trace.enabled():
+            _trace.instant(None, "phstate_boundary_fetch", iter=self._iter)
+
+    def _spcomm_needs_host_state(self) -> bool:
+        """Whether the coming ``spcomm.sync()`` reads host PH state (W or
+        nonant payloads to spokes)."""
+        c = self.spcomm
+        if c is None:
+            return False
+        return bool(getattr(c, "has_w_spokes", False)
+                    or getattr(c, "has_nonant_spokes", False))
+
     def iterk_loop(self):
-        """Main PH loop (phbase.py:875-979), one legacy iteration at a
-        time."""
+        """Main PH loop (phbase.py:875-979).  Where the megastep is allowed
+        (:meth:`_megastep_request`), iterations run in windows, with the
+        hub sync and the termination checks at window ends; the legacy
+        per-iteration body refreshes between them (and runs every
+        iteration under ``megastep`` 1)."""
         convthresh = self.options.get("convthresh", 0.0)
         max_iters = self.options["PHIterLimit"]
         k = self._iter + 1     # continues a carried state (convert.py)
+        mega_n = self._megastep_request()
         while k <= max_iters:
+            if mega_n:
+                executed, conv_hit = self._megastep_window(
+                    k, max_iters, convthresh, mega_n)
+                if executed:
+                    k += executed
+                    if self.spcomm is not None:
+                        if self._spcomm_needs_host_state():
+                            self._sync_host_state()
+                        self.spcomm.sync()
+                        self.extobject.enditer_after_sync()
+                        if self.spcomm.is_converged():
+                            global_toc("Cylinder termination", True)
+                            break
+                    if conv_hit:
+                        global_toc(
+                            f"Convergence threshold {convthresh} reached "
+                            f"at iter {self._iter}",
+                            self.options.get("display_progress", False))
+                        break
+                    continue
+            # the legacy body assembles the objective from the host mirrors
+            self._sync_host_state()
             k = self._iterk_one(k, convthresh)
             if k is None:
                 break
             k += 1
+        # whatever reads follow (post_loops' Eobjective, callers) gets
+        # current host state
+        self._sync_host_state()
 
     def _iterk_one(self, k, convthresh):
         """One legacy PH iteration.  Returns ``k`` to continue, or None to

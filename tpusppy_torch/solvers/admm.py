@@ -122,6 +122,12 @@ class ADMMSettings:
     # refresh floor (and is not converged) re-runs at "highest" on the same
     # factors.  <= 0 disables.
     precision_guard: float = 10.0
+    # The PH megastep (doc/pipeline.md; ``phbase.PHBase._megastep_request``):
+    # a hub runs N frozen PH iterations a window on the device with one
+    # packed fetch.  0 = auto (N from the refresh cadence, within
+    # ``segmented.megastep_cap``), 1 = the legacy per-iteration loop, k > 1
+    # asks for N = k.  Read on the host (PHBase), never inside a solve.
+    megastep: int = 0
 
     def tdtype(self) -> torch.dtype:
         dt = getattr(torch, self.dtype, None)
@@ -994,7 +1000,11 @@ def dual_objective_margin(c, q2, A, cl, cu, lb, ub, y, x_hint,
 def dual_objective_with_margin(c, q2, A, cl, cu, lb, ub, y, x_hint,
                                margin_scale=100.0):
     """(2, S): :func:`dual_objective` stacked with
-    :func:`dual_objective_margin`, so callers fetch both at once."""
+    :func:`dual_objective_margin`, so callers fetch both at once.  It runs
+    on the tensors' device and reads nothing back, so it is also the
+    reference's ``dual_objective_with_margin_traced``: the in-wheel bound
+    pass (``parallel.sharded._bound_pass_terms``) assembles its outer bound
+    with it inside the window."""
     return torch.stack([
         dual_objective(c, q2, A, cl, cu, lb, ub, y, x_hint, margin_scale),
         dual_objective_margin(c, q2, A, cl, cu, lb, ub, y, x_hint,

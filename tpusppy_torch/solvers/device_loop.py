@@ -52,6 +52,18 @@ beside a call that another thread's capture makes fail
 (:func:`outside_capture`), and records the launches of the capturing
 thread alone (``cuda_kernels.counts(local=True)``).
 
+A PH megastep window (:mod:`..parallel.sharded`) runs several frozen
+solves, one a PH iteration, with the iteration's other steps between them
+(the objective assembly, the acceptance test, the PH update and the stats
+write) as a :class:`Program`: steps captured once per owner and signature
+into CUDA graphs over buffers the program holds, and replayed.  The
+window's stop word (:class:`Gate`) rides the stop flag of every frozen
+solve run inside :func:`gated`: :func:`run` ORs it into the solve's
+initial flag (:data:`WINDOW_BIT`), so a solve after the window's stop
+sweeps nothing and commits nothing, and the flag read the loop makes
+anyway tells the host that the window has stopped.  A window reads nothing else until its
+packed fetch.
+
 Counters: ``device_loop.captures`` (graphs captured) and
 ``device_loop.capture_secs`` (host time of the captures and their
 warm-ups), ``device_loop.warmups`` (blocks run with the flag set before a
@@ -107,6 +119,37 @@ STREAM_DRAWS = 64
 _claimed: set = set()
 _claim_lock = threading.Lock()
 
+#: The bit a window's stop word sets in the stop flag of a frozen solve
+#: inside the window (a solve's own vote sets bit 0).
+WINDOW_BIT = 2
+
+
+class Gate:
+    """A megastep window's stop word as the frozen solves inside the window
+    carry it: ``word`` is a 0-dim int32 device tensor, :data:`WINDOW_BIT`
+    once the window has stopped, else 0.  :func:`run` ORs it into a
+    solve's initial stop flag and sets ``seen`` when a flag read carries
+    the bit, so the window's host loop stops issuing iterations without a
+    read of its own."""
+
+    __slots__ = ("word", "seen")
+
+    def __init__(self, word):
+        self.word = word
+        self.seen = False
+
+
+@contextlib.contextmanager
+def gated(gate: Gate):
+    """Run the body's sweep loops (on the calling thread) under the
+    window stop word of ``gate``."""
+    prev = getattr(_local, "gate", None)
+    _local.gate = gate
+    try:
+        yield
+    finally:
+        _local.gate = prev
+
 
 def commit(stop: torch.Tensor, state, new):
     """Write ``new`` into the ``state`` tensors where ``stop`` (a 0-dim
@@ -137,36 +180,43 @@ def run(block, ops, state, blocks_per_replay, max_blocks, key, phase):
     names.  ``phase(b)``: block ``b``'s phase, a hashable host value that
     ``key`` determines.  ``max_blocks``: the block count at which the
     block's own vote sets the flag (the sweep cap), so no replay runs past
-    it.  Returns the final state as new tensors."""
+    it.  Inside :func:`gated`, the window's stop word is ORed into the
+    initial flag.  Returns the final state as new tensors."""
+    gate = getattr(_local, "gate", None)
     L = max(1, int(blocks_per_replay))
     nb = max(0, int(max_blocks))
     plan = [tuple(map(phase, range(j, min(j + L, nb))))
             for j in range(0, nb, L)]
     if state[-1].device.type != "cuda":
         work = [t.clone() for t in state]
+        if gate is not None:
+            work[-1].bitwise_or_(gate.word)
 
         def replay(j):
             for ph in plan[j]:
                 block(ops, work, ph)
 
         queued = _drive(replay, lambda: hostsync.fetch_async(work[-1]),
-                        len(plan))
+                        len(plan), gate)
     else:
         entry = _entry(block, ops, state, L, key)
         entry.prepare(plan)
         entry.load(ops, state)
+        if gate is not None:
+            entry.state[-1].bitwise_or_(gate.word)
         queued = _drive(lambda j: entry.replay(plan[j]), entry.read_flag,
-                        len(plan))
+                        len(plan), gate)
         work = [t.clone() for t in entry.state]
     _REPLAYS.inc(queued)
     _BLOCKS.inc(sum(len(p) for p in plan[:queued]))
     return work
 
 
-def _drive(replay, read_flag, replays) -> int:
+def _drive(replay, read_flag, replays, gate=None) -> int:
     """Replay until a flag read says stop or all ``replays`` have run,
-    reading each replay's flag with the next replay already queued.
-    Returns the replays queued."""
+    reading each replay's flag with the next replay already queued (a read
+    that carries :data:`WINDOW_BIT` sets ``gate.seen``).  Returns the
+    replays queued."""
     if replays < 1:
         return 0
     replay(0)
@@ -177,9 +227,11 @@ def _drive(replay, read_flag, replays) -> int:
         if spec:
             replay(queued)
             queued += 1
-        stop = bool(pending.result(overlapped=spec))
+        flag = int(pending.result(overlapped=spec))
         _LOOP_CHECKS.inc()
-        if stop:
+        if gate is not None and flag & WINDOW_BIT:
+            gate.seen = True
+        if flag:
             break
     return queued
 
@@ -228,9 +280,15 @@ def _signature(ops, state, L, key):
 
 
 def _entry(block, ops, state, L, key):
-    """The calling owner's captured loop for this signature (made, and the
-    owner's least recently used dropped past ``CACHE_SIZE``, on a miss)."""
-    sig = _signature(ops, state, L, key)
+    """The calling owner's captured loop for this signature."""
+    return _owned(_signature(ops, state, L, key),
+                  lambda: _Captured(block, ops, state))
+
+
+def _owned(sig, make):
+    """The calling owner's cache entry for ``sig`` (``make()``, and the
+    owner's least recently used entry dropped past ``CACHE_SIZE``, on a
+    miss)."""
     owner = cuda_kernels.current_owner()
     with _cache_lock:
         loops = _cache.setdefault(owner, collections.OrderedDict())
@@ -238,13 +296,22 @@ def _entry(block, ops, state, L, key):
         if entry is not None:
             loops.move_to_end(sig)
             return entry
-    entry = _Captured(block, ops, state)
+    entry = make()
     with _cache_lock:
         loops = _cache.setdefault(owner, collections.OrderedDict())
         loops[sig] = entry
         while len(loops) > CACHE_SIZE:
             loops.popitem(last=False)
     return entry
+
+
+def program(key, templates: dict, gate: str):
+    """The calling owner's :class:`Program` for ``key`` and the shapes of
+    ``templates`` (name -> tensor), made from them on a miss; it takes a
+    slot of the owner's ``CACHE_SIZE``."""
+    sig = ("program", key, tuple((k, tuple(t.shape), t.dtype, t.device)
+                                 for k, t in templates.items()))
+    return _owned(sig, lambda: Program(templates, gate))
 
 
 def release(token):
@@ -386,3 +453,61 @@ class _Captured:
     def read_flag(self):
         return hostsync.fetch_async(self.state[-1], out=self.pinned,
                                     event=self.event)
+
+
+class Program:
+    """Steps captured over buffers the program holds (a megastep window's
+    per-iteration steps).  ``bufs`` are copies of the templates, refilled
+    with :meth:`load`; a step ``fn(bufs)`` reads and writes buffers alone
+    and, while ``bufs[gate]`` is nonzero, writes none but its scratch and
+    the gate itself.  On CUDA each step is captured into a graph at its
+    first run (after a warm-up run with the gate set, which changes
+    nothing) and replayed from then on; on the CPU it runs eagerly."""
+
+    def __init__(self, templates: dict, gate: str):
+        self.bufs = {k: _buffer(t) for k, t in templates.items()}
+        self.gate = gate
+        self.graphs = {}
+
+    def load(self, values: dict):
+        """Copy ``values`` (name -> tensor) into the buffers."""
+        for k, v in values.items():
+            self.bufs[k].copy_(v)
+
+    def run(self, name, fn):
+        """Run the step ``fn`` under ``name`` (replay its graph on CUDA)."""
+        if self.bufs[self.gate].device.type != "cuda":
+            fn(self.bufs)
+            return
+        graph = self.graphs.get(name)
+        if graph is None:
+            graph = self.graphs[name] = self._capture(fn)
+        graph.replay()
+
+    def _capture(self, fn):
+        t0 = time.perf_counter()
+        word = self.bufs[self.gate]
+        dev = word.device
+        stream = _capture_stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with _capture_lock, torch.cuda.stream(stream):
+            held = word.clone()
+            word.fill_(WINDOW_BIT)
+            fn(self.bufs)
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                fn(self.bufs)
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass
+                raise
+            graph.capture_end()
+            word.copy_(held)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        _WARMUPS.inc()
+        _CAPTURES.inc()
+        _CAPTURE_SECS.inc(time.perf_counter() - t0)
+        return graph

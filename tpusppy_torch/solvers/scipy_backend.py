@@ -73,13 +73,15 @@ def solve_lp(c, A, cl, cu, lb, ub, is_int=None, q2=None, const=0.0,
 
 
 def solve_lp_with_duals(c, A, cl, cu, lb, ub, const=0.0,
-                        time_limit=None) -> SolveResult:
+                        time_limit=None, feas_tol=None) -> SolveResult:
     """Continuous LP with row duals via linprog (for Benders/Lagrangian
     checks and the straggler rescue).  ``A`` goes through scipy.sparse:
     UC-scale matrices are ~0.3% dense, and linprog's dense input path
     both copies and scans the full (m, n) array per call.
     ``time_limit``: HiGHS wall-clock cap in seconds (budgeted callers —
-    e.g. donor-dual rounds — must not hang on one degenerate LP)."""
+    e.g. donor-dual rounds — must not hang on one degenerate LP).
+    ``feas_tol``: HiGHS's primal feasibility tolerance (its default,
+    1e-7, when None)."""
     # linprog wants A_ub x <= b_ub and A_eq x = b_eq; split rows.
     if not sp.issparse(A):
         A = sp.csr_matrix(np.asarray(A))
@@ -91,10 +93,12 @@ def solve_lp_with_duals(c, A, cl, cu, lb, ub, const=0.0,
     b_ub = np.concatenate([cu[ub_rows], -cl[lb_rows]]) if A_ub is not None else None
     A_eq = A[eq] if eq.any() else None
     b_eq = cl[eq] if eq.any() else None
-    options = {"time_limit": float(time_limit)} if time_limit else None
+    options = {"time_limit": float(time_limit)} if time_limit else {}
+    if feas_tol is not None:
+        options["primal_feasibility_tolerance"] = float(feas_tol)
     res = sopt.linprog(c, A_ub=A_ub, b_ub=b_ub, A_eq=A_eq, b_eq=b_eq,
                        bounds=np.stack([lb, ub], axis=1), method="highs",
-                       options=options)
+                       options=options or None)
     duals = None
     if res.status == 0:
         duals = np.zeros(A.shape[0])
@@ -109,6 +113,22 @@ def solve_lp_with_duals(c, A, cl, cu, lb, ub, const=0.0,
     x = res.x if res.x is not None else np.zeros(A.shape[1])
     return SolveResult(x=x, obj=float(res.fun + const) if res.status == 0 else np.inf,
                        duals=duals, status=str(res.status), feasible=res.status == 0)
+
+
+def solve_qp_with_duals(c, q2, A, cl, cu, lb, ub, const=0.0,
+                        tol=1e-9, max_iter=60) -> SolveResult:
+    """One host-exact diagonal-Hessian QP with row duals (the QP sibling of
+    :func:`solve_lp_with_duals`): :func:`solve_qp_batch_with_duals` on a
+    batch of one; ``obj`` includes ``const`` and is inf where infeasible."""
+    c = np.asarray(c, float)
+    q2 = np.asarray(q2, float)
+    x, y, feasible = solve_qp_batch_with_duals(
+        c[None], q2[None], A, np.asarray(cl, float)[None],
+        np.asarray(cu, float)[None], np.asarray(lb, float)[None],
+        np.asarray(ub, float)[None], tol=tol, max_iter=max_iter)
+    obj = float(c @ x[0] + 0.5 * (q2 @ (x[0] * x[0])) + const)
+    return SolveResult(x=x[0], obj=obj if feasible[0] else np.inf,
+                       duals=y[0], status="ipm", feasible=bool(feasible[0]))
 
 
 def solve_qp_batch_with_duals(c, q2, A, cl, cu, lb, ub, tol=1e-9,

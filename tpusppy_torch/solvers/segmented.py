@@ -11,12 +11,21 @@ the reference's per-dispatch budgets are sized from TPU v5e measurements,
 so here :func:`solve_factored_segmented` and
 :func:`solve_frozen_segmented` keep the reference's call shape and run
 one dispatch a solve, whose sweep loop runs on the device
-(:mod:`.device_loop`).  The dispatch budgets for the H100 come with the
-megastep, which drives :func:`continue_frozen`.
+(:mod:`.device_loop`), and nothing calls :func:`continue_frozen` yet.
+
+The megastep's window cap (:func:`megastep_cap`) and its billing
+(:func:`bill_megastep`, :func:`bill_bound_pass`).  The reference sizes its
+cap against a TPU worker's execution kill from TPU v5e sweep rates; the
+H100 has no such kill, so the card's rule is a window of at most
+:data:`WINDOW_ITERS` PH iterations, whatever the shapes: a window ends
+often enough for the hub's sync and termination checks.  The billing is
+the reference's, on the model flops of :mod:`.flops`.
 
 Counters, as in the reference: ``dispatch.segments``, ``dispatch.flops``
 (with ``seg_flops``), ``speculation.segments``, ``speculation.flops``,
-``speculation.discarded_segments`` and ``speculation.discarded_flops``.
+``speculation.discarded_segments`` and ``speculation.discarded_flops``;
+``dispatch.megasteps``, ``dispatch.mega_iterations``,
+``megastep.rejected_iterations`` and ``megastep.bound_passes``.
 """
 
 from __future__ import annotations
@@ -25,7 +34,72 @@ import collections
 
 from ..obs import metrics as _metrics
 from ..obs import trace as _trace
+from . import flops as flops_model
 from . import hostsync
+
+#: PH iterations one megastep window may carry on the card.  The H100 has
+#: no per-execution kill, so this bounds only how long the hub goes
+#: between window ends, where it syncs with its spokes and checks its gap
+#: and convergence: the reference's default cadence (16) runs windows of
+#: 15, well inside it.
+WINDOW_ITERS = 32
+
+#: The flop model's factor for a :class:`~.sparse.SparseA` sweep, the
+#: reference's (``tpusppy/solvers/segmented.py:310``), kept so that both
+#: packages bill the same model flops.  It is a counting convention of the
+#: model, not a rate measured on this card.
+SPARSE_DISPATCH_FACTOR = 0.25
+
+
+def megastep_cap(bound_pass=False) -> int:
+    """Most PH iterations one megastep window may carry on the card (the
+    reference's ``megastep_cap``, ``tpusppy/solvers/segmented.py:189``,
+    which sizes it against a TPU worker's kill from TPU sweep rates).  The
+    card's rule: :data:`WINDOW_ITERS`, less one iteration for each frozen
+    evaluation of an in-wheel bound pass the window ends with
+    (``bound_pass``: False, True for one, or a count), so a window stays
+    at most :data:`WINDOW_ITERS` frozen solves long."""
+    return max(0, WINDOW_ITERS - int(bound_pass))
+
+
+def bill_megastep(S, n, m, n_iters, sweeps, sparse_factor=1.0,
+                  rejected_sweeps=None):
+    """Bill one executed megastep window: ``dispatch.megasteps`` +1,
+    ``dispatch.mega_iterations`` + ``n_iters`` (the iterations the window
+    accepted), and the model flops of their ``sweeps`` (mean sweeps an
+    iteration) into ``dispatch.flops``.  ``rejected_sweeps``: the sweeps
+    of an iterate the window's acceptance test discarded, billed into
+    ``dispatch.flops`` and counted in ``megastep.rejected_iterations``,
+    never as a PH iteration.  Returns the flops billed."""
+    _metrics.inc("dispatch.megasteps")
+    _metrics.inc("dispatch.mega_iterations", int(n_iters))
+    fl = flops_model.megastep_flops(S, n, m, n_iters, sweeps, sparse_factor)
+    if rejected_sweeps is not None:
+        _metrics.inc("megastep.rejected_iterations")
+        fl += flops_model.megastep_flops(S, n, m, 1, rejected_sweeps,
+                                         sparse_factor)
+    if fl:
+        _metrics.inc("dispatch.flops", fl)
+    if _trace.enabled():
+        _trace.instant("dispatch", "megastep", S=S, n=n, m=m,
+                       iters=int(n_iters), sweeps=float(sweeps))
+    return fl
+
+
+def bill_bound_pass(S, n, m, sweeps, sparse_factor=1.0, n_evals=1):
+    """Bill one executed in-wheel bound pass: ``megastep.bound_passes`` +1
+    and its model flops (``n_evals`` frozen evaluations of ``sweeps``
+    sweeps and the dual assembly) into ``dispatch.flops``, never into the
+    PH iterations.  Returns the flops billed."""
+    _metrics.inc("megastep.bound_passes")
+    fl = flops_model.bound_pass_flops(S, n, m, sweeps, sparse_factor,
+                                      n_evals=n_evals)
+    if fl:
+        _metrics.inc("dispatch.flops", fl)
+    if _trace.enabled():
+        _trace.instant("dispatch", "bound_pass", S=S, n=n, m=m,
+                       sweeps=float(sweeps))
+    return fl
 
 
 def continue_frozen(run_segment, sol, seg_f, budget, all_done=None,

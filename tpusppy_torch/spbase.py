@@ -75,18 +75,14 @@ def make_admm_settings(options) -> ADMMSettings:
     ``use_pallas`` is the port's ``use_kernel``.  ``sweep_precision`` takes
     the modes of :mod:`.solvers.precision` ("default", "high", "highest")
     or None, with ``precision_refine_iters`` and ``precision_guard``; an
-    unknown mode raises ``ValueError``.  A lowered ``matmul_precision``
-    (the reference's ambient XLA matmul precision, which has no PyTorch
-    counterpart that computes the same: TF32 is not bf16x3) would change
-    the solve itself and raises until the port has it; other keys the
-    port's settings do not have (e.g. the reference's ``megastep``) are
-    ignored."""
+    unknown mode raises ``ValueError``.  ``megastep`` is 0 (auto: the PH
+    megastep where its gates allow), 1 (the legacy per-iteration loop) or
+    k > 1 (windows of k).  A lowered ``matmul_precision`` (the reference's
+    ambient XLA matmul precision, which has no PyTorch counterpart that
+    computes the same: TF32 is not bf16x3) would change the solve itself
+    and raises until the port has it; other keys the port's settings do
+    not have are ignored."""
     so = dict(options.get("solver_options") or {})
-    if int(so.get("megastep", 1) or 1) > 1:
-        raise NotImplementedError(
-            f"solver_options megastep={so['megastep']}: the megastep is not "
-            "ported yet (ROADMAP Queue 1 item 3); the port runs the legacy "
-            "per-iteration loop (megastep 1)")
     if so.get("matmul_precision") not in (None, "highest"):
         raise NotImplementedError(
             f"solver_options matmul_precision={so['matmul_precision']!r}: "

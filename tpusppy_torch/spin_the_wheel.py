@@ -16,6 +16,10 @@ Each cylinder's kernel launches (its thread's view of the counts), host
 syncs (its thread's trackers), solves and host-exact straggler re-solves
 are recorded in :attr:`WheelSpinner.stats`.
 
+``WheelSpinner(hub_dict, []).spin()`` with ``in_wheel_bounds`` in the hub
+opt's options is the hub-only certified wheel: the hub's megastep windows
+post their own outer and inner bounds (``'M'``), and no spoke thread runs.
+
 Call sequence as the reference's: construct opt + communicator per
 cylinder, make the mailboxes, ``setup_hub``, run all mains, the hub sends
 the kill sentinel, join, the hub and then each spoke finalize, and

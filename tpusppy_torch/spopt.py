@@ -12,8 +12,10 @@ Expectations are probability-weighted contractions on the host.
 Fixing (:meth:`SPOpt.fix_nonants`) clamps the nonant columns' bounds for the
 solves and the certified bounds that follow, and
 :meth:`SPOpt.dual_donor_bounds` certifies outer bounds from a few
-host-exact donor duals.  The megastep, bucketed and in-wheel methods are
-not part of the port yet.
+host-exact donor duals.  :meth:`SPOpt._megastep_solve` runs one PH megastep
+window (:mod:`.parallel.sharded`) on the frozen-amortization slot, with
+its one packed fetch; the bucketed megastep is not ported (ROADMAP Queue
+1 item 7; no batch of the port is bucketed).
 """
 
 from __future__ import annotations
@@ -24,12 +26,14 @@ import time
 
 import numpy as np
 import scipy.sparse as sp
+import torch
 
 from . import global_toc
 from .obs import metrics as _metrics
 from .obs import trace as _trace
+from .parallel import sharded
 from .spbase import SPBase
-from .solvers import admm, hostsync, segmented, shared_admm
+from .solvers import admm, cuda_kernels, hostsync, segmented, shared_admm
 from .solvers.sparse import SparseA, should_sparsify
 
 _BATCH_TOKENS = itertools.count(1)
@@ -112,6 +116,11 @@ class SPOpt(SPBase):
         self._fixed_ub = None
         self.solves = 0              # solve_loop calls
         self.rescued_scenarios = 0   # host-exact straggler re-solves
+        self._dev_state = None       # lean megastep windows' device state
+        #: what the megastep windows launched, between each window's first
+        #: step and its fetch: ``{(table, kernel): n}`` as
+        #: :func:`.solvers.cuda_kernels.counts`
+        self.window_launches = {}
 
     def _device_consts(self, dt):
         """Device-resident (A, cl, cu), cached on batch identity/version:
@@ -170,6 +179,9 @@ class SPOpt(SPBase):
         if ext is not None:
             ext.pre_solve()
         self.solves += 1
+        # a host-path solve supersedes the device-resident window state
+        # (the caller synced the host mirrors first)
+        self._dev_state = None
         b = self.batch
         q = b.c if q is None else q
         q2 = b.q2 if q2 is None else q2
@@ -429,6 +441,155 @@ class SPOpt(SPBase):
         return (sol._replace(x=x, z=z, y=y, yx=yx, pri_res=pri, dua_res=dua,
                              done=done, raw=(x, z, y, yx)), meas)
 
+    # ---- the wheel megastep (N frozen PH iterations a window) ---------------
+    def _mega_arrays(self, dt):
+        """The window's :class:`~.parallel.sharded.PHArrays` on the device,
+        cached on batch identity and version; A, cl and cu are
+        :meth:`_device_consts`' (PHBase callers only: it reads the node
+        one-hot)."""
+        b = self.batch
+        key = (_batch_token(b), getattr(b, "version", 0), dt)
+        cached = getattr(self, "_mega_arr_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        A_d, cl_d, cu_d = self._device_consts(dt)
+        S = b.num_scenarios
+
+        def t(v):
+            return admm._tensor(np.ascontiguousarray(v), dt, self.device)
+
+        arr = sharded.PHArrays(
+            c=t(b.c), q2=t(b.q2), A=A_d, cl=cl_d, cu=cu_d, lb=t(b.lb),
+            ub=t(b.ub), const=t(np.broadcast_to(b.const, (S,))),
+            probs=t(self.probs), onehot=t(self._onehot),
+            nid_sk=admm._tensor(self.nid_sk, torch.int64, self.device))
+        self._mega_arr_cache = (key, arr)
+        return arr
+
+    def _device_state_on(self) -> bool:
+        """The device-resident posture (option ``ph_device_state``):
+        windows fetch the lean measurement, and the host mirrors of x, W
+        and xbars are fetched only at the boundaries that read them
+        (:meth:`~.phbase.PHBase._sync_host_state`)."""
+        return bool(self.options.get("ph_device_state", False))
+
+    def _inwheel_int_mask(self):
+        """(K,) integer mask of the nonant slots for the in-wheel
+        candidate's rounding, or None without integer nonants."""
+        mask = np.asarray(self.batch.is_int, bool)[self.tree.nonant_indices]
+        return mask if mask.any() else None
+
+    def _inwheel_threshold(self) -> float:
+        """Rounding threshold of the in-wheel candidate's integer slots
+        (option ``in_wheel_xhat_threshold``)."""
+        return float(self.options.get("in_wheel_xhat_threshold", 0.5))
+
+    def _megastep_fn(self, n_req: int, pack: str = "full",
+                     bounds: bool = False):
+        """The window function at width ``n_req`` (one per (N, pack,
+        bounds); ``n_live`` and ``bound_live`` are call arguments)."""
+        cache = getattr(self, "_mega_fn_cache", None)
+        if cache is None:
+            cache = self._mega_fn_cache = {}
+        fn = cache.get((n_req, pack, bounds))
+        if fn is None:
+            fn = cache[(n_req, pack, bounds)] = sharded.make_wheel_megastep(
+                self.tree.nonant_indices, self.admm_settings,
+                n_iters=n_req, pack=pack, bounds=bounds,
+                int_nonants=self._inwheel_int_mask() if bounds else None,
+                xhat_threshold=(self._inwheel_threshold() if bounds
+                                else 0.5))
+        return fn
+
+    def _megastep_solve(self, n_req: int, n_live: int, convthresh: float,
+                        W, xbars, rho, bound_live=None):
+        """Run ONE megastep window and fetch its packed measurement: the
+        twin of ``n_live`` frozen :meth:`_solve_amortized` iterations on the
+        same amortization slot.  The warm slot becomes the window's final
+        state (rebound before the fetch), the factors' age advances by
+        the executed count, and the window is billed
+        (:func:`.solvers.segmented.bill_megastep`).  The precision guard
+        reads the packed per-iteration residuals; an iterate the window
+        rejected, or a guard trip, maxes the factors' age so the next
+        iteration refreshes.  ``bound_live`` (None: no bound pass in the
+        window) runs the in-wheel bound pass where True.  Returns the
+        unpacked measurement."""
+        st = self.admm_settings
+        dt = st.tdtype()
+        arr = self._mega_arrays(dt)
+        b = self.batch
+        S, n, m = b.num_scenarios, b.num_vars, b.num_rows
+        K = self.nonant_length
+        pack = "lean" if self._device_state_on() else "full"
+        state = self._dev_state
+        if state is None:
+            def t(v):
+                return admm._tensor(v, dt, self.device)
+
+            warm = self._warm
+            state = sharded.PHState(
+                W=t(W), xbars=t(xbars), rho=t(rho), x=t(warm[0]),
+                z=t(warm[1]), y=t(warm[2]), yx=t(warm[3]))
+        # the window solves the PH prox objective: every scenario is a QP
+        _, tol_qp = self._straggler_tols()
+        bounds = bound_live is not None
+        extra = (bool(bound_live), self._inwheel_feas_tol()) if bounds else ()
+        with _trace.span(None, "solve.megastep") as _sp:
+            fn = self._megastep_fn(n_req, pack, bounds=bounds)
+            before = cuda_kernels.counts(local=True)
+            state, packed = fn(state, arr, 1.0, self._factors, convthresh,
+                               n_live, tol_qp, *extra)
+            # the warm slot first: a failed fetch must not leave it on the
+            # previous window's state
+            self._warm = (state.x, state.z, state.y, state.yx)
+            self._dev_state = state if pack == "lean" else None
+            for k, v in cuda_kernels.counts(local=True).items():
+                if v != before[k]:
+                    self.window_launches[k] = (self.window_launches.get(k, 0)
+                                               + v - before[k])
+            meas = sharded.megastep_unpack(hostsync.fetch(packed), n_req, S,
+                                           n, K, pack=pack, bounds=bounds)
+            if _trace.enabled():
+                _sp.add(n_live=n_live, executed=meas["executed"],
+                        refresh_hit=meas["refresh_hit"],
+                        bound_pass=bool(meas.get("bound_computed")))
+        executed = meas["executed"]
+        self._factors_age += executed
+        sf = (segmented.SPARSE_DISPATCH_FACTOR
+              if isinstance(arr.A, SparseA) else 1.0)
+        iters = meas["iters"]
+        sweeps = float(np.mean(iters[:executed])) if executed else 0.0
+        # a rejected iterate is swept and discarded work: its stats sit at
+        # index ``executed``
+        rej = (float(iters[executed])
+               if meas["refresh_hit"] and executed < n_req else None)
+        segmented.bill_megastep(S, n, m, executed, sweeps, sparse_factor=sf,
+                                rejected_sweeps=rej)
+        _metrics.inc("solve.sweeps", float(np.sum(iters[:executed]))
+                     + (rej or 0.0))
+        if meas.get("bound_computed"):
+            segmented.bill_bound_pass(S, n, m, meas["bound_sweeps"],
+                                      sparse_factor=sf)
+        guard = False
+        if executed:
+            # the guard on EVERY accepted iterate, from the packed worst
+            # residuals; a window cannot re-run at full precision, so a
+            # trip sends the next iteration to the (full-precision) refresh
+            ref = self._factors_ref_worst
+            worsts = np.maximum(meas["pri_max"][:executed],
+                                meas["dua_max"][:executed])
+            guard = any(
+                admm.precision_guard_trips(
+                    None, st, ref,
+                    stats=(float(worsts[i]), bool(meas["all_done"][i])))
+                for i in range(executed))
+            if guard:
+                _metrics.inc("precision.guard_trips")
+        if meas["refresh_hit"] or guard:
+            self._factors_age = max(self._factors_age, self._refresh_every())
+            _metrics.inc("megastep.refresh_hits")
+        return meas
+
     # ---- expectations -------------------------------------------------------
     def Eobjective(self, x=None) -> float:
         """Probability-weighted expected objective (spopt.py:310-345)."""
@@ -586,8 +747,9 @@ class SPOpt(SPBase):
         ub[:, idx] = cache
         self._fixed_lb, self._fixed_ub = lb, ub
 
-    def _feas_tol(self) -> float:
-        """The feasibility-gate tolerance: option ``feas_tol`` floored at
+    def _inwheel_feas_tol(self) -> float:
+        """The feasibility-gate tolerance of :meth:`feas_prob`, Iter0's
+        check and the in-wheel evaluation: option ``feas_tol`` floored at
         10x the solver's own eps."""
         return max(float(self.options.get("feas_tol", 1e-3)),
                    10.0 * self.admm_settings.eps_rel)
@@ -596,7 +758,7 @@ class SPOpt(SPBase):
         """Probability mass of scenarios whose ADMM primal residual is
         within tolerance (spopt.py:394-433)."""
         if tol is None:
-            tol = self._feas_tol()
+            tol = self._inwheel_feas_tol()
         if self.pri_res is None:
             return 1.0
         return float(self.probs @ (self.pri_res < tol))
