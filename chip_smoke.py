@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (tpusppy_torch) once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases kernels,golden,loop,farmer,uc_lite,uc,
-                                    megastep,precision,wheel]
+                                    megastep,precision,wheel,bundles]
 
 Run from the root of a checkout on a machine with one CUDA device and the
 CUDA toolkit (nvcc).  Phases, each printing a line:
@@ -57,10 +57,10 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    by side) and, below S=1000 UC, the HiGHS EF of the same scenarios:
    farmer-1000 crops_multiplier=4 PH in f32 (100 iterations, 25 on the
    tensor path) through ``fused_sweeps`` (the dense per-scenario engine),
-   uc_lite-1000 at its defaults (rho 500, 60 iterations, 10 on the tensor
+   uc_lite-1000 at its defaults (rho 500, 60 iterations, 5 on the tensor
    path) through ``fused_sweeps_shared`` (the shared-A engine), and
    uc-1000 at full width (rho 500 and bench_uc.py's solver settings, 30
-   iterations, 10 on the tensor path; its EF is out of HiGHS's reach, so
+   iterations, 5 on the tensor path; its EF is out of HiGHS's reach, so
    the S=10 golden holds the EF check) through
    ``fused_sweeps_sparse`` (the sparse and structured-KKT engine); each
    prints its kernel's launches by mode: farmer must launch only the
@@ -78,8 +78,11 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    the iterations run, its kernel launched from inside the windows, host
    syncs an iteration by kind (flag reads, packed fetches, other) and PH
    rate under both protocols.  Then two hub-only wheels (a PHHub with
-   ``in_wheel_bounds`` and no spoke): farmer-1000 (f32, 100 iterations at
-   most, rel_gap 1e-3), whose outer bound is at most the EF + 1e-6 |EF|,
+   ``in_wheel_bounds`` and no spoke): farmer-1000 (its hub in f64 at eps
+   1e-5, since the host rescue runs HiGHS at its default tolerances as the
+   reference's does and an f32 consensus leaves the land rows a few 1e-6
+   over; 100 iterations at most, rel_gap 1e-3), whose outer bound is at
+   most the EF + 1e-6 |EF|,
    inner within 1e-2 of the EF and above it less 1e-4, outer <= inner,
    with a bound pass run and no spoke thread, and the uc S=10 f64 golden,
    its outer bound at most its EF + 1e-6 |EF|; each prints which source
@@ -103,7 +106,25 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    each cylinder's launches and host syncs.  Then uc-1000's hub and a
    Lagrangian spoke that bounds from donor duals alone (bench_uc.py's
    full-scale settings, the budget cut to 60 s): a finite outer bound
-   above the hub's trivial bound, and at least one donor used.
+   above the hub's trivial bound, and at least one donor used;
+10. bundles: scenario bundling and shape buckets.  ``fused_sweeps`` at
+   the two bucket shapes of bundled farmer-1000 (S=200, m=84, n=108 and
+   S=100, m=112, n=140) in f32 and f64 against its plain version, in the
+   mode its layout picks there; bundled farmer-1000 crops_multiplier=4
+   (``bundles_per_rank`` 300, ``shape_buckets``: 200 bundles of 3
+   scenarios and 100 of 4, two buckets) through ``ph_main()`` at the
+   farmer phase's f32 settings, 20 iterations, in bucketed windows: the
+   two buckets exactly, eobj within 1e-2 of the farmer-1000 EF (bundling
+   keeps the EF), the trivial bound at most the EF + 1e-6 |EF|,
+   ``fused_sweeps`` launched inside the windows for both buckets and no
+   other sweep kernel, eobj within 1e-4 of the same PH in the legacy loop
+   after as many iterations, with the PH rate, host syncs by kind,
+   refused frozen iterates and launches by mode under both protocols; a
+   bundled wheel (that hub, 8 iterations at most, with a Lagrangian and
+   an XhatShuffle spoke in f64): outer <= EF + 1e-6 |EF|, inner >= EF -
+   1e-4 |EF|, outer <= inner, each spoke posting a bound; and hydro S=9 in
+   3 proper bundles in f64 (the reference's settings) within 1e-2 of the
+   unbundled HiGHS EF.
 
 ``--phases`` runs a subset; the result lines print only when all ran.
 Prints a ``{"kernels": [...]}`` line, then as the last line
@@ -1144,11 +1165,12 @@ def clocked(base, on_iter):
 
 
 def run_path(cuda_kernels, kernel, make_ph, use_kernel, iters, options,
-             solver=None, dtype="float32", eps=1e-5):
+             solver=None, dtype="float32", eps=1e-5, mode=None):
     """One path's PH (f32 at eps 1e-5 unless told); returns (ph, results)
     with the launch counts and host syncs read around exactly this run, and
     eobj and the solve loop's decisions after Iter0 and every iteration.
-    ``solver``: more solver options."""
+    ``solver``: more solver options; ``mode``: the only mode the kernel
+    may launch in (default its main path's, :data:`MAIN_MODES`)."""
     import torch
 
     from tpusppy_torch.obs import metrics
@@ -1257,7 +1279,7 @@ def run_path(cuda_kernels, kernel, make_ph, use_kernel, iters, options,
     if kernel == "fused_sweeps_sparse":
         check_structured(ph, res)
     elif use_kernel:
-        want = MAIN_MODES[kernel]
+        want = mode or MAIN_MODES[kernel]
         check(modes[want] == launches,
               f"the run launched {kernel}'s modes {modes}, wanted only "
               f"{want}")
@@ -1803,6 +1825,8 @@ UC_NO_LADDER = {"straggler_tol_qp": 1e30}
 MEGA_EOBJ_TOL = {"farmer-1000 cm=4": 1e-4, "uc_lite-1000": 1e-4,
                  "uc-1000": 1e-3}
 MEGA_F64_TOL = 1e-7
+#: The hub-only farmer-1000 wheel's solver: the main path's eps in f64.
+HUB_ONLY_SOLVER = {"dtype": "float64", "eps_abs": 1e-5, "eps_rel": 1e-5}
 
 
 def print_protocol(label, k):
@@ -1875,6 +1899,7 @@ def inwheel_wheel(cuda_kernels, label, make_opt_kwargs, kernel, iters):
         passes = w.delta("megastep.bound_passes")
         infeasible = w.delta("megastep.bound_pass_infeasible")
         rescues = w.delta("megastep.bound_rescues")
+    declines = getattr(ws.opt, "_inwheel_rescue_declines", 0)
     clear_batch_cache()
     opt, stamps = ws.opt, ws.opt.stamps
     rate = (stamps[-1][0] / (stamps[-1][1] - stamps[0][1])
@@ -1888,7 +1913,8 @@ def inwheel_wheel(cuda_kernels, label, make_opt_kwargs, kernel, iters):
           f"{getattr(opt, 'inwheel_inner_source', 'none')}) hub stopped at "
           f"iteration {it_done} ({reason}); bound passes {passes:.0f}, "
           f"infeasible evaluations {infeasible:.0f}, host rescues "
-          f"{rescues:.0f}; hub PH it/s {rate:.3f}; spokes "
+          f"{rescues:.0f} ({declines} declined); hub PH it/s {rate:.3f}; "
+          f"spokes "
           f"{len(ws.spoke_comms)}; wall_s={wall:.2f} {CARD}", flush=True)
     print_cylinders(label, ws, it_done)
     check(not ws.spoke_comms and list(ws.stats) == ["hub:PHHub"],
@@ -1956,11 +1982,21 @@ def phase_megastep(cuda_kernels, main, golden):
     check(len(rels) == UC_FULL_TENSOR_ITERS and max(rels) <= MEGA_F64_TOL,
           f"golden uc S=10 f64: megastep and legacy eobj differ by {rels}")
 
-    # hub-only wheels: the windows' bound passes certify with no spoke
-    label, S, cm = "megastep farmer-1000 cm=4", 1000, 4
+    # hub-only wheels: the windows' bound passes certify with no spoke.
+    # The farmer hub solves in f64 (HUB_ONLY_SOLVER): the host rescue runs
+    # HiGHS at its default tolerances, as the reference's does, and an f32
+    # consensus leaves the land rows a few 1e-6 over, where every rescue
+    # declines; an f64 consensus meets HiGHS's tolerance on some rescues
+    # (the device evaluation misses the 1e-3 gate in f64 too)
+    label, S, cm = "megastep farmer-1000 cm=4 f64 hub", 1000, 4
     ef = main.get("farmer-1000 cm=4", {}).get("ef")
-    ws, rate = inwheel_wheel(cuda_kernels, label,
-                             lambda: farmer_wheel_kwargs(S, cm),
+
+    def hub_only_kwargs():
+        kw = farmer_wheel_kwargs(S, cm)
+        kw["options"]["solver_options"] = dict(HUB_ONLY_SOLVER)
+        return kw
+
+    ws, rate = inwheel_wheel(cuda_kernels, label, hub_only_kwargs,
                              "fused_sweeps", WHEEL_ITERS)
     if ef is None:
         ef, _ = solve_ef(ws.opt.batch, solver="highs")
@@ -1994,6 +2030,190 @@ def phase_megastep(cuda_kernels, main, golden):
     return out
 
 
+#: Bundled farmer-1000 (crops_multiplier=4): 300 bundles, np.array_split's
+#: 100 of 4 scenarios and 200 of 3, two shape buckets: (S_b, m, n).
+BUNDLE_OPTIONS = {"bundles_per_rank": 300, "shape_buckets": True}
+BUNDLE_BUCKETS = ((200, 84, 108), (100, 112, 140))
+#: The bundled PH's and the bundled wheel's depths, cut to keep the whole
+#: run near 900 s
+BUNDLE_ITERS = 20
+BUNDLE_WHEEL_ITERS = 8
+BUNDLE_MEGA_TOL = 1e-4
+#: hydro S=9 in 3 proper bundles at the reference's settings
+#: (tests/test_rho_bundles_io.py): f64, rho 1, convthresh 1e-5
+HYDRO_BUNDLE_OPTIONS = {"defaultPHrho": 1.0, "PHIterLimit": 60,
+                        "convthresh": 1e-5, "bundles_per_rank": 3}
+
+
+def bundled_farmer_ph(options, ph_class=None):
+    return farmer_ph(1000, 4, dict(options, **BUNDLE_OPTIONS), ph_class)
+
+
+def phase_bundles(cuda_kernels, main):
+    """Scenario bundling and shape buckets on the card: ``fused_sweeps`` at
+    both bucket shapes against its plain version; bundled farmer-1000
+    through ``ph_main()`` at the default options (bucketed windows) against
+    the farmer EF and against the same PH in the legacy loop; a bundled
+    wheel (PH hub, Lagrangian and XhatShuffle spokes in f64); and the
+    hydro golden in 3 proper bundles.  ``main``: the main phases' runs
+    (the farmer EF, computed here when the farmer phase did not run)."""
+    import torch
+
+    from tpusppy_torch.cylinders import (LagrangianOuterBound,
+                                         XhatShuffleInnerBound)
+    from tpusppy_torch.ef import solve_ef
+    from tpusppy_torch.ir import BucketedBatch, ScenarioBatch
+    from tpusppy_torch.models import farmer, hydro
+    from tpusppy_torch.opt.ph import PH
+    from tpusppy_torch.phbase import PHBase
+    from tpusppy_torch.spbase import clear_batch_cache
+    from tpusppy_torch.xhat_eval import Xhat_Eval
+
+    # fused_sweeps at each bucket's shape, the mode the layout picks
+    n_sweeps, n_refine, alpha = 4, 2, 1.6
+    kres = {}
+    for S, m, n in BUNDLE_BUCKETS:
+        flops = 2 * S * n_sweeps * (2 * m * n + n * n * (1 + 2 * n_refine))
+        for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+            mode = cuda_kernels.dense_layout(
+                m, n, torch.empty((), dtype=dtype).element_size())["mode"]
+            args, sigma = sweep_case(S, m, n, dtype)
+            fixed = (n_sweeps, n_refine, sigma, alpha)
+            kres[(S, m, n, dtype)] = res = hold_mode(
+                cuda_kernels, cuda_kernels.dense_modes, mode,
+                f"bucket fused_sweeps S={S} m={m} n={n}",
+                lambda: cuda_kernels.fused_sweeps(*args, *fixed),
+                lambda: cuda_kernels.fused_sweeps_plain(*args, *fixed),
+                args, flops, tol, dtype,
+                ref=f64_ref(lambda *a: cuda_kernels.fused_sweeps_plain(
+                    *a, *fixed), args, dtype))
+            res["mode"] = mode
+            print(f"bucket S={S} m={m} n={n} {dtype}: mode {mode}, "
+                  f"kernel {res['ms']:.5f} ms, bound {res['bound_ms']:.5f} "
+                  f"ms ({res['bound_by']}), plain {res['plain_ms']:.5f} ms "
+                  f"{CARD}", flush=True)
+            del args
+    torch.cuda.empty_cache()
+    modes32 = {kres[(S, m, n, torch.float32)]["mode"]
+               for S, m, n in BUNDLE_BUCKETS}
+    check(len(modes32) == 1, f"the buckets' f32 modes differ: {modes32}")
+    mode32 = modes32.pop()
+
+    ef = main.get("farmer-1000 cm=4", {}).get("ef")
+    if ef is None:
+        from tpusppy_torch.spbase import build_batch
+
+        b, _ = build_batch(farmer.scenario_names_creator(1000),
+                           farmer.scenario_creator,
+                           {"num_scens": 1000, "crops_multiplier": 4})
+        ef, _ = solve_ef(b, solver="highs")
+    label = "bundled farmer-1000 cm=4"
+    options = {"defaultPHrho": 1.0, "convthresh": 1e-6}
+    ph, k = run_path(cuda_kernels, "fused_sweeps",
+                     lambda o, cls: bundled_farmer_ph(o, cls), "auto",
+                     BUNDLE_ITERS, options, mode=mode32)
+    other = {name: cuda_kernels.launches[name]
+             for name in ("fused_sweeps_shared", "fused_sweeps_sparse")}
+    b = ph.batch
+    buckets = [(int(idx.size), sub.num_rows, sub.num_vars)
+               for idx, sub in getattr(b, "buckets", [])]
+    a_mb = sum(S * m * n for S, m, n in buckets) * 4 / 1e6
+    per_bucket = [d.get(("launches", "fused_sweeps"), 0)
+                  for d in ph.bucket_window_launches]
+    refused = sum(d["rejected"] for d in k["decisions"])
+    print(f"{label}: buckets (S_b, m, n) {buckets}, bookkeeping "
+          f"{b.c.shape}, A {a_mb:.2f} MB in f32; eobj={k['eobj']:.4f} "
+          f"EF={ef:.4f} rel {abs(k['eobj'] - ef) / abs(ef):.3e} "
+          f"tbound={k['tbound']:.4f} ph_it_per_s={k['rate']:.3f} "
+          f"sweep_blocks_per_iter={k['sweep_blocks_per_iter']:.2f} "
+          f"refused frozen iterates {refused:.0f} (refresh hits "
+          f"{k['refresh_hits']:.0f}) window launches by bucket "
+          f"{per_bucket} modes={k['modes']} other sweep kernels {other} "
+          f"{CARD}", flush=True)
+    check(isinstance(b, BucketedBatch) and buckets == list(BUNDLE_BUCKETS),
+          f"{label}: the batch's buckets are {buckets}, wanted "
+          f"{list(BUNDLE_BUCKETS)}")
+    check(abs(k["eobj"] - ef) <= 1e-2 * abs(ef),
+          f"{label}: eobj {k['eobj']} not within 1e-2 of EF {ef}")
+    check(k["tbound"] <= ef + 1e-6 * abs(ef),
+          f"{label}: trivial bound {k['tbound']} above EF {ef}")
+    check(k["launches"] > 0 and k["plain_calls"] == 0,
+          f"{label}: fused_sweeps launched {k['launches']} times, its "
+          f"plain version ran {k['plain_calls']}")
+    check(not any(other.values()), f"{label}: other sweep kernels ran "
+          f"{other}")
+    check(len(per_bucket) == 2 and all(v > 0 for v in per_bucket),
+          f"{label}: fused_sweeps did not launch inside the windows for "
+          f"both buckets ({per_bucket})")
+    _, legacy = run_path(cuda_kernels, "fused_sweeps",
+                         lambda o, cls: bundled_farmer_ph(o, cls), "auto",
+                         BUNDLE_ITERS, options, {"megastep": 1},
+                         mode=mode32)
+    lrefused = sum(d["rejected"] for d in legacy["decisions"])
+    print(f"{label} legacy: refused frozen iterates {lrefused:.0f} "
+          f"modes={legacy['modes']} sweep_blocks_per_iter="
+          f"{legacy['sweep_blocks_per_iter']:.2f}", flush=True)
+    hold_megastep(label, "fused_sweeps", k, legacy, BUNDLE_MEGA_TOL)
+
+    # the bundled wheel: the hub (this PH, 8 iterations at most) with the
+    # bucketed dual bound (Lagrangian) and evaluation (XhatShuffle) in f64
+    def kwargs():
+        kw = farmer_wheel_kwargs(1000, 4)
+        kw["options"].update(BUNDLE_OPTIONS, PHIterLimit=BUNDLE_WHEEL_ITERS)
+        return kw
+
+    clear_batch_cache()
+    spoke_opts = {"solver_options": dict(WHEEL_SOLVER, dtype="float64")}
+    hub, spokes = wheel_dicts(
+        kwargs, [(LagrangianOuterBound, PHBase, spoke_opts),
+                 (XhatShuffleInnerBound, Xhat_Eval, spoke_opts)],
+        WHEEL_HUB, wheel_clock())
+    ws, wall = spin(hub, spokes)
+    clear_batch_cache()
+    ob, ib = ws.BestOuterBound, ws.BestInnerBound
+    it_done, reason = ws.spcomm.stopped_at
+    print(f"bundled wheel farmer-1000: outer={ob:.4f} inner={ib:.4f} "
+          f"EF={ef:.4f} (outer-EF)/|EF|={(ob - ef) / abs(ef):.3e} "
+          f"(inner-EF)/|EF|={(ib - ef) / abs(ef):.3e}; hub stopped at "
+          f"iteration {it_done} ({reason}); bounds posted "
+          f"{[c.bounds_posted for c in ws.spoke_comms]}; wall_s={wall:.2f} "
+          f"{CARD}", flush=True)
+    print_cylinders("bundled wheel", ws, it_done)
+    check_cylinders("bundled wheel", ws, "fused_sweeps", "fused_sweeps")
+    check(np.isfinite(ob) and ob <= ef + 1e-6 * abs(ef),
+          f"bundled wheel: outer bound {ob} not finite and at most EF {ef}")
+    check(np.isfinite(ib) and ib >= ef - 1e-4 * abs(ef),
+          f"bundled wheel: inner bound {ib} not finite and above EF less "
+          "1e-4")
+    check(ob <= ib, f"bundled wheel: outer bound {ob} above inner {ib}")
+    check(all(c.bounds_posted > 0 for c in ws.spoke_comms),
+          "bundled wheel: a spoke posted no bound")
+
+    # the hydro golden in f64: 3 proper bundles against the unbundled EF
+    names = hydro.scenario_names_creator(9)
+    hph = PH(dict(HYDRO_BUNDLE_OPTIONS, solver_options={"dtype": "float64"}),
+             names, hydro.scenario_creator)
+    cuda_kernels.reset_counts()
+    _, heobj, htb = hph.ph_main()
+    hef, _ = solve_ef(ScenarioBatch.from_problems(
+        [hydro.scenario_creator(nm) for nm in names]), solver="highs")
+    print(f"golden hydro S=9 in 3 proper bundles f64: eobj={heobj:.6f} "
+          f"tbound={htb:.6f} EF={hef:.6f} rel "
+          f"{abs(heobj - hef) / abs(hef):.3e} iterations {hph._iter} "
+          f"launches={cuda_kernels.launches['fused_sweeps']}", flush=True)
+    check(hph.batch.num_scenarios == 3 and hph.tree.num_stages == 2,
+          "the hydro bundles are not a two-stage batch of 3")
+    check(cuda_kernels.launches["fused_sweeps"] > 0
+          and cuda_kernels.plain_calls["fused_sweeps"] == 0,
+          "the hydro golden did not go through fused_sweeps")
+    check(abs(heobj - hef) <= 1e-2 * abs(hef),
+          f"hydro golden eobj {heobj} not within 1e-2 of EF {hef}")
+    check(htb <= hef + 1e-6 * abs(hef),
+          f"hydro golden trivial bound {htb} above EF {hef}")
+    return {"kernels": kres, "ph": k, "legacy": legacy,
+            "wheel": (ob, ib, ef)}
+
+
 def kernel_line(name, source, replaces, launches, res):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2003,7 +2223,7 @@ def kernel_line(name, source, replaces, launches, res):
 
 
 PHASES = ("kernels", "golden", "loop", "farmer", "uc_lite", "uc",
-          "megastep", "precision", "wheel")
+          "megastep", "precision", "wheel", "bundles")
 
 
 def main(argv=None) -> int:
@@ -2081,13 +2301,13 @@ def main(argv=None) -> int:
         if "uc_lite" in phases:
             uc_lite = main_runs["uc_lite-1000"] = phase_main(
                 cuda_kernels, "uc_lite-1000", "fused_sweeps_shared",
-                lambda o, cls: uc_ph(1000, o, ph_class=cls), 60, 10,
+                lambda o, cls: uc_ph(1000, o, ph_class=cls), 60, 5,
                 UC_MAIN_OPTIONS)
         if "uc" in phases:
             uc = main_runs["uc-1000"] = phase_main(
                 cuda_kernels, "uc-1000", "fused_sweeps_sparse",
                 lambda o, cls: uc_full_ph(1000, o, ph_class=cls), 30,
-                10, UC_MAIN_OPTIONS, solver=UC_SOLVER,
+                5, UC_MAIN_OPTIONS, solver=UC_SOLVER,
                 ef=False)
         if phases & {"farmer", "uc_lite", "uc"}:
             print(f"[{time.perf_counter() - t_all:.1f} s] main paths done",
@@ -2104,6 +2324,11 @@ def main(argv=None) -> int:
             phase_wheel(cuda_kernels, main_runs, mega.get("farmer_wheel"))
             print(f"[{time.perf_counter() - t_all:.1f} s] wheel done",
                   flush=True)
+        if "bundles" in phases:
+            t0 = time.perf_counter()
+            phase_bundles(cuda_kernels, main_runs)
+            print(f"[{time.perf_counter() - t_all:.1f} s] bundles done "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
     except PhaseError as e:
         print(f"FAIL: {e}", flush=True)
         return 1

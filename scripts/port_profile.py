@@ -5,7 +5,7 @@
                                     [--scens 1000] [--crops-multiplier 4]
                                     [--warm-iters 20] [--iters 5]
                                     [--megastep 0|1] [--in-wheel]
-                                    [--no-ladder]
+                                    [--no-ladder] [--bundles 300]
                                     [--spoke-dtype float64]
                                     [--lagrangian-rescue-cap 64]
 
@@ -22,7 +22,10 @@ between the refreshes, every 16 iterations; 1: the legacy loop), so
 uc's frozen iterates never meet the frozen acceptance ladder at these
 settings, so its windows never start (chip_smoke.py, phase ``megastep``):
 ``--no-ladder`` turns the ladder off (``straggler_tol_qp`` 1e30) in either
-protocol.
+protocol.  ``--bundles N`` (farmer) bundles the scenarios into N bundle EFs
+with shape buckets (``bundles_per_rank`` N, ``shape_buckets``): at S=1000
+and N=300, 200 bundles of 3 scenarios and 100 of 4, two buckets, every
+iteration one frozen solve a bucket.
 Prints one JSON line: the card, the untraced window's wall seconds per
 iteration, device-busy seconds per iteration in the traced window (the union
 of kernel intervals on the timeline), the idle share (busy against the
@@ -96,6 +99,7 @@ def main():
     ap.add_argument("--megastep", type=int, choices=(0, 1), default=0)
     ap.add_argument("--in-wheel", action="store_true")
     ap.add_argument("--no-ladder", action="store_true")
+    ap.add_argument("--bundles", type=int, default=0)
     args = ap.parse_args()
 
     import torch
@@ -128,6 +132,8 @@ def main():
                       solve_refine=1, sweep_plateau_rtol=0.05,
                       sweep_plateau_window=8)
     ladder = {"straggler_tol_qp": 1e30} if args.no_ladder else {}
+    if args.bundles:
+        ladder.update(bundles_per_rank=args.bundles, shape_buckets=True)
     ph = PH({"defaultPHrho": rho, "PHIterLimit": args.warm_iters,
              "convthresh": 0.0, "solver_options": solver, **ladder},
             model.scenario_names_creator(S), model.scenario_creator,
@@ -176,7 +182,9 @@ def main():
         "card": smi, "model": args.model, "scens": S,
         "crops_multiplier": cm if args.model == "farmer" else None,
         "iters": n, "megastep": args.megastep,
-        "no_ladder": args.no_ladder,
+        "no_ladder": args.no_ladder, "bundles": args.bundles,
+        "buckets": [(int(i.size), sub.num_rows, sub.num_vars)
+                    for i, sub in getattr(ph.batch, "buckets", [])],
         "window_n": ph._megastep_request(),
         "wall_s_per_iter": wall, "traced_wall_s_per_iter": traced_wall,
         "device_busy_s_per_iter": busy, "idle_share": 1.0 - busy / wall,

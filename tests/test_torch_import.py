@@ -91,3 +91,21 @@ def test_solver_device_follows_argument_then_tensors(no_gpu):
     assert sol.x.device.type == "cpu"
     targs = (args[0], args[1], torch.as_tensor(A)) + args[3:]
     assert admm.solve_batch(*targs).x.device.type == "cpu"
+
+
+def test_bundles_module_is_covered_and_bundled_ph_needs_a_device(no_gpu):
+    """The bundling module is among those the checks above import, and a
+    bundled, bucketed PH asks for a device as every entry point does."""
+    from tpusppy_torch.models import farmer
+    from tpusppy_torch.opt.ph import PH
+
+    assert "tpusppy_torch.bundles" in _modules()
+    names = farmer.scenario_names_creator(7)
+    opts = {"defaultPHrho": 1.0, "PHIterLimit": 2, "bundles_per_rank": 3,
+            "shape_buckets": True, "shape_bucket_quantum": 1}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PH(opts, names, farmer.scenario_creator,
+           scenario_creator_kwargs={"num_scens": 7})
+    ph = PH(dict(opts, device="cpu"), names, farmer.scenario_creator,
+            scenario_creator_kwargs={"num_scens": 7})
+    assert len(ph.batch.buckets) == 2 and ph.device.type == "cpu"

@@ -2,8 +2,8 @@
 refusals against the reference.
 
 Options the port does not have must not be dropped without a word: lowered
-matmul precision and scenario bundling raise, and the reference's
-``use_pallas`` is the port's ``use_kernel``.  The frozen-solve acceptance
+matmul precision raises, scenario bundling builds the reference's bundled
+batch, and the reference's ``use_pallas`` is the port's ``use_kernel``.  The frozen-solve acceptance
 rule is the reference's: on a small uc_lite batch (float64, the CPU, the
 same options) both packages refuse the same number of frozen attempts.
 """
@@ -39,14 +39,30 @@ def test_full_matmul_precision_is_taken(mode):
 
 
 def test_bundling_raises():
+    """``bundles_per_rank`` builds the reference's bundled batch (it raised
+    until the port had bundling); a bundle count the family cannot take
+    raises as the reference's does."""
+    from tpusppy.models import farmer as jfarmer
+    from tpusppy.spbase import build_batch as jbuild_batch
+
     names = tfarmer.scenario_names_creator(3)
-    with pytest.raises(NotImplementedError, match="bundles_per_rank=2"):
+    batch, bnames = build_batch(names, tfarmer.scenario_creator,
+                                {"num_scens": 3}, {"bundles_per_rank": 2})
+    jbatch, bundling, jnames = jbuild_batch(
+        {"bundles_per_rank": 2}, names, jfarmer.scenario_creator,
+        {"num_scens": 3})
+    assert bundling and bnames == jnames == ["bundle_0", "bundle_1"]
+    for f in ("c", "q2", "A", "cl", "cu", "lb", "ub", "const"):
+        np.testing.assert_array_equal(getattr(batch, f), getattr(jbatch, f))
+    np.testing.assert_array_equal(batch.probs, jbatch.probs)
+    ph = TPH({"bundles_per_rank": 1, "device": "cpu", "defaultPHrho": 1.0,
+              "PHIterLimit": 1}, names, tfarmer.scenario_creator,
+             scenario_creator_kwargs={"num_scens": 3})
+    assert ph.bundling and ph.batch.num_scenarios == 1
+    assert ph.admm_settings.max_iter == 4000
+    with pytest.raises(ValueError, match="out of range"):
         build_batch(names, tfarmer.scenario_creator, {"num_scens": 3},
-                    {"bundles_per_rank": 2})
-    with pytest.raises(NotImplementedError, match="bundling"):
-        TPH({"bundles_per_rank": 1, "device": "cpu", "defaultPHrho": 1.0},
-            names, tfarmer.scenario_creator,
-            scenario_creator_kwargs={"num_scens": 3})
+                    {"bundles_per_rank": 4})
     batch, _ = build_batch(names, tfarmer.scenario_creator,
                            {"num_scens": 3}, {"bundles_per_rank": 0})
     assert batch.num_scenarios == 3

@@ -3,8 +3,10 @@
 The JAX package's arrays come in as numpy (``np.asarray`` of a device array,
 ``dataclasses.asdict`` of a dataclass, ``NamedTuple._asdict()``), so nothing
 here imports the reference.  This is the system's analogue of loading
-weights: a scenario batch, a refresh solve's factors, or a PH hub's state
-carried over lets the port continue exactly where the reference stopped.
+weights: a scenario batch (a shape-bucketed one too), a refresh solve's
+factors, or a PH hub's state (with a bucketed batch's per-bucket slots:
+warm state, factors and age) carried over lets the port continue exactly
+where the reference stopped.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ir import ScenarioBatch
+from .ir import BucketedBatch, ScenarioBatch
 from .scenario_tree import TreeInfo
 from .solvers.admm import Factors
 from .solvers.shared_admm import SharedFactors
@@ -59,6 +61,31 @@ def batch_from_arrays(names, c, q2, A, cl, cu, lb, ub, is_int, const, tree,
         const=f(const), tree=tree,
         var_names=None if var_names is None else list(var_names),
         version=int(version), A_shared=A_shared)
+
+
+def bucketed_batch_from_arrays(names, buckets, tree, c, q2, lb, ub, cl, cu,
+                               const, var_names=None, version=0,
+                               **_ignored) -> BucketedBatch:
+    """A :class:`BucketedBatch` from the reference's BucketedBatch fields
+    (``dataclasses.asdict`` of one): ``buckets`` is a list of (scenario
+    indices, sub-batch), each sub-batch a port ScenarioBatch or a dict of
+    the reference's ScenarioBatch fields; ``tree`` a TreeInfo or a dict."""
+    if isinstance(tree, dict):
+        tree = tree_from_arrays(**tree)
+    parts = []
+    for idx, sub in buckets:
+        if isinstance(sub, dict):
+            sub = batch_from_arrays(**sub)
+        parts.append((np.asarray(idx, dtype=np.int64), sub))
+
+    def f(v):
+        return np.array(v, dtype=np.float64)
+
+    return BucketedBatch(
+        names=list(names), buckets=parts, tree=tree, c=f(c), q2=f(q2),
+        lb=f(lb), ub=f(ub), cl=f(cl), cu=f(cu), const=f(const),
+        var_names=None if var_names is None else list(var_names),
+        version=int(version))
 
 
 def factors_from_arrays(arrays: dict, device, dtype=torch.float64) -> Factors:
@@ -142,6 +169,15 @@ def sparse_from_arrays(rows, cols, vals, shape, structure=None, device=None,
     return sp
 
 
+def _factors_for(arrays, device, dt, A_dev):
+    """The port's factors of one batch part from the reference's arrays:
+    :class:`SharedFactors` where the part's device A is a shared (m, n)
+    matrix or a SparseA."""
+    if A_dev is not None and (A_dev.ndim == 2 or isinstance(A_dev, SparseA)):
+        return shared_factors_from_arrays(arrays, device, dt, A=A_dev)
+    return factors_from_arrays(arrays, device, dt)
+
+
 def load_ph_state(ph, W, xbars, rho, warm, factors=None, factors_age=1,
                   iteration=0):
     """Seat a PH hub state in a port ``PH``/``PHBase`` object.
@@ -153,7 +189,12 @@ def load_ph_state(ph, W, xbars, rho, warm, factors=None, factors_age=1,
     objective at this ``rho``, with their age.  The next
     ``_iterk_one(iteration + 1, ...)`` then repeats the reference's next
     iteration: a frozen solve when factors came along and are not aged out,
-    else a refresh."""
+    else a refresh.
+
+    On a bucketed batch ``warm`` is a list of the buckets' (x, z, y, yx)
+    (the reference's ``_bucket_slots[k]["warm"]``), ``factors`` a list of
+    their factors (or None) and ``factors_age`` an int or a list: they
+    seat the port's per-bucket slots."""
     S, K = ph.batch.num_scenarios, ph.nonant_length
     for name, v in (("W", W), ("xbars", xbars), ("rho", rho)):
         v = np.array(v, dtype=np.float64)
@@ -161,12 +202,42 @@ def load_ph_state(ph, W, xbars, rho, warm, factors=None, factors_age=1,
             raise ValueError(f"{name} has shape {v.shape}, wanted {(S, K)}")
         setattr(ph, name, v)
     dt = ph.admm_settings.tdtype()
-    ph._warm = tuple(torch.tensor(np.asarray(v), dtype=dt, device=ph.device)
-                     for v in warm)
+
+    def t(v):
+        return torch.tensor(np.asarray(v), dtype=dt, device=ph.device)
+
+    ph._iter = int(iteration)
+    if isinstance(ph.batch, BucketedBatch):
+        b = ph.batch
+        n_b = len(b.buckets)
+        ages = (list(factors_age) if np.ndim(factors_age)
+                else [factors_age] * n_b)
+        facs = list(factors) if factors is not None else [None] * n_b
+        consts = ph._bucket_device_consts(dt)
+        q2_full = ph._augmented_q2()
+        x = np.zeros((S, b.num_vars))
+        slots = []
+        for (idx, sub), w, fac, age, (A_d, _, _) in zip(
+                b.buckets, warm, facs, ages, consts):
+            slot = {"warm": tuple(t(v) for v in w), "n_div_prev": 0}
+            x[idx, :sub.num_vars] = np.asarray(w[0], dtype=np.float64)
+            if fac is not None:
+                n = sub.num_vars
+                slot["factors"] = _factors_for(fac, ph.device, dt, A_d)
+                slot["sig"] = ph._solve_sig(q2_full[idx, :n],
+                                            b.lb[idx, :n], b.ub[idx, :n])
+                slot["age"] = int(age)
+            slots.append(slot)
+        ph._bucket_slots = slots
+        ph._warm = ph._factors = ph._factors_sig = None
+        ph._factors_age = 0
+        ph.local_x = x
+        _, ph.xsqbars = ph._node_avgs(ph.nonants_of(x))
+        return ph
+    ph._warm = tuple(t(v) for v in warm)
     x = np.array(warm[0], dtype=np.float64)
     ph.local_x = x
     _, ph.xsqbars = ph._node_avgs(ph.nonants_of(x))
-    ph._iter = int(iteration)
     if factors is None:
         ph._factors = ph._factors_sig = None
         ph._factors_age = 0

@@ -14,8 +14,11 @@ Equality rows are cl == cu; one-sided rows use +/-inf.  The batch is host
 numpy; the solvers move what they need to the device.  A family whose
 scenarios all carry the SAME constraint-matrix object (uncertainty in costs,
 rhs and bounds only) is detected as shared: the batch keeps the one (m, n)
-matrix in ``A_shared`` and ``A`` is a zero-copy broadcast view of it.  Shape
-bucketing is not part of the port yet.
+matrix in ``A_shared`` and ``A`` is a zero-copy broadcast view of it.  A
+ragged family (uneven bundles) may be shape-bucketed instead of padded to
+its widest member: a :class:`BucketedBatch` holds one compact
+``ScenarioBatch`` per (quantized) shape and the 2-D bookkeeping arrays
+padded to the family maximum.
 """
 
 from __future__ import annotations
@@ -26,8 +29,8 @@ import numpy as np
 
 from .scenario_tree import ScenarioNode, TreeInfo, build_tree
 
-__all__ = ["INF", "LinearModelBuilder", "ScenarioBatch", "ScenarioNode",
-           "ScenarioProblem"]
+__all__ = ["INF", "BucketedBatch", "LinearModelBuilder", "ScenarioBatch",
+           "ScenarioNode", "ScenarioProblem"]
 
 INF = np.inf
 
@@ -258,8 +261,158 @@ class ScenarioBatch:
     def probs(self) -> np.ndarray:
         return self.tree.scen_prob
 
+    def nonant_mask(self) -> np.ndarray:
+        """(n,) bool mask of the nonant slots."""
+        mask = np.zeros(self.num_vars, dtype=bool)
+        mask[self.tree.nonant_indices] = True
+        return mask
+
     def objective(self, x: np.ndarray) -> np.ndarray:
         """(S,) per-scenario objective values at x of shape (S, n)."""
         lin = np.einsum("sn,sn->s", self.c, x)
         quad = 0.5 * np.einsum("sn,sn->s", self.q2, x * x)
         return lin + quad + self.const
+
+
+def _quantize(v: int, quantum: int) -> int:
+    """``v`` rounded up to a multiple of ``quantum``."""
+    return int(-(-v // quantum) * quantum)
+
+
+@dataclasses.dataclass
+class BucketedBatch:
+    """A shape-bucketed batch of a ragged family.
+
+    :class:`ScenarioBatch` pads every scenario to the family's widest, so
+    one large scenario makes the whole (S, m, n) constraint tensor pay.
+    Here scenarios are grouped by their (n, m) rounded up to ``quantum``
+    and by their padded integer pattern; each bucket is a compact
+    ``ScenarioBatch`` of its own (its own solver program), with its
+    probabilities normalized inside the bucket (the sub-batch's tree is
+    solver plumbing only: every reduction reads the outer ``tree``).  The
+    2-D bookkeeping arrays (c, q2, lb, ub, cl, cu) are kept zero-padded to
+    the family's maxima, so PH's bookkeeping reads them as it reads a
+    ScenarioBatch's; the (S, m, n) ``A`` has no padded view and raises.
+    ``buckets`` is a list of ``(scenario indices, ScenarioBatch)``."""
+
+    names: list
+    buckets: list
+    tree: TreeInfo
+    c: np.ndarray          # (S, n_max), zero-padded
+    q2: np.ndarray
+    lb: np.ndarray
+    ub: np.ndarray
+    cl: np.ndarray         # (S, m_max)
+    cu: np.ndarray
+    const: np.ndarray      # (S,)
+    # column names are bucket-local: the padded layout has slot indices only
+    var_names: list | None = None
+    version: int = 0
+
+    @classmethod
+    def from_problems(cls, problems, quantum: int = 16) -> "BucketedBatch":
+        groups: dict = {}
+        for i, p in enumerate(problems):
+            nq = _quantize(p.num_vars, quantum)
+            mq = _quantize(p.num_rows, quantum)
+            # a ScenarioBatch takes one integer pattern, and padding can
+            # make patterns differ inside a quantized shape
+            patt = np.zeros(nq, dtype=bool)
+            patt[:p.num_vars] = p.is_int
+            groups.setdefault((nq, mq, patt.tobytes()), []).append(i)
+        probs = [p.prob for p in problems]
+        if all(pr is None for pr in probs):
+            problems = [dataclasses.replace(p, prob=1.0 / len(problems))
+                        for p in problems]
+        elif any(pr is None for pr in probs):
+            raise ValueError(
+                "either all or no scenarios may carry a probability")
+        buckets = []
+        for key in sorted(groups):
+            idx = np.asarray(groups[key], dtype=np.int64)
+            members = [problems[i] for i in idx]
+            tot = sum(p.prob for p in members)
+            members = [dataclasses.replace(p, prob=p.prob / tot)
+                       for p in members]
+            buckets.append((idx, ScenarioBatch.from_problems(members)))
+        S = len(problems)
+        n_max = max(p.num_vars for p in problems)
+        m_max = max(p.num_rows for p in problems)
+
+        def pad2(get, width):
+            out = np.zeros((S, width))
+            for i, p in enumerate(problems):
+                v = get(p)
+                out[i, :v.shape[0]] = v
+            return out
+
+        return cls(
+            names=[p.name for p in problems], buckets=buckets,
+            tree=build_tree(problems),
+            c=pad2(lambda p: p.c, n_max), q2=pad2(lambda p: p.q2, n_max),
+            lb=pad2(lambda p: p.lb, n_max),
+            ub=pad2(lambda p: p.ub, n_max),    # padded slots clamp at 0
+            cl=pad2(lambda p: p.cl, m_max), cu=pad2(lambda p: p.cu, m_max),
+            const=np.array([p.const for p in problems]))
+
+    @property
+    def num_scenarios(self) -> int:
+        return len(self.names)
+
+    @property
+    def num_vars(self) -> int:
+        return int(self.c.shape[1])
+
+    @property
+    def num_rows(self) -> int:
+        return int(self.cl.shape[1])
+
+    @property
+    def probs(self) -> np.ndarray:
+        return self.tree.scen_prob
+
+    @property
+    def A(self):
+        raise AttributeError(
+            "BucketedBatch has no global A tensor (that padding is the "
+            "quadratic cost bucketing exists to avoid); iterate .buckets "
+            "or disable shape_buckets for features needing batch.A")
+
+    @property
+    def A_shared(self):
+        """No family-wide shared matrix (a bucket may have its own)."""
+        return None
+
+    @property
+    def is_int(self):
+        if any(sub.is_int.any() for _, sub in self.buckets):
+            raise AttributeError(
+                "BucketedBatch does not expose a shared is_int pattern "
+                "(buckets differ); integer xhat diving requires an "
+                "unbucketed batch")
+        return np.zeros(self.num_vars, dtype=bool)
+
+    def nonant_mask(self) -> np.ndarray:
+        mask = np.zeros(self.num_vars, dtype=bool)
+        mask[self.tree.nonant_indices] = True
+        return mask
+
+    def padded_elements(self) -> int:
+        """A's elements over all buckets (what the solves hold)."""
+        return int(sum(idx.size * sub.num_rows * sub.num_vars
+                       for idx, sub in self.buckets))
+
+    def objective(self, x: np.ndarray) -> np.ndarray:
+        """(S,) per-scenario objectives at x of shape (S, n_max)."""
+        out = np.zeros(self.num_scenarios)
+        for idx, sub in self.buckets:
+            out[idx] = sub.objective(x[idx][:, :sub.num_vars])
+        return out
+
+
+def batch_parts(batch):
+    """``[(scenario indices, ScenarioBatch)]``: a bucketed batch's buckets,
+    or the whole batch as one part."""
+    if isinstance(batch, BucketedBatch):
+        return batch.buckets
+    return [(np.arange(batch.num_scenarios), batch)]

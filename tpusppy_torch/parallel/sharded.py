@@ -6,7 +6,10 @@ update in device form (:func:`_node_xbar`, :func:`_ph_objective`,
 :func:`_ph_finish`), the packed window measurement
 (:func:`megastep_unpack`), the in-wheel bound pass
 (:func:`_bound_pass_terms`) and the window itself
-(:func:`make_wheel_megastep`).
+(:func:`make_wheel_megastep`), and the window of a shape-bucketed family
+(:func:`make_bucketed_wheel_megastep`, :func:`_bucketed_finish`,
+:func:`bucketed_megastep_unpack`): every bucket's frozen solve through its
+own kernel loop, then one PH update across the buckets.
 
 The reference runs a window as one jitted ``lax.scan``.  Here a window is
 a host loop of at most N iterations, each: the augmented objective, the
@@ -23,19 +26,21 @@ nothing, and the flag read it makes anyway ends the host loop.  The host
 reads nothing else until the window's one packed fetch.
 
 Not ported yet, and raising ``NotImplementedError``: the mesh and
-``shard_map`` (ROADMAP Queue 1 item 7, on ``torch.distributed``) and the
-batched integer sweep (``int_rounding``, Queue 1 item 6).  The reference's
+``shard_map`` (ROADMAP Queue 1 item 7, on ``torch.distributed``), the
+bucketed window's in-wheel bound pass (Queue 1 item 7) and the batched
+integer sweep (``int_rounding``, Queue 1 item 6).  The reference's
 AOT executable cache has no twin.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..solvers import admm, device_loop, shared_admm
+from ..solvers import admm, cuda_kernels, device_loop, shared_admm
 from ..solvers.sparse import SparseA
 
 
@@ -455,3 +460,299 @@ def init_state(arr: PHArrays, default_rho: float, settings) -> PHState:
                                   device=dev),
                    x=zeros(S, n), z=zeros(S, m), y=zeros(S, m),
                    yx=zeros(S, n))
+
+
+# ---- the bucketed window (a ragged family) ----------------------------------
+def bucketed_megastep_measure_len(n_iters: int, shapes, K: int,
+                                  bounds: bool = False) -> int:
+    """Length of the bucketed packed measurement; ``shapes`` is
+    ``[(S_b, n_b), ...]`` in bucket order."""
+    S = sum(s for s, _ in shapes)
+    return (6 * n_iters + 2 + 3 * S + sum(s * n for s, n in shapes)
+            + 2 * S * K + bound_pack_len(bounds))
+
+
+def bucketed_megastep_unpack(vec, n_iters: int, shapes, K: int,
+                             bounds: bool = False) -> dict:
+    """Split a fetched :func:`make_bucketed_wheel_megastep` measurement.
+
+    The global per-iteration stats, ``executed`` and ``refresh_hit`` as in
+    :func:`megastep_unpack`; the per-scenario blocks come back per bucket
+    (``shapes`` order): ``pri``, ``dua`` and ``done`` lists of (S_b,)
+    arrays, ``x`` a list of (S_b, n_b), ``W`` and ``xbars`` lists of
+    (S_b, K), for the host to scatter through each bucket's scenario
+    indices; with ``bounds`` the bound tail."""
+    vec = np.asarray(vec)
+    N = n_iters
+    per = vec[:6 * N].reshape(6, N)
+    off = 6 * N
+    out = {
+        "conv": per[0], "eobj": per[1], "pri_max": per[2],
+        "dua_max": per[3], "iters": per[4], "all_done": per[5] != 0.0,
+        "executed": int(vec[off]), "refresh_hit": bool(vec[off + 1]),
+    }
+    off += 2
+    if bounds:
+        out = unpack_bound_tail(out, vec)
+    pri, dua, done = [], [], []
+    for S_b, _ in shapes:
+        pri.append(vec[off:off + S_b])
+        dua.append(vec[off + S_b:off + 2 * S_b])
+        done.append(vec[off + 2 * S_b:off + 3 * S_b] != 0.0)
+        off += 3 * S_b
+    xs = []
+    for S_b, n_b in shapes:
+        xs.append(vec[off:off + S_b * n_b].reshape(S_b, n_b))
+        off += S_b * n_b
+    Ws, xbs = [], []
+    for S_b, _ in shapes:
+        Ws.append(vec[off:off + S_b * K].reshape(S_b, K))
+        off += S_b * K
+    for S_b, _ in shapes:
+        xbs.append(vec[off:off + S_b * K].reshape(S_b, K))
+        off += S_b * K
+    out.update(pri=pri, dua=dua, done=done, x=xs, W=Ws, xbars=xbs)
+    return out
+
+
+def _bucketed_finish(arrs, states, sols, Ws, rhos, idx, dt):
+    """The PH update across buckets: each bucket adds its node-membership
+    partial sums (its ``onehot`` and ``probs`` are rows of the GLOBAL
+    tree's), the node averages form once, and each bucket gathers its
+    scenarios' rows back.  Returns ``(new_states, conv, eobj)``."""
+    num = den = None
+    xks = []
+    for arr, sol in zip(arrs, sols):
+        xk = sol.x.index_select(1, idx)
+        xks.append(xk)
+        p = arr.probs[:, None]
+        nm = torch.einsum("skn,sk->nk", arr.onehot, p * xk)
+        dn = torch.einsum("skn,sk->nk", arr.onehot, p.expand(xk.shape))
+        num = nm if num is None else num + nm
+        den = dn if den is None else den + dn
+    xbar_nk = num / torch.clamp(den, min=1e-300)
+    new_states = []
+    conv = torch.zeros((), dtype=dt, device=xbar_nk.device)
+    eobj = torch.zeros((), dtype=dt, device=xbar_nk.device)
+    for arr, sol, W, rho, xk in zip(arrs, sols, Ws, rhos, xks):
+        new_xbars = _gather_per_scenario(xbar_nk, arr.nid_sk)
+        new_W = W + rho * (xk - new_xbars)
+        conv = conv + arr.probs @ (xk - new_xbars).abs().mean(dim=1)
+        lin = torch.einsum("sn,sn->s", arr.c, sol.x)
+        quad = 0.5 * torch.einsum("sn,sn->s", arr.q2, sol.x * sol.x)
+        eobj = eobj + arr.probs @ (lin + quad + arr.const)
+        new_states.append(PHState(W=new_W, xbars=new_xbars, rho=rho,
+                                  x=sol.x, z=sol.z, y=sol.y, yx=sol.yx))
+    return tuple(new_states), conv, eobj
+
+
+def _bk(name, bi):
+    """The program buffer name of bucket ``bi``'s ``name``."""
+    return f"{name}@{bi}"
+
+
+def _bucket_bufs(b, bi):
+    """Bucket ``bi``'s buffers of a bucketed window program under their
+    plain names, with the program's shared ``idx`` and ``prox``."""
+    out = {k: b[_bk(k, bi)] for k in _BUCKET_KEYS}
+    out["idx"], out["prox"] = b["idx"], b["prox"]
+    return out
+
+
+#: The names of a bucket's own buffers in a bucketed window program.
+_BUCKET_KEYS = ("c", "q2", "const", "probs", "onehot", "nid_sk", "pri",
+                "dua", "done", "qa", "q2a", "sx", "sz", "sy", "syx", "spri",
+                "sdua", "siters", "sdone") + PHState._fields
+
+
+def _bucketed_objective_step(nb, b):
+    """Every bucket's augmented objective into its ``qa``/``q2a``."""
+    for bi in range(nb):
+        _objective_step(_bucket_bufs(b, bi))
+
+
+def _bucketed_finish_step(nb, b):
+    """The bucketed twin of :func:`_finish_step`: the acceptance test over
+    ALL buckets (the family's iterate is accepted or rejected as one),
+    the PH update across buckets (:func:`_bucketed_finish`), one stats
+    row (the buckets' worst residuals and largest sweep count), each
+    bucket's state committed where the iterate is taken."""
+    live = b["word"] == 0
+    tol = b["tol"]
+    bufs = [_bucket_bufs(b, bi) for bi in range(nb)]
+    all_done = lad = None
+    sols, states = [], []
+    for bb in bufs:
+        pri, dua, done = bb["spri"], bb["sdua"], bb["sdone"]
+        d = done.all()
+        g = ((pri <= tol) & (dua <= tol)).all()
+        all_done = d if all_done is None else all_done & d
+        lad = g if lad is None else lad & g
+        sols.append(_Solved(bb["sx"], bb["sz"], bb["sy"], bb["syx"], pri,
+                            dua, bb["siters"]))
+        states.append(_buffers_state(bb))
+    ok = all_done | lad
+    arrs = [_buffers_arrays(bb) for bb in bufs]
+    dt = b["tol"].dtype
+    new, conv, eobj = _bucketed_finish(
+        arrs, states, sols, [st.W for st in states],
+        [st.rho for st in states], b["idx"], dt)
+    row = torch.stack([
+        conv, eobj, torch.stack([s.pri_res.max() for s in sols]).max(),
+        torch.stack([s.dua_res.max() for s in sols]).max(),
+        torch.stack([s.iters.max() for s in sols]).max().to(dt),
+        all_done.to(dt)])
+    take = live & ok
+    for bb, st, nw, sol in zip(bufs, states, new, sols):
+        device_loop.commit(
+            ~take, (st.W, st.xbars, st.x, st.z, st.y, st.yx, bb["pri"],
+                    bb["dua"], bb["done"]),
+            (nw.W, nw.xbars, nw.x, nw.z, nw.y, nw.yx, sol.pri_res,
+             sol.dua_res, bb["sdone"]))
+    stats = b["stats"]
+    torch.where((live & (b["steps"] == b["it"]))[:, None], row, stats,
+                out=stats)
+    b["executed"].add_(take.to(torch.int64))
+    b["stopped"].logical_or_((take & (conv < b["thresh"])) | (live & ~ok))
+    b["refresh"].logical_or_(live & ~ok)
+    b["it"].add_(live.to(torch.int64))
+    b["word"].copy_(b["stopped"].to(torch.int32) * device_loop.WINDOW_BIT)
+
+
+def _bucketed_templates(arrs, states, n_iters, idx):
+    """The bucketed window program's buffers: each bucket's (suffixed with
+    its index) as :func:`_templates` makes them, and the shared scalars,
+    counters and stats once."""
+    out = {}
+    for bi, (arr, st) in enumerate(zip(arrs, states)):
+        one = _templates(arr, st, n_iters, idx)
+        for k, v in one.items():
+            if k in _BUCKET_KEYS:
+                out[_bk(k, bi)] = v
+            else:
+                out.setdefault(k, v)
+    return out
+
+
+def make_bucketed_wheel_megastep(nonant_idx, settings, n_iters: int = 8,
+                                 bounds: bool = False, int_nonants=None,
+                                 xhat_threshold: float = 0.5,
+                                 int_rounding=None):
+    """The window function of a shape-bucketed (ragged) family: up to
+    ``n_iters`` frozen PH iterations over every bucket and one packed
+    measurement (:func:`bucketed_megastep_unpack`).
+
+    Each iteration assembles every bucket's PH objective, runs each
+    bucket's frozen solve on its own factors through its engine's kernel
+    loop (its own captured graphs: the loops are keyed by shape), then
+    one PH update couples the buckets (:func:`_bucketed_finish`: node sums
+    over all buckets through the global tree's rows, each bucket gathering
+    its own back).  The acceptance test and the stop are the family's,
+    and the window's stop word rides every bucket's solves.
+    ``nonant_idx`` is the global nonant column index array, valid in
+    every bucket's column space because a bundle's EF puts the root
+    nonants first.
+
+    ``bounds=True`` (the bucketed in-wheel bound pass) raises: not ported
+    yet (ROADMAP Queue 1 item 7); so does ``int_rounding`` (Queue 1 item
+    6).  Returns ``mega(states, arrs, prox_on, factors, convthresh,
+    n_live, accept_tol, bucket_launches=None) -> (states, packed)`` over
+    tuples of per-bucket :class:`PHState`, :class:`PHArrays` and factors;
+    ``bucket_launches``, a list of one dict a bucket, receives each
+    bucket's kernel launches (:func:`..solvers.cuda_kernels.counts` of
+    the calling thread) made in its frozen solves."""
+    if bounds:
+        raise NotImplementedError(
+            "make_bucketed_wheel_megastep(bounds=True): the bucketed "
+            "in-wheel bound pass is not ported yet (ROADMAP Queue 1 item 7)")
+    if int_rounding:
+        raise NotImplementedError(
+            "make_bucketed_wheel_megastep(int_rounding=...): the batched "
+            "integer sweep is not ported yet (ROADMAP Queue 1 item 6)")
+    if n_iters < 1:
+        raise ValueError(f"n_iters ({n_iters}) must be >= 1")
+    idx_np = np.asarray(nonant_idx, dtype=np.int64)
+    idx_on = {}
+
+    def mega(states, arrs, prox_on, factors, convthresh, n_live,
+             accept_tol, bucket_launches=None):
+        nb = len(arrs)
+        dt, dev = arrs[0].c.dtype, arrs[0].c.device
+        idx = idx_on.get(dev)
+        if idx is None:
+            idx = idx_on[dev] = torch.as_tensor(idx_np, device=dev)
+        frozen = [_frozen_fn(arr.A) for arr in arrs]
+        prog = device_loop.program(
+            ("ph_window_bucketed", n_iters, nb),
+            _bucketed_templates(arrs, states, n_iters, idx), gate="word")
+        b = prog.bufs
+
+        def scalar(v):
+            return torch.full((), float(v), dtype=dt, device=dev)
+
+        load = dict(idx=idx, prox=scalar(prox_on), thresh=scalar(convthresh),
+                    tol=scalar(accept_tol))
+        for bi, (arr, st) in enumerate(zip(arrs, states)):
+            vals = dict(c=arr.c, q2=arr.q2, const=arr.const,
+                        probs=arr.probs, onehot=arr.onehot,
+                        nid_sk=arr.nid_sk, **st._asdict())
+            load.update({_bk(k, bi): v for k, v in vals.items()})
+        prog.load(load)
+        for bi in range(nb):
+            for k in ("pri", "dua"):
+                b[_bk(k, bi)].fill_(float("inf"))
+            b[_bk("done", bi)].zero_()
+        for k in ("it", "executed", "stopped", "refresh", "word", "stats"):
+            b[k].zero_()
+        gate = device_loop.Gate(b["word"])
+        objective = functools.partial(_bucketed_objective_step, nb)
+        finish = functools.partial(_bucketed_finish_step, nb)
+        for _ in range(min(int(n_live), n_iters)):
+            prog.run("objective", objective)
+            sols = []
+            for bi, arr in enumerate(arrs):
+                if bucket_launches is not None:
+                    before = cuda_kernels.counts(local=True)
+                with device_loop.gated(gate):
+                    sol = frozen[bi](
+                        b[_bk("qa", bi)], b[_bk("q2a", bi)], arr.A, arr.cl,
+                        arr.cu, arr.lb, arr.ub, factors[bi],
+                        settings=settings,
+                        warm=tuple(b[_bk(k, bi)]
+                                   for k in ("x", "z", "y", "yx")))
+                if bucket_launches is not None:
+                    seen = bucket_launches[bi]
+                    for k, v in cuda_kernels.counts(local=True).items():
+                        if v != before[k]:
+                            seen[k] = seen.get(k, 0) + v - before[k]
+                if gate.seen:
+                    break
+                sols.append(sol)
+            if gate.seen:
+                # the window stopped in the iteration before: this
+                # iteration's solves swept nothing
+                break
+            sol_bufs = {}
+            for bi, sol in enumerate(sols):
+                sol_bufs.update({
+                    _bk(k, bi): v for k, v in (
+                        ("sx", sol.x), ("sz", sol.z), ("sy", sol.y),
+                        ("syx", sol.yx), ("spri", sol.pri_res),
+                        ("sdua", sol.dua_res), ("siters", sol.iters),
+                        ("sdone", sol.done))})
+            prog.load(sol_bufs)
+            prog.run("finish", finish)
+        out_states = tuple(
+            PHState(*(b[_bk(k, bi)].clone() for k in PHState._fields))
+            for bi in range(nb))
+        parts = [b["stats"].T.reshape(-1), b["executed"].to(dt)[None],
+                 b["refresh"].to(dt)[None]]
+        for bi in range(nb):
+            parts += [b[_bk("pri", bi)], b[_bk("dua", bi)],
+                      b[_bk("done", bi)].to(dt)]
+        parts += [st.x.reshape(-1) for st in out_states]
+        parts += [st.W.reshape(-1) for st in out_states]
+        parts += [st.xbars.reshape(-1) for st in out_states]
+        return out_states, torch.cat(parts)
+
+    return mega

@@ -19,15 +19,19 @@ hub with no spokes certifies a gap by itself.  In a wheel the opt object's
 ``spcomm`` (its hub or spoke communicator) syncs after Iter0 and after every
 legacy iteration or window and may end the loop (``is_converged``).
 
+A shape-bucketed batch (bundles of two sizes, :class:`~.ir.BucketedBatch`)
+runs the same protocol: its legacy iterations solve bucket by bucket, and
+its windows run every bucket's frozen solve with one PH update across the
+buckets (:meth:`PHBase._megastep_dispatch`); a window opens when every
+bucket's slot is ready, and the oldest bucket's factors bound its width
+(:meth:`PHBase._mega_age`).
+
 Not ported yet, and raising ``NotImplementedError`` when asked for: the
 autotuned window width and bound cadence (``megastep_autotune``,
 ``in_wheel_bound_autotune``, ``in_wheel_int_autotune``; ROADMAP Queue 1
 item 5), the batched integer sweep and host escalation of an integer
-family's in-wheel bounds (Queue 1 item 6), and the bucketed megastep
-(Queue 1 item 7; no batch of the port is bucketed, so the reference's
-``_mega_age`` and ``_megastep_dispatch``, which route a bucketed batch,
-have no counterpart: a window reads ``_factors_age`` and calls
-``_megastep_solve``).
+family's in-wheel bounds (Queue 1 item 6), and in-wheel bounds on a
+bucketed batch (Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import scipy.sparse as sp
 import torch
 
 from . import global_toc
+from .ir import BucketedBatch, batch_parts
 from .obs import metrics as _metrics
 from .obs import trace as _trace
 from .solvers import hostsync, segmented
@@ -54,13 +59,18 @@ UNPORTED_OPTIONS = {
 def _check_options(opt):
     """Raise on an option only a part not ported yet reads; an integer
     family's in-wheel bounds take the batched integer sweep and the host
-    escalation unless both are turned off."""
+    escalation unless both are turned off, and a bucketed family's the
+    bucketed bound pass."""
     for name, item in UNPORTED_OPTIONS.items():
         if opt.options.get(name):
             raise NotImplementedError(
                 f"option {name!r} is not ported yet (ROADMAP {item})")
     if not opt.options.get("in_wheel_bounds"):
         return
+    if isinstance(opt.batch, BucketedBatch):
+        raise NotImplementedError(
+            "in_wheel_bounds on a shape-bucketed batch: the bucketed "
+            "in-wheel bound pass is not ported yet (ROADMAP Queue 1 item 7)")
     ints = np.asarray(opt.batch.is_int, bool)
     for name, armed in (
             ("in_wheel_int_sweep", ints[opt.tree.nonant_indices].any()),
@@ -197,12 +207,12 @@ class PHBase(SPOpt):
             bad = np.flatnonzero(~(pri0 <= tol))
             key = np.where(np.isnan(pri0[bad]), np.inf, pri0[bad])
             worst = bad[np.argsort(-key)][:16]
-            b = self.batch
             truly_bad = []
             for s in worst:
+                sub, j = self._scenario_part(s)
                 r = scipy_backend.solve_lp(
-                    np.zeros(b.num_vars), b.A[s], b.cl[s], b.cu[s],
-                    b.lb[s], b.ub[s])
+                    np.zeros(sub.num_vars), sub.A[j], sub.cl[j], sub.cu[j],
+                    sub.lb[j], sub.ub[j])
                 if not r.feasible:
                     truly_bad.append(int(s))
             if truly_bad:
@@ -240,6 +250,15 @@ class PHBase(SPOpt):
         )
         return self.trivial_bound
 
+    def _scenario_part(self, s):
+        """``(part, row)``: the batch part (a bucket's sub-batch, or the
+        batch) holding scenario ``s``, and its row there."""
+        for idx, sub in batch_parts(self.batch):
+            hit = np.flatnonzero(np.asarray(idx) == s)
+            if hit.size:
+                return sub, int(hit[0])
+        raise IndexError(s)
+
     # ---- the wheel megastep (N frozen iterations a window) ------------------
     def _megastep_request(self) -> int:
         """The window width N (>= 2) when megastep windows may drive this
@@ -252,7 +271,11 @@ class PHBase(SPOpt):
         when it is above 1, else the refresh window ``refresh_every - 1``
         (one legacy refresh and one window per cadence block), within the
         card's cap (:func:`.solvers.segmented.megastep_cap`).  The H100 has
-        no segmentation regime, so no shape is sent to legacy."""
+        no segmentation regime, so no shape is sent to legacy, and a
+        bucketed batch takes the same cap (its window runs every bucket's
+        solve an iteration, as the reference's; the reference sums the
+        buckets' TPU worst cases against a worker's kill, which the card
+        has no counterpart of)."""
         st = self.admm_settings
         req = int(st.megastep or 0)
         if req == 1:
@@ -272,15 +295,53 @@ class PHBase(SPOpt):
         n_sel = min(n_sel, refresh_every - 1, cap)
         return n_sel if n_sel >= 2 else 0
 
+    def _mega_age(self) -> int:
+        """The factors' age a window reads: the homogeneous slot's, or the
+        OLDEST bucket slot's (every bucket sweeps in each window
+        iteration, so the stalest factors bound the window)."""
+        if isinstance(self.batch, BucketedBatch):
+            slots = getattr(self, "_bucket_slots", None) or []
+            if not slots:
+                return 10 ** 9
+            return max(s.get("age", 0) for s in slots)
+        return self._factors_age
+
     def _mega_slots_ready(self, refresh_every) -> bool:
         """Factors and warm state present, not aged out, and the factors'
-        validity signature matching the PH objective's."""
+        validity signature matching the PH objective's (each bucket's, on
+        a bucketed batch)."""
+        b = self.batch
+        if isinstance(b, BucketedBatch):
+            slots = getattr(self, "_bucket_slots", None)
+            if not slots or len(slots) != len(b.buckets):
+                return False
+            q2_full = self._augmented_q2()
+            lb, ub = (np.asarray(v) for v in self._bounds())
+            for (idx, sub), slot in zip(b.buckets, slots):
+                if slot.get("warm") is None or slot.get("factors") is None:
+                    return False
+                if slot.get("age", 0) >= refresh_every:
+                    return False
+                n = sub.num_vars
+                if self._solve_sig(q2_full[idx, :n], lb[idx, :n],
+                                   ub[idx, :n]) != slot.get("sig"):
+                    return False
+            return True
         if self._factors is None or self._warm is None:
             return False
         if self._factors_age >= refresh_every:
             return False
         return self._solve_sig(self._augmented_q2(), *self._bounds()) \
             == self._factors_sig
+
+    def _megastep_dispatch(self, n_req, n_live, convthresh,
+                           bound_live=None):
+        """One window on the homogeneous or the bucketed path."""
+        solve = (self._megastep_solve_bucketed
+                 if isinstance(self.batch, BucketedBatch)
+                 else self._megastep_solve)
+        return solve(n_req, n_live, convthresh, self.W, self.xbars,
+                     self.rho, bound_live=bound_live)
 
     # ---- in-wheel certification ---------------------------------------------
     def _megastep_cap_with_bounds(self, cap_fn):
@@ -328,9 +389,13 @@ class PHBase(SPOpt):
         second-stage integer would need the integer evaluation)."""
         ok = getattr(self, "_inwheel_inner_ok_cache", None)
         if ok is None:
-            free = np.ones(self.batch.num_vars, dtype=bool)
-            free[self.tree.nonant_indices] = False
-            ok = not np.asarray(self.batch.is_int, bool)[free].any()
+            ok = True
+            for _, sub in batch_parts(self.batch):
+                free = np.ones(sub.num_vars, dtype=bool)
+                free[sub.tree.nonant_indices] = False
+                if np.asarray(sub.is_int, bool)[free].any():
+                    ok = False
+                    break
             self._inwheel_inner_ok_cache = ok
             if not ok:
                 global_toc(
@@ -421,12 +486,15 @@ class PHBase(SPOpt):
         if getattr(self, "_host_state_stale", False):
             self._sync_host_state()
         _metrics.inc("megastep.bound_rescues")
-        b = self.batch
+        xbars = np.asarray(self.xbars, dtype=float)
         try:
-            cand, _, _ = clamp_candidate(
-                b, self.tree.nonant_indices,
-                np.asarray(self.xbars, dtype=float),
-                self._inwheel_threshold())
+            # the candidate rule per part (a bucket carries its own is_int)
+            cand = np.array(xbars, copy=True)
+            for idx, sub in batch_parts(self.batch):
+                rows = np.asarray(idx)
+                cand[rows], _, _ = clamp_candidate(
+                    sub, sub.tree.nonant_indices, xbars[rows],
+                    self._inwheel_threshold())
             return self._inwheel_eval_candidate_host(cand)
         except Exception as e:      # a failed rescue declines, loudly
             global_toc(f"in-wheel host rescue failed ({e!r}): declined",
@@ -435,46 +503,46 @@ class PHBase(SPOpt):
 
     def _inwheel_eval_candidate_host(self, cand_sk):
         """Expected objective of one fixed (S, K) candidate by per-scenario
-        host solves: HiGHS for an LP scenario, the exact host QP for a
-        quadratic one.  None when any scenario is infeasible.
-
-        HiGHS runs at a primal feasibility tolerance of the batched
-        solver's own ``eps_abs`` (floored at HiGHS's default, 1e-7): the
-        candidate is a consensus of eps-accurate solutions, and a row that
-        couples nonant columns alone (farmer's land row) carries that noise
-        into the fixed candidate (2e-6 over at farmer-1000 in f32, where
-        HiGHS's default refuses every scenario).  The value of a candidate
-        that far off the row differs from a feasible one's by the row's
-        dual times the violation."""
+        host solves, as the reference's (``tpusppy/phbase.py:688-726``):
+        HiGHS at its default tolerances for an LP scenario, the exact host
+        QP for a quadratic one, part by part (a bucket's sub-batch).  None
+        when any scenario is infeasible: a candidate off a row that couples
+        nonant columns alone (farmer's land row, which an f32 consensus
+        leaves a few 1e-6 over) is refused as there."""
         from .solvers import scipy_backend
 
-        feas_tol = max(1e-7, float(self.admm_settings.eps_abs))
-        b = self.batch
-        nid = self.tree.nonant_indices
-        lb = np.array(b.lb, copy=True)
-        ub = np.array(b.ub, copy=True)
-        lb[:, nid] = cand_sk
-        ub[:, nid] = cand_sk
-        const = np.broadcast_to(np.asarray(b.const, float),
-                                (b.num_scenarios,))
-        # a shared-A family converts its one matrix to CSR once
-        A_csr = (sp.csr_matrix(b.A_shared) if b.A_shared is not None
-                 else None)
-        objs = np.empty(b.num_scenarios)
-        for s in range(b.num_scenarios):
-            A_s = b.A[s] if A_csr is None else A_csr
-            if np.asarray(b.q2[s]).any():
-                r = scipy_backend.solve_qp_with_duals(
-                    b.c[s], b.q2[s], b.A[s], b.cl[s], b.cu[s], lb[s], ub[s],
-                    const=const[s])
-            else:
-                r = scipy_backend.solve_lp_with_duals(
-                    b.c[s], A_s, b.cl[s], b.cu[s], lb[s], ub[s],
-                    const=const[s], feas_tol=feas_tol)
-            if not np.isfinite(r.obj):
+        probs = np.asarray(self.probs, dtype=float)
+        cand_sk = np.asarray(cand_sk, dtype=float)
+        total = 0.0
+        for idx, sub in batch_parts(self.batch):
+            rows = np.asarray(idx)
+            lb = np.array(sub.lb, copy=True)
+            ub = np.array(sub.ub, copy=True)
+            nid = sub.tree.nonant_indices
+            lb[:, nid] = cand_sk[rows]
+            ub[:, nid] = cand_sk[rows]
+            const = np.broadcast_to(np.asarray(sub.const, float),
+                                    (sub.num_scenarios,))
+            # a shared-A part converts its one matrix to CSR once (HiGHS
+            # reads the same matrix either way)
+            A_csr = (sp.csr_matrix(sub.A_shared)
+                     if sub.A_shared is not None else None)
+            objs = np.empty(sub.num_scenarios)
+            for s in range(sub.num_scenarios):
+                q2s = np.asarray(sub.q2[s])
+                if q2s.any():
+                    r = scipy_backend.solve_qp_with_duals(
+                        sub.c[s], q2s, sub.A[s], sub.cl[s], sub.cu[s],
+                        lb[s], ub[s], const=const[s])
+                else:
+                    r = scipy_backend.solve_lp(
+                        sub.c[s], sub.A[s] if A_csr is None else A_csr,
+                        sub.cl[s], sub.cu[s], lb[s], ub[s], const=const[s])
+                objs[s] = r.obj
+            if not np.isfinite(objs).all():
                 return None
-            objs[s] = r.obj
-        return float(np.asarray(self.probs, float) @ objs)
+            total += float(probs[rows] @ objs)
+        return total
 
     # ---- windows in the loop ------------------------------------------------
     def _megastep_window(self, k, max_iters, convthresh, n_req):
@@ -496,7 +564,7 @@ class PHBase(SPOpt):
         if not bool(np.all((pri <= tol_qp) & (dua <= tol_qp))):
             if not getattr(self, "_last_all_done", False):
                 return 0, False
-        n_live = min(n_req, refresh_every - self._factors_age,
+        n_live = min(n_req, refresh_every - self._mega_age(),
                      max_iters - k + 1)
         if n_live < 1:
             return 0, False
@@ -505,9 +573,8 @@ class PHBase(SPOpt):
             wc = getattr(self, "_mega_window_count", 0)
             self._mega_window_count = wc + 1
             bound_live = (wc % self._inwheel_every() == 0)
-        meas = self._megastep_solve(n_req, n_live, convthresh, self.W,
-                                    self.xbars, self.rho,
-                                    bound_live=bound_live)
+        meas = self._megastep_dispatch(n_req, n_live, convthresh,
+                                       bound_live=bound_live)
         if bound_live is not None:
             # valid on whatever state the window ended with, the incoming
             # one too when its first iterate was rejected

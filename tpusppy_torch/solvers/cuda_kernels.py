@@ -376,16 +376,17 @@ _operand_lock = threading.Lock()
 def _cached(name, tensors, key, make):
     """``make()``, the operand a kernel reads of ``tensors``, kept and
     handed out again while the same tensors, none written since (their
-    version counters), ask with the same ``key``; one kept per ``name`` and
-    owner (:func:`current_owner`), so cylinders that alternate do not
-    repack each other's.  Refused inside a CUDA-graph capture: a captured
+    version counters), ask with the same ``key``; one kept per ``name``,
+    owner (:func:`current_owner`) and shape of the first tensor, so
+    cylinders that alternate, or the buckets of one owner's bucketed
+    window, do not repack each other's.  Refused inside a CUDA-graph capture: a captured
     loop makes its operand before the capture and hands it to the
     wrapper."""
     if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
         raise RuntimeError(
             f"{name} inside a CUDA-graph capture takes the operand made "
             "before it")
-    slot = (current_owner(), name)
+    slot = (current_owner(), name, tuple(tensors[0].shape))
     versions = tuple(_version(t) for t in tensors)
     with _operand_lock:
         hit = _operand_cache.get(slot)

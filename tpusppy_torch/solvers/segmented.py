@@ -63,19 +63,23 @@ def megastep_cap(bound_pass=False) -> int:
 
 
 def bill_megastep(S, n, m, n_iters, sweeps, sparse_factor=1.0,
-                  rejected_sweeps=None):
+                  rejected_sweeps=None, count_dispatch=True):
     """Bill one executed megastep window: ``dispatch.megasteps`` +1,
     ``dispatch.mega_iterations`` + ``n_iters`` (the iterations the window
     accepted), and the model flops of their ``sweeps`` (mean sweeps an
     iteration) into ``dispatch.flops``.  ``rejected_sweeps``: the sweeps
     of an iterate the window's acceptance test discarded, billed into
     ``dispatch.flops`` and counted in ``megastep.rejected_iterations``,
-    never as a PH iteration.  Returns the flops billed."""
-    _metrics.inc("dispatch.megasteps")
-    _metrics.inc("dispatch.mega_iterations", int(n_iters))
+    never as a PH iteration.  ``count_dispatch=False`` bills the flops
+    only: a bucketed window is billed once a bucket, on each bucket's
+    shapes, and counted once.  Returns the flops billed."""
+    if count_dispatch:
+        _metrics.inc("dispatch.megasteps")
+        _metrics.inc("dispatch.mega_iterations", int(n_iters))
     fl = flops_model.megastep_flops(S, n, m, n_iters, sweeps, sparse_factor)
     if rejected_sweeps is not None:
-        _metrics.inc("megastep.rejected_iterations")
+        if count_dispatch:
+            _metrics.inc("megastep.rejected_iterations")
         fl += flops_model.megastep_flops(S, n, m, 1, rejected_sweeps,
                                          sparse_factor)
     if fl:

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import os
 import threading
 import time
 
@@ -275,6 +276,20 @@ class WheelSpinner:
             for j, v in zip(idx, vals):
                 nm = var_names[j] if var_names else f"x[{j}]"
                 w.writerow([nm, repr(float(v))])
+
+    def write_tree_solution(self, directory_name: str):
+        """One CSV a scenario (or bundle) of its nonant values, named by
+        slot (spin_the_wheel.py:199-217)."""
+        os.makedirs(directory_name, exist_ok=True)
+        cache = self.local_nonant_cache
+        if cache is None:
+            raise RuntimeError("No solution available to write")
+        for s, name in enumerate(self.opt.all_scenario_names):
+            with open(os.path.join(directory_name, f"{name}.csv"), "w",
+                      newline="") as f:
+                w = csv.writer(f)
+                for k in range(cache.shape[1]):
+                    w.writerow([f"nonant[{k}]", repr(float(cache[s, k]))])
 
 
 def spin_the_wheel(hub_dict, list_of_spoke_dict, comm_world=None):

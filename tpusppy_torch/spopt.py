@@ -7,21 +7,33 @@ between) and a host-exact rescue of the scenarios a refresh leaves
 unconverged.  A batch with a shared constraint matrix (``A_shared``) runs the
 shared-A engine (:mod:`.solvers.shared_admm`) on the single (m, n) matrix,
 dense or, when large and very sparse, as a :class:`~.solvers.sparse.SparseA`
-(the sparse and structured-KKT engines).
+(the sparse and structured-KKT engines).  A shape-bucketed batch
+(:class:`~.ir.BucketedBatch`) solves bucket by bucket, each bucket on its
+own amortization slot and engine (:func:`bucket_shared`), scattered back
+into the padded bookkeeping layout.
+
+Big constraint matrices go up through a content-keyed device cache
+(:func:`_device_A`): the cylinders of a wheel that build the same matrix
+hold one device copy of it, which nothing writes (factors and kernel
+operands derived from it stay per owner).
+
 Expectations are probability-weighted contractions on the host.
 Fixing (:meth:`SPOpt.fix_nonants`) clamps the nonant columns' bounds for the
 solves and the certified bounds that follow, and
 :meth:`SPOpt.dual_donor_bounds` certifies outer bounds from a few
 host-exact donor duals.  :meth:`SPOpt._megastep_solve` runs one PH megastep
 window (:mod:`.parallel.sharded`) on the frozen-amortization slot, with
-its one packed fetch; the bucketed megastep is not ported (ROADMAP Queue
-1 item 7; no batch of the port is bucketed).
+its one packed fetch; :meth:`SPOpt._megastep_solve_bucketed` runs one over
+every bucket's slot.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import hashlib
 import itertools
+import threading
 import time
 
 import numpy as np
@@ -29,6 +41,7 @@ import scipy.sparse as sp
 import torch
 
 from . import global_toc
+from .ir import BucketedBatch
 from .obs import metrics as _metrics
 from .obs import trace as _trace
 from .parallel import sharded
@@ -46,6 +59,125 @@ def _batch_token(b):
         tok = next(_BATCH_TOKENS)
         b._sig_token = tok
     return tok
+
+
+# The content-keyed device cache of big constraint matrices: keyed by the
+# sha1 of their bytes, the newest prior entry of a (shape, dtype, kind) kept
+# beside the current one, at most four in all.  Cylinder threads reach their
+# first solve together, and hashing and uploading drop the interpreter
+# lock: the lock keeps them from each uploading a copy.
+_DEV_A_CACHE: dict = collections.OrderedDict()
+_DEV_A_LOCK = threading.Lock()
+
+#: Below this many bytes a matrix is uploaded as it is, not hashed.
+DEV_A_CACHE_MIN_BYTES = 16 << 20
+
+
+def _cached_dev_A(A_np, tag_key, build):
+    """The device matrix of ``A_np`` from the content-keyed cache, built by
+    ``build()`` on a miss (``tpusppy/spopt.py:56``): a new digest at the
+    same (shape, dtype, kind) drops all but the newest prior entry, and
+    the cache holds at most four."""
+    with _DEV_A_LOCK:
+        digest = hashlib.sha1(
+            memoryview(np.ascontiguousarray(A_np))).hexdigest()
+        key = (digest,) + tag_key
+        dev = _DEV_A_CACHE.pop(key, None)
+        if dev is None:
+            same = [k for k in _DEV_A_CACHE if k[1:] == key[1:]]
+            for k in same[:-1]:
+                del _DEV_A_CACHE[k]
+            dev = build()
+        _DEV_A_CACHE[key] = dev         # re-insert: the LRU touch
+        while len(_DEV_A_CACHE) > 4:
+            _DEV_A_CACHE.popitem(last=False)
+        return dev
+
+
+def _device_A(A_src, dt, device, sparse="auto"):
+    """``A_src`` on ``device`` in ``dt``: a 2-D matrix that is large and
+    very sparse (or any, with ``sparse=True``) as a :class:`SparseA` with
+    its block/Woodbury structure, else a dense tensor; either through the
+    content-keyed cache, apart from dense matrices under
+    :data:`DEV_A_CACHE_MIN_BYTES`.  What comes out of the cache is shared
+    by every caller and is only read."""
+    A_np = np.asarray(A_src)
+    dev = torch.device(device)
+    if A_np.ndim == 2 and (sparse is True or
+                           (sparse == "auto" and should_sparsify(A_np))):
+        return _cached_dev_A(
+            A_np, (A_np.shape, str(dt), str(dev), "sparse"),
+            lambda: SparseA.from_dense(A_np, dtype=dt, device=dev,
+                                       structure=True))
+
+    def build():
+        return admm._tensor(np.ascontiguousarray(A_np), dt, dev)
+
+    if A_np.nbytes < DEV_A_CACHE_MIN_BYTES:
+        return build()
+    return _cached_dev_A(A_np, (A_np.shape, str(dt), str(dev)), build)
+
+
+def clear_device_caches():
+    """Release the content-keyed device-A cache."""
+    with _DEV_A_LOCK:
+        _DEV_A_CACHE.clear()
+
+
+def batch_solve_dispatch(b, q, q2, cl, cu, lb, ub, settings, warm=None,
+                         rows=None, tile=1, device=None):
+    """One batched solve of the ScenarioBatch ``b``'s constraint matrix with
+    the caller's objective and bound arrays: the shared-A engine on the
+    one (m, n) ``A_shared`` where there is one (never the (S, m, n)
+    view), else the dense per-scenario tensor, sliced by ``rows`` and
+    repeated ``tile`` times to match the arrays' leading axis."""
+    if getattr(b, "A_shared", None) is not None:
+        return shared_admm.solve_shared(q, q2, b.A_shared, cl, cu, lb, ub,
+                                        settings=settings, warm=warm,
+                                        device=device)
+    A = b.A if rows is None else b.A[rows]
+    if tile > 1:
+        A = np.repeat(A, tile, axis=0)
+    return admm.solve_batch(q, q2, A, cl, cu, lb, ub, settings=settings,
+                            warm=warm, device=device)
+
+
+def dispatch_A(b):
+    """The A device code takes of ``b``: its one (m, n) shared matrix where
+    it has one, else the (S, m, n) per-scenario tensor."""
+    A_shared = getattr(b, "A_shared", None)
+    return b.A if A_shared is None else A_shared
+
+
+def mega_arrays_for_batch(b, dt, device, sparse="auto"):
+    """The device :class:`~.parallel.sharded.PHArrays` of one homogeneous
+    ScenarioBatch without an opt object (its own tree's probabilities and
+    node one-hot), its A through the content-keyed cache."""
+    A_shared = getattr(b, "A_shared", None)
+    if A_shared is None:
+        sparse = False            # per-scenario A: the dense engine
+
+    def t(v):
+        return admm._tensor(np.ascontiguousarray(v), dt, device)
+
+    S = b.num_scenarios
+    tree = b.tree
+    return sharded.PHArrays(
+        c=t(b.c), q2=t(b.q2), A=_device_A(dispatch_A(b), dt, device, sparse),
+        cl=t(b.cl), cu=t(b.cu), lb=t(b.lb), ub=t(b.ub),
+        const=t(np.broadcast_to(b.const, (S,))), probs=t(tree.scen_prob),
+        onehot=t(tree.onehot_sk_n()),
+        nid_sk=admm._tensor(tree.nid_sk(), torch.int64, device))
+
+
+def bucket_shared(sub) -> bool:
+    """Whether a bucket's sub-batch runs the shared-A engine: it has a
+    shared A and more than one member (a singleton detects identity-shared
+    A trivially; the dense engine is as cheap there, and the shared
+    engine's batch-level rho adaptation converges differently on some
+    bundles)."""
+    return getattr(sub, "A_shared", None) is not None \
+        and sub.num_scenarios > 1
 
 
 def _np_dual_objective(q, A, cl, cu, lb, ub, y, x_hint, margin_scale=100.0):
@@ -121,6 +253,9 @@ class SPOpt(SPBase):
         #: step and its fetch: ``{(table, kernel): n}`` as
         #: :func:`.solvers.cuda_kernels.counts`
         self.window_launches = {}
+        #: the same, one dict a bucket, from a bucketed batch's windows
+        #: (each bucket's frozen solves)
+        self.bucket_window_launches = []
 
     def _device_consts(self, dt):
         """Device-resident (A, cl, cu), cached on batch identity/version:
@@ -128,26 +263,19 @@ class SPOpt(SPBase):
         batch uploads its single (m, n) matrix, never the (S, m, n)
         broadcast view; a large, very sparse one (or any, with option
         ``sparse_device_A=True``) goes up as a :class:`SparseA` with its
-        block/Woodbury structure and ELL twin, as the reference's
-        ``spopt._device_A`` does (``"auto"``, the default, asks
-        :func:`~.solvers.sparse.should_sparsify`; False keeps it dense)."""
+        block/Woodbury structure and ELL twin (``"auto"``, the default,
+        asks :func:`~.solvers.sparse.should_sparsify`; False keeps it
+        dense).  A goes through :func:`_device_A`'s content-keyed cache,
+        so objects that build the same matrix share one device copy."""
         b = self.batch
         key = (_batch_token(b), getattr(b, "version", 0), dt)
         cached = getattr(self, "_dev_consts", None)
         if cached is None or cached[0] != key:
             def t(v):
                 return admm._tensor(np.ascontiguousarray(v), dt, self.device)
-            if b.A_shared is None:
-                A_dev = t(b.A)
-            else:
-                sparse = self.options.get("sparse_device_A", "auto")
-                if sparse is True or (sparse == "auto"
-                                      and should_sparsify(b.A_shared)):
-                    A_dev = SparseA.from_dense(b.A_shared, dtype=dt,
-                                               device=self.device,
-                                               structure=True)
-                else:
-                    A_dev = t(b.A_shared)
+            sparse = (False if b.A_shared is None
+                      else self.options.get("sparse_device_A", "auto"))
+            A_dev = _device_A(dispatch_A(b), dt, self.device, sparse)
             cached = (key, (A_dev, t(b.cl), t(b.cu)))
             self._dev_consts = cached
         return cached[1]
@@ -166,10 +294,13 @@ class SPOpt(SPBase):
                 getattr(self.batch, "version", 0), self.admm_settings)
 
     # ---- the hot loop -------------------------------------------------------
-    def solve_loop(self, q=None, q2=None, warm=True):
+    def solve_loop(self, q=None, q2=None, warm=True, dis_W=None,
+                   dis_prox=None):
         """Solve the whole local batch; returns (S, n) solutions (host).
 
-        ``q``/``q2`` override the objective (PH passes its augmented one).
+        ``q``/``q2`` override the objective (PH passes its augmented one);
+        ``dis_W``/``dis_prox`` are the reference's API and are ignored (the
+        caller's ``q`` carries W and prox).
         Factorization-amortized: an adaptive "refresh" solve every
         ``solver_refresh_every`` calls (and whenever the problem structure
         changes) caches the factors; calls in between are sweep-only frozen
@@ -186,6 +317,11 @@ class SPOpt(SPBase):
         q = b.c if q is None else q
         q2 = b.q2 if q2 is None else q2
         lb, ub = self._bounds()
+        if isinstance(b, BucketedBatch):
+            x = self._solve_loop_bucketed(b, q, q2, lb, ub, warm)
+            if ext is not None:
+                ext.post_solve()
+            return x
         A_d, cl_d, cu_d = self._device_consts(self.admm_settings.tdtype())
         slot = {"warm": self._warm, "factors": self._factors,
                 "sig": self._factors_sig, "age": self._factors_age,
@@ -204,9 +340,68 @@ class SPOpt(SPBase):
         self.local_x = meas["x"]
         self.pri_res = meas["pri"]
         self.dua_res = meas["dua"]
+        self._last_all_done = bool(meas["all_done"])
         if ext is not None:
             ext.post_solve()
         return self.local_x
+
+    def _solve_loop_bucketed(self, b, q, q2, lb, ub, warm):
+        """Bucket-by-bucket solves of a ragged family, each on its compact
+        shapes, its device (A, cl, cu) (:meth:`_bucket_device_consts`) and
+        its own amortization slot (warm state, factors, age), the shared-A
+        engine for a bucket with a real shared A (:func:`bucket_shared`);
+        the results scattered into the (S, n_max) bookkeeping layout.  The
+        homogeneous slot (``_warm``, ``_factors``) does not apply."""
+        S, n_max = b.c.shape
+        x_out = np.zeros((S, n_max))
+        pri = np.zeros(S)
+        dua = np.zeros(S)
+        all_done = True
+        slots = getattr(self, "_bucket_slots", None)
+        if slots is None or len(slots) != len(b.buckets):
+            slots = self._bucket_slots = [dict() for _ in b.buckets]
+        consts = self._bucket_device_consts(self.admm_settings.tdtype())
+        for k, (idx, sub) in enumerate(b.buckets):
+            n = sub.num_vars
+            A_d, cl_d, cu_d = consts[k]
+            args = (np.asarray(q)[idx, :n], np.asarray(q2)[idx, :n],
+                    A_d, cl_d, cu_d,
+                    np.asarray(lb)[idx, :n], np.asarray(ub)[idx, :n])
+            _, meas = self._solve_amortized(
+                args, slots[k], warm, shared=bucket_shared(sub),
+                rescue_batch=sub)
+            x_out[idx, :n] = meas["x"]
+            pri[idx] = meas["pri"]
+            dua[idx] = meas["dua"]
+            all_done = all_done and bool(meas["all_done"])
+        self._warm = None
+        self._factors = None
+        self._last_all_done = all_done
+        self.local_x = x_out
+        self.pri_res = pri
+        self.dua_res = dua
+        return x_out
+
+    def _bucket_device_consts(self, dt):
+        """Per-bucket device (A, cl, cu), cached on batch identity and
+        version: a bucket with a real shared A (:func:`bucket_shared`)
+        uploads its one (m, n) matrix, dense, never the broadcast view;
+        A goes through the content-keyed cache (:func:`_device_A`)."""
+        b = self.batch
+        key = (_batch_token(b), getattr(b, "version", 0), dt,
+               len(b.buckets))
+        cached = getattr(self, "_bucket_dev_consts", None)
+        if cached is None or cached[0] != key:
+            def t(v):
+                return admm._tensor(np.ascontiguousarray(v), dt, self.device)
+
+            consts = [
+                (_device_A(sub.A_shared if bucket_shared(sub) else sub.A,
+                           dt, self.device, sparse=False),
+                 t(sub.cl), t(sub.cu)) for _, sub in b.buckets]
+            cached = (key, consts)
+            self._bucket_dev_consts = cached
+        return cached[1]
 
     def _fetch_measure(self, sol):
         """ONE device fetch of everything the host reads from a solve."""
@@ -214,7 +409,8 @@ class SPOpt(SPBase):
         return admm.measure_unpack(
             hostsync.fetch(admm.measure_pack(sol)), S, n)
 
-    def _solve_amortized(self, args, slot: dict, warm: bool, shared=False):
+    def _solve_amortized(self, args, slot: dict, warm: bool, shared=False,
+                         rescue_batch=None):
         """Frozen attempt under a validity signature, else an adaptive
         factored solve + straggler rescue.  ``slot`` carries
         warm/factors/sig/age and ``ref_worst``; ``args`` is (q, q2, A, cl,
@@ -226,7 +422,9 @@ class SPOpt(SPBase):
         ``precision.guard_trips``; ``precision.lowered_solves`` counts the
         lowered frozen attempts and ``precision.lowered_accepted`` those
         whose lowered result the solve took.  The refresh always runs at
-        "highest".  Returns ``(sol, meas)``."""
+        "highest".  ``rescue_batch``: the batch whose rows the straggler
+        rescue reads (a bucket's sub-batch; default the opt's).  Returns
+        ``(sol, meas)``."""
         if shared:
             frozen_fn = shared_admm.solve_shared_frozen
             factored_fn = shared_admm.solve_shared_factored
@@ -314,7 +512,8 @@ class SPOpt(SPBase):
             slot["ref_worst"] = float(max(np.max(meas["pri"]),
                                           np.max(meas["dua"])))
             sol, meas = self._rescue_stragglers(
-                sol, args[0], args[1], args[5], args[6], meas=meas)
+                sol, args[0], args[1], args[5], args[6], batch=rescue_batch,
+                meas=meas)
         # divergence observability: billed on the increase only
         n_div = int(np.count_nonzero(~np.isfinite(meas["pri"])))
         new_div = n_div - slot.get("n_div_prev", 0)
@@ -343,11 +542,12 @@ class SPOpt(SPBase):
             tol_qp = max(1e-2, tol_lp)
         return tol_lp, tol_qp
 
-    def _rescue_stragglers(self, sol, q, q2, lb, ub, meas=None):
+    def _rescue_stragglers(self, sol, q, q2, lb, ub, batch=None, meas=None):
         """Host-exact re-solve of the scenarios batched ADMM left
         unconverged: LPs through HiGHS (duals sign-voted), QPs through the
         batched host IPM.  The aux state (z, y, yx, done) is fetched only
-        when stragglers exist.  Returns ``(sol, meas)``."""
+        when stragglers exist.  ``batch``: whose rows (default the opt's).
+        Returns ``(sol, meas)``."""
         if meas is None:
             meas = self._fetch_measure(sol)
         if not self.options.get("straggler_rescue", True):
@@ -364,7 +564,7 @@ class SPOpt(SPBase):
             return sol, meas
         from .solvers import scipy_backend
 
-        b = self.batch
+        b = self.batch if batch is None else batch
         q = np.asarray(q, dtype=float)
         q2 = np.asarray(q2, dtype=float)
         lb = np.asarray(lb, dtype=float)
@@ -473,10 +673,12 @@ class SPOpt(SPBase):
         (:meth:`~.phbase.PHBase._sync_host_state`)."""
         return bool(self.options.get("ph_device_state", False))
 
-    def _inwheel_int_mask(self):
+    def _inwheel_int_mask(self, batch=None):
         """(K,) integer mask of the nonant slots for the in-wheel
-        candidate's rounding, or None without integer nonants."""
-        mask = np.asarray(self.batch.is_int, bool)[self.tree.nonant_indices]
+        candidate's rounding, or None without integer nonants; ``batch``: a
+        bucket's sub-batch (default the opt's)."""
+        b = self.batch if batch is None else batch
+        mask = np.asarray(b.is_int, bool)[b.tree.nonant_indices]
         return mask if mask.any() else None
 
     def _inwheel_threshold(self) -> float:
@@ -590,17 +792,180 @@ class SPOpt(SPBase):
             _metrics.inc("megastep.refresh_hits")
         return meas
 
+    def _mega_arrays_bucketed(self, dt):
+        """Per-bucket :class:`~.parallel.sharded.PHArrays` of the bucketed
+        window, cached on batch identity and version: each bucket's
+        compact problem data (A, cl and cu from
+        :meth:`_bucket_device_consts`) with its rows of the GLOBAL tree's
+        probabilities, node one-hot and node ids, through which the window's
+        PH update couples the buckets (the bucket-local probabilities never
+        enter it)."""
+        b = self.batch
+        key = (_batch_token(b), getattr(b, "version", 0), dt)
+        cached = getattr(self, "_mega_arr_bucket_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        consts = self._bucket_device_consts(dt)
+
+        def t(v):
+            return admm._tensor(np.ascontiguousarray(v), dt, self.device)
+
+        arrs = []
+        for (idx, sub), (A_d, cl_d, cu_d) in zip(b.buckets, consts):
+            arrs.append(sharded.PHArrays(
+                c=t(sub.c), q2=t(sub.q2), A=A_d, cl=cl_d, cu=cu_d,
+                lb=t(sub.lb), ub=t(sub.ub),
+                const=t(np.broadcast_to(sub.const, (idx.size,))),
+                probs=t(self.probs[idx]), onehot=t(self._onehot[idx]),
+                nid_sk=admm._tensor(self.nid_sk[idx], torch.int64,
+                                    self.device)))
+        arrs = tuple(arrs)
+        self._mega_arr_bucket_cache = (key, arrs)
+        return arrs
+
+    def _bucketed_megastep_fn(self, n_req: int, bounds: bool = False):
+        """The bucketed window function at width ``n_req``."""
+        cache = getattr(self, "_mega_fn_cache", None)
+        if cache is None:
+            cache = self._mega_fn_cache = {}
+        keyb = ("bucketed", n_req, bounds)
+        fn = cache.get(keyb)
+        if fn is None:
+            fn = cache[keyb] = sharded.make_bucketed_wheel_megastep(
+                self.tree.nonant_indices, self.admm_settings,
+                n_iters=n_req, bounds=bounds)
+        return fn
+
+    def _megastep_solve_bucketed(self, n_req: int, n_live: int,
+                                 convthresh: float, W, xbars, rho,
+                                 bound_live=None):
+        """The bucketed twin of :meth:`_megastep_solve`: one window of
+        ``n_live`` PH iterations over every bucket's compact shapes and
+        amortization slot, its packed per-bucket blocks scattered through
+        each bucket's scenario indices into the global layout.  Each
+        bucket's slot advances as its frozen host solves would have (warm
+        state rebound before the fetch, age += executed, a rejected iterate
+        or guard trip maxing the age), and each bucket is billed on its own
+        shapes, the window counted once.  Windows fetch the full pack (the
+        lean posture of ``ph_device_state`` is the homogeneous path's).
+        ``bound_live`` must be None: the bucketed bound pass is not ported
+        (ROADMAP Queue 1 item 7).  Returns the global measurement."""
+        st = self.admm_settings
+        dt = st.tdtype()
+        if self._device_state_on() and \
+                not getattr(self, "_bucketed_lean_warned", False):
+            self._bucketed_lean_warned = True
+            global_toc(
+                "ph_device_state: bucketed families run full-pack windows "
+                "(the lean posture is the homogeneous path's)", True)
+        arrs = self._mega_arrays_bucketed(dt)
+        b = self.batch
+        slots = self._bucket_slots
+        K = self.nonant_length
+        W = np.asarray(W)
+        xbars = np.asarray(xbars)
+        rho = np.asarray(rho)
+
+        def t(v):
+            return admm._tensor(v, dt, self.device)
+
+        states = []
+        for (idx, sub), slot in zip(b.buckets, slots):
+            warm = slot["warm"]
+            states.append(sharded.PHState(
+                W=t(W[idx]), xbars=t(xbars[idx]), rho=t(rho[idx]),
+                x=t(warm[0]), z=t(warm[1]), y=t(warm[2]), yx=t(warm[3])))
+        factors = tuple(slot["factors"] for slot in slots)
+        _, tol_qp = self._straggler_tols()
+        shapes = [(idx.size, sub.num_vars) for idx, sub in b.buckets]
+        bounds = bound_live is not None
+        with _trace.span(None, "solve.megastep") as _sp:
+            fn = self._bucketed_megastep_fn(n_req, bounds=bounds)
+            before = cuda_kernels.counts(local=True)
+            if len(self.bucket_window_launches) != len(arrs):
+                self.bucket_window_launches = [{} for _ in arrs]
+            states, packed = fn(tuple(states), arrs, 1.0, factors,
+                                convthresh, n_live, tol_qp,
+                                bucket_launches=self.bucket_window_launches)
+            for slot, stb in zip(slots, states):
+                slot["warm"] = (stb.x, stb.z, stb.y, stb.yx)
+            for k, v in cuda_kernels.counts(local=True).items():
+                if v != before[k]:
+                    self.window_launches[k] = (self.window_launches.get(k, 0)
+                                               + v - before[k])
+            bmeas = sharded.bucketed_megastep_unpack(
+                hostsync.fetch(packed), n_req, shapes, K)
+            if _trace.enabled():
+                _sp.add(n_live=n_live, executed=bmeas["executed"],
+                        refresh_hit=bmeas["refresh_hit"], buckets=len(arrs))
+        executed = bmeas["executed"]
+        S, n_max = b.num_scenarios, b.num_vars
+        meas = {k: bmeas[k] for k in (
+            "conv", "eobj", "pri_max", "dua_max", "iters", "all_done",
+            "executed", "refresh_hit")}
+        pri = np.zeros(S)
+        dua = np.zeros(S)
+        done = np.zeros(S, dtype=bool)
+        x = np.zeros((S, n_max))
+        Wg = np.zeros((S, K))
+        xbg = np.zeros((S, K))
+        for bi, (idx, sub) in enumerate(b.buckets):
+            pri[idx] = bmeas["pri"][bi]
+            dua[idx] = bmeas["dua"][bi]
+            done[idx] = bmeas["done"][bi]
+            x[idx, :sub.num_vars] = bmeas["x"][bi]
+            Wg[idx] = bmeas["W"][bi]
+            xbg[idx] = bmeas["xbars"][bi]
+        meas.update(pri=pri, dua=dua, done=done, x=x, W=Wg, xbars=xbg)
+        guard = False
+        if executed:
+            refs = [slot.get("ref_worst") for slot in slots]
+            ref = (max(r or 0.0 for r in refs)
+                   if any(r is not None for r in refs) else None)
+            worsts = np.maximum(meas["pri_max"][:executed],
+                                meas["dua_max"][:executed])
+            guard = any(
+                admm.precision_guard_trips(
+                    None, st, ref,
+                    stats=(float(worsts[i]), bool(meas["all_done"][i])))
+                for i in range(executed))
+            if guard:
+                _metrics.inc("precision.guard_trips")
+        iters = meas["iters"]
+        sweeps = float(np.mean(iters[:executed])) if executed else 0.0
+        rej = (float(iters[executed])
+               if meas["refresh_hit"] and executed < n_req else None)
+        _metrics.inc("solve.sweeps", float(np.sum(iters[:executed]))
+                     + (rej or 0.0))
+        refresh_every = self._refresh_every()
+        for bi, (slot, (idx, sub)) in enumerate(zip(slots, b.buckets)):
+            # the packed sweep count is the buckets' max: each bucket is
+            # billed at it on its own shapes, the window counted once
+            segmented.bill_megastep(idx.size, sub.num_vars, sub.num_rows,
+                                    executed, sweeps, rejected_sweeps=rej,
+                                    count_dispatch=bi == 0)
+            slot["age"] = slot.get("age", 0) + executed
+            if meas["refresh_hit"] or guard:
+                slot["age"] = max(slot["age"], refresh_every)
+        if meas["refresh_hit"] or guard:
+            _metrics.inc("megastep.refresh_hits")
+        return meas
+
     # ---- expectations -------------------------------------------------------
     def Eobjective(self, x=None) -> float:
         """Probability-weighted expected objective (spopt.py:310-345)."""
         x = self.local_x if x is None else np.asarray(x)
         return float(self.probs @ self.batch.objective(x))
 
-    def Ebound(self, x=None) -> float:
+    def Ebound(self, x=None, extra_obj=None) -> float:
         """Expected bound from current subproblem objectives
-        (spopt.py:346-393)."""
+        (spopt.py:346-393); ``extra_obj``: (S,) additive per-scenario
+        terms (W.x, say)."""
         x = self.local_x if x is None else np.asarray(x)
-        return float(self.probs @ self.batch.objective(x))
+        vals = self.batch.objective(x)
+        if extra_obj is not None:
+            vals = vals + np.asarray(extra_obj)
+        return float(self.probs @ vals)
 
     def Edualbound(self, q=None, q2=None) -> float:
         """Expectation of :meth:`Edualbound_perscen`."""
@@ -609,7 +974,9 @@ class SPOpt(SPBase):
     def Edualbound_perscen(self, q=None, q2=None) -> np.ndarray:
         """CERTIFIED per-scenario outer bounds ((S,)) from the last solve's
         row duals (weak duality: solver tolerance can only weaken the
-        bound, never invalidate it)."""
+        bound, never invalidate it); per bucket on a bucketed batch."""
+        if isinstance(self.batch, BucketedBatch):
+            return self._Edualbound_bucketed_perscen(q, q2)
         if self._warm is None:
             raise RuntimeError("Edualbound requires a prior solve_loop")
         b = self.batch
@@ -625,7 +992,40 @@ class SPOpt(SPBase):
 
         args = (t(q), t(q2), A_d, cl_d, cu_d, t(lb), t(ub), t(y), t(x))
         dvals, margin = _certified_dual_eval(args)
+        self.last_bound_margin = margin
         return dvals - margin + b.const
+
+    def _Edualbound_bucketed_perscen(self, q=None, q2=None) -> np.ndarray:
+        """The certified per-scenario bounds of a bucketed batch: the
+        weak-duality assembly on each bucket's compact shapes with its
+        slot's last duals, scattered back."""
+        b = self.batch
+        slots = getattr(self, "_bucket_slots", None)
+        if (not slots or len(slots) != len(b.buckets)
+                or any(s.get("warm") is None for s in slots)):
+            raise RuntimeError("Edualbound requires a prior solve_loop")
+        q = np.asarray(b.c if q is None else q)
+        q2 = np.asarray(b.q2 if q2 is None else q2)
+        lb, ub = (np.asarray(v) for v in self._bounds())
+        dt = self.admm_settings.tdtype()
+        consts = self._bucket_device_consts(dt)
+
+        def t(v):
+            return admm._tensor(v, dt, self.device)
+
+        vals = np.zeros(b.num_scenarios)
+        margin_out = np.zeros(b.num_scenarios)
+        for (idx, sub), slot, (A_d, cl_d, cu_d) in zip(b.buckets, slots,
+                                                      consts):
+            n = sub.num_vars
+            x, _, y, _ = slot["warm"]
+            args = (t(q[idx, :n]), t(q2[idx, :n]), A_d, cl_d, cu_d,
+                    t(lb[idx, :n]), t(ub[idx, :n]), t(y), t(x))
+            dv, mg = _certified_dual_eval(args)
+            vals[idx] = dv
+            margin_out[idx] = mg
+        self.last_bound_margin = margin_out
+        return vals - margin_out + b.const
 
     def dual_donor_bounds(self, q=None, q2=None, k=16, budget_s=90.0,
                           time_limit=30.0,
@@ -641,10 +1041,13 @@ class SPOpt(SPBase):
         W certifies any later q, so the host LPs run again only every
         ``refresh_every``-th call.  ``time_limit`` caps each donor LP,
         ``budget_s`` all of a refresh's.  Returns None when no donor dual
-        is available (every LP failed)."""
+        is available (every LP failed, or the batch is bucketed: it has no
+        homogeneous warm state)."""
         from .solvers import scipy_backend
 
         b = self.batch
+        if isinstance(b, BucketedBatch):
+            return None       # no homogeneous warm state to bound from
         q = np.asarray(b.c if q is None else q, dtype=float)
         q2 = np.asarray(b.q2 if q2 is None else q2, dtype=float)
         lb, ub = (np.asarray(v) for v in self._bounds())
@@ -762,3 +1165,10 @@ class SPOpt(SPBase):
         if self.pri_res is None:
             return 1.0
         return float(self.probs @ (self.pri_res < tol))
+
+    def infeas_prob(self, tol=None) -> float:
+        return 1.0 - self.feas_prob(tol)
+
+    def save_nonants(self):
+        """Keep the nonants of the last solve (xhat bookkeeping)."""
+        self._cached_nonants = self.nonants_of(self.local_x).copy()

@@ -10,9 +10,12 @@ Feasibility of the fixed problem is judged by the solver's primal residual
 (the analogue of the reference's solver-status checks); an infeasible
 candidate evaluates to +inf.
 
+A shape-bucketed batch evaluates bucket by bucket
+(:meth:`Xhat_Eval._fix_and_solve_bucketed`), continuous buckets only.
+
 Not ported yet: the integer paths (the round-and-dive, its batched retries
-and the host MILP: ROADMAP Queue 1 item 6) and the bucketed path (Queue 1
-item 4); a candidate that leaves integer columns free raises.
+and the host MILP: ROADMAP Queue 1 item 6); a candidate that leaves integer
+columns free, and an integer bucket, raise.
 """
 
 from __future__ import annotations
@@ -20,7 +23,16 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
+from .ir import BucketedBatch
 from .spopt import SPOpt
+
+#: What a bucket's evaluation swaps on the opt object, saved and restored
+#: around it.
+_BUCKET_SWAPPED = (
+    "batch", "tree", "nid_sk", "_warm", "_factors", "_factors_sig",
+    "_factors_age", "_factors_ref_worst", "_n_div_prev", "local_x",
+    "pri_res", "dua_res", "_fixed_lb", "_fixed_ub", "_dev_consts",
+    "_bucket_dev_consts", "_dev_state", "_last_all_done")
 
 
 class Xhat_Eval(SPOpt):
@@ -44,13 +56,61 @@ class Xhat_Eval(SPOpt):
         cache[..., ints] = np.round(cache[..., ints])
         return cache
 
+    def _fix_and_solve_bucketed(self, nonant_cache):
+        """Fix-and-evaluate on a bucketed batch (``tpusppy/xhat_eval.py:
+        202-257``): each bucket's sub-batch runs the homogeneous path
+        (clamp, cold solve, rescue) in turn, its results scattered into
+        the bookkeeping layout.  The packed nonant slots are in the same
+        order in every bucket as in the global tree (a bundle's root
+        nonants, first).  An integer bucket raises: its dive is not ported
+        yet (ROADMAP Queue 1 item 6)."""
+        b = self.batch
+        for _, sub in b.buckets:
+            if np.asarray(sub.is_int).any():
+                raise NotImplementedError(
+                    "Xhat_Eval on a bucketed batch with integer columns: "
+                    "the bucketed integer evaluation is not ported yet "
+                    "(ROADMAP Queue 1 item 6)")
+        cache = np.asarray(nonant_cache, dtype=float)
+        if cache.ndim == 1:
+            cache = np.broadcast_to(cache, (b.num_scenarios, cache.shape[0]))
+        S, n_max = b.c.shape
+        x_out = np.zeros((S, n_max))
+        pri = np.zeros(S)
+        dua = np.zeros(S)
+        saved = {k: getattr(self, k, None) for k in _BUCKET_SWAPPED}
+        try:
+            for idx, sub in b.buckets:
+                self.batch = sub
+                self.tree = sub.tree
+                self.nid_sk = sub.tree.nid_sk()
+                self._warm = self._factors = self._factors_sig = None
+                self._factors_age = 0
+                self.local_x = self.pri_res = self.dua_res = None
+                x = self._fix_and_solve(cache[idx])
+                x_out[idx, :sub.num_vars] = np.asarray(x)
+                if self.pri_res is not None:
+                    pri[idx] = np.asarray(self.pri_res)
+                if self.dua_res is not None:
+                    dua[idx] = np.asarray(self.dua_res)
+        finally:
+            for k, v in saved.items():
+                setattr(self, k, v)
+        self.local_x = x_out
+        self.pri_res = pri
+        self.dua_res = dua
+        return x_out
+
     def _fix_and_solve(self, nonant_cache):
         """Clamp nonants to the candidate and solve the whole batch, cold
         (the clamped problem's geometry differs enough that stale warm
         duals slow ADMM down).  ``nonant_cache``: (K,) one candidate for
         every scenario, or (S, K) per scenario (multistage xhats fix
         per-node values).  Where the batch carries a model repair, the
-        straggler rescue is off: the repair certifies feasibility."""
+        straggler rescue is off: the repair certifies feasibility.  A
+        bucketed batch evaluates bucket by bucket."""
+        if isinstance(self.batch, BucketedBatch):
+            return self._fix_and_solve_bucketed(nonant_cache)
         nonant_cache = self._round_int_nonants(nonant_cache)
         self.fix_nonants(nonant_cache)
         try:
