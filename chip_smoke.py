@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (tpusppy_torch) once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases kernels,golden,loop,farmer,uc_lite,uc,
-                                    megastep,precision,wheel,bundles]
+                                    megastep,precision,wheel,bundles,
+                                    integer]
 
 Run from the root of a checkout on a machine with one CUDA device and the
 CUDA toolkit (nvcc).  Phases, each printing a line:
@@ -60,7 +61,7 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    uc_lite-1000 at its defaults (rho 500, 60 iterations, 5 on the tensor
    path) through ``fused_sweeps_shared`` (the shared-A engine), and
    uc-1000 at full width (rho 500 and bench_uc.py's solver settings, 30
-   iterations, 5 on the tensor path; its EF is out of HiGHS's reach, so
+   iterations, 3 on the tensor path; its EF is out of HiGHS's reach, so
    the S=10 golden holds the EF check) through
    ``fused_sweeps_sparse`` (the sparse and structured-KKT engine); each
    prints its kernel's launches by mode: farmer must launch only the
@@ -113,18 +114,38 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    mode its layout picks there; bundled farmer-1000 crops_multiplier=4
    (``bundles_per_rank`` 300, ``shape_buckets``: 200 bundles of 3
    scenarios and 100 of 4, two buckets) through ``ph_main()`` at the
-   farmer phase's f32 settings, 20 iterations, in bucketed windows: the
+   farmer phase's f32 settings, 12 iterations, in bucketed windows: the
    two buckets exactly, eobj within 1e-2 of the farmer-1000 EF (bundling
    keeps the EF), the trivial bound at most the EF + 1e-6 |EF|,
    ``fused_sweeps`` launched inside the windows for both buckets and no
    other sweep kernel, eobj within 1e-4 of the same PH in the legacy loop
    after as many iterations, with the PH rate, host syncs by kind,
    refused frozen iterates and launches by mode under both protocols; a
-   bundled wheel (that hub, 8 iterations at most, with a Lagrangian and
+   bundled wheel (that hub, 4 iterations at most, with a Lagrangian and
    an XhatShuffle spoke in f64): outer <= EF + 1e-6 |EF|, inner >= EF -
    1e-4 |EF|, outer <= inner, each spoke posting a bound; and hydro S=9 in
    3 proper bundles in f64 (the reference's settings) within 1e-2 of the
-   unbundled HiGHS EF.
+   unbundled HiGHS EF;
+11. integer: the integer families in f64 (HiGHS's EF solves in worker
+   processes alongside).  ``fused_sweeps`` against its plain version at
+   the three families' shapes (netdes-1000 S=1000, m=35, n=50; sizes
+   S=3, m=62, n=150; sslp 10 x 50 S=50, m=60, n=520) in the mode its
+   layout picks; the netdes S=3 golden hub-only in-wheel integer wheel
+   (rho 1, 60 iterations, budget 30 s, rel_gap 0.04: gap <= 0.04, outer
+   past the LP EF 376.306 and at most the MIP EF 398.333, feasible hits
+   and an escalation); netdes-1000's hub-only integer wheel (outer <=
+   inner, outer <= the EF MIP's incumbent and inner >= its best bound,
+   HiGHS limited to 120 s; the bound passes' launches by candidate and
+   mode, host syncs an iteration by kind); the sizes S=3 golden wheel (PH
+   hub 40 iterations at rho 0.01, a Lagrangian and an XhatShuffle spoke
+   with 20 dive rounds: outer in [218000, 230000], inner in [220000,
+   240000]) and a hub-only sizes wheel (second-stage integers: its inner
+   bound from host MIPs, outer <= the EF MIP's incumbent, no fixing); the
+   sslp wheel (a Lagrangian spoke lifting every 4th pass, XhatShuffle on
+   donor MILPs, XhatXbar on the integer ladder: outer <= inner, outer <=
+   the EF MIP's incumbent, each spoke's bound and host MILP seconds).
+   Every run launches ``fused_sweeps``; no plain version runs and no host
+   escalation raises (``integer.escalation_errors``).
 
 ``--phases`` runs a subset; the result lines print only when all ran.
 Prints a ``{"kernels": [...]}`` line, then as the last line
@@ -192,13 +213,24 @@ def cuda_time_ms(fn, reps=30, warmup=5):
     after ``warmup`` calls.  Each call is queued behind a spin kernel,
     so the host has enqueued all of its launches before the first event
     fires and the interval holds device work only, not the host's launch
-    cost."""
+    cost.  The spin lasts four times the longest host time of a warm-up
+    call after the first (what enqueueing one call can take), at least 1
+    ms and at most 20 ms at the H100's 1.98 GHz.  A call slower than 1/30
+    s (the longest warm-up call after the first, synchronised) is timed
+    over fewer calls, about a second's worth, and at least 5."""
     import torch
 
-    for _ in range(warmup):
+    enqueue = call = 0.0
+    for i in range(warmup):
+        t0 = time.perf_counter()
         fn()
-    torch.cuda.synchronize()
-    cycles = 40_000_000     # 20 ms at the H100's 1.98 GHz, longer if slower
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        if i:
+            enqueue = max(enqueue, t1 - t0)
+            call = max(call, time.perf_counter() - t0)
+    cycles = int(min(max(4.0 * enqueue, 1e-3), 20e-3) * 2e9)
+    reps = max(min(reps, 5), min(reps, int(1.0 / max(call, 1e-9))))
     times = []
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -2035,9 +2067,9 @@ def phase_megastep(cuda_kernels, main, golden):
 BUNDLE_OPTIONS = {"bundles_per_rank": 300, "shape_buckets": True}
 BUNDLE_BUCKETS = ((200, 84, 108), (100, 112, 140))
 #: The bundled PH's and the bundled wheel's depths, cut to keep the whole
-#: run near 900 s
-BUNDLE_ITERS = 20
-BUNDLE_WHEEL_ITERS = 8
+#: run near 1000 s (20 and 8 until the integer phase came)
+BUNDLE_ITERS = 12
+BUNDLE_WHEEL_ITERS = 4
 BUNDLE_MEGA_TOL = 1e-4
 #: hydro S=9 in 3 proper bundles at the reference's settings
 #: (tests/test_rho_bundles_io.py): f64, rho 1, convthresh 1e-5
@@ -2155,7 +2187,7 @@ def phase_bundles(cuda_kernels, main):
           f"{legacy['sweep_blocks_per_iter']:.2f}", flush=True)
     hold_megastep(label, "fused_sweeps", k, legacy, BUNDLE_MEGA_TOL)
 
-    # the bundled wheel: the hub (this PH, 8 iterations at most) with the
+    # the bundled wheel: the hub (this PH, 4 iterations at most) with the
     # bucketed dual bound (Lagrangian) and evaluation (XhatShuffle) in f64
     def kwargs():
         kw = farmer_wheel_kwargs(1000, 4)
@@ -2214,6 +2246,361 @@ def phase_bundles(cuda_kernels, main):
             "wheel": (ob, ib, ef)}
 
 
+#: The integer families' fused_sweeps shapes (S, m, n): netdes-1000 (10
+#: nodes), sizes S=3 (10 sizes), sslp 10 servers x 50 clients S=50 (the
+#: shape of SIPLIB's sslp_10_50_50); each builds A per scenario (dense
+#: engine).
+INT_SHAPES = {"netdes-1000": (1000, 35, 50), "sizes S=3": (3, 62, 150),
+              "sslp 10x50 S=50": (50, 60, 520)}
+#: netdes S=3 golden (tests/test_integer.py::TestWheelCertifies): the LP EF,
+#: the MIP EF, the hub's rel_gap
+NETDES_LP_EF, NETDES_MIP_EF, NETDES_GAP = 376.306, 398.333, 0.04
+NETDES_HUB_ONLY = {"defaultPHrho": 1.0, "PHIterLimit": 60,
+                   "convthresh": -1.0, "in_wheel_bounds": True,
+                   "integer_escalation_budget_s": 30.0}
+#: netdes-1000's hub-only wheel: the same options, the EF MIP's time limit
+NETDES_1000_ITERS = 60
+EF_MIP_SECS = 120.0
+#: sizes S=3 (tests/test_mip_incumbents.py::
+#: test_integer_sizes_wheel_certified_gap): the spokes' 60 iterations, the
+#: hub's 40, its bands; and the hub-only in-wheel sizes wheel
+SIZES_OPTIONS = {"defaultPHrho": 0.01, "convthresh": -1.0,
+                 "xhat_dive_rounds": 20,
+                 "xhat_looper_options": {"scen_limit": 2}}
+SIZES_OUTER_BAND, SIZES_INNER_BAND = (218000.0, 230000.0), (220000.0,
+                                                           240000.0)
+SIZES_HUB_ONLY_ITERS = 30
+SIZES_HUB_ONLY_BUDGET_S = 15.0
+#: sslp 10 x 50, S=50: rho 1, 30 hub iterations; the Lagrangian spoke
+#: lifts every 4th pass, the XhatShuffle spoke takes donor MILPs and
+#: evaluates them by host MILPs (the dive rounds assignments up into the
+#: Dummy overflow at 1000 a unit, in the reference as in the port: ROADMAP
+#: Queue 3), the XhatXbar spoke its default integer ladder through the dive,
+#: each within host budgets
+SSLP_KW = {"num_servers": 10, "num_clients": 50, "relax_integers": False}
+SSLP_ITERS = 30
+SSLP_LIFT = {"every": 4, "budget_s": 20.0, "time_limit": 5.0}
+SSLP_SHUFFLE = {"donor_milp": True, "donor_milp_time": 5.0, "scen_limit": 2}
+
+
+def integer_kwargs(model, S, kw, options):
+    """A cylinder's opt kwargs for an integer family, in f64 (the
+    reference's integer tests run in f64; f32 evaluations park above the
+    1e-3 gate, ROADMAP Queue 3)."""
+    import importlib
+
+    mod = importlib.import_module(f"tpusppy_torch.models.{model}")
+    return {"options": dict(options, batch_cache=True,
+                            solver_options={"dtype": "float64"}),
+            "all_scenario_names": mod.scenario_names_creator(S),
+            "scenario_creator": mod.scenario_creator,
+            "scenario_creator_kwargs": dict(kw)}
+
+
+def ef_solves(model, S, kw, mip_gap=None, time_limit=EF_MIP_SECS):
+    """HiGHS on the EF of an integer family, in a worker process beside
+    the card's runs: the LP EF, then the MIP EF (time-limited): status,
+    incumbent, best bound, seconds."""
+    sys.path.insert(0, HERE)
+    import importlib
+
+    from tpusppy_torch.ef import build_ef
+    from tpusppy_torch.solvers import scipy_backend
+    from tpusppy_torch.spbase import build_batch
+
+    mod = importlib.import_module(f"tpusppy_torch.models.{model}")
+    batch, _ = build_batch(mod.scenario_names_creator(S),
+                           mod.scenario_creator, dict(kw))
+    ef = build_ef(batch)
+    t0 = time.perf_counter()
+    lp = scipy_backend.solve_lp(ef.c, ef.A, ef.cl, ef.cu, ef.lb, ef.ub,
+                                const=ef.const)
+    t1 = time.perf_counter()
+    mip = scipy_backend.solve_lp(ef.c, ef.A, ef.cl, ef.cu, ef.lb, ef.ub,
+                                 is_int=ef.is_int, const=ef.const,
+                                 mip_rel_gap=mip_gap, time_limit=time_limit)
+    return {"lp": lp.obj, "lp_s": t1 - t0, "status": mip.status,
+            "incumbent": mip.obj if mip.feasible else float("inf"),
+            "dual_bound": (mip.dual_bound if mip.dual_bound is not None
+                           else float("-inf")),
+            "mip_s": time.perf_counter() - t1}
+
+
+def int_wheel(label, make_kwargs, spokes, hub_options):
+    """Spin an integer wheel (hub PH class :func:`wheel_clock`) with the
+    integer counters, host syncs and launches read around it; returns
+    (spinner, results)."""
+    from tpusppy_torch.obs import metrics
+    from tpusppy_torch.solvers import cuda_kernels
+    from tpusppy_torch.spbase import clear_batch_cache
+
+    clear_batch_cache()
+    hub, sp = wheel_dicts(make_kwargs, spokes, hub_options, wheel_clock())
+    names = ("integer.candidates", "integer.feasible_hits",
+             "integer.rcfix_slots", "integer.escalations",
+             "integer.escalation_lifts", "integer.escalation_secs",
+             "integer.escalation_errors", "megastep.bound_passes",
+             "megastep.bound_pass_infeasible", "megastep.bound_rescues",
+             "host_sync.count", "admm.loop_checks", "dispatch.megasteps",
+             "dispatch.mega_iterations")
+    before = cuda_kernels.counts()
+    with metrics.window() as w:
+        ws, wall = spin(hub, sp)
+        deltas = {k: w.delta(k) for k in names}
+    after = cuda_kernels.counts()
+    clear_batch_cache()
+    launched = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+    stamps = ws.opt.stamps
+    rate = (stamps[-1][0] / (stamps[-1][1] - stamps[0][1])
+            if len(stamps) > 1 else float("nan"))
+    it_done, reason = ws.spcomm.stopped_at
+    ob, ib = ws.BestOuterBound, ws.BestInnerBound
+    iters = max(ws.opt._iter, 1)
+    syncs = deltas["host_sync.count"]
+    flags, fetches = deltas["admm.loop_checks"], deltas["dispatch.megasteps"]
+    res = dict(outer=ob, inner=ib, rate=rate, wall=wall, deltas=deltas,
+               launched=launched, stopped=(it_done, reason),
+               rel_gap=(ib - ob) / abs(ob) if np.isfinite(ob)
+               and ob != 0 else float("inf"),
+               syncs=(syncs / iters, flags / iters, fetches / iters,
+                      (syncs - flags - fetches) / iters))
+    ints = {k.split(".", 1)[1]: round(v, 3) for k, v in deltas.items()
+            if k.startswith("integer.")}
+    print(f"{label}: outer={ob:.6f} (from "
+          f"{getattr(ws.opt, 'inwheel_outer_source', '-')}) inner={ib:.6f} "
+          f"(from {getattr(ws.opt, 'inwheel_inner_source', '-')}) "
+          f"rel_gap={res['rel_gap']:.4e}; hub stopped at iteration "
+          f"{it_done} ({reason}); hub PH it/s {rate:.3f}; windows "
+          f"{deltas['dispatch.megasteps']:.0f} "
+          f"({deltas['dispatch.mega_iterations']:.0f} iterations), bound "
+          f"passes "
+          f"{deltas['megastep.bound_passes']:.0f} (infeasible "
+          f"{deltas['megastep.bound_pass_infeasible']:.0f}, host rescues "
+          f"{deltas['megastep.bound_rescues']:.0f}); integer {ints}; host "
+          f"syncs an iteration {res['syncs'][0]:.2f} (flag reads "
+          f"{res['syncs'][1]:.2f}, packed fetches {res['syncs'][2]:.3f}, "
+          f"other {res['syncs'][3]:.2f}); launches "
+          f"{ {f'{a}:{b}': v for (a, b), v in launched.items()} }; "
+          f"wall_s={wall:.2f} {CARD}", flush=True)
+    print_cylinders(label, ws, it_done)
+    check(not ws.spoke_errors and not ws.hung_spokes,
+          f"{label}: spoke errors {ws.spoke_errors}, hung {ws.hung_spokes}")
+    check(launched.get(("launches", "fused_sweeps"), 0) > 0,
+          f"{label}: fused_sweeps never launched")
+    check(not any(v for (t, _), v in launched.items()
+                  if t == "plain_calls"),
+          f"{label}: a plain version ran on the card ({launched})")
+    check(deltas["integer.escalation_errors"] == 0,
+          f"{label}: {deltas['integer.escalation_errors']:.0f} host "
+          "escalations raised")
+    return ws, res
+
+
+def phase_integer(cuda_kernels):
+    """The integer families on the card, all in f64: fused_sweeps at the
+    three families' shapes against its plain version; the netdes S=3
+    golden and netdes-1000 hub-only in-wheel integer wheels; the sizes S=3
+    golden spoke wheel and a hub-only sizes wheel; the sslp 10 x 50 S=50
+    spoke wheel.  HiGHS's EF solves run in worker processes meanwhile."""
+    import concurrent.futures
+    import multiprocessing
+
+    netdes_kw = {"relax_integers": False}
+    sizes_kw = {"scenario_count": 3, "relax_integers": False}
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=3, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        efs = {
+            "netdes-3": pool.submit(ef_solves, "netdes", 3,
+                                    dict(netdes_kw, num_scens=3)),
+            "netdes-1000": pool.submit(ef_solves, "netdes", 1000,
+                                       dict(netdes_kw, num_scens=1000)),
+            "sslp": pool.submit(ef_solves, "sslp", 50, SSLP_KW),
+            "sizes": pool.submit(ef_solves, "sizes", 3, sizes_kw,
+                                 mip_gap=0.02),
+        }
+        out = _integer_runs(cuda_kernels, efs, netdes_kw, sizes_kw)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    return out
+
+
+def _integer_runs(cuda_kernels, efs, netdes_kw, sizes_kw):
+    """:func:`phase_integer`'s runs; ``efs``: the EF solves' futures."""
+    import torch
+
+    from tpusppy_torch.cylinders import (LagrangianOuterBound,
+                                         XhatShuffleInnerBound,
+                                         XhatXbarInnerBound)
+    from tpusppy_torch.obs import metrics
+    from tpusppy_torch.phbase import PHBase
+    from tpusppy_torch.xhat_eval import Xhat_Eval
+
+    t_phase = time.perf_counter()
+    # fused_sweeps at each family's shape, the mode its layout picks
+    n_sweeps, n_refine, alpha = 4, 2, 1.6
+    kres = {}
+    for name, (S, m, n) in INT_SHAPES.items():
+        flops = 2 * S * n_sweeps * (2 * m * n + n * n * (1 + 2 * n_refine))
+        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+            mode = cuda_kernels.dense_layout(
+                m, n, torch.empty((), dtype=dtype).element_size())["mode"]
+            args, sigma = sweep_case(S, m, n, dtype)
+            fixed = (n_sweeps, n_refine, sigma, alpha)
+            ref = (None if dtype == torch.float64 else f64_ref(
+                lambda *a: cuda_kernels.fused_sweeps_plain(*a, *fixed),
+                args, dtype))
+            res = kres[(name, dtype)] = hold_mode(
+                cuda_kernels, cuda_kernels.dense_modes, mode,
+                f"{name} fused_sweeps S={S} m={m} n={n}",
+                lambda: cuda_kernels.fused_sweeps(*args, *fixed),
+                lambda: cuda_kernels.fused_sweeps_plain(*args, *fixed),
+                args, flops, tol, dtype, ref=ref)
+            res["mode"] = mode
+            print(f"integer shape {name} (S={S}, m={m}, n={n}) {dtype}: "
+                  f"mode {mode}, kernel {res['ms']:.5f} ms, bound "
+                  f"{res['bound_ms']:.5f} ms ({res['bound_by']}), plain "
+                  f"{res['plain_ms']:.5f} ms {CARD}", flush=True)
+            del args
+    torch.cuda.empty_cache()
+    cuda_kernels.reset_counts()
+    out = {"kernels": kres}
+    with metrics.window() as phase_w:
+        # 1. the netdes S=3 golden: the hub-only in-wheel integer wheel
+        label = "integer netdes S=3 golden"
+        ws, r = int_wheel(label, lambda: integer_kwargs(
+            "netdes", 3, dict(netdes_kw, num_scens=3), NETDES_HUB_ONLY), [],
+            {"rel_gap": NETDES_GAP})
+        ef3 = efs["netdes-3"].result()
+        ob, ib, d = r["outer"], r["inner"], r["deltas"]
+        print(f"{label}: LP EF {ef3['lp']:.6f}, MIP EF {ef3['incumbent']:.6f}"
+              f" (HiGHS status {ef3['status']})", flush=True)
+        check(abs(ef3["lp"] - NETDES_LP_EF) <= 1e-3
+              and abs(ef3["incumbent"] - NETDES_MIP_EF) <= 1e-3,
+              f"{label}: the EFs {ef3['lp']}, {ef3['incumbent']} are not "
+              f"the goldens {NETDES_LP_EF}, {NETDES_MIP_EF}")
+        check(r["rel_gap"] <= NETDES_GAP, f"{label}: gap {r['rel_gap']}")
+        check(ob > NETDES_LP_EF, f"{label}: outer {ob} not past the LP EF")
+        check(ob <= ef3["incumbent"] + 1e-6 * abs(ef3["incumbent"]),
+              f"{label}: outer {ob} above the MIP EF {ef3['incumbent']}")
+        check(d["integer.feasible_hits"] > 0 and d["integer.escalations"] >= 1,
+              f"{label}: feasible hits {d['integer.feasible_hits']}, "
+              f"escalations {d['integer.escalations']}")
+        out["netdes-3"] = r
+
+        # 2. netdes-1000: the slice's full-size path
+        label = "integer netdes-1000"
+        ws, r = int_wheel(label, lambda: integer_kwargs(
+            "netdes", 1000, dict(netdes_kw, num_scens=1000),
+            dict(NETDES_HUB_ONLY, PHIterLimit=NETDES_1000_ITERS)), [],
+            {"rel_gap": NETDES_GAP})
+        bpl = ws.opt.bound_pass_launches
+        print(f"{label}: fused_sweeps launches inside bound passes by "
+              "candidate (the ladder 0.5, 0.35, 0.25, SLAM-up, SLAM-down, "
+              "then the reduced-cost re-certification): "
+              + "; ".join(
+                  f"{i}: " + ", ".join(f"{a}:{b}={v}" for (a, b), v in
+                                       sorted(dd.items()))
+                  for i, dd in enumerate(bpl)), flush=True)
+        ef = efs["netdes-1000"].result()
+        ob, ib = r["outer"], r["inner"]
+        print(f"{label}: EF LP {ef['lp']:.6f} ({ef['lp_s']:.1f} s), EF MIP "
+              f"status {ef['status']} incumbent {ef['incumbent']:.6f} best "
+              f"bound {ef['dual_bound']:.6f} ({ef['mip_s']:.1f} s, limit "
+              f"{EF_MIP_SECS:.0f} s); outer past the LP EF: "
+              f"{ob > ef['lp']} (outer-LP)/|LP| "
+              f"{(ob - ef['lp']) / abs(ef['lp']):.3e}", flush=True)
+        check(ob <= ib, f"{label}: outer {ob} above inner {ib}")
+        check(ob <= ef["incumbent"] + 1e-6 * abs(ef["incumbent"]),
+              f"{label}: outer {ob} above the EF incumbent "
+              f"{ef['incumbent']}")
+        check(ib >= ef["dual_bound"] - 1e-6 * abs(ef["dual_bound"]),
+              f"{label}: inner {ib} below the EF best bound "
+              f"{ef['dual_bound']}")
+        check(r["deltas"]["megastep.bound_passes"] > 0,
+              f"{label}: no bound pass ran")
+        check(all(dd.get(("launches", "fused_sweeps"), 0) > 0 for dd in bpl),
+              f"{label}: an evaluation of the bound pass launched no "
+              "fused_sweeps")
+        out["netdes-1000"] = dict(r, ef=ef, bound_pass_launches=bpl,
+                                  S_it=1000)
+        print(f"[{time.perf_counter() - t_phase:.1f} s into the phase]",
+              flush=True)
+
+        # 3. sizes S=3: the golden spoke wheel, then a hub-only sizes wheel
+        label = "integer sizes S=3 golden"
+        ws, r = int_wheel(label, lambda: integer_kwargs(
+            "sizes", 3, sizes_kw, dict(SIZES_OPTIONS, PHIterLimit=40)), [
+            (LagrangianOuterBound, PHBase, {"PHIterLimit": 60}),
+            (XhatShuffleInnerBound, Xhat_Eval, {"PHIterLimit": 60})],
+            {"rel_gap": 0.02})
+        ob, ib = r["outer"], r["inner"]
+        check(SIZES_OUTER_BAND[0] <= ob <= SIZES_OUTER_BAND[1]
+              and SIZES_INNER_BAND[0] <= ib <= SIZES_INNER_BAND[1],
+              f"{label}: outer {ob} or inner {ib} outside the bands")
+        check(ob <= ib + 1e-6, f"{label}: outer {ob} above inner {ib}")
+        out["sizes"] = r
+        label = "integer sizes S=3 hub-only"
+        ws, r = int_wheel(label, lambda: integer_kwargs(
+            "sizes", 3, sizes_kw, dict(
+                NETDES_HUB_ONLY, defaultPHrho=0.01,
+                PHIterLimit=SIZES_HUB_ONLY_ITERS,
+                integer_escalation_budget_s=SIZES_HUB_ONLY_BUDGET_S)), [],
+            {"rel_gap": 0.02})
+        ef = efs["sizes"].result()
+        print(f"{label}: EF LP {ef['lp']:.4f}, EF MIP (gap 2%) status "
+              f"{ef['status']} incumbent {ef['incumbent']:.4f} best bound "
+              f"{ef['dual_bound']:.4f} ({ef['mip_s']:.1f} s)", flush=True)
+        check(not ws.opt._inwheel_inner_ok(), f"{label}: second-stage "
+              "integers not seen")
+        check(r["outer"] <= ef["incumbent"] + 1e-6 * abs(ef["incumbent"]),
+              f"{label}: outer {r['outer']} above the MIP EF "
+              f"{ef['incumbent']}")
+        check(r["deltas"]["integer.rcfix_slots"] == 0,
+              f"{label}: reduced-cost fixing ran on second-stage integers")
+        out["sizes-hub"] = dict(r, ef=ef)
+        print(f"[{time.perf_counter() - t_phase:.1f} s into the phase]",
+              flush=True)
+
+        # 4. sslp 10 x 50, S=50: the three spokes, each within its budget
+        label = "integer sslp 10x50 S=50"
+        ws, r = int_wheel(label, lambda: integer_kwargs(
+            "sslp", 50, SSLP_KW, {"defaultPHrho": 1.0,
+                                  "PHIterLimit": SSLP_ITERS,
+                                  "convthresh": -1.0}),
+            [(LagrangianOuterBound, PHBase,
+              {"lagrangian_milp_lift": dict(SSLP_LIFT)}),
+             (XhatShuffleInnerBound, Xhat_Eval,
+              {"xhat_looper_options": dict(SSLP_SHUFFLE),
+               "xhat_integer_strategy": "milp"}),
+             (XhatXbarInnerBound, Xhat_Eval, {})], {"rel_gap": 1e-3})
+        ef = efs["sslp"].result()
+        spokes = []
+        for c in ws.spoke_comms:
+            secs = (getattr(c, "milp_secs", 0.0)
+                    + getattr(c.opt, "host_milp_secs", 0.0))
+            spokes.append((type(c).__name__, c.bound, secs))
+        print(f"{label}: EF LP {ef['lp']:.4f}, EF MIP status {ef['status']}"
+              f" incumbent {ef['incumbent']:.4f} best bound "
+              f"{ef['dual_bound']:.4f} ({ef['mip_s']:.1f} s); spokes "
+              + ", ".join(f"{n} bound {b:.4f} host MILP s {s:.2f}"
+                          for n, b, s in spokes), flush=True)
+        check(r["outer"] <= r["inner"], f"{label}: outer {r['outer']} above "
+              f"inner {r['inner']}")
+        check(r["outer"] <= ef["incumbent"] + 1e-6 * abs(ef["incumbent"]),
+              f"{label}: outer {r['outer']} above the EF incumbent "
+              f"{ef['incumbent']}")
+        out["sslp"] = dict(r, ef=ef, spokes=spokes)
+        errors = phase_w.delta("integer.escalation_errors")
+    check(errors == 0, f"integer phase: {errors:.0f} host escalations raised")
+    check(all(v == 0 for v in cuda_kernels.plain_calls.values()),
+          f"integer phase: plain versions ran {cuda_kernels.plain_calls}")
+    print(f"integer phase: {time.perf_counter() - t_phase:.1f} s {CARD}",
+          flush=True)
+    return out
+
+
 def kernel_line(name, source, replaces, launches, res):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2223,7 +2610,7 @@ def kernel_line(name, source, replaces, launches, res):
 
 
 PHASES = ("kernels", "golden", "loop", "farmer", "uc_lite", "uc",
-          "megastep", "precision", "wheel", "bundles")
+          "megastep", "precision", "wheel", "bundles", "integer")
 
 
 def main(argv=None) -> int:
@@ -2307,7 +2694,7 @@ def main(argv=None) -> int:
             uc = main_runs["uc-1000"] = phase_main(
                 cuda_kernels, "uc-1000", "fused_sweeps_sparse",
                 lambda o, cls: uc_full_ph(1000, o, ph_class=cls), 30,
-                5, UC_MAIN_OPTIONS, solver=UC_SOLVER,
+                3, UC_MAIN_OPTIONS, solver=UC_SOLVER,
                 ef=False)
         if phases & {"farmer", "uc_lite", "uc"}:
             print(f"[{time.perf_counter() - t_all:.1f} s] main paths done",
@@ -2328,6 +2715,11 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             phase_bundles(cuda_kernels, main_runs)
             print(f"[{time.perf_counter() - t_all:.1f} s] bundles done "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        if "integer" in phases:
+            t0 = time.perf_counter()
+            phase_integer(cuda_kernels)
+            print(f"[{time.perf_counter() - t_all:.1f} s] integer done "
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
     except PhaseError as e:
         print(f"FAIL: {e}", flush=True)

@@ -240,7 +240,7 @@ def test_integer_buckets_and_bucketed_in_wheel_bounds_raise():
     assert any(sub.is_int.any() for _, sub in ev.batch.buckets)
     with pytest.raises(AttributeError, match="shared is_int"):
         ev.batch.is_int
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         ev.evaluate(np.ones(ev.nonant_length))
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         TPH(dict(BUCKETED, defaultPHrho=1.0, PHIterLimit=2, device="cpu",
@@ -252,7 +252,7 @@ def test_integer_buckets_and_bucketed_in_wheel_bounds_raise():
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         tsharded.make_bucketed_wheel_megastep(np.arange(3), st, 4,
                                               bounds=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         tsharded.make_bucketed_wheel_megastep(np.arange(3), st, 4,
                                               int_rounding=(0.5,))
 

@@ -261,9 +261,13 @@ def test_window_rejects_bad_arguments_and_unported_forms():
         tsharded.make_wheel_megastep(np.arange(3), TSettings(), pack="x")
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         tsharded.make_wheel_megastep(np.arange(3), TSettings(), mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tsharded.make_wheel_megastep(np.arange(3), TSettings(),
-                                     int_rounding=(0.5,))
+    # the batched integer sweep is ported: the window builds, and ignores
+    # the ladder where the family has no integer nonants
+    assert callable(tsharded.make_wheel_megastep(
+        np.arange(3), TSettings(), bounds=True,
+        int_nonants=np.array([True, False, True]), int_rounding=(0.5,)))
+    assert callable(tsharded.make_wheel_megastep(
+        np.arange(3), TSettings(), bounds=True, int_rounding=(0.5,)))
 
 
 # ---- host level: PH in windows ------------------------------------------------
@@ -378,16 +382,29 @@ def test_autotuned_options_raise_with_their_item(option):
 
 
 def test_integer_in_wheel_bounds_raise_with_their_item():
+    """An integer family's in-wheel bounds are ported (the batched sweep and
+    the escalation, or with both off the single rounded candidate); what
+    still raises is the autotuned ladder (item 5) and a bucketed family's
+    bound pass (item 7)."""
     opts = {"defaultPHrho": 1.0, "PHIterLimit": 2, "device": "cpu",
             "in_wheel_bounds": True}
     kw = {"num_scens": 3, "use_integer": True}
     names = tfarmer.scenario_names_creator(3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        TPH(opts, names, tfarmer.scenario_creator,
-            scenario_creator_kwargs=kw)
-    # both integer parts off: the single rounded candidate is ported
-    TPH(dict(opts, in_wheel_int_sweep=False, integer_escalation=False),
-        names, tfarmer.scenario_creator, scenario_creator_kwargs=kw)
+    ph = TPH(opts, names, tfarmer.scenario_creator,
+             scenario_creator_kwargs=kw)
+    assert ph._inwheel_int_sweep_on() and ph._integer_escalation_on()
+    off = TPH(dict(opts, in_wheel_int_sweep=False, integer_escalation=False),
+              names, tfarmer.scenario_creator, scenario_creator_kwargs=kw)
+    assert not off._inwheel_int_sweep_on()
+    assert not off._integer_escalation_on()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        TPH(dict(opts, in_wheel_int_autotune=True), names,
+            tfarmer.scenario_creator, scenario_creator_kwargs=kw)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        TPH(dict(opts, bundles_per_rank=2, shape_buckets=True,
+                 shape_bucket_quantum=1),
+            tfarmer.scenario_names_creator(5), tfarmer.scenario_creator,
+            scenario_creator_kwargs={"num_scens": 5, "use_integer": True})
 
 
 def test_billing_is_the_reference_model_and_the_cap_the_cards():

@@ -6,15 +6,18 @@ probability-weighted per-node mean of the hub's nonants (xbar), with
 integer slots rounded — nonanticipative by construction, and often good
 once PH is nearly converged.
 
-:func:`in_wheel_inner_bound` is the host twin of the megastep's in-wheel
-inner bound.  Not ported yet: the integer families' rounding ladder (ROADMAP
-Queue 1 item 6): an integer family evaluates the thresholds it is given.
+An integer family's default ladder is the in-wheel integer sweep's,
+:data:`~tpusppy_torch.solvers.integer.DEFAULT_THRESHOLDS` (one candidate
+rule, two execution paths).  :func:`in_wheel_inner_bound` is the host twin
+of the megastep's in-wheel inner bound.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..ir import batch_parts
+from ..solvers.integer import DEFAULT_THRESHOLDS
 from .spoke import InnerBoundNonantSpoke
 
 
@@ -111,7 +114,8 @@ class XhatXbarInnerBound(InnerBoundNonantSpoke):
     """'X' spoke (xhatxbar_bounder.py:31-118).
 
     ``xhat_xbar_options: {"thresholds": [...]}`` evaluates a rounding
-    ladder per fresh nonants (default [0.5]).
+    ladder per fresh nonants (default: [0.5], or the integer sweep's
+    ladder on a family with integer nonants).
     """
 
     converger_spoke_char = 'X'
@@ -129,13 +133,11 @@ class XhatXbarInnerBound(InnerBoundNonantSpoke):
     def main(self):
         th = self.opt.options.get("xhat_xbar_options", {}).get("thresholds")
         if th is None:
-            nid = self.opt.tree.nonant_indices
-            if bool(np.asarray(self.opt.batch.is_int, bool)[nid].any()):
-                raise NotImplementedError(
-                    "XhatXbarInnerBound on an integer family: its default "
-                    "rounding ladder is not ported yet (ROADMAP Queue 1 "
-                    "item 6); pass xhat_xbar_options thresholds")
-            th = [0.5]
+            # a bucketed batch carries is_int per bucket
+            ints = any(np.asarray(sub.is_int,
+                                  bool)[sub.tree.nonant_indices].any()
+                       for _, sub in batch_parts(self.opt.batch))
+            th = list(DEFAULT_THRESHOLDS) if ints else [0.5]
         self._thresholds = list(th)
         self._seen = False
         while not self.got_kill_signal():

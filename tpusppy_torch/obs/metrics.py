@@ -9,9 +9,16 @@ what the solve loop and the host-sync wrapper feed (``host_sync.*``,
 ``megastep.refresh_hits`` (windows that sent the next iteration to the
 refresh), ``megastep.rejected_iterations``, ``megastep.bound_passes``,
 ``megastep.bound_pass_infeasible``, ``megastep.bound_rescues`` and
-``phstate.boundary_fetches`` (host-mirror fetches of lean windows).  Each
-update is one lock and a float add.  Scoped measurements read deltas
-through :func:`window`.
+``phstate.boundary_fetches`` (host-mirror fetches of lean windows); and the
+integer tiers' (:mod:`..solvers.integer`): ``integer.candidates``
+(candidates the bound passes evaluated), ``integer.feasible_hits``
+(feasible candidates, and incumbents the host legs certified from the
+sweep), ``integer.rcfix_slots`` (slots reduced-cost fixing fixed),
+``integer.escalations`` (host escalation rounds), ``integer.escalation_lifts``
+(scenarios their MILP lifts solved), ``integer.escalation_secs`` (their
+host seconds) and ``integer.escalation_errors`` (escalations that raised
+and declined).  Each update is one lock and a float add.  Scoped
+measurements read deltas through :func:`window`.
 """
 
 from __future__ import annotations

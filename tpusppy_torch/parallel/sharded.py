@@ -5,7 +5,8 @@ problem and state carriers (:class:`PHArrays`, :class:`PHState`), the PH
 update in device form (:func:`_node_xbar`, :func:`_ph_objective`,
 :func:`_ph_finish`), the packed window measurement
 (:func:`megastep_unpack`), the in-wheel bound pass
-(:func:`_bound_pass_terms`) and the window itself
+(:func:`_bound_pass_terms`, and for a family with integer nonants the
+batched integer pass of :mod:`..solvers.integer`) and the window itself
 (:func:`make_wheel_megastep`), and the window of a shape-bucketed family
 (:func:`make_bucketed_wheel_megastep`, :func:`_bucketed_finish`,
 :func:`bucketed_megastep_unpack`): every bucket's frozen solve through its
@@ -26,10 +27,10 @@ nothing, and the flag read it makes anyway ends the host loop.  The host
 reads nothing else until the window's one packed fetch.
 
 Not ported yet, and raising ``NotImplementedError``: the mesh and
-``shard_map`` (ROADMAP Queue 1 item 7, on ``torch.distributed``), the
-bucketed window's in-wheel bound pass (Queue 1 item 7) and the batched
-integer sweep (``int_rounding``, Queue 1 item 6).  The reference's
-AOT executable cache has no twin.
+``shard_map`` (ROADMAP Queue 1 item 7, on ``torch.distributed``) and the
+bucketed window's in-wheel bound pass, its integer branch too
+(``bounds``/``int_rounding`` of :func:`make_bucketed_wheel_megastep`,
+Queue 1 item 7).  The reference's AOT executable cache has no twin.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import numpy as np
 import torch
 
 from ..solvers import admm, cuda_kernels, device_loop, shared_admm
+from ..solvers import integer as integer_solvers
 from ..solvers.sparse import SparseA
 
 
@@ -129,38 +131,53 @@ def _ph_finish(arr, state, sol, W, rho, idx):
 BOUND_PACK_LEN = 5
 
 
-def bound_pack_len(bounds: bool = False) -> int:
-    """Length of the in-wheel bound tail (0 without the pass)."""
-    return BOUND_PACK_LEN if bounds else 0
+def bound_pack_len(bounds: bool = False, int_sweep: bool = False) -> int:
+    """Length of the in-wheel bound tail (0 without the pass), with the
+    integer sweep's :data:`~..solvers.integer.INT_BOUND_EXTRA` scalars
+    where ``int_sweep``."""
+    if not bounds:
+        return 0
+    return BOUND_PACK_LEN + (integer_solvers.INT_BOUND_EXTRA if int_sweep
+                             else 0)
 
 
 def megastep_measure_len(n_iters: int, S: int, n: int, K: int,
-                         pack: str = "full", bounds: bool = False) -> int:
+                         pack: str = "full", bounds: bool = False,
+                         int_sweep: bool = False) -> int:
     """Length of the packed window measurement: per-iteration stats, the
     executed count and the refresh flag, the final residuals and done
     flags, with ``pack="full"`` the final x, W and xbars (``"lean"``
-    leaves them on the device), and with ``bounds`` the bound tail."""
+    leaves them on the device), and with ``bounds`` the bound tail (the
+    integer sweep's longer one with ``int_sweep``)."""
     base = 6 * n_iters + 2 + 3 * S
     if pack != "lean":
         base += S * n + 2 * S * K
-    return base + bound_pack_len(bounds)
+    return base + bound_pack_len(bounds, int_sweep)
 
 
-def unpack_bound_tail(out: dict, vec) -> dict:
+def unpack_bound_tail(out: dict, vec, int_sweep: bool = False) -> dict:
     """Install the in-wheel bound scalars of a ``bounds=True``
     measurement into ``out``; ``bound_computed`` False means the window's
-    pass was off (a cadence skip), the rest are zeros then."""
-    tail = np.asarray(vec)[-BOUND_PACK_LEN:]
+    pass was off (a cadence skip), the rest are zeros then.  ``int_sweep``
+    also reads the integer extras: ``int_feas_cands``, ``int_best_idx``,
+    ``int_rcfix_slots`` and ``bound_outer_base`` (the untightened outer)."""
+    tail = np.asarray(vec)[-bound_pack_len(True, int_sweep):]
     out["bound_computed"] = bool(tail[0])
     out["bound_outer"] = float(tail[1])
     out["bound_inner_obj"] = float(tail[2])
     out["bound_inner_feas"] = float(tail[3])
     out["bound_sweeps"] = float(tail[4])
+    if int_sweep:
+        out["int_feas_cands"] = int(tail[5])
+        out["int_best_idx"] = int(tail[6])
+        out["int_rcfix_slots"] = int(tail[7])
+        out["bound_outer_base"] = float(tail[8])
     return out
 
 
 def megastep_unpack(vec, n_iters: int, S: int, n: int, K: int,
-                    pack: str = "full", bounds: bool = False) -> dict:
+                    pack: str = "full", bounds: bool = False,
+                    int_sweep: bool = False) -> dict:
     """Split a fetched window measurement (the reference's layout).
 
     Per-iteration arrays of length ``n_iters`` (zeros past the last
@@ -169,7 +186,8 @@ def megastep_unpack(vec, n_iters: int, S: int, n: int, K: int,
     failed the acceptance test: its update was discarded and its stats
     row sits at index ``executed``); the final accepted iterate's ``pri``,
     ``dua``, ``done`` (S,) and, with ``pack="full"``, ``x`` (S, n), ``W``
-    and ``xbars`` (S, K); with ``bounds`` the bound tail."""
+    and ``xbars`` (S, K); with ``bounds`` the bound tail
+    (:func:`unpack_bound_tail`)."""
     vec = np.asarray(vec)
     N = n_iters
     per = vec[:6 * N].reshape(6, N)
@@ -185,7 +203,7 @@ def megastep_unpack(vec, n_iters: int, S: int, n: int, K: int,
     out["done"] = vec[off + 2 * S:off + 3 * S] != 0.0
     off += 3 * S
     if bounds:
-        out = unpack_bound_tail(out, vec)
+        out = unpack_bound_tail(out, vec, int_sweep)
     if pack == "lean":
         return out
     out["x"] = vec[off:off + S * n].reshape(S, n)
@@ -343,7 +361,8 @@ def _templates(arr, state, n_iters, idx):
 def make_wheel_megastep(nonant_idx, settings, mesh=None, n_iters: int = 8,
                         pack: str = "full", bounds: bool = False,
                         int_nonants=None, xhat_threshold: float = 0.5,
-                        int_rounding=None):
+                        int_rounding=None, int_cols=None,
+                        rcfix_slack: float = 1e-5, int_rcfix: bool = True):
     """The window function: up to ``n_iters`` frozen PH iterations on the
     device and one packed measurement (:func:`megastep_unpack`).
 
@@ -364,17 +383,28 @@ def make_wheel_megastep(nonant_idx, settings, mesh=None, n_iters: int = 8,
     ``int_nonants`` is the (K,) integer mask of nonant slots, rounded at
     ``xhat_threshold`` in the candidate.
 
+    ``int_rounding`` (a tuple of rounding thresholds) arms the batched
+    integer sweep for a family with integer nonants: the bound pass
+    becomes :func:`..solvers.integer.integer_bound_pass` (the best of the
+    ladder and the SLAM slams, reduced-cost fixing from the state's duals
+    and the tightened outer bound), and the tail grows by
+    :data:`~..solvers.integer.INT_BOUND_EXTRA` scalars.  ``int_cols``: the
+    (n,) mask of ALL integer columns, the fixing's scope (default the
+    integer nonant slots); ``int_rcfix=False`` turns the fixing off (a
+    family with second-stage integers).  A family without integer nonants
+    ignores the integer options and runs the plain pass.
+
     Returns ``mega(state, arr, prox_on, factors, convthresh, n_live,
-    accept_tol, bound_live=False, feas_tol=1e-3) -> (state, packed)``; the
-    returned state is new tensors."""
+    accept_tol, bound_live=False, feas_tol=1e-3, bound_launches=None) ->
+    (state, packed)``; the returned state is new tensors.
+    ``bound_launches``: for the integer pass, a list of C + 1 dicts that
+    receive the launches of each candidate's evaluation and of the
+    re-certification (:func:`..solvers.cuda_kernels.counts` of the
+    calling thread)."""
     if mesh is not None:
         raise NotImplementedError(
             "make_wheel_megastep(mesh=...): the megastep over a mesh is not "
             "ported yet (ROADMAP Queue 1 item 7, torch.distributed)")
-    if int_rounding:
-        raise NotImplementedError(
-            "make_wheel_megastep(int_rounding=...): the batched integer "
-            "sweep is not ported yet (ROADMAP Queue 1 item 6)")
     if n_iters < 1:
         raise ValueError(f"n_iters ({n_iters}) must be >= 1")
     if pack not in ("full", "lean"):
@@ -382,10 +412,17 @@ def make_wheel_megastep(nonant_idx, settings, mesh=None, n_iters: int = 8,
     idx_np = np.asarray(nonant_idx, dtype=np.int64)
     int_mask = (None if int_nonants is None
                 else np.asarray(int_nonants, dtype=bool))
+    # the integer sweep only where the family has integer nonants and a
+    # ladder was asked for: otherwise the plain pass, whatever the options
+    int_sweep = bool(bounds and int_mask is not None and int_mask.any()
+                     and int_rounding)
+    int_thresholds = tuple(float(t) for t in (int_rounding or ()))
+    tail_len = bound_pack_len(True, int_sweep)
     idx_on = {}     # device -> the nonant indices there, uploaded once
 
     def mega(state: PHState, arr: PHArrays, prox_on, factors, convthresh,
-             n_live, accept_tol, bound_live=False, feas_tol=1e-3):
+             n_live, accept_tol, bound_live=False, feas_tol=1e-3,
+             bound_launches=None):
         dt, dev = arr.c.dtype, arr.c.device
         idx = idx_on.get(dev)
         if idx is None:
@@ -432,14 +469,28 @@ def make_wheel_megastep(nonant_idx, settings, mesh=None, n_iters: int = 8,
             parts += [st.x.reshape(-1), st.W.reshape(-1),
                       st.xbars.reshape(-1)]
         if bounds:
-            if bound_live:
+            if bound_live and int_sweep:
+                # the PH-augmented objective (prox on): the window's factors
+                q, q2, _, _ = _ph_objective(arr, st, 1.0, idx)
+                if int_cols is None:
+                    cols = torch.zeros(arr.c.shape[1], dtype=torch.bool,
+                                       device=dev)
+                    cols[idx] = torch.as_tensor(int_mask, device=dev)
+                else:
+                    cols = torch.as_tensor(np.asarray(int_cols, dtype=bool),
+                                           device=dev)
+                parts.append(integer_solvers.integer_bound_pass(
+                    arr, st, idx, q, q2, frozen, factors, settings,
+                    feas_tol, int_mask, int_thresholds, cols, rcfix_slack,
+                    rcfix_enabled=bool(int_rcfix),
+                    launches=bound_launches))
+            elif bound_live:
                 terms = _bound_pass_terms(arr, st, idx, frozen, factors,
                                           settings, feas_tol, int_mask,
                                           xhat_threshold)
                 parts.append(torch.stack([scalar(1.0), *terms]))
             else:
-                parts.append(torch.zeros(BOUND_PACK_LEN, dtype=dt,
-                                         device=dev))
+                parts.append(torch.zeros(tail_len, dtype=dt, device=dev))
         return st, torch.cat(parts)
 
     return mega
@@ -654,9 +705,10 @@ def make_bucketed_wheel_megastep(nonant_idx, settings, n_iters: int = 8,
     nonants first.
 
     ``bounds=True`` (the bucketed in-wheel bound pass) raises: not ported
-    yet (ROADMAP Queue 1 item 7); so does ``int_rounding`` (Queue 1 item
-    6).  Returns ``mega(states, arrs, prox_on, factors, convthresh,
-    n_live, accept_tol, bucket_launches=None) -> (states, packed)`` over
+    yet (ROADMAP Queue 1 item 7); so does ``int_rounding``, its integer
+    branch (the same item).  Returns ``mega(states, arrs, prox_on,
+    factors, convthresh, n_live, accept_tol, bucket_launches=None) ->
+    (states, packed)`` over
     tuples of per-bucket :class:`PHState`, :class:`PHArrays` and factors;
     ``bucket_launches``, a list of one dict a bucket, receives each
     bucket's kernel launches (:func:`..solvers.cuda_kernels.counts` of
@@ -667,8 +719,9 @@ def make_bucketed_wheel_megastep(nonant_idx, settings, n_iters: int = 8,
             "in-wheel bound pass is not ported yet (ROADMAP Queue 1 item 7)")
     if int_rounding:
         raise NotImplementedError(
-            "make_bucketed_wheel_megastep(int_rounding=...): the batched "
-            "integer sweep is not ported yet (ROADMAP Queue 1 item 6)")
+            "make_bucketed_wheel_megastep(int_rounding=...): the bucketed "
+            "bound pass's integer branch is not ported yet (ROADMAP Queue 1 "
+            "item 7)")
     if n_iters < 1:
         raise ValueError(f"n_iters ({n_iters}) must be >= 1")
     idx_np = np.asarray(nonant_idx, dtype=np.int64)

@@ -26,25 +26,32 @@ buckets (:meth:`PHBase._megastep_dispatch`); a window opens when every
 bucket's slot is ready, and the oldest bucket's factors bound its width
 (:meth:`PHBase._mega_age`).
 
+An integer family's in-wheel bounds take the integer tiers
+(:mod:`.solvers.integer`): each bound pass runs the batched rounding sweep
+and reduced-cost fixing on the device, the host rescue sweeps the same
+ladder, a family with second-stage integers certifies its candidates by
+host MIPs (source ``'I'``), and the gap-ranked MILP escalation lifts the
+outer bound within one shared host budget
+(``integer_escalation_budget_s``).
+
 Not ported yet, and raising ``NotImplementedError`` when asked for: the
-autotuned window width and bound cadence (``megastep_autotune``,
-``in_wheel_bound_autotune``, ``in_wheel_int_autotune``; ROADMAP Queue 1
-item 5), the batched integer sweep and host escalation of an integer
-family's in-wheel bounds (Queue 1 item 6), and in-wheel bounds on a
-bucketed batch (Queue 1 item 7).
+autotuned window width, bound cadence and integer ladder
+(``megastep_autotune``, ``in_wheel_bound_autotune``,
+``in_wheel_int_autotune``; ROADMAP Queue 1 item 5), and in-wheel bounds on
+a bucketed batch, plain or integer (Queue 1 item 7).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import scipy.sparse as sp
-import torch
 
 from . import global_toc
 from .ir import BucketedBatch, batch_parts
 from .obs import metrics as _metrics
 from .obs import trace as _trace
 from .solvers import hostsync, segmented
+from .solvers import integer as integer_solvers
 from .spopt import SPOpt
 from .extensions.extension import Extension
 
@@ -57,35 +64,18 @@ UNPORTED_OPTIONS = {
 
 
 def _check_options(opt):
-    """Raise on an option only a part not ported yet reads; an integer
-    family's in-wheel bounds take the batched integer sweep and the host
-    escalation unless both are turned off, and a bucketed family's the
-    bucketed bound pass."""
+    """Raise on an option only a part not ported yet reads, and on
+    in-wheel bounds of a bucketed family (the bucketed bound pass)."""
     for name, item in UNPORTED_OPTIONS.items():
         if opt.options.get(name):
             raise NotImplementedError(
                 f"option {name!r} is not ported yet (ROADMAP {item})")
-    if not opt.options.get("in_wheel_bounds"):
-        return
-    if isinstance(opt.batch, BucketedBatch):
+    if opt.options.get("in_wheel_bounds") and isinstance(opt.batch,
+                                                         BucketedBatch):
         raise NotImplementedError(
             "in_wheel_bounds on a shape-bucketed batch: the bucketed "
-            "in-wheel bound pass is not ported yet (ROADMAP Queue 1 item 7)")
-    ints = np.asarray(opt.batch.is_int, bool)
-    for name, armed in (
-            ("in_wheel_int_sweep", ints[opt.tree.nonant_indices].any()),
-            ("integer_escalation", ints.any())):
-        if armed and opt.options.get(name, True):
-            raise NotImplementedError(
-                f"in_wheel_bounds on an integer family ({name} on): the "
-                "batched integer sweep and host escalation are not ported "
-                f"yet (ROADMAP Queue 1 item 6); set {name}: False")
-
-
-def _feas_slack(S: int, dt) -> float:
-    """The all-scenarios gate's slack on a feasible probability mass: an
-    all-feasible sum of S probabilities in ``dt`` lands ~S eps below 1."""
-    return max(1e-9, 4.0 * int(S) * float(torch.finfo(dt).eps))
+            "in-wheel bound pass, plain or integer, is not ported yet "
+            "(ROADMAP Queue 1 item 7)")
 
 
 class PHBase(SPOpt):
@@ -351,7 +341,9 @@ class PHBase(SPOpt):
         cap kept."""
         if not self._inwheel_on():
             return cap_fn(False)
-        cap = cap_fn(1)
+        # the reservation counts the pass's frozen evaluations: C
+        # candidates and a re-certification for the integer sweep
+        cap = cap_fn(self._inwheel_pass_evals())
         if cap >= 2:
             return cap
         cap_plain = cap_fn(False)
@@ -410,35 +402,61 @@ class PHBase(SPOpt):
         every = self.options.get("in_wheel_bound_every")
         return max(1, int(every)) if every else 1
 
+    def _install_inwheel_outer(self, ob: float, char: str = 'M'):
+        """Track and install one certified in-wheel outer bound (source
+        ``'M'``, the window's pass; ``'I'``, the integer escalation)."""
+        if not np.isfinite(ob):
+            return
+        if ob > getattr(self, "inwheel_outer_bound", -np.inf):
+            self.inwheel_outer_bound = ob
+            self.inwheel_outer_source = char
+        c = self.spcomm
+        if c is not None and hasattr(c, "OuterBoundUpdate"):
+            c.OuterBoundUpdate(ob, char=char)
+
     def _consume_inwheel_bounds(self, meas):
         """Install one window's bound evidence through the hub's typed
         updates (source char ``'M'``), so gaps and termination see it as
         they see spoke bounds; tracked on the opt too for runs without a
         hub.  The inner bound is offered only when the evaluation was
         feasible on the whole batch (the all-scenarios rule, with a
-        dtype-aware slack); a miss counts in
-        ``megastep.bound_pass_infeasible`` and may run the host rescue."""
+        dtype-aware slack) and is a true candidate value; a miss counts in
+        ``megastep.bound_pass_infeasible`` and may run the host rescue.
+        An integer pass also counts its candidates, feasible candidates
+        and fixed slots (``integer.*``); on a family with second-stage
+        integers its best candidate is certified by host MIPs instead, and
+        every pass may run one round of the gap-ranked escalation."""
         if not meas.get("bound_computed"):
             return
-        c = self.spcomm
-        ob = float(meas["bound_outer"])
-        if np.isfinite(ob):
-            if ob > getattr(self, "inwheel_outer_bound", -np.inf):
-                self.inwheel_outer_bound = ob
-            if c is not None and hasattr(c, "OuterBoundUpdate"):
-                c.OuterBoundUpdate(ob, char='M')
-        slack = _feas_slack(self.batch.num_scenarios,
-                            self.admm_settings.tdtype())
+        self._install_inwheel_outer(float(meas["bound_outer"]))
+        int_pass = "int_best_idx" in meas
+        if int_pass:
+            _metrics.inc("integer.candidates", integer_solvers.n_candidates(
+                self._inwheel_int_thresholds()))
+            _metrics.inc("integer.feasible_hits", meas["int_feas_cands"])
+            _metrics.inc("integer.rcfix_slots", meas["int_rcfix_slots"])
+            self._int_best_idx = meas["int_best_idx"]
+        slack = integer_solvers.feas_slack(self.batch.num_scenarios,
+                                           self.admm_settings.tdtype())
         feasible = meas["bound_inner_feas"] >= 1.0 - slack
         if feasible and self._inwheel_inner_ok():
             self.inwheel_inner_source = "M"
             self._offer_inwheel_inner(float(meas["bound_inner_obj"]))
+        elif int_pass and not self._inwheel_inner_ok():
+            # second-stage integers: the device evaluation relaxes them,
+            # and the LP rescue cannot certify either; host MIPs can
+            if not feasible:
+                _metrics.inc("megastep.bound_pass_infeasible")
+            self._maybe_integer_inner_mip(meas["int_best_idx"])
         elif not feasible:
             _metrics.inc("megastep.bound_pass_infeasible")
             self._maybe_inwheel_rescue()
+        self._maybe_integer_escalation()
 
     def _offer_inwheel_inner(self, ib: float, char: str = 'M'):
-        """Track and install one certified in-wheel incumbent value."""
+        """Track and install one certified in-wheel incumbent value
+        (source ``'M'``, the window's pass or the host rescue; ``'I'``, the
+        integer escalation)."""
         if not np.isfinite(ib):
             return
         if ib < getattr(self, "inwheel_inner_bound", np.inf):
@@ -478,9 +496,13 @@ class PHBase(SPOpt):
         :func:`.cylinders.xhatxbar_bounder.clamp_candidate`), by
         per-scenario host solves: f32 clamped evaluations park above the
         feasibility gate (ROADMAP Queue 3), and the rescue certifies what
-        the device pass cannot.  Returns the bound, or None where a
-        scenario is infeasible at the candidate or the host solver fails
-        (a rescue declines, it never ends the wheel)."""
+        the device pass cannot.  Under the integer sweep it sweeps the
+        device's ladder instead (:func:`.solvers.integer.host_candidates`),
+        the device's best candidate first, then the SLAM-up slam, then the
+        rest; the first feasible one wins and counts in
+        ``integer.feasible_hits``.  Returns the bound, or None where every
+        candidate has an infeasible scenario or the host solver fails (a
+        rescue declines, it never ends the wheel)."""
         from .cylinders.xhatxbar_bounder import clamp_candidate
 
         if getattr(self, "_host_state_stale", False):
@@ -488,6 +510,17 @@ class PHBase(SPOpt):
         _metrics.inc("megastep.bound_rescues")
         xbars = np.asarray(self.xbars, dtype=float)
         try:
+            if self._inwheel_int_sweep_on():
+                th = self._inwheel_int_thresholds()
+                cands = integer_solvers.host_candidates(self, th)
+                first = [min(getattr(self, "_int_best_idx", 0),
+                             len(cands) - 1), len(th)]
+                for ci in dict.fromkeys(first + list(range(len(cands)))):
+                    total = self._inwheel_eval_candidate_host(cands[ci])
+                    if total is not None:
+                        _metrics.inc("integer.feasible_hits")
+                        return total
+                return None
             # the candidate rule per part (a bucket carries its own is_int)
             cand = np.array(xbars, copy=True)
             for idx, sub in batch_parts(self.batch):
@@ -543,6 +576,185 @@ class PHBase(SPOpt):
                 return None
             total += float(probs[rows] @ objs)
         return total
+
+    # ---- the integer host escalation (doc/integer.md) -----------------------
+    def _integer_budget(self):
+        """The wheel's one :class:`~.solvers.integer.EscalationBudget`
+        (option ``integer_escalation_budget_s``, default 30 host seconds):
+        every host escalation, the MILP lift and the MIP certification
+        alike, draws from it."""
+        b = getattr(self, "_int_budget", None)
+        if b is None:
+            b = self._int_budget = integer_solvers.EscalationBudget(
+                float(self.options.get("integer_escalation_budget_s",
+                                       30.0)))
+        return b
+
+    def _integer_escalation_on(self) -> bool:
+        """Whether the gap-ranked host escalation is armed: option
+        ``integer_escalation`` (default on), in-wheel bounds on, and an
+        integer homogeneous family (the MILP lift reads ``batch.A[s]``)."""
+        if not self.options.get("integer_escalation", True):
+            return False
+        if not self._inwheel_on() or isinstance(self.batch, BucketedBatch):
+            return False
+        return bool(np.asarray(self.batch.is_int).any())
+
+    def _integer_gap_target(self):
+        """(rel_gap, abs_gap) the escalation aims at: the hub's, else the
+        opt options'."""
+        opts = getattr(self.spcomm, "options", None) or {}
+        return (opts.get("rel_gap", self.options.get("rel_gap")),
+                opts.get("abs_gap", self.options.get("abs_gap")))
+
+    def _integer_bounds_now(self):
+        """(inner, outer): the best known bounds, in-wheel and the hub's."""
+        ib = getattr(self, "inwheel_inner_bound", np.inf)
+        ob = getattr(self, "inwheel_outer_bound", -np.inf)
+        c = self.spcomm
+        if c is not None:
+            ib = min(ib, getattr(c, "BestInnerBound", np.inf))
+            ob = max(ob, getattr(c, "BestOuterBound", -np.inf))
+        return ib, ob
+
+    def _maybe_integer_inner_mip(self, best_idx: int):
+        """Certify the sweep's candidates by per-scenario host MIPs
+        (:func:`~.solvers.integer.escalate_inner`), the inner leg of a
+        family with SECOND-STAGE integers: the device's best candidate
+        first, then the SLAM-up slam, then the rest, the first certified
+        one installed as source ``'I'``.  On the rescue's cadence
+        (``in_wheel_rescue_every``), from the shared budget."""
+        if not self.options.get("in_wheel_host_rescue", True):
+            return
+        if not self._integer_escalation_on():
+            return
+        every = max(1, int(self.options.get("in_wheel_rescue_every", 4)))
+        cnt = getattr(self, "_int_mip_calls", 0)
+        self._int_mip_calls = cnt + 1
+        if cnt % every:
+            return
+        budget = self._integer_budget()
+        if budget.remaining <= 0.05:
+            return
+        ib = None
+        try:
+            th = self._inwheel_int_thresholds()
+            cands = integer_solvers.host_candidates(self, th)
+            first = [min(max(int(best_idx), 0), len(cands) - 1), len(th)]
+            for ci in dict.fromkeys(first + list(range(len(cands)))):
+                if budget.remaining <= 0.05:
+                    break
+                ib = integer_solvers.escalate_inner(self, budget, cands[ci])
+                if ib is not None:
+                    break
+        except Exception as e:   # a failed escalation declines, loudly
+            integer_solvers.declined("integer inner escalation", e)
+            return
+        if ib is not None:
+            _metrics.inc("integer.feasible_hits")
+            self.inwheel_inner_source = "I"
+            self._offer_inwheel_inner(ib, char='I')
+
+    def _maybe_integer_escalation(self):
+        """ONE round of the gap-ranked host MILP escalation, where the
+        certified gap still misses its target and an incumbent exists: on
+        the ``integer_escalation_every`` window cadence (default 4), a
+        slice of the shared budget (``integer_escalation_slice_s``, default
+        all of it) lifts the per-scenario LP certificates with the LARGEST
+        estimated gap first (the device's best candidate's per-scenario
+        value as the estimate), installs the lifted outer bound as source
+        ``'I'``, and recovers incumbents from the lift's minimizers
+        (:meth:`_integer_lift_incumbents`)."""
+        if not self._integer_escalation_on():
+            return
+        budget = self._integer_budget()
+        if budget.remaining <= 0.05:
+            return
+        ib, ob = self._integer_bounds_now()
+        if not np.isfinite(ib):
+            return          # no incumbent yet: nothing to close against
+        rel, abs_ = self._integer_gap_target()
+        gap = ib - ob
+        relgap = (gap / (abs(ob) or 1.0)) if np.isfinite(ob) else np.inf
+        hit = ((rel is not None and relgap <= float(rel))
+               or (abs_ is not None and gap <= float(abs_)))
+        if hit or (rel is None and abs_ is None):
+            return          # certified already, or no target to chase
+        every = max(1, int(self.options.get("integer_escalation_every", 4)))
+        cnt = getattr(self, "_int_esc_calls", 0)
+        self._int_esc_calls = cnt + 1
+        if cnt % every:
+            return
+        upper = None
+        try:
+            th = self._inwheel_int_thresholds()
+            if th is not None:
+                cands = integer_solvers.host_candidates(self, th)
+                bi = min(getattr(self, "_int_best_idx", 0), len(cands) - 1)
+                u, ok = integer_solvers.candidate_upper_perscen(
+                    self, cands[bi])
+                upper = np.where(ok, u, np.inf)
+        except Exception as e:
+            # the ranking falls back to probability order
+            integer_solvers.declined("integer escalation ranking", e)
+            upper = None
+        try:
+            ob2, X = integer_solvers.escalate_outer(
+                self, budget,
+                want_s=self.options.get("integer_escalation_slice_s"),
+                upper_perscen=upper, want_x=True)
+        except Exception as e:
+            integer_solvers.declined("integer outer escalation", e)
+            return
+        if ob2 is None or not np.isfinite(ob2):
+            return
+        self._install_inwheel_outer(ob2, char='I')
+        self._integer_lift_incumbents(X, budget)
+
+    def _integer_lift_incumbents(self, X, budget):
+        """Incumbents from the MILP lift's per-scenario minimizers, where
+        every scenario was lifted gap-closed: their rounded per-node
+        consensus and their SLAM-up slam, certified host-exactly (LPs, or
+        per-scenario MIPs with second-stage integers), then the
+        restricted-EF dive on their agreement
+        (:func:`~.solvers.integer.restricted_ef_incumbent`); the best is
+        installed as source ``'I'``."""
+        if X is None or np.isnan(np.asarray(X)[:, 0]).any():
+            return
+        from .cylinders.xhatxbar_bounder import xbar_candidate
+        from .extensions.xhatbase import slam_cache
+
+        try:
+            nid = self.tree.nonant_indices
+            xk = np.asarray(X, dtype=float)[:, nid]
+            ints = integer_solvers.int_mask_rows(self)
+            lo = np.asarray(self.batch.lb)[:, nid]
+            hi = np.asarray(self.batch.ub)[:, nid]
+            up = slam_cache(self, xk, how="max")
+            cands = [xbar_candidate(self, xk, threshold=0.5),
+                     np.clip(np.where(ints, np.ceil(up - 1e-9), up), lo,
+                             hi)]
+            inner_ok = self._inwheel_inner_ok()
+            best = None
+            for cand in cands:
+                if inner_ok:
+                    if budget.remaining <= 0.05:
+                        break
+                    with budget.timed():
+                        ib = self._inwheel_eval_candidate_host(cand)
+                else:
+                    ib = integer_solvers.escalate_inner(self, budget, cand)
+                if ib is not None and (best is None or ib < best):
+                    best = ib
+            ib = integer_solvers.restricted_ef_incumbent(self, X, budget)
+            if ib is not None and (best is None or ib < best):
+                best = ib
+            if best is not None:
+                _metrics.inc("integer.feasible_hits")
+                self.inwheel_inner_source = "I"
+                self._offer_inwheel_inner(best, char='I')
+        except Exception as e:
+            integer_solvers.declined("integer lift-incumbent recovery", e)
 
     # ---- windows in the loop ------------------------------------------------
     def _megastep_window(self, k, max_iters, convthresh, n_req):

@@ -41,12 +41,13 @@ import scipy.sparse as sp
 import torch
 
 from . import global_toc
-from .ir import BucketedBatch
+from .ir import BucketedBatch, batch_parts
 from .obs import metrics as _metrics
 from .obs import trace as _trace
 from .parallel import sharded
 from .spbase import SPBase
-from .solvers import admm, cuda_kernels, hostsync, segmented, shared_admm
+from .solvers import (admm, cuda_kernels, hostsync, integer, segmented,
+                      shared_admm)
 from .solvers.sparse import SparseA, should_sparsify
 
 _BATCH_TOKENS = itertools.count(1)
@@ -256,6 +257,9 @@ class SPOpt(SPBase):
         #: the same, one dict a bucket, from a bucketed batch's windows
         #: (each bucket's frozen solves)
         self.bucket_window_launches = []
+        #: the integer bound passes' launches, one dict an evaluation: each
+        #: candidate's, then the reduced-cost re-certification's
+        self.bound_pass_launches = []
 
     def _device_consts(self, dt):
         """Device-resident (A, cl, cu), cached on batch identity/version:
@@ -686,21 +690,66 @@ class SPOpt(SPBase):
         (option ``in_wheel_xhat_threshold``)."""
         return float(self.options.get("in_wheel_xhat_threshold", 0.5))
 
+    def _inwheel_int_thresholds(self):
+        """The batched integer sweep's rounding ladder, or None where the
+        sweep is off: no integer nonants, or option ``in_wheel_int_sweep``
+        False.  The option ``in_wheel_int_thresholds``, else
+        :data:`.solvers.integer.DEFAULT_THRESHOLDS` (the reference's
+        resolution with an empty tune cache: the autotuned ladder,
+        ``in_wheel_int_autotune``, is not ported)."""
+        if all(self._inwheel_int_mask(batch=sub) is None
+               for _, sub in batch_parts(self.batch)):
+            return None
+        if not self.options.get("in_wheel_int_sweep", True):
+            return None
+        th = self.options.get("in_wheel_int_thresholds")
+        return tuple(float(t) for t in (th or integer.DEFAULT_THRESHOLDS))
+
+    def _inwheel_int_sweep_on(self) -> bool:
+        """Whether a bound-pass window runs the batched integer sweep (and
+        packs its longer tail)."""
+        return self._inwheel_int_thresholds() is not None
+
+    def _inwheel_pass_evals(self) -> int:
+        """Frozen evaluations of ONE in-wheel bound pass (the window cap's
+        reservation and the billing unit): 1 for the plain pass; the
+        ladder, the two slams and, where fixing is safe for the family
+        (:meth:`~.phbase.PHBase._inwheel_inner_ok`), the re-certification
+        for the integer sweep."""
+        th = self._inwheel_int_thresholds()
+        if th is None:
+            return 1
+        return (integer.n_candidates(th)
+                + (1 if self._inwheel_inner_ok() else 0))
+
     def _megastep_fn(self, n_req: int, pack: str = "full",
                      bounds: bool = False):
         """The window function at width ``n_req`` (one per (N, pack,
-        bounds); ``n_live`` and ``bound_live`` are call arguments)."""
+        bounds); ``n_live`` and ``bound_live`` are call arguments).  With
+        ``bounds`` on a family with integer nonants the window runs the
+        integer pass, its fixing off where the family carries second-stage
+        integers."""
         cache = getattr(self, "_mega_fn_cache", None)
         if cache is None:
             cache = self._mega_fn_cache = {}
         fn = cache.get((n_req, pack, bounds))
         if fn is None:
+            int_rounding = (self._inwheel_int_thresholds() if bounds
+                            else None)
             fn = cache[(n_req, pack, bounds)] = sharded.make_wheel_megastep(
                 self.tree.nonant_indices, self.admm_settings,
                 n_iters=n_req, pack=pack, bounds=bounds,
                 int_nonants=self._inwheel_int_mask() if bounds else None,
                 xhat_threshold=(self._inwheel_threshold() if bounds
-                                else 0.5))
+                                else 0.5),
+                int_rounding=int_rounding,
+                int_cols=(np.asarray(self.batch.is_int, bool)
+                          if int_rounding else None),
+                # fixing is certificate-safe only where the candidate's
+                # evaluation is at an integer-feasible point: every integer
+                # column a nonant slot
+                int_rcfix=(self._inwheel_inner_ok() if int_rounding
+                           else True))
         return fn
 
     def _megastep_solve(self, n_req: int, n_live: int, convthresh: float,
@@ -735,12 +784,21 @@ class SPOpt(SPBase):
         # the window solves the PH prox objective: every scenario is a QP
         _, tol_qp = self._straggler_tols()
         bounds = bound_live is not None
-        extra = (bool(bound_live), self._inwheel_feas_tol()) if bounds else ()
+        int_sweep = bounds and self._inwheel_int_sweep_on()
+        extra = {}
+        if bounds:
+            extra = dict(bound_live=bool(bound_live),
+                         feas_tol=self._inwheel_feas_tol())
+        if int_sweep:
+            n_ev = integer.n_candidates(self._inwheel_int_thresholds()) + 1
+            if len(self.bound_pass_launches) != n_ev:
+                self.bound_pass_launches = [{} for _ in range(n_ev)]
+            extra["bound_launches"] = self.bound_pass_launches
         with _trace.span(None, "solve.megastep") as _sp:
             fn = self._megastep_fn(n_req, pack, bounds=bounds)
             before = cuda_kernels.counts(local=True)
             state, packed = fn(state, arr, 1.0, self._factors, convthresh,
-                               n_live, tol_qp, *extra)
+                               n_live, tol_qp, **extra)
             # the warm slot first: a failed fetch must not leave it on the
             # previous window's state
             self._warm = (state.x, state.z, state.y, state.yx)
@@ -750,7 +808,8 @@ class SPOpt(SPBase):
                     self.window_launches[k] = (self.window_launches.get(k, 0)
                                                + v - before[k])
             meas = sharded.megastep_unpack(hostsync.fetch(packed), n_req, S,
-                                           n, K, pack=pack, bounds=bounds)
+                                           n, K, pack=pack, bounds=bounds,
+                                           int_sweep=int_sweep)
             if _trace.enabled():
                 _sp.add(n_live=n_live, executed=meas["executed"],
                         refresh_hit=meas["refresh_hit"],
@@ -771,7 +830,8 @@ class SPOpt(SPBase):
                      + (rej or 0.0))
         if meas.get("bound_computed"):
             segmented.bill_bound_pass(S, n, m, meas["bound_sweeps"],
-                                      sparse_factor=sf)
+                                      sparse_factor=sf,
+                                      n_evals=self._inwheel_pass_evals())
         guard = False
         if executed:
             # the guard on EVERY accepted iterate, from the packed worst

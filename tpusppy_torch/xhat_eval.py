@@ -1,30 +1,40 @@
 """Xhat_Eval: fix-and-evaluate candidate first-stage solutions.
 
 Port of ``tpusppy/xhat_eval.py`` (the analogue of
-``mpisppy/utils/xhat_eval.py:29-434``), its LP path.  "Fixing" is a bound
-clamp on the nonant columns of the batch (lb = ub = candidate) and the
-evaluation is one batched ADMM solve, cold started, so trying a candidate
-costs one batched solve: what makes the inner-bound spokes cheap.
+``mpisppy/utils/xhat_eval.py:29-434``).  "Fixing" is a bound clamp on the
+nonant columns of the batch (lb = ub = candidate) and the evaluation is one
+batched ADMM solve, cold started, so trying a candidate costs one batched
+solve: what makes the inner-bound spokes cheap.
 
 Feasibility of the fixed problem is judged by the solver's primal residual
 (the analogue of the reference's solver-status checks); an infeasible
 candidate evaluates to +inf.
 
-A shape-bucketed batch evaluates bucket by bucket
-(:meth:`Xhat_Eval._fix_and_solve_bucketed`), continuous buckets only.
+Integer recourse: the reference's external MIP solver returns integral
+second-stage solutions natively; here a round-and-dive over cold batched
+solves does (:meth:`Xhat_Eval._integer_dive`: fix near-integral integer
+columns, force the most fractional one a row, re-solve; option
+``xhat_dive_rounds``, default 12), then batched randomized-rounding retries
+for the scenarios it wedged (:meth:`Xhat_Eval._retry_dive`) and host MILPs
+for what is left (:meth:`Xhat_Eval._host_milp`; with
+``xhat_integer_strategy`` "milp", for every scenario).
 
-Not ported yet: the integer paths (the round-and-dive, its batched retries
-and the host MILP: ROADMAP Queue 1 item 6); a candidate that leaves integer
-columns free, and an integer bucket, raise.
+A shape-bucketed batch evaluates bucket by bucket
+(:meth:`Xhat_Eval._fix_and_solve_bucketed`), continuous buckets only: an
+integer bucket's evaluation is not ported yet (ROADMAP Queue 1 item 7) and
+raises.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import scipy.sparse as sp
 
 from .ir import BucketedBatch
-from .spopt import SPOpt
+from .solvers import hostsync, scipy_backend
+from .spopt import SPOpt, batch_solve_dispatch
 
 #: What a bucket's evaluation swaps on the opt object, saved and restored
 #: around it.
@@ -56,21 +66,192 @@ class Xhat_Eval(SPOpt):
         cache[..., ints] = np.round(cache[..., ints])
         return cache
 
+    @staticmethod
+    def _dive_round(x, ints, lb, ub, choose_up):
+        """One dive clamp: snap near-integral (within 0.1) free integer
+        columns, and where a row's most fractional free column is outside
+        that band, force it toward the direction ``choose_up(B)`` picks
+        (True: ceil).  Forced values are clipped into the current box
+        first, so the box only tightens.  Returns the new (lb, ub), or None
+        when nothing fractional is left."""
+        free = ints[None, :] & (ub > lb)
+        frac = np.where(free, np.abs(x - np.round(x)), -1.0)
+        if not free.any() or frac.max() < 1e-6:
+            return None
+        near = free & (frac < 0.1)
+        vals = np.round(np.where(near, x, 0.0))
+        pick = frac.argmax(axis=1)
+        # force only outside the snap band: a force would override a snap
+        # and round a ~0.08 binary the wrong way
+        has = free.any(axis=1) & (frac.max(axis=1) >= 0.1)
+        B = x.shape[0]
+        up = choose_up(B)
+        force = np.zeros_like(near)
+        force[np.arange(B), pick] = has
+        fx = np.where(force, x, 0.0)
+        fv = np.where(up[:, None], np.ceil(fx - 1e-9), np.floor(fx + 1e-9))
+        vals = np.where(force, fv, vals)
+        vals = np.clip(vals, lb, ub)
+        clamp = near | force
+        lb = np.where(clamp, np.maximum(vals, lb), lb)
+        ub = np.where(clamp, np.minimum(vals, ub), ub)
+        return lb, np.maximum(ub, lb)
+
+    def _dive_solve(self, c, q2, cl, cu, lb, ub, rows=None, tile=1):
+        """One cold batched solve of the dive (the engine's hand kernel on
+        the card); returns the host (x, pri_res, dua_res)."""
+        sol = batch_solve_dispatch(self.batch, c, q2, cl, cu, lb, ub,
+                                   settings=self.admm_settings, rows=rows,
+                                   tile=tile, device=self.device)
+        return tuple(np.asarray(v, dtype=float) for v in hostsync.fetch(
+            (sol.x, sol.pri_res, sol.dua_res)))
+
+    def _integer_dive(self, lb, ub):
+        """Drive the fractional integer columns integral: each round one
+        cold batched solve, then :meth:`_dive_round` rounding the forced
+        column up (covering rows stay satisfiable; the re-solve lets the
+        free columns compensate).  At most ``xhat_dive_rounds`` (12)
+        rounds."""
+        b = self.batch
+        rounds = max(1, int(self.options.get("xhat_dive_rounds", 12)))
+        lb = np.array(lb, copy=True)
+        ub = np.array(ub, copy=True)
+        x = None
+        for _ in range(rounds):
+            x, self.pri_res, self.dua_res = self._dive_solve(
+                b.c, b.q2, b.cl, b.cu, lb, ub)
+            self.local_x = x
+            nxt = self._dive_round(x, b.is_int, lb, ub,
+                                   lambda B: np.ones(B, dtype=bool))
+            if nxt is None:
+                break
+            lb, ub = nxt
+        return x
+
+    def _retry_dive(self, lb0, ub0, bad):
+        """Batched randomized-rounding retries for the scenarios a plain
+        dive wedged: each is tiled R times (``xhat_dive_retries``, 8), each
+        replica rounds its forced column a random way (seed
+        ``xhat_dive_seed``), and all re-dive together, in chunks of at most
+        ``xhat_dive_retry_batch`` (512) rows.  Returns (solutions
+        (len(bad), n), feasible flags): each scenario's best feasible,
+        integral replica."""
+        b = self.batch
+        cap = max(1, int(self.options.get("xhat_dive_retry_batch", 512)))
+        R = max(1, min(int(self.options.get("xhat_dive_retries", 8)), cap))
+        rng = np.random.RandomState(
+            int(self.options.get("xhat_dive_seed", 0)))
+        ints = b.is_int
+        tol = self._inwheel_feas_tol()
+        rounds = max(1, int(self.options.get("xhat_dive_rounds", 12)))
+        chunk = max(1, cap // R)
+        xs = np.zeros((bad.size, b.num_vars))
+        feas = np.zeros(bad.size, dtype=bool)
+        for c0 in range(0, bad.size, chunk):
+            sel = bad[c0:c0 + chunk]
+
+            def tile(a):
+                return np.repeat(a[sel], R, axis=0)
+
+            c_t, q2_t = tile(b.c), tile(b.q2)
+            cl_t, cu_t = tile(b.cl), tile(b.cu)
+            lb_t, ub_t = tile(lb0), tile(ub0)
+            x = pri = None
+            for _ in range(rounds):
+                x, pri, _ = self._dive_solve(c_t, q2_t, cl_t, cu_t, lb_t,
+                                             ub_t, rows=sel, tile=R)
+                nxt = self._dive_round(x, ints, lb_t, ub_t,
+                                       lambda B: rng.rand(B) < 0.5)
+                if nxt is None:
+                    break
+                lb_t, ub_t = nxt
+            objs = (np.einsum("bn,bn->b", c_t, x)
+                    + 0.5 * np.einsum("bn,bn->b", q2_t, x * x))
+            frac = np.where(ints[None, :], np.abs(x - np.round(x)), 0.0)
+            ok = (pri <= tol) & (frac.max(axis=1) < 1e-5)
+            objs = np.where(ok, objs, np.inf)
+            for i in range(sel.size):
+                grp = objs[i * R:(i + 1) * R]
+                j = int(np.argmin(grp))
+                feas[c0 + i] = np.isfinite(grp[j])
+                xs[c0 + i] = x[i * R + j]
+        return xs, feas
+
+    def _host_milp(self, lb, ub, only=None):
+        """Per-scenario HiGHS MILPs with the nonants clamped (time limit
+        ``xhat_mip_time_limit``, 2 s; gap ``xhat_mip_rel_gap``, 1e-4): the
+        last resort when the dive and its retries wedge, or every
+        scenario's evaluation under ``xhat_integer_strategy`` "milp".
+        ``only``: the scenarios to solve.  Their host seconds add up in
+        ``host_milp_secs``."""
+        b = self.batch
+        S = b.num_scenarios
+        scens = range(S) if only is None else only
+        xs = (np.array(self.local_x, copy=True) if self.local_x is not None
+              else np.zeros((S, b.num_vars)))
+        pri = np.zeros(S)
+        limit = float(self.options.get("xhat_mip_time_limit", 2.0))
+        gap = float(self.options.get("xhat_mip_rel_gap", 1e-4))
+        t0 = time.perf_counter()
+        for s in scens:
+            res = scipy_backend.solve_lp(
+                b.c[s], b.A[s], b.cl[s], b.cu[s], lb[s], ub[s],
+                is_int=b.is_int, mip_rel_gap=gap, time_limit=limit)
+            if res.feasible:
+                xs[s] = res.x
+            else:
+                pri[s] = np.inf
+        self.host_milp_secs = (getattr(self, "host_milp_secs", 0.0)
+                               + time.perf_counter() - t0)
+        self.local_x = xs
+        self.pri_res = pri
+        self.dua_res = np.zeros(S)
+        return xs
+
+    def _integer_evaluation(self):
+        """The integer evaluation of the clamped batch: the dive, the
+        batched retries for the scenarios it wedged (above the feasibility
+        gate or still fractional), host MILPs for the rest; or host MILPs
+        for every scenario under ``xhat_integer_strategy`` "milp" (families
+        whose second stage is mostly binary scheduling)."""
+        lb, ub = self._fixed_lb, self._fixed_ub
+        if self.options.get("xhat_integer_strategy", "dive") == "milp":
+            return self._host_milp(lb, ub)
+        x = self._integer_dive(lb, ub)
+        ints = self.batch.is_int[None, :]
+        frac = np.where(ints, np.abs(x - np.round(x)), 0.0)
+        bad = np.flatnonzero((np.asarray(self.pri_res)
+                              > self._inwheel_feas_tol())
+                             | (frac.max(axis=1) > 1e-5))
+        if not bad.size:
+            return x
+        xs, feas = self._retry_dive(lb, ub, bad)
+        x = np.array(x, copy=True)
+        x[bad[feas]] = xs[feas]
+        self.local_x = x
+        pri = np.array(self.pri_res, copy=True)
+        pri[bad[feas]] = 0.0
+        self.pri_res = pri
+        still = bad[~feas]
+        if still.size:
+            x = self._host_milp(lb, ub, only=still)
+        return x
+
     def _fix_and_solve_bucketed(self, nonant_cache):
         """Fix-and-evaluate on a bucketed batch (``tpusppy/xhat_eval.py:
         202-257``): each bucket's sub-batch runs the homogeneous path
         (clamp, cold solve, rescue) in turn, its results scattered into
         the bookkeeping layout.  The packed nonant slots are in the same
         order in every bucket as in the global tree (a bundle's root
-        nonants, first).  An integer bucket raises: its dive is not ported
-        yet (ROADMAP Queue 1 item 6)."""
+        nonants, first).  An integer bucket raises: the bucketed integer
+        evaluation is not ported yet (ROADMAP Queue 1 item 7)."""
         b = self.batch
         for _, sub in b.buckets:
             if np.asarray(sub.is_int).any():
                 raise NotImplementedError(
                     "Xhat_Eval on a bucketed batch with integer columns: "
                     "the bucketed integer evaluation is not ported yet "
-                    "(ROADMAP Queue 1 item 6)")
+                    "(ROADMAP Queue 1 item 7)")
         cache = np.asarray(nonant_cache, dtype=float)
         if cache.ndim == 1:
             cache = np.broadcast_to(cache, (b.num_scenarios, cache.shape[0]))
@@ -118,10 +299,7 @@ class Xhat_Eval(SPOpt):
             if b.is_int.any() and bool(
                     (b.is_int[None, :]
                      & (self._fixed_ub > self._fixed_lb)).any()):
-                raise NotImplementedError(
-                    "Xhat_Eval: a candidate that leaves integer columns "
-                    "free needs the integer dive, not ported yet (ROADMAP "
-                    "Queue 1 item 6)")
+                return self._repair_and_verify(self._integer_evaluation())
             saved_rescue = self.options.get("straggler_rescue", True)
             if getattr(b, "repair_fn", None) is not None:
                 self.options["straggler_rescue"] = False
