@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases kernels,golden,loop,farmer,uc_lite,uc,
                                     megastep,precision,wheel,bundles,
-                                    integer]
+                                    integer,resilience]
 
 Run from the root of a checkout on a machine with one CUDA device and the
 CUDA toolkit (nvcc).  Phases, each printing a line:
@@ -58,10 +58,10 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    by side) and, below S=1000 UC, the HiGHS EF of the same scenarios:
    farmer-1000 crops_multiplier=4 PH in f32 (100 iterations, 25 on the
    tensor path) through ``fused_sweeps`` (the dense per-scenario engine),
-   uc_lite-1000 at its defaults (rho 500, 60 iterations, 5 on the tensor
+   uc_lite-1000 at its defaults (rho 500, 50 iterations, 5 on the tensor
    path) through ``fused_sweeps_shared`` (the shared-A engine), and
-   uc-1000 at full width (rho 500 and bench_uc.py's solver settings, 30
-   iterations, 3 on the tensor path; its EF is out of HiGHS's reach, so
+   uc-1000 at full width (rho 500 and bench_uc.py's solver settings, 20
+   iterations, 1 on the tensor path; its EF is out of HiGHS's reach, so
    the S=10 golden holds the EF check) through
    ``fused_sweeps_sparse`` (the sparse and structured-KKT engine); each
    prints its kernel's launches by mode: farmer must launch only the
@@ -72,8 +72,8 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    Each run prints first whether it runs windows or the legacy loop;
 7. megastep: each main path's windows against the same PH in the legacy
    loop (``solver_options={"megastep": 1}``): farmer-1000 and
-   uc_lite-1000 eobj after as many iterations (100, 30) within 1e-4,
-   uc-1000 (12) within 1e-3 (f32 rounding alone parts two uc-1000 runs by
+   uc_lite-1000 eobj after as many iterations (30, 25) within 1e-4,
+   uc-1000 (8) within 1e-3 (f32 rounding alone parts two uc-1000 runs by
    1.2e-4), the uc S=10 f64 golden after each of 5 iterations within
    1e-7; every run's windows, window and legacy iterations adding up to
    the iterations run, its kernel launched from inside the windows, host
@@ -92,7 +92,7 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    legacy loop (the guard's full-precision re-run is the legacy frozen
    path's), against the megastep phase's legacy runs;
 9. wheel: the farmer-1000 wheel through ``WheelSpinner.spin()`` (the main
-   path's PH as the hub, 100 iterations at most, rel_gap 1e-3, abs_gap
+   path's PH as the hub, 50 iterations at most, rel_gap 1e-3, abs_gap
    1, with the Lagrangian, XhatShuffle and XhatXbar spokes, each cylinder
    on a CUDA stream of its own): the certified outer bound at most the
    HiGHS EF + 1e-6 |EF| and above the hub's trivial bound, the inner
@@ -110,22 +110,33 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    above the hub's trivial bound, and at least one donor used;
 10. bundles: scenario bundling and shape buckets.  ``fused_sweeps`` at
    the two bucket shapes of bundled farmer-1000 (S=200, m=84, n=108 and
-   S=100, m=112, n=140) in f32 and f64 against its plain version, in the
-   mode its layout picks there; bundled farmer-1000 crops_multiplier=4
+   S=100, m=112, n=140) and of bundled netdes-1000 (S=200, m=105, n=100
+   and S=100, m=140, n=125) in f32 and f64 against its plain version, in
+   the mode its layout picks there; bundled farmer-1000 crops_multiplier=4
    (``bundles_per_rank`` 300, ``shape_buckets``: 200 bundles of 3
    scenarios and 100 of 4, two buckets) through ``ph_main()`` at the
-   farmer phase's f32 settings, 12 iterations, in bucketed windows: the
+   farmer phase's f32 settings, 6 iterations, in bucketed windows: the
    two buckets exactly, eobj within 1e-2 of the farmer-1000 EF (bundling
    keeps the EF), the trivial bound at most the EF + 1e-6 |EF|,
    ``fused_sweeps`` launched inside the windows for both buckets and no
    other sweep kernel, eobj within 1e-4 of the same PH in the legacy loop
    after as many iterations, with the PH rate, host syncs by kind,
    refused frozen iterates and launches by mode under both protocols; a
-   bundled wheel (that hub, 4 iterations at most, with a Lagrangian and
+   bundled wheel (that hub, 2 iterations at most, with a Lagrangian and
    an XhatShuffle spoke in f64): outer <= EF + 1e-6 |EF|, inner >= EF -
-   1e-4 |EF|, outer <= inner, each spoke posting a bound; and hydro S=9 in
-   3 proper bundles in f64 (the reference's settings) within 1e-2 of the
-   unbundled HiGHS EF;
+   1e-4 |EF|, outer <= inner, each spoke posting a bound; two hub-only
+   in-wheel wheels on the bucketed bound pass: bundled farmer-1000 (both
+   buckets, its hub in f64, 8 iterations): a bound pass inside a window
+   with ``fused_sweeps`` launched in it for both buckets, outer <= EF +
+   1e-6 |EF|, inner >= EF - 1e-4 |EF|, outer <= inner; bundled netdes-1000
+   (10 nodes, ``bundles_per_rank`` 300 with ``shape_buckets``, f64, 4
+   iterations, the integer pass, with an XhatShuffle spoke on the bucketed
+   integer evaluation): each pass's outer at least its untightened outer,
+   outer <= the EF MIP's incumbent (HiGHS alongside; 357.076) and inner >=
+   its best bound, outer <= inner, no host escalation raising, no plain
+   version, the passes' feasible candidates, fixed slots and launches by
+   bucket and evaluation printed; and hydro S=9 in 3 proper bundles in
+   f64 (the reference's settings) within 1e-2 of the unbundled HiGHS EF;
 11. integer: the integer families in f64 (HiGHS's EF solves in worker
    processes alongside).  ``fused_sweeps`` against its plain version at
    the three families' shapes (netdes-1000 S=1000, m=35, n=50; sizes
@@ -145,7 +156,34 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    donor MILPs, XhatXbar on the integer ladder: outer <= inner, outer <=
    the EF MIP's incumbent, each spoke's bound and host MILP seconds).
    Every run launches ``fused_sweeps``; no plain version runs and no host
-   escalation raises (``integer.escalation_errors``).
+   escalation raises (``integer.escalation_errors``);
+12. resilience, on farmer-1000 crops_multiplier=4 through
+   ``fused_sweeps``: (c) a real kill: this script re-run as a child
+   process (a private flag; it prints no result line) spins the hub-only
+   wheel in f64 checkpointing every iteration, and is SIGKILLed once a
+   checkpoint at iteration 15 or later exists; the wheel resumed from the
+   newest checkpoint to 45 iterations in all against the same wheel run
+   uninterrupted: ``resumed_from`` the checkpoint's iteration, 45
+   iterations, captures that fetch nothing (``checkpoint.capture_fetches``
+   0), a restore, and the expected objective within 1e-5 of the
+   uninterrupted run's; twice: with lean megastep windows
+   (``ph_device_state``, a capture at each window boundary after its
+   boundary fetch), every capture held against the device state it was
+   taken on to 1e-12 and W and xbars printed beside the uninterrupted
+   run's, and with a refresh every iteration (``solver_refresh_every`` 1:
+   every iterate an adaptive solve to eps, so a checkpoint's missing warm
+   duals and factors leave no frozen iterate to part the runs), W and
+   xbars within rtol 1e-5, atol 1e-4 of the uninterrupted run; then the
+   hub's PH it/s of the uninterrupted 45-iteration wheel with a checkpoint
+   every iteration against none, three alternating pairs in each posture
+   (full-pack and lean windows); (d) the wheel phase's three cylinders (hub f32, Lagrangian and XhatShuffle in f64) cut at 4
+   iterations with checkpoints, resumed to 10, and run uninterrupted:
+   bounds monotone across the restart, outer <= EF + 1e-6 |EF|, outer <=
+   inner, both rel_gaps; (e) the same wheel with the Lagrangian killed at
+   its second payload (``faults.FaultPlan``): the wheel completes, the
+   spoke lost with one ``SpokeKilled`` (``supervisor.spokes_lost`` 1), a
+   finite inner bound, outer <= inner, ``torch.cuda.synchronize()`` clean,
+   and the hub's PH it/s before and after the kill.
 
 ``--phases`` runs a subset; the result lines print only when all ran.
 Prints a ``{"kernels": [...]}`` line, then as the last line
@@ -1455,9 +1493,9 @@ def phase_main(cuda_kernels, label, kernel, make_ph, iters, tensor_iters,
 PRECISION_RUNS = (("farmer-1000 cm=4", "fused_sweeps",
                    (("default", None), ("default", 400)), 30),
                   ("uc_lite-1000", "fused_sweeps_shared",
-                   (("default", None), ("high", None)), 30),
+                   (("default", None), ("high", None)), 25),
                   ("uc-1000", "fused_sweeps_sparse", (("default", None),),
-                   12))
+                   8))
 #: eobj of a lowered PH run against the "highest" run after as many
 #: iterations, f32.  Measured on an H100 (PERF.md): 0 where the guard
 #: re-ran every lowered frozen solve at "highest" (farmer-1000,
@@ -1588,10 +1626,13 @@ def phase_precision(cuda_kernels, main, legacy):
 
 
 #: The farmer-1000 wheel: the main path's PH (f32, eps 1e-5, rho 1) as its
-#: hub, 100 iterations at most, with the Lagrangian, XhatShuffle (3 donors
-#: a pass) and XhatXbar spokes solving in f64, on one card (bench.py's
-#: wheel at the repo's full farmer size).
-WHEEL_ITERS = 100
+#: hub, 50 iterations at most (100 before the resilience phase came), with
+#: the Lagrangian,
+#: XhatShuffle (3 donors a pass) and XhatXbar spokes solving in f64, on one
+#: card (bench.py's wheel at the repo's full farmer size); the hub-only
+#: in-wheel farmer-1000 wheel keeps 100.
+WHEEL_ITERS = 50
+HUB_ONLY_ITERS = 100
 WHEEL_HUB = {"rel_gap": 1e-3, "abs_gap": 1.0, "linger_secs": 5.0}
 WHEEL_SOLVER = {"dtype": "float32", "eps_abs": 1e-5, "eps_rel": 1e-5}
 #: uc-1000's hub and Lagrangian spoke: the uc phase's PH, 10 iterations,
@@ -1619,28 +1660,50 @@ def wheel_dicts(make_opt_kwargs, spokes, hub_options, hub_opt_class=None):
     return hub, [spoke(*sp) for sp in spokes]
 
 
+#: What :func:`wheel_clock` keeps of each window's bound pass.
+PASS_KEYS = ("bound_outer", "bound_inner_obj", "bound_inner_feas",
+             "bound_sweeps", "int_feas_cands", "int_best_idx",
+             "int_rcfix_slots", "bound_outer_base")
+
+
 def wheel_clock():
     """A hub PH class (:func:`clocked`) that stamps the end of Iter0, of
     every legacy iteration and of every window with the graph captures so
-    far (all cylinders)."""
+    far (all cylinders), and keeps each window's bound pass
+    (:data:`PASS_KEYS`) in ``opt.passes``."""
     from tpusppy_torch.obs import metrics
     from tpusppy_torch.opt.ph import PH
 
     def stamp(opt, meas):
-        if meas is None and opt._iter == 0:
+        if not hasattr(opt, "stamps"):       # the end of Iter0
             opt.stamps = []
+            opt.passes = []
         opt.stamps.append((opt._iter, time.perf_counter(),
                            metrics.value("device_loop.captures")))
+        if meas is not None and meas.get("bound_computed"):
+            opt.passes.append({k: meas[k] for k in PASS_KEYS if k in meas})
 
     return clocked(PH, stamp)
 
 
-def spin(hub, spokes):
-    """Spin a wheel; returns (spinner, wall seconds)."""
+def stamp_rate(stamps, t_from=None):
+    """PH iterations a second over the stamps (after ``t_from``, a
+    ``time.perf_counter()``, where given)."""
+    if t_from is not None:
+        stamps = [st for st in stamps if st[1] >= t_from]
+    if len(stamps) < 2:
+        return float("nan")
+    return ((stamps[-1][0] - stamps[0][0])
+            / max(stamps[-1][1] - stamps[0][1], 1e-9))
+
+
+def spin(hub, spokes, resume=None):
+    """Spin a wheel (``resume``: a checkpoint directory); returns
+    (spinner, wall seconds)."""
     from tpusppy_torch.spin_the_wheel import WheelSpinner
 
     t0 = time.perf_counter()
-    ws = WheelSpinner(hub, spokes).spin()
+    ws = WheelSpinner(hub, spokes, resume=resume).spin()
     return ws, time.perf_counter() - t0
 
 
@@ -1842,7 +1905,11 @@ def phase_wheel(cuda_kernels, main, hub_only=None):
 
 #: The megastep phase's legacy runs (megastep 1) of the main paths, each
 #: cut to the depth the precision phase reads them at.
-LEGACY_ITERS = {"farmer-1000 cm=4": 30, "uc_lite-1000": 30, "uc-1000": 12}
+#: (uc_lite-1000 30 and uc-1000 12 before the resilience phase cut them,
+#: with the precision phase's, to make room for it; at 15
+#: uc_lite-1000's lowered eobj sits 1.057e-2 from the EF, past the
+#: precision phase's 1e-2)
+LEGACY_ITERS = {"farmer-1000 cm=4": 30, "uc_lite-1000": 25, "uc-1000": 8}
 #: uc's frozen iterates never meet the frozen acceptance ladder (1e-2) at
 #: bench_uc.py's settings: its refresh leaves stalled QP scenarios the host
 #: rescue does not take (n = 2928 > 2000), every legacy frozen attempt is
@@ -1973,10 +2040,10 @@ def phase_megastep(cuda_kernels, main, golden):
               {"defaultPHrho": 1.0, "convthresh": 1e-6}, None, 100),
              ("uc_lite-1000", "fused_sweeps_shared",
               lambda o, cls: uc_ph(1000, o, ph_class=cls), UC_MAIN_OPTIONS,
-              None, 60),
+              None, 50),
              ("uc-1000", "fused_sweeps_sparse",
               lambda o, cls: uc_full_ph(1000, o, ph_class=cls),
-              UC_MAIN_OPTIONS, UC_SOLVER, 30))
+              UC_MAIN_OPTIONS, UC_SOLVER, 20))
     for label, kernel, make_ph, options, solver, iters in paths:
         k = main.get(label)
         if k is None:
@@ -2029,7 +2096,7 @@ def phase_megastep(cuda_kernels, main, golden):
         return kw
 
     ws, rate = inwheel_wheel(cuda_kernels, label, hub_only_kwargs,
-                             "fused_sweeps", WHEEL_ITERS)
+                             "fused_sweeps", HUB_ONLY_ITERS)
     if ef is None:
         ef, _ = solve_ef(ws.opt.batch, solver="highs")
     ob, ib = ws.BestOuterBound, ws.BestInnerBound
@@ -2066,11 +2133,22 @@ def phase_megastep(cuda_kernels, main, golden):
 #: 100 of 4 scenarios and 200 of 3, two shape buckets: (S_b, m, n).
 BUNDLE_OPTIONS = {"bundles_per_rank": 300, "shape_buckets": True}
 BUNDLE_BUCKETS = ((200, 84, 108), (100, 112, 140))
+#: Bundled netdes-1000 (10 nodes) in the same 300 bundles: its buckets
+NETDES_BUCKETS = ((200, 105, 100), (100, 140, 125))
 #: The bundled PH's and the bundled wheel's depths, cut to keep the whole
-#: run near 1000 s (20 and 8 until the integer phase came)
-BUNDLE_ITERS = 12
-BUNDLE_WHEEL_ITERS = 4
+#: run near 1000 s (20 and 8 until the integer phase came, 12 and 4 until
+#: the resilience phase came)
+BUNDLE_ITERS = 6
+BUNDLE_WHEEL_ITERS = 2
 BUNDLE_MEGA_TOL = 1e-4
+#: The bucketed in-wheel wheels (hub-only, bound pass in each window):
+#: bundled farmer-1000 with its hub in f64 (the megastep phase's hub-only
+#: solver) and bundled netdes-1000 (the integer pass; f64) with an
+#: XhatShuffle spoke on the bucketed evaluation; their PH depths
+BUNDLE_INWHEEL_ITERS = 8
+BUNDLE_NETDES_ITERS = 4
+#: netdes-1000's EF MIP optimum (10 nodes, seed 0; PERF.md §6)
+NETDES_1000_MIP = 357.076
 #: hydro S=9 in 3 proper bundles at the reference's settings
 #: (tests/test_rho_bundles_io.py): f64, rho 1, convthresh 1e-5
 HYDRO_BUNDLE_OPTIONS = {"defaultPHrho": 1.0, "PHIterLimit": 60,
@@ -2101,10 +2179,11 @@ def phase_bundles(cuda_kernels, main):
     from tpusppy_torch.spbase import clear_batch_cache
     from tpusppy_torch.xhat_eval import Xhat_Eval
 
-    # fused_sweeps at each bucket's shape, the mode the layout picks
+    # fused_sweeps at each bucket's shape (bundled farmer-1000's and
+    # bundled netdes-1000's), the mode the layout picks
     n_sweeps, n_refine, alpha = 4, 2, 1.6
     kres = {}
-    for S, m, n in BUNDLE_BUCKETS:
+    for S, m, n in BUNDLE_BUCKETS + NETDES_BUCKETS:
         flops = 2 * S * n_sweeps * (2 * m * n + n * n * (1 + 2 * n_refine))
         for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
             mode = cuda_kernels.dense_layout(
@@ -2187,7 +2266,7 @@ def phase_bundles(cuda_kernels, main):
           f"{legacy['sweep_blocks_per_iter']:.2f}", flush=True)
     hold_megastep(label, "fused_sweeps", k, legacy, BUNDLE_MEGA_TOL)
 
-    # the bundled wheel: the hub (this PH, 4 iterations at most) with the
+    # the bundled wheel: the hub (this PH, 2 iterations at most) with the
     # bucketed dual bound (Lagrangian) and evaluation (XhatShuffle) in f64
     def kwargs():
         kw = farmer_wheel_kwargs(1000, 4)
@@ -2221,6 +2300,22 @@ def phase_bundles(cuda_kernels, main):
     check(all(c.bounds_posted > 0 for c in ws.spoke_comms),
           "bundled wheel: a spoke posted no bound")
 
+    # the bucketed in-wheel bound pass: bundled farmer-1000 (plain), then
+    # bundled netdes-1000 (integer) with HiGHS's EF MIP alongside
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        netdes_ef = pool.submit(ef_solves, "netdes", 1000,
+                                {"num_scens": 1000,
+                                 "relax_integers": False})
+        inwheel = bundled_inwheel_farmer(cuda_kernels, ef)
+        netdes = bundled_netdes_wheel(cuda_kernels, netdes_ef)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
     # the hydro golden in f64: 3 proper bundles against the unbundled EF
     names = hydro.scenario_names_creator(9)
     hph = PH(dict(HYDRO_BUNDLE_OPTIONS, solver_options={"dtype": "float64"}),
@@ -2243,7 +2338,146 @@ def phase_bundles(cuda_kernels, main):
     check(htb <= hef + 1e-6 * abs(hef),
           f"hydro golden trivial bound {htb} above EF {hef}")
     return {"kernels": kres, "ph": k, "legacy": legacy,
-            "wheel": (ob, ib, ef)}
+            "wheel": (ob, ib, ef), "inwheel": inwheel, "netdes": netdes}
+
+
+def print_bucket_passes(label, opt):
+    """The bound passes' launches by bucket, then by evaluation (the
+    integer pass's ladder candidates and the re-certification)."""
+    bpl = opt.bound_pass_launches
+    print(f"{label}: fused_sweeps launches inside bound passes by bucket "
+          + "; ".join(
+              f"bucket {bi}: " + ", ".join(
+                  str(ev.get(("launches", "fused_sweeps"), 0)) for ev in rec)
+              for bi, rec in enumerate(bpl))
+          + f"; passes {opt.passes}", flush=True)
+    check(len(bpl) == 2 and all(
+        ev.get(("launches", "fused_sweeps"), 0) > 0
+        for rec in bpl for ev in rec),
+        f"{label}: fused_sweeps did not launch in the bound pass for both "
+        f"buckets ({bpl})")
+    return bpl
+
+
+def bundled_inwheel_farmer(cuda_kernels, ef):
+    """Bundled farmer-1000 (both buckets) as a hub-only in-wheel wheel,
+    its hub in f64: the bucketed bound pass in every window; outer <= EF
+    + 1e-6 |EF|, inner >= EF - 1e-4 |EF|, outer <= inner."""
+    from tpusppy_torch.ir import BucketedBatch
+    from tpusppy_torch.obs import metrics
+    from tpusppy_torch.spbase import clear_batch_cache
+
+    label = "bundled farmer-1000 cm=4 f64 hub-only in-wheel"
+
+    def kwargs():
+        kw = farmer_wheel_kwargs(1000, 4)
+        kw["options"].update(BUNDLE_OPTIONS, in_wheel_bounds=True,
+                             PHIterLimit=BUNDLE_INWHEEL_ITERS,
+                             solver_options=dict(HUB_ONLY_SOLVER))
+        return kw
+
+    clear_batch_cache()
+    hub, _ = wheel_dicts(kwargs, [], {"rel_gap": 1e-3}, wheel_clock())
+    cuda_kernels.reset_counts()
+    with metrics.window() as w:
+        ws, wall = spin(hub, [])
+        d = {k: w.delta(k) for k in (
+            "megastep.bound_passes", "megastep.bound_pass_infeasible",
+            "megastep.bound_rescues", "dispatch.megasteps")}
+    launched = dict(cuda_kernels.launches)
+    plain = dict(cuda_kernels.plain_calls)
+    clear_batch_cache()
+    opt = ws.opt
+    b = opt.batch
+    buckets = [(int(idx.size), sub.num_rows, sub.num_vars)
+               for idx, sub in getattr(b, "buckets", [])]
+    ob, ib = ws.BestOuterBound, ws.BestInnerBound
+    it_done, reason = ws.spcomm.stopped_at
+    rate = stamp_rate(opt.stamps)
+    print(f"{label}: buckets {buckets}; outer={ob:.6f} (from "
+          f"{getattr(opt, 'inwheel_outer_source', '-')}) inner={ib:.6f} "
+          f"(from {getattr(opt, 'inwheel_inner_source', '-')}) EF={ef:.4f}"
+          f" (outer-EF)/|EF|={(ob - ef) / abs(ef):.3e} (inner-EF)/|EF|="
+          f"{(ib - ef) / abs(ef):.3e}; hub stopped at iteration {it_done} "
+          f"({reason}); windows {d['dispatch.megasteps']:.0f}, bound passes "
+          f"{d['megastep.bound_passes']:.0f} (infeasible "
+          f"{d['megastep.bound_pass_infeasible']:.0f}, host rescues "
+          f"{d['megastep.bound_rescues']:.0f}); hub PH it/s {rate:.3f}; "
+          f"launches {launched} plain {plain}; wall_s={wall:.2f} {CARD}",
+          flush=True)
+    bpl = print_bucket_passes(label, opt)
+    check(isinstance(b, BucketedBatch) and buckets == list(BUNDLE_BUCKETS),
+          f"{label}: buckets {buckets}")
+    check(d["megastep.bound_passes"] > 0 and opt.passes,
+          f"{label}: no bound pass ran inside a window")
+    check(launched["fused_sweeps"] > 0 and not any(plain.values())
+          and not launched["fused_sweeps_shared"]
+          and not launched["fused_sweeps_sparse"],
+          f"{label}: launches {launched}, plain versions {plain}")
+    check(np.isfinite(ob) and ob <= ef + 1e-6 * abs(ef),
+          f"{label}: outer bound {ob} not finite and at most EF {ef}")
+    check(np.isfinite(ib) and ib >= ef - 1e-4 * abs(ef),
+          f"{label}: inner bound {ib} not finite and above EF less 1e-4")
+    check(ob <= ib, f"{label}: outer bound {ob} above inner {ib}")
+    return dict(outer=ob, inner=ib, ef=ef, rate=rate, passes=opt.passes,
+                bound_pass_launches=bpl, deltas=d, wall=wall)
+
+
+def bundled_netdes_wheel(cuda_kernels, ef_future):
+    """Bundled netdes-1000 (``bundles_per_rank`` 300, ``shape_buckets``,
+    f64) with ``in_wheel_bounds``: the bucketed integer pass in every
+    window, and an XhatShuffle spoke evaluating through the bucketed
+    integer evaluation.  Each pass's tightened outer at least its
+    untightened one; outer <= the EF MIP's incumbent, inner >= its best
+    bound, outer <= inner; no host escalation raises and no plain version
+    runs (:func:`int_wheel`)."""
+    from tpusppy_torch.cylinders import XhatShuffleInnerBound
+    from tpusppy_torch.ir import BucketedBatch
+    from tpusppy_torch.xhat_eval import Xhat_Eval
+
+    label = "bundled netdes-1000 f64 in-wheel integer"
+    kw = {"num_scens": 1000, "relax_integers": False}
+    opts = dict(NETDES_HUB_ONLY, PHIterLimit=BUNDLE_NETDES_ITERS,
+                **BUNDLE_OPTIONS)
+    cuda_kernels.reset_counts()
+    ws, r = int_wheel(label, lambda: integer_kwargs("netdes", 1000, kw,
+                                                   opts),
+                      [(XhatShuffleInnerBound, Xhat_Eval, {})],
+                      {"rel_gap": NETDES_GAP})
+    opt = ws.opt
+    b = opt.batch
+    buckets = [(int(idx.size), sub.num_rows, sub.num_vars)
+               for idx, sub in getattr(b, "buckets", [])]
+    bpl = print_bucket_passes(label, opt)
+    ef = ef_future.result()
+    ob, ib = r["outer"], r["inner"]
+    shuffle = ws.spoke_comms[0]
+    print(f"{label}: buckets {buckets}; EF MIP status {ef['status']} "
+          f"incumbent {ef['incumbent']:.6f} best bound "
+          f"{ef['dual_bound']:.6f} ({ef['mip_s']:.1f} s; golden "
+          f"{NETDES_1000_MIP}); XhatShuffle bound {shuffle.bound:.6f}, "
+          f"posted {shuffle.bounds_posted}", flush=True)
+    check(isinstance(b, BucketedBatch) and buckets == list(NETDES_BUCKETS),
+          f"{label}: buckets {buckets}, wanted {list(NETDES_BUCKETS)}")
+    check(opt._inwheel_int_sweep_on() and opt.passes,
+          f"{label}: no integer bound pass ran")
+    check(all(p["bound_outer"] >= p["bound_outer_base"] - 1e-9
+              for p in opt.passes),
+          f"{label}: a tightened outer bound fell below its base "
+          f"({opt.passes})")
+    check(np.isfinite(ob)
+          and ob <= ef["incumbent"] + 1e-6 * abs(ef["incumbent"]),
+          f"{label}: outer {ob} above the EF MIP {ef['incumbent']}")
+    check(np.isfinite(ib)
+          and ib >= ef["dual_bound"] - 1e-6 * abs(ef["dual_bound"]),
+          f"{label}: inner {ib} below the EF MIP's best bound "
+          f"{ef['dual_bound']}")
+    check(ob <= ib, f"{label}: outer {ob} above inner {ib}")
+    check(ws.stats["spoke1:XhatShuffleInnerBound"]["launches"].get(
+        ("launches", "fused_sweeps"), 0) > 0,
+        f"{label}: the XhatShuffle spoke launched no fused_sweeps")
+    return dict(r, ef=ef, passes=opt.passes, bound_pass_launches=bpl,
+                buckets=buckets)
 
 
 #: The integer families' fused_sweeps shapes (S, m, n): netdes-1000 (10
@@ -2271,14 +2505,14 @@ SIZES_OUTER_BAND, SIZES_INNER_BAND = (218000.0, 230000.0), (220000.0,
                                                            240000.0)
 SIZES_HUB_ONLY_ITERS = 30
 SIZES_HUB_ONLY_BUDGET_S = 15.0
-#: sslp 10 x 50, S=50: rho 1, 30 hub iterations; the Lagrangian spoke
+#: sslp 10 x 50, S=50: rho 1, 15 hub iterations; the Lagrangian spoke
 #: lifts every 4th pass, the XhatShuffle spoke takes donor MILPs and
 #: evaluates them by host MILPs (the dive rounds assignments up into the
 #: Dummy overflow at 1000 a unit, in the reference as in the port: ROADMAP
 #: Queue 3), the XhatXbar spoke its default integer ladder through the dive,
 #: each within host budgets
 SSLP_KW = {"num_servers": 10, "num_clients": 50, "relax_integers": False}
-SSLP_ITERS = 30
+SSLP_ITERS = 15      # 30 before the resilience phase came
 SSLP_LIFT = {"every": 4, "budget_s": 20.0, "time_limit": 5.0}
 SSLP_SHUFFLE = {"donor_milp": True, "donor_milp_time": 5.0, "scen_limit": 2}
 
@@ -2601,6 +2835,495 @@ def _integer_runs(cuda_kernels, efs, netdes_kw, sizes_kw):
     return out
 
 
+#: The resilience phase: farmer-1000 cm=4.  (c) a hub-only wheel in f64
+#: at the solver's defaults (eps 1e-8) checkpointing every iteration, in a
+#: child process killed once a checkpoint at RES_KILL_AT or later exists,
+#: then resumed to RES_TOTAL iterations in all, against the same run
+#: uninterrupted; the reference test's tolerances
+#: (tests/test_resilience.py:188-193).  The child's iteration limit is far
+#: past RES_TOTAL, so only the kill ends it.
+RES_KILL_AT, RES_TOTAL = 15, 45
+RES_CHILD_ITERS = 10 * RES_TOTAL
+RES_CHILD_SECS = 600.0
+RES_RTOL, RES_ATOL = 1e-5, 1e-4
+#: (c)'s solver tolerance (f64 eps_abs = eps_rel: the solver's default),
+#: acceptance ladder for PH's QP subproblems (``straggler_tol_qp``, None:
+#: the default 1e-2) and refresh cadence (``solver_refresh_every``, None:
+#: the default 16).  A checkpoint holds no warm duals and no factors (as
+#: the reference's), so a resumed run's frozen iterates carry other solver
+#: errors than the uninterrupted run's, and PH carries them on: at the
+#: defaults the two farmer-1000 runs part by 8.5e-2 in W, beyond the
+#: tolerances, where with a refresh every iteration (every iterate an
+#: adaptive solve to eps, no frozen one) they agree to 5.6e-5 (PERF.md §6;
+#: ``scripts/port_resume_parity.py``).  So (c) runs twice: with windows
+#: (a capture at each window boundary; the W gap printed) and with
+#: RES_PARITY_REFRESH, held to the tolerances.  Both hold the resumed
+#: run's expected objective within RES_EOBJ_RTOL of the uninterrupted
+#: run's (3.5e-7 measured with windows).  The windows pass runs the lean
+#: posture (``ph_device_state``): full-pack windows install W and xbars
+#: on the host every window, so only lean windows leave host mirrors a
+#: capture could read stale, and there every capture is held against the
+#: device state it was taken on to RES_CAPTURE_ATOL.
+RES_EPS, RES_QP_TOL, RES_REFRESH = 1e-8, None, None
+RES_PARITY_REFRESH = 1
+RES_EOBJ_RTOL = 1e-5
+RES_CAPTURE_ATOL = 1e-12
+#: The cost of checkpointing: the uninterrupted RES_TOTAL-iteration
+#: hub-only wheel with a checkpoint every iteration and with none, in
+#: RES_COST_PAIRS alternating pairs (off, on, on, off, ...) for each
+#: posture (full-pack and lean windows).
+RES_COST_PAIRS = 3
+#: (d) the three-cylinder wheel (the wheel phase's: hub f32, Lagrangian
+#: and XhatShuffle in f64) cut at RES_WHEEL_CUT with checkpoints, resumed
+#: to RES_WHEEL_ITERS in all, and run uninterrupted; (e) the same wheel
+#: with the Lagrangian killed at its RES_KILL_PAYLOAD-th payload.  Linger
+#: cut to RES_LINGER s.
+RES_WHEEL_CUT, RES_WHEEL_ITERS = 4, 10
+RES_KILL_PAYLOAD = 2
+RES_LINGER = 1.0
+
+
+def resilience_hub(iters, hub_options=None, eps=RES_EPS, qp_tol=RES_QP_TOL,
+                   refresh=RES_REFRESH, lean=False):
+    """(c)'s hub-only farmer-1000 wheel in f64 at ``eps``, hub class
+    :func:`wheel_clock`; ``qp_tol``: ``straggler_tol_qp`` (None: the
+    default ladder); ``refresh``: ``solver_refresh_every`` (None: the
+    default, 16); ``lean``: ``ph_device_state`` (lean windows)."""
+    def kwargs():
+        kw = farmer_wheel_kwargs(1000, 4)
+        kw["options"].update(PHIterLimit=iters, ph_device_state=lean,
+                             solver_options={"dtype": "float64",
+                                             "eps_abs": eps, "eps_rel": eps})
+        if qp_tol is not None:
+            kw["options"]["straggler_tol_qp"] = qp_tol
+        if refresh is not None:
+            kw["options"]["solver_refresh_every"] = refresh
+        return kw
+
+    hub, _ = wheel_dicts(kwargs, [], dict(hub_options or {}), wheel_clock())
+    return hub
+
+
+def checkpointing(ckdir):
+    """Hub options: a checkpoint each iteration (each window boundary)."""
+    return {"checkpoint_dir": ckdir, "checkpoint_every_iters": 1,
+            "checkpoint_every_secs": None}
+
+
+def resilience_child(ckdir, eps, qp_tol, refresh, lean) -> int:
+    """The killed run of (c), in a process of its own: the hub-only wheel
+    checkpointing every iteration until its parent's SIGKILL.  Prints no
+    result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 2
+    sys.path.insert(0, HERE)
+    from tpusppy_torch.solvers import cuda_kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda_kernels.build()          # the parent's libraries: nothing to build
+    spin(resilience_hub(RES_CHILD_ITERS, checkpointing(ckdir), eps, qp_tol,
+                        refresh, lean), [])
+    return 0
+
+
+def child_command(ckdir, eps, qp_tol, refresh, lean):
+    return [sys.executable, os.path.abspath(__file__), "--resilience-child",
+            ckdir, repr(eps), repr(qp_tol), repr(refresh), repr(lean)]
+
+
+class capture_audit:
+    """Within the block, each checkpoint capture whose opt holds a lean
+    window's device state is held against that state: after the capture
+    returns (outside its fetch billing) the device W and xbars are read
+    and compared with the snapshot.  ``diffs``: (iteration, max |W diff|,
+    max |xbars diff|) a capture."""
+
+    def __enter__(self):
+        from tpusppy_torch.resilience import checkpoint
+
+        self._mod, self._mgr = checkpoint, checkpoint.CheckpointManager
+        self._ph, self._cap = checkpoint.capture_ph, self._mgr.capture
+        self.diffs, taken = [], []
+        orig_ph, orig_cap = self._ph, self._cap
+
+        def capture_ph(opt, hub=None):
+            snap = orig_ph(opt, hub=hub)
+            taken.append((opt, snap))
+            return snap
+
+        def capture(mgr, iteration, snapshot_fn):
+            taken.clear()
+            ok = orig_cap(mgr, iteration, snapshot_fn)
+            for opt, snap in taken:
+                st = getattr(opt, "_dev_state", None)
+                if snap is None or st is None:
+                    continue
+                W = st.W.detach().cpu().numpy()
+                xb = st.xbars.detach().cpu().numpy()
+                self.diffs.append((int(iteration),
+                                   float(np.abs(snap.W - W).max()),
+                                   float(np.abs(snap.xbars - xb).max())))
+            return ok
+
+        checkpoint.capture_ph, self._mgr.capture = capture_ph, capture
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.capture_ph, self._mgr.capture = self._ph, self._cap
+        return False
+
+
+def kill_and_resume(cuda_kernels, workdir, eps=RES_EPS, qp_tol=RES_QP_TOL,
+                    refresh=RES_REFRESH, lean=False, hold=True):
+    """(c): a real kill.  The child checkpoints every iteration; at the
+    first checkpoint at RES_KILL_AT or later the parent SIGKILLs it, then
+    resumes from the newest checkpoint to RES_TOTAL iterations in all
+    (checkpointing on) and runs the same wheel uninterrupted (off): W and
+    xbars agree to the reference test's tolerances (``hold``; else only
+    printed), the expected objective to RES_EOBJ_RTOL, and captures fetch
+    nothing.  ``lean``: lean windows, each capture of the resumed run held
+    against the device state (:class:`capture_audit`) after a boundary
+    fetch.  ``eps``, ``qp_tol`` and ``refresh``: the runs' solver
+    tolerance, ``straggler_tol_qp`` and ``solver_refresh_every`` (None:
+    the defaults)."""
+    import signal
+
+    from tpusppy_torch.obs import metrics
+    from tpusppy_torch.resilience import checkpoint
+    from tpusppy_torch.spbase import clear_batch_cache
+
+    label = (f"resilience (c) farmer-1000 f64 eps {eps:g} hub-only kill, "
+             f"straggler_tol_qp {qp_tol or 'default'}, solver_refresh_every "
+             f"{refresh or 'default'}, {'lean' if lean else 'full-pack'} "
+             "windows")
+    tag = f"{eps}_{qp_tol}_{refresh}_{lean}"
+    ckdir = os.path.join(workdir, f"kill_{tag}")
+    log_path = os.path.join(workdir, f"child_{tag}.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(child_command(ckdir, eps, qp_tol, refresh,
+                                              lean),
+                                stdout=log,
+                                stderr=subprocess.STDOUT, cwd=HERE)
+        seen = None
+        try:
+            while True:
+                seen = checkpoint.latest_iteration(ckdir) \
+                    if os.path.isdir(ckdir) else None
+                if seen is not None and seen >= RES_KILL_AT:
+                    break
+                if proc.poll() is not None or \
+                        time.perf_counter() - t0 > RES_CHILD_SECS:
+                    break
+                time.sleep(0.05)
+        finally:
+            if proc.poll() is None:
+                os.kill(proc.pid, signal.SIGKILL)
+            proc.wait()
+    t_kill = time.perf_counter() - t0
+    with open(log_path) as f:
+        tail = f.read()[-3000:]
+    ck_it = checkpoint.latest_iteration(ckdir)
+    print(f"{label}: child killed after {t_kill:.1f} s (rc "
+          f"{proc.returncode}), newest checkpoint at iteration {ck_it} "
+          f"(seen {seen})", flush=True)
+    check(proc.returncode == -signal.SIGKILL,
+          f"{label}: the child ended by itself (rc {proc.returncode}); its "
+          f"log ends:\n{tail}")
+    check(ck_it is not None and RES_KILL_AT <= ck_it < RES_TOTAL,
+          f"{label}: newest checkpoint {ck_it}")
+    ck = checkpoint.load_latest(ckdir)
+
+    clear_batch_cache()
+    cuda_kernels.reset_counts()
+    with metrics.window() as w, capture_audit() as audit:
+        ws_res, wall_res = spin(resilience_hub(
+            RES_TOTAL, checkpointing(ckdir), eps, qp_tol, refresh, lean), [],
+            resume=ckdir)
+        d = {k: w.delta(k) for k in (
+            "checkpoint.captures", "checkpoint.capture_fetches",
+            "checkpoint.restores", "checkpoint.writes",
+            "checkpoint.write_errors", "phstate.boundary_fetches")}
+    launched = dict(cuda_kernels.launches)
+    plain = dict(cuda_kernels.plain_calls)
+    clear_batch_cache()
+    ws_ref, wall_ref = spin(resilience_hub(RES_TOTAL, None, eps, qp_tol,
+                                           refresh, lean), [])
+    clear_batch_cache()
+    W, Wr = np.asarray(ws_res.opt.W), np.asarray(ws_ref.opt.W)
+    xb, xbr = np.asarray(ws_res.opt.xbars), np.asarray(ws_ref.opt.xbars)
+
+    def worst(a, b):
+        """The largest |a - b| - atol - rtol |b| (<= 0 within tolerance)
+        and the largest |a - b|."""
+        diff = np.abs(a - b)
+        return (float((diff - RES_ATOL - RES_RTOL * np.abs(b)).max()),
+                float(diff.max()))
+
+    wW, wx = worst(W, Wr), worst(xb, xbr)
+    e_res, e_ref = ws_res.opt.Eobjective(), ws_ref.opt.Eobjective()
+    e_rel = abs(e_res - e_ref) / abs(e_ref)
+    cap_W = max((a for _, a, _ in audit.diffs), default=float("nan"))
+    cap_x = max((b for _, _, b in audit.diffs), default=float("nan"))
+    print(f"{label}: resumed from {ws_res.resumed_from} to iteration "
+          f"{ws_res.opt._iter}; max |W| {np.abs(Wr).max():.3e}, max |xbars| "
+          f"{np.abs(xbr).max():.3e}; W max |diff| {wW[1]:.3e} (excess over "
+          f"tolerance {wW[0]:.3e}), xbars {wx[1]:.3e} ({wx[0]:.3e}); eobj "
+          f"resumed {e_res:.6f} uninterrupted {e_ref:.6f} rel {e_rel:.3e}; "
+          f"checkpoint counters {d}; captures held against the device "
+          f"state {len(audit.diffs)} at iterations "
+          f"{[it for it, _, _ in audit.diffs]}, max |W diff| {cap_W:.3e} "
+          f"max |xbars diff| {cap_x:.3e}; wall_s resumed {wall_res:.2f} "
+          f"uninterrupted {wall_ref:.2f}; launches {launched} {CARD}",
+          flush=True)
+    check(ws_res.resumed_from == ck.iteration == ck_it,
+          f"{label}: resumed_from {ws_res.resumed_from}, checkpoint {ck_it}")
+    check(ws_res.opt._iter == RES_TOTAL and ws_ref.opt._iter == RES_TOTAL,
+          f"{label}: iterations {ws_res.opt._iter}, {ws_ref.opt._iter}")
+    check(not hold or (wW[0] <= 0 and wx[0] <= 0),
+          f"{label}: W or xbars outside rtol {RES_RTOL} atol {RES_ATOL} of "
+          "the uninterrupted run")
+    check(e_rel <= RES_EOBJ_RTOL,
+          f"{label}: eobj {e_res} vs uninterrupted {e_ref}, rel {e_rel:.3e} "
+          f"above {RES_EOBJ_RTOL}")
+    check(not lean or (any(it < RES_TOTAL for it, _, _ in audit.diffs)
+                       and d["phstate.boundary_fetches"] > 0
+                       and cap_W <= RES_CAPTURE_ATOL
+                       and cap_x <= RES_CAPTURE_ATOL),
+          f"{label}: captures against the device state {audit.diffs}, "
+          f"boundary fetches {d['phstate.boundary_fetches']}")
+    check(d["checkpoint.capture_fetches"] == 0
+          and d["checkpoint.restores"] >= 1 and d["checkpoint.captures"] > 0,
+          f"{label}: checkpoint counters {d}")
+    check(launched["fused_sweeps"] > 0 and not any(plain.values()),
+          f"{label}: launches {launched}, plain versions {plain}")
+    return dict(ck_it=ck_it, W=wW, xbars=wx, deltas=d, kill_s=t_kill,
+                eobj=(e_res, e_ref), captures=audit.diffs)
+
+
+def checkpoint_cost(workdir):
+    """The hub's PH it/s with a checkpoint every iteration against none:
+    the uninterrupted RES_TOTAL-iteration wheel of (c), RES_COST_PAIRS
+    alternating pairs in each posture (full-pack, then lean windows, where
+    a due capture also forces the window's boundary fetch); medians and
+    the spread of each side."""
+    from tpusppy_torch.spbase import clear_batch_cache
+
+    out = {}
+    for lean in (False, True):
+        posture = "lean" if lean else "full-pack"
+        rates = {"off": [], "on": []}
+        walls = {"off": [], "on": []}
+        order = ["off", "on", "on", "off"] * RES_COST_PAIRS
+        for i, side in enumerate(order[:2 * RES_COST_PAIRS]):
+            ckdir = os.path.join(workdir, f"cost_{posture}_{i}")
+            ws, wall = spin(resilience_hub(
+                RES_TOTAL, checkpointing(ckdir) if side == "on" else None,
+                lean=lean), [])
+            check(ws.opt._iter == RES_TOTAL,
+                  f"checkpoint cost {posture} {side}: {ws.opt._iter} "
+                  "iterations")
+            rates[side].append(stamp_rate(ws.opt.stamps))
+            walls[side].append(wall)
+        med = {k: float(np.median(v)) for k, v in rates.items()}
+        print(f"resilience checkpoint cost, farmer-1000 f64 hub-only "
+              f"{RES_TOTAL} iterations, {posture} windows: hub PH it/s "
+              f"checkpointing every iteration median {med['on']:.3f} "
+              f"(runs {[round(r, 3) for r in rates['on']]}), off median "
+              f"{med['off']:.3f} (runs {[round(r, 3) for r in rates['off']]})"
+              f", on/off {med['on'] / med['off']:.4f}; wall_s on "
+              f"{[round(t, 2) for t in walls['on']]} off "
+              f"{[round(t, 2) for t in walls['off']]} {CARD}", flush=True)
+        out[posture] = dict(rates=rates, walls=walls, median=med)
+    clear_batch_cache()
+    return out
+
+
+def resilience_wheel(iters, hub_extra=None, resume=None):
+    """(d)/(e)'s wheel: the wheel phase's farmer-1000 hub (f32) with a
+    Lagrangian and an XhatShuffle spoke in f64, the linger cut."""
+    from tpusppy_torch.cylinders import (LagrangianOuterBound,
+                                         XhatShuffleInnerBound)
+    from tpusppy_torch.phbase import PHBase
+    from tpusppy_torch.spbase import clear_batch_cache
+    from tpusppy_torch.xhat_eval import Xhat_Eval
+
+    def kwargs():
+        kw = farmer_wheel_kwargs(1000, 4)
+        kw["options"].update(PHIterLimit=iters)
+        return kw
+
+    spoke_opts = {"solver_options": dict(WHEEL_SOLVER, dtype="float64")}
+    clear_batch_cache()
+    hub, spokes = wheel_dicts(
+        kwargs, [(LagrangianOuterBound, PHBase, spoke_opts),
+                 (XhatShuffleInnerBound, Xhat_Eval, spoke_opts)],
+        {**WHEEL_HUB, "linger_secs": RES_LINGER, **(hub_extra or {})},
+        wheel_clock())
+    ws, wall = spin(hub, spokes, resume=resume)
+    clear_batch_cache()
+    return ws, wall
+
+
+def rel_gap(ws):
+    ob, ib = ws.BestOuterBound, ws.BestInnerBound
+    return ((ib - ob) / abs(ob) if np.isfinite(ob) and np.isfinite(ib)
+            and ob != 0 else float("inf"))
+
+
+def wheel_resume(cuda_kernels, workdir, ef):
+    """(d): the three-cylinder wheel cut at RES_WHEEL_CUT iterations with
+    checkpoints, resumed to RES_WHEEL_ITERS in all, and run uninterrupted:
+    bounds monotone across the restart, outer <= EF + 1e-6 |EF|, outer <=
+    inner."""
+    from tpusppy_torch.resilience import checkpoint
+
+    label = "resilience (d) farmer-1000 three-cylinder wheel"
+    ckdir = os.path.join(workdir, "wheel")
+    ws_cut, wall_cut = resilience_wheel(
+        RES_WHEEL_CUT, dict(checkpointing(ckdir), linger_secs=0.0))
+    ck = checkpoint.load_latest(ckdir)
+    check(ck is not None and ck.iteration >= RES_WHEEL_CUT,
+          f"{label}: no checkpoint at iteration {RES_WHEEL_CUT}")
+    cuda_kernels.reset_counts()
+    ws_res, wall_res = resilience_wheel(RES_WHEEL_ITERS, resume=ckdir)
+    launched = dict(cuda_kernels.launches)
+    plain = dict(cuda_kernels.plain_calls)
+    ws_ref, wall_ref = resilience_wheel(RES_WHEEL_ITERS)
+    ob, ib = ws_res.BestOuterBound, ws_res.BestInnerBound
+    print(f"{label}: cut at {ws_cut.opt._iter} (checkpoint {ck.iteration}: "
+          f"outer {ck.best_outer:.4f} inner {ck.best_inner:.4f}, spoke "
+          f"bounds {ck.spoke_bounds}); resumed from {ws_res.resumed_from}: "
+          f"outer {ob:.4f} inner {ib:.4f} rel_gap {rel_gap(ws_res):.4e} "
+          f"(hub to iteration {ws_res.opt._iter}); uninterrupted: outer "
+          f"{ws_ref.BestOuterBound:.4f} inner {ws_ref.BestInnerBound:.4f} "
+          f"rel_gap {rel_gap(ws_ref):.4e}; EF {ef:.4f}; wall_s cut "
+          f"{wall_cut:.2f} resumed {wall_res:.2f} uninterrupted "
+          f"{wall_ref:.2f}; launches {launched} {CARD}", flush=True)
+    print_cylinders(label + " resumed", ws_res, ws_res.opt._iter)
+    check(ws_res.resumed_from == ck.iteration,
+          f"{label}: resumed_from {ws_res.resumed_from}")
+    check(ob >= ck.best_outer - 1e-9 and ib <= ck.best_inner + 1e-9,
+          f"{label}: bounds not monotone across the restart (outer {ob} "
+          f"from {ck.best_outer}, inner {ib} from {ck.best_inner})")
+    check(np.isfinite(ob) and ob <= ef + 1e-6 * abs(ef),
+          f"{label}: outer {ob} not finite and at most EF {ef}")
+    check(ob <= ib, f"{label}: outer {ob} above inner {ib}")
+    check(not ws_res.spoke_errors and not ws_ref.spoke_errors,
+          f"{label}: spoke errors {ws_res.spoke_errors} "
+          f"{ws_ref.spoke_errors}")
+    check(launched["fused_sweeps"] > 0 and not any(plain.values()),
+          f"{label}: launches {launched}, plain versions {plain}")
+    return dict(ck_it=ck.iteration, rel_gap=rel_gap(ws_res),
+                rel_gap_ref=rel_gap(ws_ref), outer=ob, inner=ib)
+
+
+def dead_spoke(cuda_kernels):
+    """(e): the Lagrangian killed at its RES_KILL_PAYLOAD-th payload: the
+    wheel completes with the spoke lost and one SpokeKilled, a finite
+    inner bound, outer <= inner, a clean synchronize; the hub's PH it/s
+    before and after the kill."""
+    import torch
+
+    from tpusppy_torch.obs import metrics
+    from tpusppy_torch.resilience import faults
+
+    label = "resilience (e) farmer-1000 dead spoke"
+    hook = faults.on_spoke_payload
+    killed_at = []
+
+    def timed_hook(spoke):
+        try:
+            hook(spoke)
+        except faults.SpokeKilled:
+            killed_at.append(time.perf_counter())
+            raise
+
+    faults.on_spoke_payload = timed_hook
+    cuda_kernels.reset_counts()
+    try:
+        with metrics.window() as w:
+            with faults.inject(faults.FaultPlan(
+                    kill_spoke={"LagrangianOuterBound": RES_KILL_PAYLOAD})):
+                ws, wall = resilience_wheel(RES_WHEEL_ITERS)
+            lost = w.delta("supervisor.spokes_lost")
+        kills = faults.injected_counts().get("spoke_kills", 0)
+    finally:
+        faults.on_spoke_payload = hook
+    torch.cuda.synchronize()
+    launched = dict(cuda_kernels.launches)
+    plain = dict(cuda_kernels.plain_calls)
+    ob, ib = ws.BestOuterBound, ws.BestInnerBound
+    stamps = ws.opt.stamps
+    t_kill = killed_at[0] if killed_at else float("nan")
+    before = stamp_rate([st for st in stamps if st[1] <= t_kill])
+    after = stamp_rate(stamps, t_kill) if killed_at else float("nan")
+    print(f"{label}: lost {ws.lost_spokes}, errors "
+          f"{[(n, type(e).__name__) for n, e in ws.spoke_errors]}, "
+          f"supervisor.spokes_lost {lost:.0f}, kills {kills}; outer "
+          f"{ob:.4f} inner {ib:.4f} rel_gap {rel_gap(ws):.4e}; hub "
+          f"stopped at {ws.spcomm.stopped_at}; hub PH it/s before the kill "
+          f"{before:.3f}, after {after:.3f}; wall_s {wall:.2f}; "
+          f"torch.cuda.synchronize() clean; launches {launched} {CARD}",
+          flush=True)
+    print_cylinders(label, ws, ws.opt._iter)
+    check(ws.spun and kills == 1 and lost == 1,
+          f"{label}: kills {kills}, spokes lost {lost}")
+    check(any("LagrangianOuterBound" in s for s in ws.lost_spokes),
+          f"{label}: lost_spokes {ws.lost_spokes}")
+    check(len(ws.spoke_errors) == 1
+          and isinstance(ws.spoke_errors[0][1], faults.SpokeKilled),
+          f"{label}: spoke errors {ws.spoke_errors}")
+    check(np.isfinite(ib) and ob <= ib,
+          f"{label}: inner {ib} not finite or below outer {ob}")
+    check(launched["fused_sweeps"] > 0 and not any(plain.values()),
+          f"{label}: launches {launched}, plain versions {plain}")
+    return dict(rate_before=before, rate_after=after, outer=ob, inner=ib,
+                lost=ws.lost_spokes)
+
+
+def phase_resilience(cuda_kernels, main):
+    """Checkpoint and resume, and a dead spoke, on farmer-1000 through
+    ``fused_sweeps``: (c) a real kill of a checkpointing process and the
+    resume, (d) a three-cylinder wheel cut and resumed, (e) a dead
+    spoke.  ``main``: the main phases' runs (the farmer EF, computed here
+    when the farmer phase did not run)."""
+    import shutil
+    import tempfile
+
+    from tpusppy_torch.ef import solve_ef
+    from tpusppy_torch.models import farmer
+    from tpusppy_torch.spbase import build_batch
+
+    t_phase = time.perf_counter()
+    ef = main.get("farmer-1000 cm=4", {}).get("ef")
+    if ef is None:
+        b, _ = build_batch(farmer.scenario_names_creator(1000),
+                           farmer.scenario_creator,
+                           {"num_scens": 1000, "crops_multiplier": 4})
+        ef, _ = solve_ef(b, solver="highs")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        out = {"kill_windows": kill_and_resume(cuda_kernels, workdir,
+                                               lean=True, hold=False),
+               "kill": kill_and_resume(cuda_kernels, workdir,
+                                       refresh=RES_PARITY_REFRESH)}
+        out["cost"] = checkpoint_cost(workdir)
+        print(f"[{time.perf_counter() - t_phase:.1f} s into the phase]",
+              flush=True)
+        out["wheel"] = wheel_resume(cuda_kernels, workdir, ef)
+        print(f"[{time.perf_counter() - t_phase:.1f} s into the phase]",
+              flush=True)
+        out["dead"] = dead_spoke(cuda_kernels)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"resilience phase: {time.perf_counter() - t_phase:.1f} s {CARD}",
+          flush=True)
+    return out
+
+
 def kernel_line(name, source, replaces, launches, res):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2610,7 +3333,8 @@ def kernel_line(name, source, replaces, launches, res):
 
 
 PHASES = ("kernels", "golden", "loop", "farmer", "uc_lite", "uc",
-          "megastep", "precision", "wheel", "bundles", "integer")
+          "megastep", "precision", "wheel", "bundles", "integer",
+          "resilience")
 
 
 def main(argv=None) -> int:
@@ -2618,7 +3342,17 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
                          + "; the result lines print only when all ran")
+    # the resilience phase's killed process (prints no result line)
+    ap.add_argument("--resilience-child", nargs=5,
+                    metavar=("DIR", "EPS", "QP_TOL", "REFRESH", "LEAN"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.resilience_child:
+        ckdir, eps, tol, refresh, lean = args.resilience_child
+        return resilience_child(ckdir, float(eps),
+                                None if tol == "None" else float(tol),
+                                None if refresh == "None" else int(refresh),
+                                lean == "True")
     phases = set(args.phases.split(","))
     if not phases <= set(PHASES):
         ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
@@ -2688,13 +3422,13 @@ def main(argv=None) -> int:
         if "uc_lite" in phases:
             uc_lite = main_runs["uc_lite-1000"] = phase_main(
                 cuda_kernels, "uc_lite-1000", "fused_sweeps_shared",
-                lambda o, cls: uc_ph(1000, o, ph_class=cls), 60, 5,
+                lambda o, cls: uc_ph(1000, o, ph_class=cls), 50, 5,
                 UC_MAIN_OPTIONS)
         if "uc" in phases:
             uc = main_runs["uc-1000"] = phase_main(
                 cuda_kernels, "uc-1000", "fused_sweeps_sparse",
-                lambda o, cls: uc_full_ph(1000, o, ph_class=cls), 30,
-                3, UC_MAIN_OPTIONS, solver=UC_SOLVER,
+                lambda o, cls: uc_full_ph(1000, o, ph_class=cls), 20,
+                1, UC_MAIN_OPTIONS, solver=UC_SOLVER,
                 ef=False)
         if phases & {"farmer", "uc_lite", "uc"}:
             print(f"[{time.perf_counter() - t_all:.1f} s] main paths done",
@@ -2720,6 +3454,11 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             phase_integer(cuda_kernels)
             print(f"[{time.perf_counter() - t_all:.1f} s] integer done "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        if "resilience" in phases:
+            t0 = time.perf_counter()
+            phase_resilience(cuda_kernels, main_runs)
+            print(f"[{time.perf_counter() - t_all:.1f} s] resilience done "
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
     except PhaseError as e:
         print(f"FAIL: {e}", flush=True)

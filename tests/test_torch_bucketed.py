@@ -9,9 +9,10 @@ bookkeeping arrays, ``padded_elements`` and ``objective``); the legacy
 bucketed PH (``megastep`` 1) follows the reference's trajectory to 1e-7;
 the certified per-scenario dual bound agrees with the reference's to 1e-9
 and the bucketed xhat evaluation to 1e-7.  The global nonant indices are each
-bucket's own (a bundle puts its root nonants first).  An integer bucket's
-evaluation and in-wheel bounds on a bucketed batch raise with their
-ROADMAP items, and a ragged family whose buckets each share one A runs
+bucket's own (a bundle puts its root nonants first).  In-wheel bounds on a
+bucketed batch build (their parity, and the integer buckets' evaluation,
+are ``tests/test_torch_bucketed_bounds.py``'s), and a ragged family whose
+buckets each share one A runs
 each multi-member bucket on the shared-A engine (``bucket_shared``).
 """
 
@@ -232,6 +233,11 @@ def test_bucketed_xhat_eval_matches_reference():
 
 
 def test_integer_buckets_and_bucketed_in_wheel_bounds_raise():
+    """An integer bucket's batch has no shared ``is_int`` (that still
+    raises); in-wheel bounds on a bucketed batch and the bucketed window's
+    bound pass, plain and integer, are ported and build (their parity is
+    ``tests/test_torch_bucketed_bounds.py``'s, with the bucketed integer
+    evaluation)."""
     kw = {"num_scens": 5, "num_gens": 3, "horizon": 6}
     names = tuc_lite.scenario_names_creator(5)
     ev = TXhat(dict(BUCKETED, bundles_per_rank=2, device="cpu"), names,
@@ -240,21 +246,15 @@ def test_integer_buckets_and_bucketed_in_wheel_bounds_raise():
     assert any(sub.is_int.any() for _, sub in ev.batch.buckets)
     with pytest.raises(AttributeError, match="shared is_int"):
         ev.batch.is_int
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ev.evaluate(np.ones(ev.nonant_length))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        TPH(dict(BUCKETED, defaultPHrho=1.0, PHIterLimit=2, device="cpu",
-                 in_wheel_bounds=True), NAMES, tfarmer.scenario_creator,
-            scenario_creator_kwargs=KW)
-    st = TPH(dict(BUCKETED, defaultPHrho=1.0, PHIterLimit=2, device="cpu"),
-             NAMES, tfarmer.scenario_creator,
-             scenario_creator_kwargs=KW).admm_settings
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tsharded.make_bucketed_wheel_megastep(np.arange(3), st, 4,
-                                              bounds=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tsharded.make_bucketed_wheel_megastep(np.arange(3), st, 4,
-                                              int_rounding=(0.5,))
+    ph = TPH(dict(BUCKETED, defaultPHrho=1.0, PHIterLimit=2, device="cpu",
+                  in_wheel_bounds=True), NAMES, tfarmer.scenario_creator,
+             scenario_creator_kwargs=KW)
+    assert isinstance(ph.batch, tir.BucketedBatch) and ph._inwheel_on()
+    st = ph.admm_settings
+    assert callable(tsharded.make_bucketed_wheel_megastep(
+        np.arange(3), st, 4, bounds=True))
+    assert callable(tsharded.make_bucketed_wheel_megastep(
+        np.arange(3), st, 4, int_rounding=(0.5,)))
 
 
 # ---- a ragged family whose buckets each share one A -------------------------

@@ -403,6 +403,7 @@ def test_options_that_still_raise():
     with pytest.raises(NotImplementedError, match="item 5"):
         TPH(_opts(in_wheel_int_autotune=True, device="cpu"), names,
             tnetdes.scenario_creator, scenario_creator_kwargs=NETDES_KW)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        sharded.make_bucketed_wheel_megastep(np.arange(3), admm.ADMMSettings(),
-                                             int_rounding=(0.5,))
+    # the bucketed pass's integer branch is ported (item 7's head)
+    assert callable(sharded.make_bucketed_wheel_megastep(
+        np.arange(3), admm.ADMMSettings(), bounds=True, int_rounding=(0.5,),
+        int_nonants=(np.ones(3, dtype=bool),)))

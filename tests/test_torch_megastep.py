@@ -383,9 +383,10 @@ def test_autotuned_options_raise_with_their_item(option):
 
 def test_integer_in_wheel_bounds_raise_with_their_item():
     """An integer family's in-wheel bounds are ported (the batched sweep and
-    the escalation, or with both off the single rounded candidate); what
-    still raises is the autotuned ladder (item 5) and a bucketed family's
-    bound pass (item 7)."""
+    the escalation, or with both off the single rounded candidate), on a
+    bucketed family too (its sweep on, its escalation off: the MILP lift
+    reads a homogeneous batch); what still raises is the autotuned ladder
+    (item 5)."""
     opts = {"defaultPHrho": 1.0, "PHIterLimit": 2, "device": "cpu",
             "in_wheel_bounds": True}
     kw = {"num_scens": 3, "use_integer": True}
@@ -400,11 +401,13 @@ def test_integer_in_wheel_bounds_raise_with_their_item():
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         TPH(dict(opts, in_wheel_int_autotune=True), names,
             tfarmer.scenario_creator, scenario_creator_kwargs=kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        TPH(dict(opts, bundles_per_rank=2, shape_buckets=True,
-                 shape_bucket_quantum=1),
-            tfarmer.scenario_names_creator(5), tfarmer.scenario_creator,
-            scenario_creator_kwargs={"num_scens": 5, "use_integer": True})
+    bucketed = TPH(dict(opts, bundles_per_rank=2, shape_buckets=True,
+                        shape_bucket_quantum=1),
+                   tfarmer.scenario_names_creator(5), tfarmer.scenario_creator,
+                   scenario_creator_kwargs={"num_scens": 5,
+                                            "use_integer": True})
+    assert bucketed._inwheel_int_sweep_on()
+    assert not bucketed._integer_escalation_on()
 
 
 def test_billing_is_the_reference_model_and_the_cap_the_cards():

@@ -407,14 +407,39 @@ def _unported_cases():
            farmer.scenario_names_creator(3), farmer.scenario_creator,
            scenario_creator_kwargs={"num_scens": 3})
 
+    # ported since (resilience): each case runs and says so
     def checkpoint():
-        WheelSpinner({"hub_class": PHHub, "opt_class": PH,
-                      "opt_kwargs": _okw(3, 1),
-                      "hub_kwargs": {"options": {"checkpoint_dir": "x"}}},
-                     []).spin()
+        import tempfile
+
+        from tpusppy_torch.resilience import checkpoint as ck
+
+        with tempfile.TemporaryDirectory() as d:
+            WheelSpinner({"hub_class": PHHub, "opt_class": PH,
+                          "opt_kwargs": _okw(3, 1),
+                          "hub_kwargs": {"options": {
+                              "checkpoint_dir": d,
+                              "checkpoint_every_iters": 1,
+                              "spoke_timeout_secs": 60.0}}},
+                         []).spin()
+            return ck.latest_iteration(d) == 1
 
     def resume():
-        WheelSpinner({}, [], resume="x")
+        import os
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as d:
+            ws = WheelSpinner({"hub_class": PHHub, "opt_class": PH,
+                               "opt_kwargs": _okw(3, 1),
+                               "hub_kwargs": {"options": {}}}, [],
+                              resume=os.path.join(d, "none")).spin()
+            # nothing to resume from: a cold start
+            return ws.resumed_from is None and ws.opt._iter == 1
+
+    def preempt():
+        WheelSpinner({"hub_class": PHHub, "opt_class": PH,
+                      "opt_kwargs": _okw(3, 1),
+                      "hub_kwargs": {"options": {
+                          "preempt_check": lambda: False}}}, []).spin()
 
     # ported since (integer families): each case runs and says so
     def milp_lift():
@@ -461,8 +486,8 @@ def _unported_cases():
                       "opt_kwargs": okw, "hub_kwargs": {"options": {}}},
                      []).spin()
 
-    return [(megastep, "Queue 1 item 5"), (checkpoint, "Queue 1 item 7"),
-            (resume, "Queue 1 item 7"), (milp_lift, None),
+    return [(megastep, "Queue 1 item 5"), (checkpoint, None),
+            (resume, None), (preempt, "Queue 1 item 7"), (milp_lift, None),
             (donor_milp, None), (integer_dive, None),
             (multiprocess, "Queue 1 item 7"),
             (lowered_precision, "Queue 1 item 5")]

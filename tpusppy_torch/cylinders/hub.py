@@ -9,14 +9,20 @@ checks, tracks the best inner/outer bounds, and terminates the wheel on
 sentinel.
 
 Bound source chars: a spoke's class char, ``'T'`` the trivial bound, ``'X'``
-an in-hub xhat incumbent, and ``'M'`` an in-wheel bound, the megastep's
+an in-hub xhat incumbent, ``'R'`` a bound re-seeded from a checkpoint
+(:meth:`Hub.seed_resume`), and ``'M'`` an in-wheel bound, the megastep's
 bound pass (``PHBase._consume_inwheel_bounds``) landing through the same
 typed ``OuterBoundUpdate``/``InnerBoundUpdate``, so gaps and termination
 treat it as a spoke bound: a hub with no spokes certifies by itself.
 
-Not ported yet: the spoke supervisor, checkpoints and resume, preemption
-(ROADMAP Queue 1 item 7, resilience and serving), and the cross-scenario,
-APH and L-shaped hubs (Queue 1 item 7); an option only those read raises.
+Resilience (:mod:`..resilience`): the wheel spinner attaches a spoke
+supervisor and a checkpoint manager; each ``sync()`` then observes the
+spokes' health and captures a checkpoint when its cadence is due, and the
+linger harvest ends when every spoke is lost.
+
+Not ported yet: preemption (``preempt_check``, the service tier) and the
+cross-scenario, APH and L-shaped hubs (ROADMAP Queue 1 item 7); an option
+only those read raises.
 """
 
 from __future__ import annotations
@@ -29,18 +35,13 @@ import numpy as np
 from .. import global_toc
 from ..obs import metrics as _metrics
 from ..obs import trace as _trace
+from ..resilience import checkpoint as _ckpt
+from ..resilience import supervisor as _sup
 from .spcommunicator import SPCommunicator
 from .spoke import ConvergerSpokeType
 
 #: Hub options that only the parts not ported read.
 UNPORTED_OPTIONS = {
-    "checkpoint_dir": "Queue 1 item 7 (resilience)",
-    "checkpoint_every_secs": "Queue 1 item 7 (resilience)",
-    "checkpoint_every_iters": "Queue 1 item 7 (resilience)",
-    "checkpoint_keep": "Queue 1 item 7 (resilience)",
-    "resume": "Queue 1 item 7 (resilience)",
-    "spoke_timeout_secs": "Queue 1 item 7 (resilience: the supervisor)",
-    "spoke_timeout_grace": "Queue 1 item 7 (resilience: the supervisor)",
     "preempt_check": "Queue 1 item 7 (the service tier)",
 }
 
@@ -68,6 +69,88 @@ class Hub(SPCommunicator):
         self.stalled_iter_cnt = 0
         self.last_gap = inf
         self.stop_reason = None
+        # resilience: the spinner attaches a supervisor and a checkpoint
+        # manager where asked; both stay None otherwise
+        self.supervisor = None
+        self._ckpt_mgr = None
+        self.latest_spoke_bounds = {}        # idx -> last bound read
+        self.resumed_from_iteration = None
+
+    # ---- resilience (..resilience) ------------------------------------------
+    def attach_supervisor(self, sup):
+        self.supervisor = sup
+
+    def attach_checkpointer(self, mgr):
+        self._ckpt_mgr = mgr
+
+    def seed_resume(self, ckpt):
+        """Re-seed the hub's bounds from a checkpoint (after
+        ``setup_hub``), each as source ``'R'``: updates only improve on
+        them, so the certified gap is monotone across the restart.  A
+        spoke's bound re-seeds by its stored kind ([kind, bound]), never
+        by the resumed wheel's slot: a reordered spoke list cannot install
+        an outer bound as an incumbent.  Kind-less entries are skipped
+        (the global bests carry them)."""
+        if np.isfinite(ckpt.best_outer):
+            self.OuterBoundUpdate(float(ckpt.best_outer), char='R')
+        if np.isfinite(ckpt.best_inner):
+            self.InnerBoundUpdate(float(ckpt.best_inner), char='R')
+        for key, entry in (ckpt.spoke_bounds or {}).items():
+            if not (isinstance(entry, (list, tuple)) and len(entry) == 2):
+                continue
+            kind, b = entry
+            try:
+                idx, b = int(key), float(b)
+            except (TypeError, ValueError):
+                continue
+            if not np.isfinite(b):
+                continue
+            self.latest_spoke_bounds[idx] = b
+            # idx picks the display char only where the slot kept its role
+            if kind == "outer":
+                same = idx in self.outerbound_spoke_indices
+                self.OuterBoundUpdate(b, idx if same else None, char='R')
+            elif kind == "inner":
+                same = idx in self.innerbound_spoke_indices
+                self.InnerBoundUpdate(b, idx if same else None, char='R')
+        self.resumed_from_iteration = int(ckpt.iteration)
+
+    def checkpoint_due(self, iteration) -> bool:
+        """Whether the next :meth:`sync` captures a checkpoint at
+        ``iteration``: the opt asks before syncing, so that a lean
+        window's stale host mirrors are refreshed (its one boundary fetch)
+        before the capture reads them."""
+        return (self._ckpt_mgr is not None
+                and self._ckpt_mgr._due(int(iteration)))
+
+    def _resilience_tick(self):
+        """The per-sync health and checkpoint pass: observe the spokes
+        and capture a snapshot when the cadence is due.  The snapshot
+        reads host mirrors only (:func:`..resilience.checkpoint.
+        capture_ph`), so this adds no fetch."""
+        if self.supervisor is not None:
+            self.supervisor.observe()
+        if self._ckpt_mgr is None:
+            return
+        _sup.heartbeat("hub")
+        if getattr(self.opt, "_host_state_stale", False):
+            # the mirrors are a window old: a wall-clock cadence crossed
+            # its threshold after the boundary's due check.  Skip without
+            # advancing the cadence: the next boundary refreshes and
+            # captures fresh
+            return
+        try:
+            self._ckpt_mgr.maybe_capture(
+                self.current_iteration(),
+                lambda: _ckpt.capture_ph(self.opt, hub=self))
+        except Exception as e:
+            # a failed capture costs the run's resumability, never the run
+            _metrics.inc("checkpoint.capture_errors")
+            if not getattr(self, "_ckpt_err_warned", False):
+                self._ckpt_err_warned = True
+                global_toc(
+                    f"WARNING: checkpoint capture failed (run continues, "
+                    f"resumability degraded): {e!r}", True)
 
     # ---- spoke typing (hub.py:297-344) --------------------------------------
     def initialize_spoke_indices(self):
@@ -202,15 +285,19 @@ class Hub(SPCommunicator):
         return data, False
 
     def receive_outerbounds(self):
+        # a lost spoke is still read: a bound posted before its death is
+        # valid; loss only stops the hub waiting on it
         for idx in self.outerbound_spoke_indices:
             data, is_new = self.hub_from_spoke(idx)
             if is_new:
+                self.latest_spoke_bounds[idx] = float(data[0])
                 self.OuterBoundUpdate(float(data[0]), idx)
 
     def receive_innerbounds(self):
         for idx in self.innerbound_spoke_indices:
             data, is_new = self.hub_from_spoke(idx)
             if is_new:
+                self.latest_spoke_bounds[idx] = float(data[0])
                 self.InnerBoundUpdate(float(data[0]), idx)
 
     def OuterBoundUpdate(self, new_bound, idx=None, char='*'):
@@ -286,9 +373,12 @@ class PHHub(Hub):
                 self.receive_outerbounds()
             if self.has_innerbound_spokes:
                 self.receive_innerbounds()
+        self._resilience_tick()
 
     def is_converged(self):
-        if self.opt._iter == 1:
+        # the first iteration past the base (a resumed run's too) offers
+        # the trivial bound; the update keeps the better one
+        if self.opt._iter - getattr(self.opt, "_iter_base", 0) == 1:
             self.OuterBoundUpdate(self.opt.trivial_bound, char='T')
         # in-hub xhat extensions land their incumbents on the opt object
         bib = getattr(self.opt, "best_inner_bound", None)
@@ -328,6 +418,11 @@ class PHHub(Hub):
         t0 = time.time()
         last_trace = 0.0
         while time.time() - t0 < linger:
+            if self.supervisor is not None and self.supervisor.all_lost():
+                # nobody left to harvest from
+                global_toc("Hub linger: all spokes lost, ending the harvest",
+                           True)
+                break
             self._nudge_epoch = int((time.time() - t0) / max(nudge, 0.25))
             self.sync()
             # is_converged prints a trace row per call: at most every 5 s

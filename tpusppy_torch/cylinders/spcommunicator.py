@@ -1,11 +1,12 @@
 """Cylinder communication fabric: versioned mailboxes + SPCommunicator base.
 
 A copy of ``tpusppy/cylinders/spcommunicator.py`` (the analogue of
-``mpisppy/cylinders/spcommunicator.py:21-120``), without its fault-injection
-hooks.  The reference exchanges flat float64 vectors between cylinder
-process groups through one-sided MPI RMA windows whose last slot is a
-monotone **write_id**; readers accept a payload only when the id is fresh,
-and id ``-1`` is the kill signal.
+``mpisppy/cylinders/spcommunicator.py:21-120``), with its stale-write-id
+fault hook (:func:`..resilience.faults.on_mailbox_get`).  The reference
+exchanges flat float64 vectors between cylinder process groups through
+one-sided MPI RMA windows whose last slot is a monotone **write_id**;
+readers accept a payload only when the id is fresh, and id ``-1`` is the
+kill signal.
 
 Here cylinders are host threads of one process, each running its solves on
 a CUDA stream of its own, so the window is a lock-guarded in-memory
@@ -22,6 +23,7 @@ import numpy as np
 
 from ..obs import metrics as _metrics
 from ..obs import trace as _trace
+from ..resilience import faults as _faults
 
 KILL_ID = -1
 
@@ -88,7 +90,10 @@ class Mailbox:
         """Reader-side Get: snapshot (payload copy, write_id)."""
         _CTR_GETS.inc(1)
         with self._lock:
-            return self._buf[:-1].copy(), int(self._buf[-1])
+            data, wid = self._buf[:-1].copy(), int(self._buf[-1])
+        if _faults.active():   # deterministic stale-write-id injection
+            wid = _faults.on_mailbox_get(self.name, wid)
+        return data, wid
 
     def kill(self):
         """Write the termination sentinel (write_id = -1).  The last payload

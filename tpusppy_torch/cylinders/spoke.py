@@ -1,8 +1,10 @@
 """Spoke type lattice: typed bases for bound/W/nonant spokes.
 
 A copy of ``tpusppy/cylinders/spoke.py`` (the analogue of
-``mpisppy/cylinders/spoke.py:18-376``) without the supervisor's heartbeat
-gauge and the fault hook.  A spoke runs an opt object in its own cylinder
+``mpisppy/cylinders/spoke.py:18-376``), with the supervisor's heartbeat
+gauge (beaten on every poll of the hub's mailbox) and the dead-spoke fault
+hook (:func:`..resilience.faults.on_spoke_payload`, on every fresh
+payload).  A spoke runs an opt object in its own cylinder
 (a host thread with a CUDA stream of its own), puts its bound into its
 hub-facing mailbox, polls the hub's outbound mailbox for W / nonant / bound
 payloads with write-id freshness semantics, and exits on the kill sentinel
@@ -18,6 +20,8 @@ import time
 
 import numpy as np
 
+from ..resilience import faults as _faults
+from ..resilience import supervisor as _supervisor
 from .spcommunicator import KILL_ID, SPCommunicator
 
 
@@ -34,6 +38,10 @@ class Spoke(SPCommunicator):
     def __init__(self, spbase_object, strata_rank, fabric, options=None):
         super().__init__(spbase_object, strata_rank, fabric, options)
         self.remote_write_id = 0
+        self._recv_count = 0     # fresh hub payloads seen (the fault clock)
+        self._hb_gauge = _supervisor.heartbeat_gauge(
+            f"spoke{self.strata_rank}")
+        self._warm = False
 
     def buffer_lengths(self) -> tuple[int, int]:
         """(spoke_to_hub_len, hub_to_spoke_len), excluding write-id slots;
@@ -44,11 +52,23 @@ class Spoke(SPCommunicator):
         self.fabric.to_hub[self.strata_rank].put(values)
 
     def spoke_from_hub(self):
-        """Snapshot the hub's outbound payload; True when fresh."""
+        """Snapshot the hub's outbound payload; True when fresh.  A poll is
+        a heartbeat for the hub's supervisor, whether or not it brings
+        anything new.  The first poll after a fresh payload ends the
+        spoke's warm-up: it has come back from its first solve on hub
+        data, so its kernels are built and its graphs captured."""
+        self._hb_gauge.set(time.monotonic())
+        if not self._warm and self._recv_count:
+            self._warm = True
+            _supervisor.mark_warm(f"spoke{self.strata_rank}")
         data, wid = self.fabric.to_spoke[self.strata_rank].get()
         self._locals = data
         if wid > self.remote_write_id or wid < 0:
             self.remote_write_id = wid
+            if wid >= 0:
+                self._recv_count += 1
+                if _faults.active():   # deterministic dead-spoke injection
+                    _faults.on_spoke_payload(self)
             return True
         return False
 

@@ -17,8 +17,12 @@ sweep), ``integer.rcfix_slots`` (slots reduced-cost fixing fixed),
 ``integer.escalations`` (host escalation rounds), ``integer.escalation_lifts``
 (scenarios their MILP lifts solved), ``integer.escalation_secs`` (their
 host seconds) and ``integer.escalation_errors`` (escalations that raised
-and declined).  Each update is one lock and a float add.  Scoped
-measurements read deltas through :func:`window`.
+and declined); and resilience's (:mod:`..resilience`): ``checkpoint.*``
+(captures, capture fetches, writes, write errors, coalesced snapshots,
+restores, corrupt files skipped; ``checkpoint.write_secs`` a histogram),
+``faults.*`` (injected faults by kind), ``supervisor.spokes_lost`` and the
+``heartbeat.<cylinder>`` gauges.  Each update is one lock and a float
+add.  Scoped measurements read deltas through :func:`window`.
 """
 
 from __future__ import annotations
@@ -44,29 +48,91 @@ class Counter:
             return self.value
 
 
-class Registry:
-    """Name -> counter store with a get-or-create accessor."""
+class Gauge:
+    """Last-value-wins sample (None until set)."""
+
+    __slots__ = ("_lock", "value")
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._counters: dict = {}
+        self.value = None
+
+    def set(self, v):
+        with self._lock:
+            self.value = float(v)
+
+    def get(self):
+        with self._lock:
+            return self.value
+
+
+class Histogram:
+    """Streaming count, total, min and max of the samples added."""
+
+    __slots__ = ("_lock", "count", "total", "min", "max")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.count = 0
+        self.total = 0.0
+        self.min = None
+        self.max = None
+
+    def add(self, v):
+        v = float(v)
+        with self._lock:
+            self.count += 1
+            self.total += v
+            self.min = v if self.min is None else min(self.min, v)
+            self.max = v if self.max is None else max(self.max, v)
+
+    def summary(self) -> dict:
+        with self._lock:
+            return {"count": self.count, "total": self.total,
+                    "min": self.min, "max": self.max}
+
+
+class Registry:
+    """Name -> metric store with get-or-create accessors."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._metrics: dict = {}
+
+    def _get(self, name: str, cls):
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = self._metrics[name] = cls()
+            elif not isinstance(m, cls):
+                raise TypeError(f"metric {name!r} is {type(m).__name__}, "
+                                f"wanted {cls.__name__}")
+            return m
 
     def counter(self, name: str) -> Counter:
-        with self._lock:
-            c = self._counters.get(name)
-            if c is None:
-                c = self._counters[name] = Counter()
-            return c
+        return self._get(name, Counter)
+
+    def gauge(self, name: str) -> Gauge:
+        return self._get(name, Gauge)
+
+    def histogram(self, name: str) -> Histogram:
+        return self._get(name, Histogram)
 
     def value(self, name: str, default=0.0):
+        """A counter's or gauge's value, a histogram's total; ``default``
+        for a name never fed (an idle subsystem reads as zero)."""
         with self._lock:
-            c = self._counters.get(name)
-        return default if c is None else c.get()
+            m = self._metrics.get(name)
+        if m is None:
+            return default
+        if isinstance(m, Histogram):
+            return m.summary()["total"]
+        return m.get()
 
     def dump(self) -> dict:
         with self._lock:
-            items = list(self._counters.items())
-        return {name: c.get() for name, c in sorted(items)}
+            names = sorted(self._metrics)
+        return {name: self.value(name) for name in names}
 
 
 #: The process-wide registry every subsystem feeds.
@@ -75,6 +141,14 @@ REGISTRY = Registry()
 
 def counter(name: str) -> Counter:
     return REGISTRY.counter(name)
+
+
+def gauge(name: str) -> Gauge:
+    return REGISTRY.gauge(name)
+
+
+def histogram(name: str) -> Histogram:
+    return REGISTRY.histogram(name)
 
 
 def inc(name: str, n=1.0):
@@ -101,7 +175,8 @@ class Window:
         return False
 
     def delta(self, name: str) -> float:
-        return self.registry.value(name, 0.0) - self._base.get(name, 0.0)
+        return ((self.registry.value(name, 0.0) or 0.0)
+                - (self._base.get(name, 0.0) or 0.0))
 
 
 def window(registry: Registry | None = None) -> Window:

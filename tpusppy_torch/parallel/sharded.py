@@ -10,7 +10,9 @@ batched integer pass of :mod:`..solvers.integer`) and the window itself
 (:func:`make_wheel_megastep`), and the window of a shape-bucketed family
 (:func:`make_bucketed_wheel_megastep`, :func:`_bucketed_finish`,
 :func:`bucketed_megastep_unpack`): every bucket's frozen solve through its
-own kernel loop, then one PH update across the buckets.
+own kernel loop, then one PH update across the buckets, and its bound
+pass (:func:`_bucketed_bound_pass`, :func:`_bucketed_int_bound_pass`):
+each bucket's partial sums through the global tree's probabilities.
 
 The reference runs a window as one jitted ``lax.scan``.  Here a window is
 a host loop of at most N iterations, each: the augmented objective, the
@@ -27,10 +29,8 @@ nothing, and the flag read it makes anyway ends the host loop.  The host
 reads nothing else until the window's one packed fetch.
 
 Not ported yet, and raising ``NotImplementedError``: the mesh and
-``shard_map`` (ROADMAP Queue 1 item 7, on ``torch.distributed``) and the
-bucketed window's in-wheel bound pass, its integer branch too
-(``bounds``/``int_rounding`` of :func:`make_bucketed_wheel_megastep`,
-Queue 1 item 7).  The reference's AOT executable cache has no twin.
+``shard_map`` (ROADMAP Queue 1 item 7, on ``torch.distributed``).  The
+reference's AOT executable cache has no twin.
 """
 
 from __future__ import annotations
@@ -515,16 +515,19 @@ def init_state(arr: PHArrays, default_rho: float, settings) -> PHState:
 
 # ---- the bucketed window (a ragged family) ----------------------------------
 def bucketed_megastep_measure_len(n_iters: int, shapes, K: int,
-                                  bounds: bool = False) -> int:
+                                  bounds: bool = False,
+                                  int_sweep: bool = False) -> int:
     """Length of the bucketed packed measurement; ``shapes`` is
-    ``[(S_b, n_b), ...]`` in bucket order."""
+    ``[(S_b, n_b), ...]`` in bucket order; ``bounds`` adds the bound tail
+    (the integer sweep's longer one with ``int_sweep``)."""
     S = sum(s for s, _ in shapes)
     return (6 * n_iters + 2 + 3 * S + sum(s * n for s, n in shapes)
-            + 2 * S * K + bound_pack_len(bounds))
+            + 2 * S * K + bound_pack_len(bounds, int_sweep))
 
 
 def bucketed_megastep_unpack(vec, n_iters: int, shapes, K: int,
-                             bounds: bool = False) -> dict:
+                             bounds: bool = False,
+                             int_sweep: bool = False) -> dict:
     """Split a fetched :func:`make_bucketed_wheel_megastep` measurement.
 
     The global per-iteration stats, ``executed`` and ``refresh_hit`` as in
@@ -532,7 +535,8 @@ def bucketed_megastep_unpack(vec, n_iters: int, shapes, K: int,
     (``shapes`` order): ``pri``, ``dua`` and ``done`` lists of (S_b,)
     arrays, ``x`` a list of (S_b, n_b), ``W`` and ``xbars`` lists of
     (S_b, K), for the host to scatter through each bucket's scenario
-    indices; with ``bounds`` the bound tail."""
+    indices; with ``bounds`` the bound tail (:func:`unpack_bound_tail`,
+    the integer extras with ``int_sweep``)."""
     vec = np.asarray(vec)
     N = n_iters
     per = vec[:6 * N].reshape(6, N)
@@ -544,7 +548,7 @@ def bucketed_megastep_unpack(vec, n_iters: int, shapes, K: int,
     }
     off += 2
     if bounds:
-        out = unpack_bound_tail(out, vec)
+        out = unpack_bound_tail(out, vec, int_sweep)
     pri, dua, done = [], [], []
     for S_b, _ in shapes:
         pri.append(vec[off:off + S_b])
@@ -685,10 +689,108 @@ def _bucketed_templates(arrs, states, n_iters, idx):
     return out
 
 
+def _bucketed_bound_pass(arrs, states, idx, frozen, factors, settings,
+                         feas_tol, int_masks, xhat_threshold, launches=None):
+    """The plain bound pass of a bucketed window: each bucket's
+    :func:`_bound_pass_terms` on its own factors, its probability-weighted
+    outer, inner and feasible mass summed across buckets (its ``probs``
+    are rows of the global tree's, so the sums are the family's), the
+    sweep count the buckets' largest.  ``launches``: one list of one
+    launch record a bucket (:func:`..solvers.integer._counted`)."""
+    dt, dev = arrs[0].c.dtype, arrs[0].c.device
+    outer = inner = feas = sweeps = torch.zeros((), dtype=dt, device=dev)
+    for bi, (arr, st) in enumerate(zip(arrs, states)):
+        ob, ib, fm, sw = integer_solvers._counted(
+            None if launches is None else launches[bi], 0,
+            lambda: _bound_pass_terms(arr, st, idx, frozen[bi], factors[bi],
+                                      settings, feas_tol, int_masks[bi],
+                                      xhat_threshold))
+        outer = outer + ob
+        inner = inner + ib
+        feas = feas + fm
+        sweeps = torch.maximum(sweeps, sw)
+    one = torch.ones((), dtype=dt, device=dev)
+    return torch.stack([one, outer, inner, feas, sweeps])
+
+
+def _bucketed_int_bound_pass(arrs, states, idx, frozen, factors, settings,
+                             feas_tol, int_masks, thresholds, int_cols,
+                             rcfix_slack, rcfix_enabled, launches=None):
+    """The integer bound pass of a bucketed window (the reference's
+    ``tpusppy/parallel/sharded.py:1404-1465``).  Each bucket sweeps the
+    rounding ladder on its own factors
+    (:func:`..solvers.integer.sweep_partials`, C frozen solves in turn),
+    without the SLAM slams: a slam takes a node's extreme over the
+    bucket's scenarios, which is not nonanticipative across buckets.  The
+    candidates' partial sums add up across buckets through the global
+    tree's probabilities, so the feasibility gate and the argmin over
+    candidates are the family's.  Each bucket then tightens its outer
+    bound by reduced-cost fixing at the best candidate
+    (:func:`..solvers.integer.rc_outer_partials`), or, with
+    ``rcfix_enabled`` False (second-stage integers somewhere in the
+    family), takes plain weak duality.  Returns the nine-scalar integer
+    tail.  ``launches``: per bucket, C + 1 launch records (the
+    candidates', then the re-certification's)."""
+    dt, dev = arrs[0].c.dtype, arrs[0].c.device
+    K = idx.numel()
+    per = []
+    for bi, (arr, st) in enumerate(zip(arrs, states)):
+        q, q2, _, _ = _ph_objective(arr, st, 1.0, idx)
+        mb = (int_masks[bi] if int_masks[bi] is not None
+              else np.zeros(K, dtype=bool))
+        res = integer_solvers.sweep_partials(
+            arr, st, idx, q, q2, frozen[bi], factors[bi], settings,
+            feas_tol, mb, thresholds, include_slams=False,
+            launches=None if launches is None else launches[bi])
+        per.append((res, q, q2, mb))
+    inner_c = sum(p[0][0] for p in per)
+    feas_c = sum(p[0][1] for p in per)
+    sweeps_c = functools.reduce(torch.maximum, (p[0][2] for p in per))
+    S_tot = sum(arr.c.shape[0] for arr in arrs)
+    ok_c = feas_c >= 1.0 - integer_solvers.feas_slack(S_tot, dt)
+    inf = torch.tensor(float("inf"), dtype=dt, device=dev)
+    best = torch.argmin(torch.where(ok_c, inner_c, inf))
+    n_feas = ok_c.to(dt).sum()
+    zero = torch.zeros((), dtype=dt, device=dev)
+    outer = base = nfix = zero
+    sweeps = sweeps_c.max()
+    for bi, (arr, st) in enumerate(zip(arrs, states)):
+        (_, _, _, u_cs, fm_cs), q, q2, mb = per[bi]
+        if rcfix_enabled:
+            if int_cols is not None and int_cols[bi] is not None:
+                cols = torch.as_tensor(np.asarray(int_cols[bi], dtype=bool),
+                                       device=dev)
+            else:
+                cols = torch.zeros(arr.c.shape[1], dtype=torch.bool,
+                                   device=dev)
+                cols[idx] = torch.as_tensor(mb, device=dev)
+            ob, obb, nf, swF = integer_solvers.rc_outer_partials(
+                arr, st, idx, q, q2, frozen[bi], factors[bi], settings,
+                cols, u_cs[best], fm_cs[best], rcfix_slack,
+                launches=None if launches is None else launches[bi],
+                slot=len(thresholds))
+            sweeps = torch.maximum(sweeps, swF)
+        else:
+            # second-stage integers in the family: plain weak duality (the
+            # fixing has no valid per-scenario integer upper bound)
+            qL = arr.c.index_add(1, idx, st.W)
+            ob = obb = arr.probs @ (integer_solvers._dual_bound_perscen(
+                qL, arr, arr.lb, arr.ub, st.y, st.x) + arr.const)
+            nf = zero
+        outer = outer + ob
+        base = base + obb
+        nfix = nfix + nf
+    one = torch.ones((), dtype=dt, device=dev)
+    return torch.stack([one, outer, inner_c[best], feas_c[best], sweeps,
+                        n_feas, best.to(dt), nfix, base])
+
+
 def make_bucketed_wheel_megastep(nonant_idx, settings, n_iters: int = 8,
                                  bounds: bool = False, int_nonants=None,
                                  xhat_threshold: float = 0.5,
-                                 int_rounding=None):
+                                 int_rounding=None, int_cols=None,
+                                 rcfix_slack: float = 1e-5,
+                                 int_rcfix: bool = True):
     """The window function of a shape-bucketed (ragged) family: up to
     ``n_iters`` frozen PH iterations over every bucket and one packed
     measurement (:func:`bucketed_megastep_unpack`).
@@ -704,31 +806,41 @@ def make_bucketed_wheel_megastep(nonant_idx, settings, n_iters: int = 8,
     every bucket's column space because a bundle's EF puts the root
     nonants first.
 
-    ``bounds=True`` (the bucketed in-wheel bound pass) raises: not ported
-    yet (ROADMAP Queue 1 item 7); so does ``int_rounding``, its integer
-    branch (the same item).  Returns ``mega(states, arrs, prox_on,
-    factors, convthresh, n_live, accept_tol, bucket_launches=None) ->
-    (states, packed)`` over
-    tuples of per-bucket :class:`PHState`, :class:`PHArrays` and factors;
-    ``bucket_launches``, a list of one dict a bucket, receives each
-    bucket's kernel launches (:func:`..solvers.cuda_kernels.counts` of
-    the calling thread) made in its frozen solves."""
-    if bounds:
-        raise NotImplementedError(
-            "make_bucketed_wheel_megastep(bounds=True): the bucketed "
-            "in-wheel bound pass is not ported yet (ROADMAP Queue 1 item 7)")
-    if int_rounding:
-        raise NotImplementedError(
-            "make_bucketed_wheel_megastep(int_rounding=...): the bucketed "
-            "bound pass's integer branch is not ported yet (ROADMAP Queue 1 "
-            "item 7)")
+    ``bounds=True`` appends the in-wheel bound tail, computed where the
+    call's ``bound_live`` is set and zeros otherwise: each bucket's
+    partial sums of the plain pass (:func:`_bucketed_bound_pass`), or,
+    with ``int_rounding`` on a family where some bucket has integer
+    nonants, the integer pass (:func:`_bucketed_int_bound_pass`) and its
+    longer tail.  ``int_nonants`` and ``int_cols`` are per bucket (a
+    tuple of (K,) and (n_b,) masks, or None): bucketing keys on the
+    integer pattern, so the slots may differ across buckets.
+
+    Returns ``mega(states, arrs, prox_on, factors, convthresh, n_live,
+    accept_tol, bound_live=False, feas_tol=1e-3, bucket_launches=None,
+    bound_launches=None) -> (states, packed)`` over tuples of per-bucket
+    :class:`PHState`, :class:`PHArrays` and factors; ``bucket_launches``,
+    a list of one dict a bucket, receives each bucket's kernel launches
+    (:func:`..solvers.cuda_kernels.counts` of the calling thread) made in
+    its window iterations' frozen solves, and ``bound_launches``, a list
+    over buckets of lists over the pass's evaluations, those of the bound
+    pass."""
     if n_iters < 1:
         raise ValueError(f"n_iters ({n_iters}) must be >= 1")
     idx_np = np.asarray(nonant_idx, dtype=np.int64)
+    int_masks = (None if int_nonants is None else
+                 tuple(None if m is None else np.asarray(m, dtype=bool)
+                       for m in int_nonants))
+    # the integer sweep where ANY bucket has integer nonants and a ladder
+    # was asked for; otherwise the plain pass, whatever the options
+    int_sweep = bool(bounds and int_rounding and int_masks is not None
+                     and any(m is not None and m.any() for m in int_masks))
+    int_thresholds = tuple(float(t) for t in (int_rounding or ()))
+    tail_len = bound_pack_len(True, int_sweep)
     idx_on = {}
 
     def mega(states, arrs, prox_on, factors, convthresh, n_live,
-             accept_tol, bucket_launches=None):
+             accept_tol, bound_live=False, feas_tol=1e-3,
+             bucket_launches=None, bound_launches=None):
         nb = len(arrs)
         dt, dev = arrs[0].c.dtype, arrs[0].c.device
         idx = idx_on.get(dev)
@@ -806,6 +918,20 @@ def make_bucketed_wheel_megastep(nonant_idx, settings, n_iters: int = 8,
         parts += [st.x.reshape(-1) for st in out_states]
         parts += [st.W.reshape(-1) for st in out_states]
         parts += [st.xbars.reshape(-1) for st in out_states]
+        if bounds:
+            masks = int_masks if int_masks is not None else (None,) * nb
+            if bound_live and int_sweep:
+                parts.append(_bucketed_int_bound_pass(
+                    arrs, out_states, idx, frozen, factors, settings,
+                    feas_tol, masks, int_thresholds, int_cols, rcfix_slack,
+                    bool(int_rcfix), launches=bound_launches))
+            elif bound_live:
+                parts.append(_bucketed_bound_pass(
+                    arrs, out_states, idx, frozen, factors, settings,
+                    feas_tol, masks, xhat_threshold,
+                    launches=bound_launches))
+            else:
+                parts.append(torch.zeros(tail_len, dtype=dt, device=dev))
         return out_states, torch.cat(parts)
 
     return mega

@@ -24,7 +24,9 @@ runs the same protocol: its legacy iterations solve bucket by bucket, and
 its windows run every bucket's frozen solve with one PH update across the
 buckets (:meth:`PHBase._megastep_dispatch`); a window opens when every
 bucket's slot is ready, and the oldest bucket's factors bound its width
-(:meth:`PHBase._mega_age`).
+(:meth:`PHBase._mega_age`); its bound pass sums each bucket's partial
+sums, and its integer pass drops the SLAM slams (a node's extreme over
+one bucket is not nonanticipative across buckets).
 
 An integer family's in-wheel bounds take the integer tiers
 (:mod:`.solvers.integer`): each bound pass runs the batched rounding sweep
@@ -37,8 +39,7 @@ outer bound within one shared host budget
 Not ported yet, and raising ``NotImplementedError`` when asked for: the
 autotuned window width, bound cadence and integer ladder
 (``megastep_autotune``, ``in_wheel_bound_autotune``,
-``in_wheel_int_autotune``; ROADMAP Queue 1 item 5), and in-wheel bounds on
-a bucketed batch, plain or integer (Queue 1 item 7).
+``in_wheel_int_autotune``; ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -64,18 +65,11 @@ UNPORTED_OPTIONS = {
 
 
 def _check_options(opt):
-    """Raise on an option only a part not ported yet reads, and on
-    in-wheel bounds of a bucketed family (the bucketed bound pass)."""
+    """Raise on an option only a part not ported yet reads."""
     for name, item in UNPORTED_OPTIONS.items():
         if opt.options.get(name):
             raise NotImplementedError(
                 f"option {name!r} is not ported yet (ROADMAP {item})")
-    if opt.options.get("in_wheel_bounds") and isinstance(opt.batch,
-                                                         BucketedBatch):
-        raise NotImplementedError(
-            "in_wheel_bounds on a shape-bucketed batch: the bucketed "
-            "in-wheel bound pass, plain or integer, is not ported yet "
-            "(ROADMAP Queue 1 item 7)")
 
 
 class PHBase(SPOpt):
@@ -229,6 +223,7 @@ class PHBase(SPOpt):
                 "and NOT used as a bound)", True)
         self.Compute_Xbar()
         self.Update_W()
+        self._apply_resume()
         self.conv = self.convergence_diff()
         self.extobject.post_iter0()
         if self.spcomm is not None:
@@ -239,6 +234,29 @@ class PHBase(SPOpt):
             self.options.get("display_progress", False),
         )
         return self.trivial_bound
+
+    def _apply_resume(self):
+        """Re-seat checkpointed PH state where a resume was asked for
+        (the spinner sets ``_resume_ckpt``), at the end of Iter0: the plain
+        warm-up solve has filled the warm state and the trivial bound, and
+        the W, xbars and rho it derived are replaced by the checkpoint's
+        (:func:`.resilience.checkpoint.restore_ph`), which also sets
+        ``_iter_base``: :meth:`iterk_loop` starts past it, so
+        ``PHIterLimit`` stays the total across restarts.  The factors are
+        Iter0's, built without the prox term, so the first resumed
+        iteration refreshes.  Warm duals are not checkpointed (as in the
+        reference): a resumed run agrees with an uninterrupted one to
+        solver tolerance, not bit for bit."""
+        ck = getattr(self, "_resume_ckpt", None)
+        if ck is None:
+            return
+        from .resilience import checkpoint as _ckpt
+
+        _ckpt.restore_ph(self, ck)
+        # the state is the checkpoint's iteration's: Iter0's sync (and its
+        # capture, where one is due) sees that iteration
+        self._iter = self._iter_base
+        self._resume_ckpt = None
 
     def _scenario_part(self, s):
         """``(part, row)``: the batch part (a bucket's sub-batch, or the
@@ -846,13 +864,17 @@ class PHBase(SPOpt):
             _trace.instant(None, "phstate_boundary_fetch", iter=self._iter)
 
     def _spcomm_needs_host_state(self) -> bool:
-        """Whether the coming ``spcomm.sync()`` reads host PH state (W or
-        nonant payloads to spokes)."""
+        """Whether the coming ``spcomm.sync()`` reads host PH state: W or
+        nonant payloads to spokes, or a checkpoint capture that is due
+        (which must find current mirrors, and fetches nothing itself)."""
         c = self.spcomm
         if c is None:
             return False
-        return bool(getattr(c, "has_w_spokes", False)
-                    or getattr(c, "has_nonant_spokes", False))
+        if getattr(c, "has_w_spokes", False) or \
+                getattr(c, "has_nonant_spokes", False):
+            return True
+        due = getattr(c, "checkpoint_due", None)
+        return bool(due and due(self._iter))
 
     def iterk_loop(self):
         """Main PH loop (phbase.py:875-979).  Where the megastep is allowed
@@ -862,7 +884,9 @@ class PHBase(SPOpt):
         iteration under ``megastep`` 1)."""
         convthresh = self.options.get("convthresh", 0.0)
         max_iters = self.options["PHIterLimit"]
-        k = self._iter + 1     # continues a carried state (convert.py)
+        # continues a carried state (convert.py) or a resumed checkpoint's
+        # iteration count: the limit stays the total
+        k = max(self._iter, int(getattr(self, "_iter_base", 0))) + 1
         mega_n = self._megastep_request()
         while k <= max_iters:
             if mega_n:

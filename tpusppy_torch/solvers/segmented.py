@@ -90,12 +90,16 @@ def bill_megastep(S, n, m, n_iters, sweeps, sparse_factor=1.0,
     return fl
 
 
-def bill_bound_pass(S, n, m, sweeps, sparse_factor=1.0, n_evals=1):
+def bill_bound_pass(S, n, m, sweeps, sparse_factor=1.0, count_pass=True,
+                    n_evals=1):
     """Bill one executed in-wheel bound pass: ``megastep.bound_passes`` +1
     and its model flops (``n_evals`` frozen evaluations of ``sweeps``
     sweeps and the dual assembly) into ``dispatch.flops``, never into the
-    PH iterations.  Returns the flops billed."""
-    _metrics.inc("megastep.bound_passes")
+    PH iterations.  ``count_pass=False`` bills the flops only (a bucketed
+    pass is billed once a bucket and counted once).  Returns the flops
+    billed."""
+    if count_pass:
+        _metrics.inc("megastep.bound_passes")
     fl = flops_model.bound_pass_flops(S, n, m, sweeps, sparse_factor,
                                       n_evals=n_evals)
     if fl:

@@ -20,15 +20,28 @@ are recorded in :attr:`WheelSpinner.stats`.
 opt's options is the hub-only certified wheel: the hub's megastep windows
 post their own outer and inner bounds (``'M'``), and no spoke thread runs.
 
+Resilience (:mod:`.resilience`): the hub options ``checkpoint_dir`` (with
+``checkpoint_every_secs``, ``checkpoint_every_iters``, ``checkpoint_keep``)
+snapshot the wheel on a writer thread, ``resume`` (or ``resume=``) warm
+starts from the newest checkpoint, ``spoke_timeout_secs`` (and
+``spoke_timeout_grace``) let the supervisor mark a progress-less spoke
+wedged, and ``strict_spokes`` raises on a spoke's failure.  By default a
+crashed spoke is marked lost (:attr:`WheelSpinner.lost_spokes`), its
+finalize skipped, and the wheel completes with the cylinders left.  A
+spoke thread that raised has drained its CUDA stream on the way out
+(:meth:`_Cylinder.running` synchronizes it: its queued replays are finite,
+the flag read one replay ahead at most), so its captured graphs and
+kernel operands are freed only after their last replay, and the hub's
+stream never waits on it.
+
 Call sequence as the reference's: construct opt + communicator per
 cylinder, make the mailboxes, ``setup_hub``, run all mains, the hub sends
 the kill sentinel, join, the hub and then each spoke finalize, and
 ``hub_finalize``.
 
-Not ported yet: the multiprocess spinner, resume and the checkpointer, the
-spoke supervisor (ROADMAP Queue 1 item 7), and lowered sweep precision
-inside a wheel (Queue 1 item 5); asking for them raises.  The AOT prewarm
-has no counterpart.
+Not ported yet: the multiprocess spinner (ROADMAP Queue 1 item 7) and
+lowered sweep precision inside a wheel (Queue 1 item 5); asking for them
+raises.  The AOT prewarm has no counterpart.
 """
 
 from __future__ import annotations
@@ -45,6 +58,9 @@ import torch
 from . import global_toc
 from .cylinders.hub import check_options
 from .cylinders.spcommunicator import WindowFabric
+from .obs import metrics as _metrics
+from .resilience import checkpoint as _ckpt
+from .resilience import supervisor as _supervisor
 from .solvers import cuda_kernels, device_loop, hostsync
 
 
@@ -99,22 +115,24 @@ def _load_cuda_libraries(devices):
 class WheelSpinner:
     """Spin a hub and list of spokes (spin_the_wheel.py:12-159).
 
-    The hub options may carry ``strict_spokes``: a spoke's exception then
-    raises at teardown.  By default a crashed spoke is recorded
-    (``self.spoke_errors``) and the wheel completes with whatever the
-    remaining bounders certified.
+    ``resume`` (a checkpoint file or directory; the hub option ``resume``
+    otherwise) warm-starts the wheel from its newest checkpoint:
+    :attr:`resumed_from` is that checkpoint's iteration.  The hub options
+    may carry ``strict_spokes``: a spoke's exception then raises at
+    teardown.  By default a crashed spoke is marked lost
+    (:attr:`lost_spokes`, :attr:`spoke_errors`) and the wheel completes
+    with whatever the remaining bounders certified.
     """
 
     def __init__(self, hub_dict, list_of_spoke_dict, resume=None):
-        if resume is not None:
-            raise NotImplementedError(
-                "WheelSpinner(resume=...): resume is not ported yet "
-                "(ROADMAP Queue 1 item 7, resilience)")
         self.hub_dict = dict(hub_dict)
         self.list_of_spoke_dict = [dict(d) for d in (list_of_spoke_dict
                                                      or [])]
+        self.resume = resume
         self.spun = False
         self.spoke_errors = []
+        self.lost_spokes = []
+        self.resumed_from = None
         self.stats = {}
 
     def spin(self, comm_world=None):
@@ -124,6 +142,79 @@ class WheelSpinner:
     def _hub_options(self) -> dict:
         return dict(self.hub_dict.get("hub_kwargs", {}).get("options")
                     or {})
+
+    # ---- resilience ---------------------------------------------------------
+    def _load_resume(self):
+        """The checkpoint to warm-start from (the ``resume=`` argument
+        wins over the hub option), or None for a cold start, also where
+        the path holds no checkpoint yet (a retried job's first run)."""
+        src = self.resume or self._hub_options().get("resume")
+        if not src:
+            return None
+        ck = _ckpt.load_latest(src)
+        if ck is None:
+            global_toc(f"resume: no checkpoint under {src!r}: cold start",
+                       True)
+        return ck
+
+    def _make_checkpointer(self, fresh_start: bool = False):
+        """The hub option ``checkpoint_dir``'s manager, or None.
+        ``fresh_start``: a cold run clears a reused directory's old
+        snapshots (they would out-prune this run's and hijack a later
+        resume)."""
+        opts = self._hub_options()
+        if not opts.get("checkpoint_dir"):
+            return None
+        return _ckpt.CheckpointManager(
+            opts["checkpoint_dir"],
+            every_secs=opts.get("checkpoint_every_secs", 60.0),
+            every_iters=opts.get("checkpoint_every_iters"),
+            keep=opts.get("checkpoint_keep", 3),
+            fresh_start=fresh_start)
+
+    def _wire_resilience(self, hub_comm, hub_opt):
+        """Resume and checkpointing (after ``setup_hub``): the bounds
+        re-seed now, the PH state at the end of the hub's Iter0
+        (``PHBase._apply_resume``).  Returns the manager or None."""
+        ckpt = self._load_resume()
+        if ckpt is not None:
+            hub_opt._resume_ckpt = ckpt
+            hub_comm.seed_resume(ckpt)
+            self.resumed_from = ckpt.iteration
+        mgr = self._make_checkpointer(fresh_start=ckpt is None)
+        if mgr is not None:
+            hub_comm.attach_checkpointer(mgr)
+        return mgr
+
+    @staticmethod
+    def _warn_unconsumed_resume(hub_opt):
+        """A resume checkpoint nobody consumed: the opt class never ran
+        ``PHBase.Iter0``, so the bounds were re-seeded but the PH state
+        started cold and the iteration count did not continue."""
+        if getattr(hub_opt, "_resume_ckpt", None) is not None:
+            hub_opt._resume_ckpt = None
+            global_toc(
+                f"WARNING: resume checkpoint was NOT consumed by "
+                f"{type(hub_opt).__name__} (no PHBase.Iter0 in its "
+                "loop): bounds were re-seeded but PH state restarted "
+                "cold and PHIterLimit did not continue from the snapshot",
+                True)
+
+    @staticmethod
+    def _final_checkpoint(hub_comm, mgr):
+        """Bank the end state (after the bound harvest) and drain the
+        writer: a later resume of a finished run reloads its certified
+        end state."""
+        if mgr is None:
+            return
+        try:
+            mgr.capture(hub_comm.current_iteration(),
+                        lambda: _ckpt.capture_ph(hub_comm.opt, hub=hub_comm))
+        except Exception as e:     # a capture must never cost the results
+            _metrics.inc("checkpoint.capture_errors")
+            global_toc(f"WARNING: final checkpoint capture failed: {e!r}",
+                       True)
+        mgr.close()
 
     def run(self):
         check_options(self._hub_options())
@@ -150,6 +241,15 @@ class WheelSpinner:
                     "a lowered sweep_precision inside a wheel is not ported "
                     "yet (ROADMAP Queue 1 item 5)")
         hub_comm.setup_hub()
+        ckpt_mgr = self._wire_resilience(hub_comm, hub_opt)
+        sup = _supervisor.SpokeSupervisor(
+            fabric, {i + 1: type(c).__name__
+                     for i, c in enumerate(spoke_comms)},
+            timeout_secs=self._hub_options().get("spoke_timeout_secs"),
+            grace_factor=float(self._hub_options().get(
+                "spoke_timeout_grace", 8.0)))
+        if spoke_comms:
+            hub_comm.attach_supervisor(sup)
         global_toc(
             f"wheel constructed ({1 + len(spoke_comms)} cylinders) in "
             f"{time.monotonic() - t_build0:.1f}s", True)
@@ -163,7 +263,7 @@ class WheelSpinner:
         # calling thread asked for: each spoke thread takes the caller's
         nthreads = torch.get_num_threads()
 
-        def spoke_runner(cyl):
+        def spoke_runner(cyl, idx):
             torch.set_num_threads(nthreads)
             try:
                 with cyl.running():
@@ -171,13 +271,15 @@ class WheelSpinner:
             except Exception as e:          # surfaced at join
                 errors.append((type(cyl.comm).__name__, e))
                 cyl.crashed = True
+                sup.note_error(idx, e)
 
         threads = []
-        for cyl in spoke_cyls:
-            t = threading.Thread(target=spoke_runner, args=(cyl,),
+        for i, cyl in enumerate(spoke_cyls):
+            t = threading.Thread(target=spoke_runner, args=(cyl, i + 1),
                                  name=cyl.name, daemon=True)
             t.start()
             threads.append(t)
+            sup.note_thread(i + 1, t)
 
         try:
             with hub_cyl.running():
@@ -188,8 +290,11 @@ class WheelSpinner:
             # spokes' teardown below is bookkeeping, not time to the gap
             self.gap_wall_secs = time.monotonic() - t_build0
         deadline = time.monotonic() + 900.0   # shared across all joins
-        for t in threads:
-            t.join(timeout=max(0.0, deadline - time.monotonic()))
+        for i, t in enumerate(threads):
+            # a lost spoke gets a short grace, not the whole deadline
+            cap = (5.0 if sup.is_lost(i + 1)
+                   else deadline - time.monotonic())
+            t.join(timeout=max(0.0, min(cap, deadline - time.monotonic())))
         hung = [t.name for t in threads if t.is_alive()]
         if hung:
             # a spoke still running cannot finalize concurrently with its
@@ -198,9 +303,11 @@ class WheelSpinner:
                 f"WARNING: spoke thread(s) still running at teardown "
                 f"(skipping their finalize): {hung}", True)
         self.hung_spokes = hung
+        self.lost_spokes = sup.lost_names()
         self.spoke_errors = list(errors)
         try:
             if errors and self._hub_options().get("strict_spokes"):
+                self._final_checkpoint(hub_comm, ckpt_mgr)
                 raise RuntimeError(f"Spoke failures: {errors}")
             if errors:
                 global_toc(
@@ -216,6 +323,8 @@ class WheelSpinner:
                     with cyl.running():
                         cyl.comm.finalize()
             hub_comm.hub_finalize()
+            self._warn_unconsumed_resume(hub_opt)
+            self._final_checkpoint(hub_comm, ckpt_mgr)
         finally:
             # a hung spoke may still replay its loops: only the ended
             # cylinders' device state is freed

@@ -258,7 +258,9 @@ class SPOpt(SPBase):
         #: (each bucket's frozen solves)
         self.bucket_window_launches = []
         #: the integer bound passes' launches, one dict an evaluation: each
-        #: candidate's, then the reduced-cost re-certification's
+        #: candidate's, then the reduced-cost re-certification's; on a
+        #: bucketed batch one such list a bucket, for the plain pass too
+        #: (its one evaluation)
         self.bound_pass_launches = []
 
     def _device_consts(self, dt):
@@ -713,14 +715,16 @@ class SPOpt(SPBase):
     def _inwheel_pass_evals(self) -> int:
         """Frozen evaluations of ONE in-wheel bound pass (the window cap's
         reservation and the billing unit): 1 for the plain pass; the
-        ladder, the two slams and, where fixing is safe for the family
+        ladder, the two slams (not on a bucketed batch, whose pass drops
+        them) and, where fixing is safe for the family
         (:meth:`~.phbase.PHBase._inwheel_inner_ok`), the re-certification
         for the integer sweep."""
         th = self._inwheel_int_thresholds()
         if th is None:
             return 1
-        return (integer.n_candidates(th)
-                + (1 if self._inwheel_inner_ok() else 0))
+        c = (len(th) if isinstance(self.batch, BucketedBatch)
+             else integer.n_candidates(th))
+        return c + (1 if self._inwheel_inner_ok() else 0)
 
     def _megastep_fn(self, n_req: int, pack: str = "full",
                      bounds: bool = False):
@@ -884,16 +888,32 @@ class SPOpt(SPBase):
         return arrs
 
     def _bucketed_megastep_fn(self, n_req: int, bounds: bool = False):
-        """The bucketed window function at width ``n_req``."""
+        """The bucketed window function at width ``n_req``; with
+        ``bounds``, each bucket's integer nonant mask (bucketing keys on
+        the integer pattern) and, for the integer sweep, its integer
+        columns, the fixing off where the family carries second-stage
+        integers."""
         cache = getattr(self, "_mega_fn_cache", None)
         if cache is None:
             cache = self._mega_fn_cache = {}
         keyb = ("bucketed", n_req, bounds)
         fn = cache.get(keyb)
         if fn is None:
+            subs = [sub for _, sub in self.batch.buckets]
+            int_rounding = (self._inwheel_int_thresholds() if bounds
+                            else None)
             fn = cache[keyb] = sharded.make_bucketed_wheel_megastep(
                 self.tree.nonant_indices, self.admm_settings,
-                n_iters=n_req, bounds=bounds)
+                n_iters=n_req, bounds=bounds,
+                int_nonants=(tuple(self._inwheel_int_mask(batch=sub)
+                                   for sub in subs) if bounds else None),
+                xhat_threshold=(self._inwheel_threshold() if bounds
+                                else 0.5),
+                int_rounding=int_rounding,
+                int_cols=(tuple(np.asarray(sub.is_int, bool)
+                                for sub in subs) if int_rounding else None),
+                int_rcfix=(self._inwheel_inner_ok() if int_rounding
+                           else True))
         return fn
 
     def _megastep_solve_bucketed(self, n_req: int, n_live: int,
@@ -908,8 +928,12 @@ class SPOpt(SPBase):
         or guard trip maxing the age), and each bucket is billed on its own
         shapes, the window counted once.  Windows fetch the full pack (the
         lean posture of ``ph_device_state`` is the homogeneous path's).
-        ``bound_live`` must be None: the bucketed bound pass is not ported
-        (ROADMAP Queue 1 item 7).  Returns the global measurement."""
+        ``bound_live`` (None: no bound pass) runs the bucketed bound pass
+        where True; its measurement keys are the homogeneous path's, and
+        :attr:`bound_pass_launches` receives its launches by bucket, then
+        by evaluation (the integer pass's C candidates and the
+        re-certification; the plain pass's one).  Returns the global
+        measurement."""
         st = self.admm_settings
         dt = st.tdtype()
         if self._device_state_on() and \
@@ -939,6 +963,18 @@ class SPOpt(SPBase):
         _, tol_qp = self._straggler_tols()
         shapes = [(idx.size, sub.num_vars) for idx, sub in b.buckets]
         bounds = bound_live is not None
+        int_sweep = bounds and self._inwheel_int_sweep_on()
+        extra = {}
+        if bounds:
+            extra = dict(bound_live=bool(bound_live),
+                         feas_tol=self._inwheel_feas_tol())
+            n_ev = (len(self._inwheel_int_thresholds()) + 1 if int_sweep
+                    else 1)
+            if [len(r) if isinstance(r, list) else -1
+                    for r in self.bound_pass_launches] != [n_ev] * len(arrs):
+                self.bound_pass_launches = [[{} for _ in range(n_ev)]
+                                            for _ in arrs]
+            extra["bound_launches"] = self.bound_pass_launches
         with _trace.span(None, "solve.megastep") as _sp:
             fn = self._bucketed_megastep_fn(n_req, bounds=bounds)
             before = cuda_kernels.counts(local=True)
@@ -946,7 +982,8 @@ class SPOpt(SPBase):
                 self.bucket_window_launches = [{} for _ in arrs]
             states, packed = fn(tuple(states), arrs, 1.0, factors,
                                 convthresh, n_live, tol_qp,
-                                bucket_launches=self.bucket_window_launches)
+                                bucket_launches=self.bucket_window_launches,
+                                **extra)
             for slot, stb in zip(slots, states):
                 slot["warm"] = (stb.x, stb.z, stb.y, stb.yx)
             for k, v in cuda_kernels.counts(local=True).items():
@@ -954,7 +991,8 @@ class SPOpt(SPBase):
                     self.window_launches[k] = (self.window_launches.get(k, 0)
                                                + v - before[k])
             bmeas = sharded.bucketed_megastep_unpack(
-                hostsync.fetch(packed), n_req, shapes, K)
+                hostsync.fetch(packed), n_req, shapes, K, bounds=bounds,
+                int_sweep=int_sweep)
             if _trace.enabled():
                 _sp.add(n_live=n_live, executed=bmeas["executed"],
                         refresh_hit=bmeas["refresh_hit"], buckets=len(arrs))
@@ -963,6 +1001,14 @@ class SPOpt(SPBase):
         meas = {k: bmeas[k] for k in (
             "conv", "eobj", "pri_max", "dua_max", "iters", "all_done",
             "executed", "refresh_hit")}
+        if bounds:
+            meas.update({k: bmeas[k] for k in (
+                "bound_computed", "bound_outer", "bound_inner_obj",
+                "bound_inner_feas", "bound_sweeps")})
+            for k in ("int_feas_cands", "int_best_idx", "int_rcfix_slots",
+                      "bound_outer_base"):
+                if k in bmeas:
+                    meas[k] = bmeas[k]
         pri = np.zeros(S)
         dua = np.zeros(S)
         done = np.zeros(S, dtype=bool)
@@ -998,12 +1044,20 @@ class SPOpt(SPBase):
         _metrics.inc("solve.sweeps", float(np.sum(iters[:executed]))
                      + (rej or 0.0))
         refresh_every = self._refresh_every()
+        pass_evals = (self._inwheel_pass_evals()
+                      if meas.get("bound_computed") else 1)
         for bi, (slot, (idx, sub)) in enumerate(zip(slots, b.buckets)):
             # the packed sweep count is the buckets' max: each bucket is
-            # billed at it on its own shapes, the window counted once
+            # billed at it on its own shapes, the window and its pass
+            # counted once
             segmented.bill_megastep(idx.size, sub.num_vars, sub.num_rows,
                                     executed, sweeps, rejected_sweeps=rej,
                                     count_dispatch=bi == 0)
+            if meas.get("bound_computed"):
+                segmented.bill_bound_pass(
+                    idx.size, sub.num_vars, sub.num_rows,
+                    meas["bound_sweeps"], count_pass=bi == 0,
+                    n_evals=pass_evals)
             slot["age"] = slot.get("age", 0) + executed
             if meas["refresh_hit"] or guard:
                 slot["age"] = max(slot["age"], refresh_every)

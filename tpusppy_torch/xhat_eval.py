@@ -20,9 +20,8 @@ for what is left (:meth:`Xhat_Eval._host_milp`; with
 ``xhat_integer_strategy`` "milp", for every scenario).
 
 A shape-bucketed batch evaluates bucket by bucket
-(:meth:`Xhat_Eval._fix_and_solve_bucketed`), continuous buckets only: an
-integer bucket's evaluation is not ported yet (ROADMAP Queue 1 item 7) and
-raises.
+(:meth:`Xhat_Eval._fix_and_solve_bucketed`), an integer bucket through
+the same integer machinery on its own sub-batch.
 """
 
 from __future__ import annotations
@@ -42,7 +41,8 @@ _BUCKET_SWAPPED = (
     "batch", "tree", "nid_sk", "_warm", "_factors", "_factors_sig",
     "_factors_age", "_factors_ref_worst", "_n_div_prev", "local_x",
     "pri_res", "dua_res", "_fixed_lb", "_fixed_ub", "_dev_consts",
-    "_bucket_dev_consts", "_dev_state", "_last_all_done")
+    "_bucket_dev_consts", "_dev_state", "_last_all_done", "_cached_nonants",
+    "_verify_csr", "_donor_dual_cache", "_donor_dual_age")
 
 
 class Xhat_Eval(SPOpt):
@@ -239,19 +239,18 @@ class Xhat_Eval(SPOpt):
 
     def _fix_and_solve_bucketed(self, nonant_cache):
         """Fix-and-evaluate on a bucketed batch (``tpusppy/xhat_eval.py:
-        202-257``): each bucket's sub-batch runs the homogeneous path
-        (clamp, cold solve, rescue) in turn, its results scattered into
-        the bookkeeping layout.  The packed nonant slots are in the same
-        order in every bucket as in the global tree (a bundle's root
-        nonants, first).  An integer bucket raises: the bucketed integer
-        evaluation is not ported yet (ROADMAP Queue 1 item 7)."""
+        202-257``): each bucket's sub-batch runs the homogeneous path in
+        turn (the clamp, the cold solve and rescue; for an integer bucket
+        the dive, the batched retries and the host-MILP residue), its
+        results scattered into the bookkeeping layout.  The packed nonant
+        slots are in the same order in every bucket as in the global tree
+        (a bundle's root nonants, first).  Every solver-state attribute
+        the path touches (:data:`_BUCKET_SWAPPED`: the slot, the fixing,
+        the per-batch caches) is saved before the buckets run and restored
+        after, so nothing keyed to a bucket outlives its evaluation; the
+        device-A cache is keyed by content and the captured sweep loops by
+        shape, so a bucket's entries there serve its next evaluation."""
         b = self.batch
-        for _, sub in b.buckets:
-            if np.asarray(sub.is_int).any():
-                raise NotImplementedError(
-                    "Xhat_Eval on a bucketed batch with integer columns: "
-                    "the bucketed integer evaluation is not ported yet "
-                    "(ROADMAP Queue 1 item 7)")
         cache = np.asarray(nonant_cache, dtype=float)
         if cache.ndim == 1:
             cache = np.broadcast_to(cache, (b.num_scenarios, cache.shape[0]))
