@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases kernels,golden,loop,farmer,uc_lite,uc,
                                     megastep,precision,wheel,bundles,
-                                    integer,resilience]
+                                    integer,resilience,service]
 
 Run from the root of a checkout on a machine with one CUDA device and the
 CUDA toolkit (nvcc).  Phases, each printing a line:
@@ -56,11 +56,11 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    batched tensor path (eobj held to the kernel run's after as many
    iterations, with both runs' eobj and solve-loop decisions printed side
    by side) and, below S=1000 UC, the HiGHS EF of the same scenarios:
-   farmer-1000 crops_multiplier=4 PH in f32 (100 iterations, 25 on the
+   farmer-1000 crops_multiplier=4 PH in f32 (100 iterations, 10 on the
    tensor path) through ``fused_sweeps`` (the dense per-scenario engine),
-   uc_lite-1000 at its defaults (rho 500, 50 iterations, 5 on the tensor
+   uc_lite-1000 at its defaults (rho 500, 50 iterations, 3 on the tensor
    path) through ``fused_sweeps_shared`` (the shared-A engine), and
-   uc-1000 at full width (rho 500 and bench_uc.py's solver settings, 20
+   uc-1000 at full width (rho 500 and bench_uc.py's solver settings, 15
    iterations, 1 on the tensor path; its EF is out of HiGHS's reach, so
    the S=10 golden holds the EF check) through
    ``fused_sweeps_sparse`` (the sparse and structured-KKT engine); each
@@ -73,7 +73,7 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
 7. megastep: each main path's windows against the same PH in the legacy
    loop (``solver_options={"megastep": 1}``): farmer-1000 and
    uc_lite-1000 eobj after as many iterations (30, 25) within 1e-4,
-   uc-1000 (8) within 1e-3 (f32 rounding alone parts two uc-1000 runs by
+   uc-1000 (5) within 1e-3 (f32 rounding alone parts two uc-1000 runs by
    1.2e-4), the uc S=10 f64 golden after each of 5 iterations within
    1e-7; every run's windows, window and legacy iterations adding up to
    the iterations run, its kernel launched from inside the windows, host
@@ -82,7 +82,7 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    ``in_wheel_bounds`` and no spoke): farmer-1000 (its hub in f64 at eps
    1e-5, since the host rescue runs HiGHS at its default tolerances as the
    reference's does and an f32 consensus leaves the land rows a few 1e-6
-   over; 100 iterations at most, rel_gap 1e-3), whose outer bound is at
+   over; 50 iterations at most, rel_gap 1e-3), whose outer bound is at
    most the EF + 1e-6 |EF|,
    inner within 1e-2 of the EF and above it less 1e-4, outer <= inner,
    with a bound pass run and no spoke thread, and the uc S=10 f64 golden,
@@ -92,7 +92,7 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    legacy loop (the guard's full-precision re-run is the legacy frozen
    path's), against the megastep phase's legacy runs;
 9. wheel: the farmer-1000 wheel through ``WheelSpinner.spin()`` (the main
-   path's PH as the hub, 50 iterations at most, rel_gap 1e-3, abs_gap
+   path's PH as the hub, 30 iterations at most, rel_gap 1e-3, abs_gap
    1, with the Lagrangian, XhatShuffle and XhatXbar spokes, each cylinder
    on a CUDA stream of its own): the certified outer bound at most the
    HiGHS EF + 1e-6 |EF| and above the hub's trivial bound, the inner
@@ -138,7 +138,7 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    bucket and evaluation printed; and hydro S=9 in 3 proper bundles in
    f64 (the reference's settings) within 1e-2 of the unbundled HiGHS EF;
 11. integer: the integer families in f64 (HiGHS's EF solves in worker
-   processes alongside).  ``fused_sweeps`` against its plain version at
+   processes from the start of the bundles phase).  ``fused_sweeps`` against its plain version at
    the three families' shapes (netdes-1000 S=1000, m=35, n=50; sizes
    S=3, m=62, n=150; sslp 10 x 50 S=50, m=60, n=520) in the mode its
    layout picks; the netdes S=3 golden hub-only in-wheel integer wheel
@@ -183,7 +183,35 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    its second payload (``faults.FaultPlan``): the wheel completes, the
    spoke lost with one ``SpokeKilled`` (``supervisor.spokes_lost`` 1), a
    finite inner bound, outer <= inner, ``torch.cuda.synchronize()`` clean,
-   and the hub's PH it/s before and after the kill.
+   and the hub's PH it/s before and after the kill;
+13. service: the solve server (``tpusppy_torch.service``) on farmer-1000
+   crops_multiplier=4 in f64 (eps 1e-5) through ``fused_sweeps``, each
+   part with the counts zeroed before it and read after it (the dense
+   kernel only, no plain version): (a) the tenant window (K=3 slots,
+   seedoffsets 0, 1000 and 2000, N=15 over two windows, slot 2 a ghost in
+   the first) against each slot's solo window: eobj, W and xbars within
+   1e-9, the ghost's state unchanged, ``fused_sweeps`` launched for every
+   live slot, one packed fetch a window, the tenants' PH it/s against a
+   solo window's; (b) ``SolveServer(batch_slots=3, in_wheel_bounds=True)``
+   with requests at seedoffsets 0, 1000 and 2000 and a fourth joining
+   late: each done, batched, certified at rel_gap 0.05, outer <= inner,
+   the seed-0 outer <= EF + 1e-6 |EF| and inner >= EF - 1e-4 |EF|, every
+   member after the leader capturing no graph (its record, each member's
+   own captures, and the device's count: none after the leader's first
+   window, every capture billed to a record), ``batching.joins`` >= 4;
+   (c) time-slicing (no batching, quantum 2 s) over the hub, Lagrangian
+   and XhatShuffle wheel: farmer-1000 seed 0, farmer-500 seed 0 and
+   farmer-1000 seed 77 submitted together, each done with its bounds
+   monotone and outer <= inner, at least one preemption and more than 3
+   slices, the second farmer-1000 request warm, capturing nothing and
+   reaching its first iteration sooner than the first; (b) and (c) print
+   the server's SLO summary; (d) ``shutdown(wait=False)`` parks a running
+   request once its hub has posted a finite inner bound at iteration 10
+   or later, and ``SolveServer.recover_from`` completes it: PHIterLimit
+   the total, recovered "warm", both bounds monotone against the finite
+   parked ones; (e) a
+   ``SolveClient`` solves one request through a ``TcpServiceFrontend``
+   and its ``GET /metrics`` answers.
 
 ``--phases`` runs a subset; the result lines print only when all ran.
 Prints a ``{"kernels": [...]}`` line, then as the last line
@@ -854,6 +882,52 @@ def phase_sparse_kernel(cuda_kernels, S=1000):
     return out
 
 
+#: HiGHS EFs solved in a worker process from the start of the run, beside
+#: the kernels' build, and read where a phase holds a run against them:
+#: label -> (model, S) at its LP relaxation and default kwargs.
+EF_PREFETCH = {"uc S=10": ("uc", 10), "uc_lite-1000": ("uc_lite", 1000)}
+_EF_FUTURES: dict = {}
+
+
+def ef_of(model, S):
+    """The HiGHS EF objective of ``model`` at S scenarios (LP relaxation),
+    in a worker process."""
+    sys.path.insert(0, HERE)
+    import importlib
+
+    from tpusppy_torch.ef import solve_ef
+    from tpusppy_torch.spbase import build_batch
+
+    mod = importlib.import_module(f"tpusppy_torch.models.{model}")
+    batch, _ = build_batch(mod.scenario_names_creator(S),
+                           mod.scenario_creator,
+                           {"num_scens": S, "relax_integers": True})
+    return solve_ef(batch, solver="highs")[0]
+
+
+def start_ef_prefetch():
+    """Start :data:`EF_PREFETCH`'s solves; returns the pool (shut down by
+    the caller)."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    for label, (model, S) in EF_PREFETCH.items():
+        _EF_FUTURES[label] = pool.submit(ef_of, model, S)
+    return pool
+
+
+def prefetched_ef(label, batch):
+    """``label``'s EF objective: the prefetched solve's, else HiGHS on
+    ``batch`` here."""
+    from tpusppy_torch.ef import solve_ef
+
+    fut = _EF_FUTURES.get(label)
+    return (fut.result() if fut is not None
+            else solve_ef(batch, solver="highs")[0])
+
+
 def farmer_ph(S, cm, options, ph_class=None):
     """farmer PH; ``ph_class``: a PH subclass (:func:`clocked`)."""
     from tpusppy_torch.models import farmer
@@ -951,7 +1025,7 @@ def phase_golden(cuda_kernels):
             eps=1e-8)
     k, p = runs["auto"], runs[False]
     t0 = time.perf_counter()
-    ef_obj, _ = solve_ef(ph.batch, solver="highs")
+    ef_obj = prefetched_ef("uc S=10", ph.batch)
     print(f"golden uc S=10 (30 gens, 24 h) f64 on {ph.device}: "
           f"conv={k['conv']:.3e} eobj={k['eobj']:.4f} "
           f"tbound={k['tbound']:.4f} iters={k['iters']} "
@@ -1471,7 +1545,7 @@ def phase_main(cuda_kernels, label, kernel, make_ph, iters, tensor_iters,
         return k
 
     t0 = time.perf_counter()
-    ef_obj, _ = solve_ef(ph.batch, solver="highs")
+    ef_obj = prefetched_ef(label, ph.batch)
     rel_ef = abs(k["eobj"] - ef_obj) / abs(ef_obj)
     print(f"EF HiGHS {label}: {ef_obj:.4f} ({time.perf_counter() - t0:.2f} "
           f"s); kernel eobj vs EF {rel_ef:.3e}", flush=True)
@@ -1495,7 +1569,7 @@ PRECISION_RUNS = (("farmer-1000 cm=4", "fused_sweeps",
                   ("uc_lite-1000", "fused_sweeps_shared",
                    (("default", None), ("high", None)), 25),
                   ("uc-1000", "fused_sweeps_sparse", (("default", None),),
-                   8))
+                   5))
 #: eobj of a lowered PH run against the "highest" run after as many
 #: iterations, f32.  Measured on an H100 (PERF.md): 0 where the guard
 #: re-ran every lowered frozen solve at "highest" (farmer-1000,
@@ -1626,19 +1700,20 @@ def phase_precision(cuda_kernels, main, legacy):
 
 
 #: The farmer-1000 wheel: the main path's PH (f32, eps 1e-5, rho 1) as its
-#: hub, 50 iterations at most (100 before the resilience phase came), with
-#: the Lagrangian,
+#: hub, 30 iterations at most (100 before the resilience phase came, 50
+#: before the service phase), with the Lagrangian,
 #: XhatShuffle (3 donors a pass) and XhatXbar spokes solving in f64, on one
 #: card (bench.py's wheel at the repo's full farmer size); the hub-only
-#: in-wheel farmer-1000 wheel keeps 100.
-WHEEL_ITERS = 50
-HUB_ONLY_ITERS = 100
+#: in-wheel farmer-1000 wheel 32 (100 before the service phase).
+WHEEL_ITERS = 30
+HUB_ONLY_ITERS = 32
 WHEEL_HUB = {"rel_gap": 1e-3, "abs_gap": 1.0, "linger_secs": 5.0}
 WHEEL_SOLVER = {"dtype": "float32", "eps_abs": 1e-5, "eps_rel": 1e-5}
-#: uc-1000's hub and Lagrangian spoke: the uc phase's PH, 10 iterations,
-#: the spoke bounding from donor duals alone (bench_uc.py:442-448, the
-#: donors' budget cut from 120 to 60 s to fit the time limit)
-UC_WHEEL_ITERS = 10
+#: uc-1000's hub and Lagrangian spoke: the uc phase's PH, 4 iterations (10
+#: before the service phase), the spoke bounding from donor duals alone
+#: (bench_uc.py:442-448, the donors' budget cut from 120 to 60 s to fit the
+#: time limit)
+UC_WHEEL_ITERS = 4
 UC_DONORS = {"k": 24, "budget_s": 60, "time_limit": 20}
 
 
@@ -1909,7 +1984,8 @@ def phase_wheel(cuda_kernels, main, hub_only=None):
 #: with the precision phase's, to make room for it; at 15
 #: uc_lite-1000's lowered eobj sits 1.057e-2 from the EF, past the
 #: precision phase's 1e-2)
-LEGACY_ITERS = {"farmer-1000 cm=4": 30, "uc_lite-1000": 25, "uc-1000": 8}
+#: (uc-1000 8 before the service phase)
+LEGACY_ITERS = {"farmer-1000 cm=4": 30, "uc_lite-1000": 25, "uc-1000": 5}
 #: uc's frozen iterates never meet the frozen acceptance ladder (1e-2) at
 #: bench_uc.py's settings: its refresh leaves stalled QP scenarios the host
 #: rescue does not take (n = 2928 > 2000), every legacy frozen attempt is
@@ -2137,8 +2213,8 @@ BUNDLE_BUCKETS = ((200, 84, 108), (100, 112, 140))
 NETDES_BUCKETS = ((200, 105, 100), (100, 140, 125))
 #: The bundled PH's and the bundled wheel's depths, cut to keep the whole
 #: run near 1000 s (20 and 8 until the integer phase came, 12 and 4 until
-#: the resilience phase came)
-BUNDLE_ITERS = 6
+#: the resilience phase came, 6 and 2 until the service phase came)
+BUNDLE_ITERS = 4
 BUNDLE_WHEEL_ITERS = 2
 BUNDLE_MEGA_TOL = 1e-4
 #: The bucketed in-wheel wheels (hub-only, bound pass in each window):
@@ -2503,7 +2579,7 @@ SIZES_OPTIONS = {"defaultPHrho": 0.01, "convthresh": -1.0,
                  "xhat_looper_options": {"scen_limit": 2}}
 SIZES_OUTER_BAND, SIZES_INNER_BAND = (218000.0, 230000.0), (220000.0,
                                                            240000.0)
-SIZES_HUB_ONLY_ITERS = 30
+SIZES_HUB_ONLY_ITERS = 16      # 30 before the service phase came
 SIZES_HUB_ONLY_BUDGET_S = 15.0
 #: sslp 10 x 50, S=50: rho 1, 15 hub iterations; the Lagrangian spoke
 #: lifts every 4th pass, the XhatShuffle spoke takes donor MILPs and
@@ -2512,8 +2588,8 @@ SIZES_HUB_ONLY_BUDGET_S = 15.0
 #: Queue 3), the XhatXbar spoke its default integer ladder through the dive,
 #: each within host budgets
 SSLP_KW = {"num_servers": 10, "num_clients": 50, "relax_integers": False}
-SSLP_ITERS = 15      # 30 before the resilience phase came
-SSLP_LIFT = {"every": 4, "budget_s": 20.0, "time_limit": 5.0}
+SSLP_ITERS = 8       # 30 before the resilience phase, 15 the service phase
+SSLP_LIFT = {"every": 4, "budget_s": 10.0, "time_limit": 5.0}
 SSLP_SHUFFLE = {"donor_milp": True, "donor_milp_time": 5.0, "scen_limit": 2}
 
 
@@ -2631,33 +2707,42 @@ def int_wheel(label, make_kwargs, spokes, hub_options):
     return ws, res
 
 
-def phase_integer(cuda_kernels):
+#: The integer families' creator kwargs (integers kept).
+INTEGER_NETDES_KW = {"relax_integers": False}
+INTEGER_SIZES_KW = {"scenario_count": 3, "relax_integers": False}
+
+
+def start_integer_efs():
+    """Start the integer phase's HiGHS EF solves in worker processes
+    (``main`` starts them before the bundles phase, so the integer phase
+    finds them done: the sslp MIP runs its EF_MIP_SECS limit); returns the
+    pool (shut down by the caller) and the futures."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=3, mp_context=multiprocessing.get_context("spawn"))
+    efs = {
+        "netdes-3": pool.submit(ef_solves, "netdes", 3,
+                                dict(INTEGER_NETDES_KW, num_scens=3)),
+        "netdes-1000": pool.submit(ef_solves, "netdes", 1000,
+                                   dict(INTEGER_NETDES_KW, num_scens=1000)),
+        "sslp": pool.submit(ef_solves, "sslp", 50, SSLP_KW),
+        "sizes": pool.submit(ef_solves, "sizes", 3, INTEGER_SIZES_KW,
+                             mip_gap=0.02),
+    }
+    return pool, efs
+
+
+def phase_integer(cuda_kernels, efs):
     """The integer families on the card, all in f64: fused_sweeps at the
     three families' shapes against its plain version; the netdes S=3
     golden and netdes-1000 hub-only in-wheel integer wheels; the sizes S=3
     golden spoke wheel and a hub-only sizes wheel; the sslp 10 x 50 S=50
-    spoke wheel.  HiGHS's EF solves run in worker processes meanwhile."""
-    import concurrent.futures
-    import multiprocessing
-
-    netdes_kw = {"relax_integers": False}
-    sizes_kw = {"scenario_count": 3, "relax_integers": False}
-    pool = concurrent.futures.ProcessPoolExecutor(
-        max_workers=3, mp_context=multiprocessing.get_context("spawn"))
-    try:
-        efs = {
-            "netdes-3": pool.submit(ef_solves, "netdes", 3,
-                                    dict(netdes_kw, num_scens=3)),
-            "netdes-1000": pool.submit(ef_solves, "netdes", 1000,
-                                       dict(netdes_kw, num_scens=1000)),
-            "sslp": pool.submit(ef_solves, "sslp", 50, SSLP_KW),
-            "sizes": pool.submit(ef_solves, "sizes", 3, sizes_kw,
-                                 mip_gap=0.02),
-        }
-        out = _integer_runs(cuda_kernels, efs, netdes_kw, sizes_kw)
-    finally:
-        pool.shutdown(wait=True, cancel_futures=True)
-    return out
+    spoke wheel.  ``efs``: HiGHS's EF solves
+    (:func:`start_integer_efs`)."""
+    return _integer_runs(cuda_kernels, efs, INTEGER_NETDES_KW,
+                         INTEGER_SIZES_KW)
 
 
 def _integer_runs(cuda_kernels, efs, netdes_kw, sizes_kw):
@@ -3324,6 +3409,445 @@ def phase_resilience(cuda_kernels, main):
     return out
 
 
+# ---- phase service: the solve server on farmer-1000 -------------------------
+#: The service phase's farmer-1000 family and its requests' settings: the
+#: hub-only wheel's f64 solver, rel_gap 0.05 (farmer-1000's certified
+#: outer bound sits 3-4% below the EF).
+SERVICE_S = 1000
+SERVICE_KW = {"num_scens": SERVICE_S, "crops_multiplier": 4}
+SERVICE_GAP = 0.05
+SERVICE_DEVICE = "cuda"
+#: Frozen PH iterations of one tenant window in (a).
+SERVICE_WINDOW = 15
+#: (b) the batched requests' iteration budget; (c) the time-sliced
+#: three-cylinder requests' and quantum; (d) the restarted request's.  A
+#: cold wheel parks no earlier than the end of its first window
+#: (iterations 2-16: one refresh, then 15 frozen), so (c)'s 17 leave a
+#: cold request one iteration to run after its park.
+SERVICE_BATCH_ITERS = 60
+SERVICE_SLICE_ITERS = 17
+SERVICE_QUANTUM = 2.0
+SERVICE_RESTART_ITERS = 60
+#: (d) parks its request once the hub has posted a finite inner bound at
+#: this iteration or later, so both parked bounds are real ones.
+SERVICE_PARK_FROM = 10
+
+
+def service_request(seed, iters, S=SERVICE_S, **opts):
+    """A farmer ``S`` request (``crops_multiplier`` 4, ``seedoffset``
+    ``seed``) at the service phase's settings, its device left to the
+    server's default (the card)."""
+    from tpusppy_torch.service import SolveRequest
+
+    return SolveRequest(
+        model="farmer", num_scens=S,
+        creator_kwargs={"seedoffset": seed, "crops_multiplier": 4},
+        options=dict({"PHIterLimit": iters, "rel_gap": SERVICE_GAP,
+                      "device": SERVICE_DEVICE,
+                      "solver_options": dict(HUB_ONLY_SOLVER)}, **opts))
+
+
+def service_launches(cuda_kernels, label):
+    """The sweep kernels launched since the counts were zeroed: the
+    dense kernel only, and no plain version."""
+    sweep = {f"{t}:{k}": v for (t, k), v in cuda_kernels.counts().items()
+             if t in ("launches", "plain_calls") and v}
+    check(set(sweep) == {"launches:fused_sweeps"},
+          f"service {label}: sweep launches {sweep}, wanted fused_sweeps "
+          "only")
+    return sweep["launches:fused_sweeps"]
+
+
+def print_slo(label, srv):
+    """The server's SLO summary, with the cold and warm requests' time to
+    the first iteration and the graph captures a request."""
+    recs = [r for r in srv.slo_records() if r["status"] == "done"]
+    s = srv.slo_summary()
+    cold = [r["ttfi_s"] for r in recs if not r["warm_hit"]]
+    warm = [r["ttfi_s"] for r in recs if r["warm_hit"]]
+    print(f"service {label} slo: p50 latency {s['p50_latency_s']:.3f} s, "
+          f"p95 {s['p95_latency_s']:.3f} s, p50 queue wait "
+          f"{s['p50_queue_wait_s']:.3f} s, p95 {s['p95_queue_wait_s']:.3f} "
+          f"s, cold ttfi {[round(v, 3) for v in cold]} s, warm ttfi "
+          f"{[round(v, 3) for v in warm]} s, captures a request "
+          f"{[int(r['aot_misses']) for r in recs]}, preemptions "
+          f"{s['preemptions']}, warm hit rate {s['warm_hit_rate']} {CARD}",
+          flush=True)
+
+
+def service_window(cuda_kernels):
+    """(a) K=3 farmer-1000 tenants (seedoffsets 0, 1000, 2000) in one
+    tenant window against each slot's solo window, slot 2 a ghost in the
+    first window; returns the per-tenant and solo PH rates."""
+    import torch
+
+    from tpusppy_torch.models import farmer
+    from tpusppy_torch.obs import metrics
+    from tpusppy_torch.parallel import sharded
+    from tpusppy_torch.solvers import hostsync
+    from tpusppy_torch.spbase import build_batch, make_admm_settings
+    from tpusppy_torch.spopt import mega_arrays_for_batch
+
+    st = make_admm_settings({"solver_options": dict(HUB_ONLY_SOLVER)})
+    dev = torch.device(SERVICE_DEVICE)
+    N, K = SERVICE_WINDOW, 3
+    names = farmer.scenario_names_creator(SERVICE_S)
+    arrs, states, factors = [], [], []
+    with cuda_kernels.owned_by("service-prep"):
+        for seed in (0, 1000, 2000):
+            b, _ = build_batch(names, farmer.scenario_creator,
+                               dict(SERVICE_KW, seedoffset=seed))
+            idx = b.tree.nonant_indices
+            refresh, _ = sharded.make_ph_step_pair(idx, st)
+            arr = mega_arrays_for_batch(b, torch.float64, dev)
+            s, _, _ = refresh(sharded.init_state(arr, 1.0, st), arr, 0.0)
+            s, _, f = refresh(s, arr, 1.0)
+            arrs.append(arr)
+            states.append(s)
+            factors.append(f)
+    tenant = sharded.make_tenant_megastep(idx, st, n_iters=N)
+    solo = sharded.make_wheel_megastep(idx, st, n_iters=N, pack="lean")
+    S = SERVICE_S
+
+    def run_tenant(sts, live, n_live, launches):
+        torch.cuda.synchronize()
+        with metrics.window() as w:
+            t0 = time.perf_counter()
+            out, packed = tenant(tuple(sts), tuple(arrs), 1.0,
+                                 tuple(factors), [-1.0] * K, n_live,
+                                 np.inf, live, slot_launches=launches)
+            inside = (w.delta("host_sync.count")
+                      - w.delta("admm.loop_checks"))
+            meas = sharded.tenant_megastep_unpack(hostsync.fetch(packed),
+                                                  N, S, K)
+            wall = time.perf_counter() - t0
+            fetches = (w.delta("host_sync.count")
+                       - w.delta("admm.loop_checks"))
+        check(inside == 0 and fetches == 1,
+              f"service (a): {inside} fetches inside the window, {fetches} "
+              "with its packed fetch (wanted 0 and 1)")
+        return out, meas, wall
+
+    def run_solo(s, t, n_live):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with cuda_kernels.owned_by("service-solo"):
+            out, packed = solo(s, arrs[t], 1.0, factors[t], -1.0, n_live,
+                               np.inf)
+            meas = sharded.megastep_unpack(hostsync.fetch(packed), N, S,
+                                           0, 0, pack="lean")
+        return out, meas, time.perf_counter() - t0
+
+    def close(got, ref):
+        got = got.double().cpu().numpy() if hasattr(got, "cpu") else got
+        ref = ref.double().cpu().numpy() if hasattr(ref, "cpu") else ref
+        got, ref = np.asarray(got, float), np.asarray(ref, float)
+        scale = max(1.0, float(np.max(np.abs(ref))))
+        return float(np.max(np.abs(got - ref))) / scale
+
+    # one refresh's worth of frozen iterations (N) over the two windows,
+    # every iterate accepted (the parity, not the acceptance test, is held):
+    # window 1 runs slots 0 and 1 for N // 2 with slot 2 a ghost, window 2
+    # runs them on to N and slot 2 for N
+    n1 = [N // 2, N // 2, 0]
+    n2 = [N - N // 2, N - N // 2, N]
+    cuda_kernels.reset_counts()
+    launches = [{} for _ in range(K)]
+    with cuda_kernels.owned_by("service-window"):
+        s1, m1, _ = run_tenant(states, [True, True, False], n1, launches)
+        check(all(torch.equal(getattr(s1[2], k), getattr(states[2], k))
+                  for k in sharded.PHState._fields),
+              "service (a): the ghost slot's state changed")
+        check(m1["executed"][2] == 0 and not launches[2],
+              f"service (a): the ghost ran ({m1['executed'][2]} "
+              f"iterations, launches {launches[2]})")
+        s2, m2, wall_k = run_tenant(list(s1[:2]) + [states[2]],
+                                    [True] * K, n2, launches)
+    n_launch = service_launches(cuda_kernels, "(a)")
+    worst = 0.0
+    solo_walls = []
+    for t in range(K):
+        ref_s, chain = states[t], []
+        for n_live in ((n1[t], n2[t]) if t < 2 else (n2[t],)):
+            ref_s, ref_m, wall = run_solo(ref_s, t, n_live)
+            chain.append(ref_m)
+            solo_walls.append((wall, ref_m["executed"]))
+        got_m = (m1, m2) if t < 2 else (m2,)
+        for gm, rm in zip(got_m, chain):
+            check(gm["executed"][t] == rm["executed"],
+                  f"service (a) slot {t}: executed {gm['executed'][t]}, "
+                  f"solo {rm['executed']}")
+            worst = max(worst, close(gm["eobj"][t], rm["eobj"]))
+        for k in ("W", "xbars"):
+            worst = max(worst, close(getattr(s2[t], k), getattr(ref_s, k)))
+        sl = launches[t].get(("launches", "fused_sweeps"), 0)
+        check(sl > 0 and not any(k[0] == "plain_calls"
+                                 for k in launches[t]),
+              f"service (a) slot {t}: launches {launches[t]}")
+    ex = m2["executed"]
+    check(worst <= 1e-9, f"service (a): a slot parts from its solo window "
+          f"by {worst:.3e} (relative to the largest entry) > 1e-9")
+    solo_rate = np.mean([e / w for w, e in solo_walls])
+    check(all(e > 0 for e in m1["executed"][:2]) and min(ex) > 0,
+          f"service (a): executed {m1['executed']}, {ex}")
+    print(f"service (a) tenant window K={K} N={N} farmer-1000 f64: each "
+          f"slot within {worst:.3e} of its solo window (eobj, W, xbars); "
+          f"ghost unchanged; fused_sweeps launches by slot "
+          f"{[lc.get(('launches', 'fused_sweeps'), 0) for lc in launches]} "
+          f"({n_launch} in both windows), one packed fetch a window; "
+          f"executed {m1['executed']} then {ex}; window {wall_k:.3f} s: "
+          f"{[round(e / wall_k, 3) for e in ex]} PH it/s a tenant "
+          f"({sum(ex) / wall_k:.3f} in all) against a solo window's "
+          f"{solo_rate:.3f} {CARD}", flush=True)
+    from tpusppy_torch.solvers import device_loop
+
+    for tok in ("service-prep", "service-window", "service-solo"):
+        device_loop.release(tok)
+    return {"tenant_rate": sum(ex) / wall_k / K, "solo_rate": solo_rate}
+
+
+def service_batched(cuda_kernels, workdir, ef):
+    """(b) SolveServer(batch_slots=3, in_wheel_bounds=True): seedoffsets
+    0, 1000, 2000, then a fourth request that joins late."""
+    from tpusppy_torch.obs import metrics
+    from tpusppy_torch.service import SolveServer
+
+    cuda_kernels.reset_counts()
+    t0 = time.perf_counter()
+    with metrics.window() as w, SolveServer(
+            work_dir=workdir, batch_slots=3, in_wheel_bounds=True,
+            quantum_secs=600.0, linger_secs=0.0) as srv:
+        rids = [srv.submit(service_request(seed, SERVICE_BATCH_ITERS))
+                for seed in (0, 1000, 2000)]
+        lead = srv._tenants[rids[0]]
+        # the leader's first window ends: every graph the batch binds is
+        # captured by then, so nothing after it may capture
+        while (w.delta("batching.windows") < 1
+               and not lead.done.is_set()):
+            time.sleep(0.01)
+        caps_first = w.delta("device_loop.captures")
+        rids.append(srv.submit(service_request(3000, SERVICE_BATCH_ITERS)))
+        recs = [srv.result(r, timeout=600) for r in rids]
+        caps_end = w.delta("device_loop.captures")
+        joins = w.delta("batching.joins")
+        windows = w.delta("batching.windows")
+        print_slo("(b) batched", srv)
+    wall = time.perf_counter() - t0
+    n_launch = service_launches(cuda_kernels, "(b)")
+    for i, r in enumerate(recs):
+        print(f"service (b) request {i} (seedoffset {1000 * i}): "
+              f"{r['status']} batched={r['batched']} certified="
+              f"{r['certified']} outer={r['outer']:.6f} inner="
+              f"{r['inner']:.6f} rel_gap={r['rel_gap']:.3e} iters="
+              f"{r['iters']} warm={r['warm_hit']} captures="
+              f"{int(r['aot_misses'])} capture_s={r['compile_s']:.3f} "
+              f"ttfi={r['ttfi_s']:.3f} s wall={r['wall_s']:.3f} s "
+              f"attributed_flops={r['attributed_flops']:.4g} {CARD}",
+              flush=True)
+        check(r["status"] == "done" and r["batched"] and r["certified"]
+              and r["outer"] <= r["inner"],
+              f"service (b) request {i}: {r}")
+        if i:
+            check(r["aot_misses"] == 0,
+                  f"service (b) request {i} captured {r['aot_misses']} "
+                  "graphs (a member after the leader must capture none)")
+    # the device's count: no capture after the leader's first window (the
+    # joiners, the late fourth request too), and the records bill every
+    # capture of (b) to the member that ran it
+    billed = sum(r["aot_misses"] for r in recs)
+    check(caps_end == caps_first and billed == caps_end,
+          f"service (b): {caps_first:.0f} graph captures by the end of the "
+          f"leader's first window, {caps_end:.0f} at the end, {billed:.0f} "
+          "billed to the records")
+    r0 = recs[0]
+    check(r0["outer"] <= ef + 1e-6 * abs(ef)
+          and r0["inner"] >= ef - 1e-4 * abs(ef),
+          f"service (b) seed 0: outer {r0['outer']} inner {r0['inner']} "
+          f"against the EF {ef}")
+    check(joins >= 4, f"service (b): {joins} joins (wanted >= 4)")
+    print(f"service (b) batched: joins {joins:.0f}, windows {windows:.0f}, "
+          f"graph captures {caps_first:.0f} by the end of the leader's "
+          f"first window and {caps_end:.0f} in all, "
+          f"fused_sweeps launches {n_launch}, seed-0 outer "
+          f"{(r0['outer'] - ef) / abs(ef):.3e} and inner "
+          f"{(r0['inner'] - ef) / abs(ef):.3e} from the EF {ef:.6f}; "
+          f"{wall:.1f} s {CARD}", flush=True)
+    return recs
+
+
+def service_sliced(cuda_kernels, workdir):
+    """(c) time-slicing over the hub, Lagrangian and XhatShuffle wheel:
+    farmer-1000 seed 0, farmer-500 seed 0 and farmer-1000 seed 77."""
+    from tpusppy_torch.obs import metrics
+    from tpusppy_torch.service import SolveServer
+
+    cuda_kernels.reset_counts()
+    t0 = time.perf_counter()
+    with metrics.window() as w, SolveServer(
+            work_dir=workdir, quantum_secs=SERVICE_QUANTUM,
+            linger_secs=5.0) as srv:
+        reqs = [service_request(0, SERVICE_SLICE_ITERS),
+                service_request(0, SERVICE_SLICE_ITERS, S=SERVICE_S // 2),
+                service_request(77, SERVICE_SLICE_ITERS)]
+        rids = [srv.submit(r) for r in reqs]
+        recs = [srv.result(r, timeout=900) for r in rids]
+        preempts = w.delta("service.preemptions")
+        print_slo("(c) time-sliced", srv)
+    wall = time.perf_counter() - t0
+    n_launch = service_launches(cuda_kernels, "(c)")
+    for label, r in zip(("farmer-1000 seed 0", "farmer-500 seed 0",
+                         "farmer-1000 seed 77"), recs):
+        print(f"service (c) {label}: {r['status']} certified="
+              f"{r['certified']} outer={r['outer']:.6f} inner="
+              f"{r['inner']:.6f} rel_gap={r['rel_gap']:.3e} iters="
+              f"{r['iters']} slices={r['slices']} preemptions="
+              f"{r['preemptions']} monotone={r['bounds_monotone']} warm="
+              f"{r['warm_hit']} captures={int(r['aot_misses'])} "
+              f"capture_s={r['compile_s']:.3f} ttfi={r['ttfi_s']:.3f} s "
+              f"wall={r['wall_s']:.3f} s {CARD}", flush=True)
+        check(r["status"] == "done" and r["bounds_monotone"]
+              and np.isfinite(r["outer"]) and r["outer"] <= r["inner"],
+              f"service (c) {label}: {r}")
+    slices = sum(r["slices"] for r in recs)
+    check(preempts >= 1 and slices > 3,
+          f"service (c): {preempts:.0f} preemptions, {slices} slices")
+    check(recs[2]["warm_hit"] and recs[2]["aot_misses"] == 0
+          and recs[2]["ttfi_s"] < recs[0]["ttfi_s"],
+          f"service (c): the second farmer-1000 request warm="
+          f"{recs[2]['warm_hit']}, {recs[2]['aot_misses']} captures, ttfi "
+          f"{recs[2]['ttfi_s']} against {recs[0]['ttfi_s']}")
+    print(f"service (c) time-sliced: {preempts:.0f} preemptions, {slices} "
+          f"slices, fused_sweeps launches {n_launch}; {wall:.1f} s {CARD}",
+          flush=True)
+    return recs
+
+
+def service_restart(cuda_kernels, workdir):
+    """(d) shutdown(wait=False) parks a running farmer-1000 request and a
+    server recovered over the same work directory completes it."""
+    from tpusppy_torch.service import SolveServer
+
+    cuda_kernels.reset_counts()
+    t0 = time.perf_counter()
+    kw = dict(in_wheel_bounds=True, quantum_secs=600.0, linger_secs=0.0)
+    limit = SERVICE_RESTART_ITERS
+    with SolveServer(work_dir=workdir, **kw) as srv:
+        rid = srv.submit(service_request(0, limit, rel_gap=1e-12))
+        t = srv._tenants[rid]
+        cursor, posted = 0, None
+        t_wait = time.perf_counter()
+        while posted is None and not t.done.is_set():
+            check(time.perf_counter() - t_wait < 300.0,
+                  "service (d): no finite inner bound in 300 s")
+            evs, cursor, _, _ = srv.progress.poll(rid, cursor)
+            for ev in evs:
+                if (ev["kind"] == "bound_update"
+                        and np.isfinite(ev["inner"])
+                        and ev["iteration"] >= SERVICE_PARK_FROM):
+                    posted = ev
+            time.sleep(0.01)
+        srv.shutdown(wait=False)
+        park = dict(t.record)
+    check(t.status == "parked" and park["iters"] < limit
+          and np.isfinite(park["outer"]) and np.isfinite(park["inner"]),
+          f"service (d): {t.status} at iteration {park['iters']} (outer "
+          f"{park['outer']}, inner {park['inner']}; bound posted {posted})")
+    srv2 = SolveServer.recover_from(workdir, **kw)
+    try:
+        rec = srv2.result(rid, timeout=600)
+    finally:
+        srv2.shutdown()
+    n_launch = service_launches(cuda_kernels, "(d)")
+    print(f"service (d) restart: parked at iteration {park['iters']} "
+          f"(outer {park['outer']:.6f}, inner {park['inner']:.6f}); "
+          f"recovered {rec['recovered']}: {rec['status']} at iteration "
+          f"{rec['iters']}, outer {rec['outer']:.6f}, inner "
+          f"{rec['inner']:.6f}, slices {rec['slices']}, preemptions "
+          f"{rec['preemptions']}; fused_sweeps launches {n_launch}; "
+          f"{time.perf_counter() - t0:.1f} s {CARD}", flush=True)
+    check(rec["status"] == "done" and rec["iters"] == limit
+          and rec["recovered"] == "warm" and rec["bounds_monotone"]
+          and rec["outer"] >= park["outer"] - 1e-9
+          and rec["inner"] <= park["inner"] + 1e-9,
+          f"service (d): {rec} after the park {park}")
+    return rec
+
+
+def service_tcp(cuda_kernels, workdir):
+    """(e) one farmer-1000 request through a TcpServiceFrontend, and its
+    scrape endpoint."""
+    import urllib.request
+
+    from tpusppy_torch.service import SolveServer
+    from tpusppy_torch.service.net import SolveClient, TcpServiceFrontend
+
+    cuda_kernels.reset_counts()
+    t0 = time.perf_counter()
+    with SolveServer(work_dir=workdir, in_wheel_bounds=True,
+                     quantum_secs=600.0, linger_secs=0.0) as srv:
+        front = TcpServiceFrontend(srv, slots=2, scrape_port=0)
+        try:
+            cli = SolveClient("127.0.0.1", front.port, front.secret, slot=1)
+            try:
+                rec = cli.solve(service_request(0, SERVICE_BATCH_ITERS)
+                                .to_dict(), timeout=600)
+            finally:
+                cli.close()
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{front.scrape_port}/metrics",
+                    timeout=30) as resp:
+                code, body = resp.status, resp.read().decode()
+        finally:
+            front.close()
+    n_launch = service_launches(cuda_kernels, "(e)")
+    print(f"service (e) tcp: {rec['status']} certified={rec['certified']} "
+          f"rel_gap={rec['rel_gap']:.3e} outer={rec['outer']:.6f} inner="
+          f"{rec['inner']:.6f}; GET /metrics {code}, {len(body)} bytes; "
+          f"fused_sweeps launches {n_launch}; "
+          f"{time.perf_counter() - t0:.1f} s {CARD}", flush=True)
+    check(rec["status"] == "done" and code == 200
+          and "tpusppy_service_completed_total" in body,
+          f"service (e): {rec['status']}, /metrics {code}")
+    return rec
+
+
+def phase_service(cuda_kernels, main):
+    """The service tier on farmer-1000 crops_multiplier=4 through
+    ``fused_sweeps``: (a) the tenant window against solo windows, (b)
+    batched serving, (c) time-slicing with preemption over the
+    three-cylinder wheel, (d) restart recovery, (e) the TCP front end.
+    ``main``: the main phases' runs (the farmer EF, computed here when the
+    farmer phase did not run)."""
+    import shutil
+    import tempfile
+
+    from tpusppy_torch.ef import solve_ef
+    from tpusppy_torch.models import farmer
+    from tpusppy_torch.spbase import build_batch
+
+    t_phase = time.perf_counter()
+    ef = main.get("farmer-1000 cm=4", {}).get("ef")
+    if ef is None:
+        b, _ = build_batch(farmer.scenario_names_creator(SERVICE_S),
+                           farmer.scenario_creator, dict(SERVICE_KW))
+        ef, _ = solve_ef(b, solver="highs")
+    out = {"window": service_window(cuda_kernels)}
+    for part, fn in (("batched", service_batched), ("sliced",
+                                                     service_sliced),
+                     ("restart", service_restart), ("tcp", service_tcp)):
+        workdir = tempfile.mkdtemp(prefix=f"chip_smoke_{part}_")
+        try:
+            out[part] = (fn(cuda_kernels, workdir, ef) if part == "batched"
+                         else fn(cuda_kernels, workdir))
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        print(f"[{time.perf_counter() - t_phase:.1f} s into the phase]",
+              flush=True)
+    print(f"service phase: {time.perf_counter() - t_phase:.1f} s {CARD}",
+          flush=True)
+    return out
+
+
 def kernel_line(name, source, replaces, launches, res):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3334,7 +3858,7 @@ def kernel_line(name, source, replaces, launches, res):
 
 PHASES = ("kernels", "golden", "loop", "farmer", "uc_lite", "uc",
           "megastep", "precision", "wheel", "bundles", "integer",
-          "resilience")
+          "resilience", "service")
 
 
 def main(argv=None) -> int:
@@ -3372,6 +3896,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
+    ef_pool = start_ef_prefetch() if phases & {"golden", "uc_lite"} else None
+    int_pool = int_efs = None
     global CARD
     main_runs = {}
     try:
@@ -3418,16 +3944,16 @@ def main(argv=None) -> int:
             farmer = main_runs["farmer-1000 cm=4"] = phase_main(
                 cuda_kernels, "farmer-1000 cm=4", "fused_sweeps",
                 lambda o, cls: farmer_ph(1000, 4, o, ph_class=cls), 100,
-                25, {"defaultPHrho": 1.0, "convthresh": 1e-6})
+                10, {"defaultPHrho": 1.0, "convthresh": 1e-6})
         if "uc_lite" in phases:
             uc_lite = main_runs["uc_lite-1000"] = phase_main(
                 cuda_kernels, "uc_lite-1000", "fused_sweeps_shared",
-                lambda o, cls: uc_ph(1000, o, ph_class=cls), 50, 5,
+                lambda o, cls: uc_ph(1000, o, ph_class=cls), 50, 3,
                 UC_MAIN_OPTIONS)
         if "uc" in phases:
             uc = main_runs["uc-1000"] = phase_main(
                 cuda_kernels, "uc-1000", "fused_sweeps_sparse",
-                lambda o, cls: uc_full_ph(1000, o, ph_class=cls), 20,
+                lambda o, cls: uc_full_ph(1000, o, ph_class=cls), 15,
                 1, UC_MAIN_OPTIONS, solver=UC_SOLVER,
                 ef=False)
         if phases & {"farmer", "uc_lite", "uc"}:
@@ -3445,6 +3971,8 @@ def main(argv=None) -> int:
             phase_wheel(cuda_kernels, main_runs, mega.get("farmer_wheel"))
             print(f"[{time.perf_counter() - t_all:.1f} s] wheel done",
                   flush=True)
+        if "integer" in phases:
+            int_pool, int_efs = start_integer_efs()
         if "bundles" in phases:
             t0 = time.perf_counter()
             phase_bundles(cuda_kernels, main_runs)
@@ -3452,7 +3980,7 @@ def main(argv=None) -> int:
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
         if "integer" in phases:
             t0 = time.perf_counter()
-            phase_integer(cuda_kernels)
+            phase_integer(cuda_kernels, int_efs)
             print(f"[{time.perf_counter() - t_all:.1f} s] integer done "
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
         if "resilience" in phases:
@@ -3460,9 +3988,19 @@ def main(argv=None) -> int:
             phase_resilience(cuda_kernels, main_runs)
             print(f"[{time.perf_counter() - t_all:.1f} s] resilience done "
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        if "service" in phases:
+            t0 = time.perf_counter()
+            phase_service(cuda_kernels, main_runs)
+            print(f"[{time.perf_counter() - t_all:.1f} s] service done "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
     except PhaseError as e:
         print(f"FAIL: {e}", flush=True)
         return 1
+    finally:
+        if ef_pool is not None:
+            ef_pool.shutdown(wait=False, cancel_futures=True)
+        if int_pool is not None:
+            int_pool.shutdown(wait=True, cancel_futures=True)
     print(f"total: {time.perf_counter() - t_all:.1f} s", flush=True)
     if phases != set(PHASES):
         return 0

@@ -109,3 +109,20 @@ def test_bundles_module_is_covered_and_bundled_ph_needs_a_device(no_gpu):
     ph = PH(dict(opts, device="cpu"), names, farmer.scenario_creator,
             scenario_creator_kwargs={"num_scens": 7})
     assert len(ph.batch.buckets) == 2 and ph.device.type == "cpu"
+
+
+def test_batched_runner_needs_a_device(no_gpu):
+    """The tenant window's runner asks for a device as every entry point
+    does; the CPU is taken only when asked for."""
+    from tpusppy_torch.models import farmer
+    from tpusppy_torch.service import ingest
+    from tpusppy_torch.service.batching import BatchedFamilyRunner
+
+    names = farmer.scenario_names_creator(3)
+    opts = {"defaultPHrho": 1.0, "PHIterLimit": 2, "in_wheel_bounds": True}
+    canon = ingest(names, farmer.scenario_creator, {"num_scens": 3},
+                   options=opts)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchedFamilyRunner(canon, opts, k_slots=2)
+    runner = BatchedFamilyRunner(canon, dict(opts, device="cpu"), k_slots=2)
+    assert runner.device.type == "cpu"

@@ -436,10 +436,12 @@ def _unported_cases():
             return ws.resumed_from is None and ws.opt._iter == 1
 
     def preempt():
-        WheelSpinner({"hub_class": PHHub, "opt_class": PH,
-                      "opt_kwargs": _okw(3, 1),
-                      "hub_kwargs": {"options": {
-                          "preempt_check": lambda: False}}}, []).spin()
+        # a park request lands at the first window boundary
+        ws = WheelSpinner({"hub_class": PHHub, "opt_class": PH,
+                           "opt_kwargs": _okw(3, 3),
+                           "hub_kwargs": {"options": {
+                               "preempt_check": lambda: True}}}, []).spin()
+        return ws.spcomm.preempted and ws.opt._iter == 1
 
     # ported since (integer families): each case runs and says so
     def milp_lift():
@@ -487,7 +489,7 @@ def _unported_cases():
                      []).spin()
 
     return [(megastep, "Queue 1 item 5"), (checkpoint, None),
-            (resume, None), (preempt, "Queue 1 item 7"), (milp_lift, None),
+            (resume, None), (preempt, None), (milp_lift, None),
             (donor_milp, None), (integer_dive, None),
             (multiprocess, "Queue 1 item 7"),
             (lowered_precision, "Queue 1 item 5")]

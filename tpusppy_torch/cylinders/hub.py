@@ -20,9 +20,16 @@ supervisor and a checkpoint manager; each ``sync()`` then observes the
 spokes' health and captures a checkpoint when its cadence is due, and the
 linger harvest ends when every spoke is lost.
 
-Not ported yet: preemption (``preempt_check``, the service tier) and the
-cross-scenario, APH and L-shaped hubs (ROADMAP Queue 1 item 7); an option
-only those read raises.
+The service tier (:mod:`..service`) plants two hooks in the hub options:
+``preempt_check`` (a callable; True parks the wheel at the next window
+boundary, after its first window on a wheel still capturing its programs,
+:meth:`Hub._check_preempt`: the hub stops iterating, the spinner's
+terminal checkpoint banks W, xbars, rho and the bounds, and a resumed slice
+continues with its bounds monotone) and ``progress_cb`` (called on every
+gap computation with ``(abs_gap, rel_gap, outer, inner, iteration)``).
+
+Not ported yet: the cross-scenario, APH and L-shaped hubs (ROADMAP Queue 1
+item 7).
 """
 
 from __future__ import annotations
@@ -40,26 +47,11 @@ from ..resilience import supervisor as _sup
 from .spcommunicator import SPCommunicator
 from .spoke import ConvergerSpokeType
 
-#: Hub options that only the parts not ported read.
-UNPORTED_OPTIONS = {
-    "preempt_check": "Queue 1 item 7 (the service tier)",
-}
-
-
-def check_options(options):
-    """Raise on a hub option that only a part not ported yet reads."""
-    for name, item in UNPORTED_OPTIONS.items():
-        if (options or {}).get(name) is not None:
-            raise NotImplementedError(
-                f"hub option {name!r} is not ported yet (ROADMAP {item})")
-
-
 class Hub(SPCommunicator):
     """Base hub (hub.py:23-450)."""
 
     def __init__(self, spbase_object, strata_rank, fabric, spokes,
                  options=None):
-        check_options(options)
         super().__init__(spbase_object, strata_rank, fabric, options)
         self.spokes = list(spokes)           # list of dicts with spoke_class
         self.remote_write_ids = {}           # spoke idx -> last accepted id
@@ -67,6 +59,8 @@ class Hub(SPCommunicator):
         self.latest_ob_char = None
         self.print_init = True
         self.stalled_iter_cnt = 0
+        # graph captures before this wheel's first solve (_capturing)
+        self._captures0 = _metrics.value("device_loop.captures")
         self.last_gap = inf
         self.stop_reason = None
         # resilience: the spinner attaches a supervisor and a checkpoint
@@ -208,13 +202,60 @@ class Hub(SPCommunicator):
             rel_gap = abs_gap / (abs(self.BestOuterBound) or 1.0)
         else:
             rel_gap = inf
+        # live progress seam of the service tier: the callback dedupes, and
+        # a progress fault never costs the solve
+        cb = self.options.get("progress_cb")
+        if cb is not None:
+            try:
+                cb(abs_gap, rel_gap, self.BestOuterBound,
+                   self.BestInnerBound, self.current_iteration())
+            except Exception:
+                pass
         return abs_gap, rel_gap
+
+    def _check_preempt(self) -> bool:
+        """Tenant preemption: the scheduler's ``options["preempt_check"]``
+        runs between iterations, at the window boundaries the checkpoint
+        capture owns, and True means PARK: the wheel tears down as at any
+        end, the terminal checkpoint banks (W, xbars, rho, bounds) and a
+        resumed run continues with bounds monotone (:meth:`seed_resume`)."""
+        if not hasattr(self, "preempted"):
+            self.preempted = False
+        pc = self.options.get("preempt_check")
+        if (pc is not None and not self.preempted and not self._capturing()
+                and pc()):
+            self.preempted = True
+            self.stop_reason = "preempted"
+            _metrics.inc("service.preemptions")
+            global_toc("Hub preempted: parking wheel at window boundary",
+                       True)
+            if _trace.enabled():
+                _trace.instant("hub", "preempt",
+                               iter=self.current_iteration(),
+                               best_outer=self.BestOuterBound,
+                               best_inner=self.BestInnerBound)
+        return self.preempted
+
+    def _capturing(self) -> bool:
+        """True while a park would cut this wheel's captures short: the
+        wheel has captured CUDA graphs (its family is cold on the card) and
+        will run megastep windows but has run none, so its frozen path is
+        not captured yet.  A cylinder captures each program when it first
+        reaches it, so a wheel parked here would leave the family's next
+        request to capture that path, where the warm contract says it
+        captures nothing (the reference compiles the whole program before
+        the first iteration).  Nothing is captured on the CPU."""
+        if _metrics.value("device_loop.captures") <= self._captures0:
+            return False
+        return (self.opt._megastep_request() > 0
+                and getattr(self.opt, "_windows_run", 0) == 0)
 
     def determine_termination(self) -> bool:
         opts = self.options
         if not any(k in opts for k in ("rel_gap", "abs_gap",
                                        "max_stalled_iters")):
-            return False
+            # no gap targets: preemption is the only possible verdict
+            return self._check_preempt()
         abs_gap, rel_gap = self.compute_gaps()
         rel_ok = "rel_gap" in opts and rel_gap <= opts["rel_gap"]
         abs_ok = "abs_gap" in opts and abs_gap <= opts["abs_gap"]
@@ -243,8 +284,10 @@ class Hub(SPCommunicator):
                     abs_gap=abs_gap, rel_gap=rel_gap,
                     best_outer=self.BestOuterBound,
                     best_inner=self.BestInnerBound)
+            # certification outranks preemption: a wheel whose gap just
+            # closed completes rather than parking
             return True
-        return False
+        return self._check_preempt()
 
     # ---- screen trace (hub.py:111-123) --------------------------------------
     def _update_string(self):
@@ -387,8 +430,9 @@ class PHHub(Hub):
         self.screen_trace()
         if not self.has_innerbound_spokes and not np.isfinite(
                 self.BestInnerBound):
-            # no incumbent can exist: gap termination stays blocked
-            return False
+            # no incumbent can exist: gap termination stays blocked, but a
+            # park request still lands (it needs no bounds)
+            return self._check_preempt()
         return self.determine_termination()
 
     def current_iteration(self):

@@ -21,12 +21,19 @@ and declined); and resilience's (:mod:`..resilience`): ``checkpoint.*``
 (captures, capture fetches, writes, write errors, coalesced snapshots,
 restores, corrupt files skipped; ``checkpoint.write_secs`` a histogram),
 ``faults.*`` (injected faults by kind), ``supervisor.spokes_lost`` and the
-``heartbeat.<cylinder>`` gauges.  Each update is one lock and a float
-add.  Scoped measurements read deltas through :func:`window`.
+``heartbeat.<cylinder>`` gauges; and the service tier's
+(:mod:`..service`): ``service.*`` (requests, completions, warm and cold
+starts, slices, preemptions, recoveries, rejections; the
+``service.queue_wait_s``, ``service.wall_s`` and ``service.ttfi_s``
+histograms and the journal's writes, compactions and torn lines),
+``batching.*`` (joins, evictions, ghost rows, windows; the
+``batching.slots`` gauge) and ``tcp_window.*``.  Each update is one lock
+and a float add.  Scoped measurements read deltas through :func:`window`.
 """
 
 from __future__ import annotations
 
+import random
 import threading
 
 
@@ -67,9 +74,15 @@ class Gauge:
 
 
 class Histogram:
-    """Streaming count, total, min and max of the samples added."""
+    """Streaming count, total, min and max of the samples added, and
+    quantiles from a bounded reservoir (Algorithm R, capped at
+    :data:`RESERVOIR_CAP` samples, seeded so that equal sample streams give
+    equal summaries): the service tier's latency percentiles."""
 
-    __slots__ = ("_lock", "count", "total", "min", "max")
+    RESERVOIR_CAP = 512
+
+    __slots__ = ("_lock", "count", "total", "min", "max", "_samples",
+                 "_rng")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -77,6 +90,8 @@ class Histogram:
         self.total = 0.0
         self.min = None
         self.max = None
+        self._samples: list = []
+        self._rng = random.Random(0x5EED)
 
     def add(self, v):
         v = float(v)
@@ -85,11 +100,30 @@ class Histogram:
             self.total += v
             self.min = v if self.min is None else min(self.min, v)
             self.max = v if self.max is None else max(self.max, v)
+            if len(self._samples) < self.RESERVOIR_CAP:
+                self._samples.append(v)
+            else:
+                j = self._rng.randrange(self.count)
+                if j < self.RESERVOIR_CAP:
+                    self._samples[j] = v
+
+    def quantile(self, q: float):
+        """Nearest-rank quantile of the reservoir (None when empty); exact
+        while ``count`` <= :data:`RESERVOIR_CAP`."""
+        with self._lock:
+            samples = sorted(self._samples)
+        if not samples:
+            return None
+        q = min(max(float(q), 0.0), 1.0)
+        return samples[min(len(samples) - 1,
+                           int(round(q * (len(samples) - 1))))]
 
     def summary(self) -> dict:
+        p50, p95, p99 = (self.quantile(q) for q in (0.50, 0.95, 0.99))
         with self._lock:
             return {"count": self.count, "total": self.total,
-                    "min": self.min, "max": self.max}
+                    "min": self.min, "max": self.max,
+                    "p50": p50, "p95": p95, "p99": p99}
 
 
 class Registry:

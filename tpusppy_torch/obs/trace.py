@@ -1,7 +1,9 @@
 """Structured trace ring buffer of spans.
 
 A standard-library copy of the recording half of ``tpusppy/obs/trace.py``
-(the spans ``spopt``/``phbase``/``hostsync`` emit).  Recording is
+(the spans ``spopt``/``phbase``/``hostsync`` emit, and the counter samples
+and instants the service tier's request telemetry records,
+:mod:`.telemetry`).  Recording is
 OFF by default; every record function checks one module flag first and the
 disabled path allocates nothing, so instrumentation stays in hot paths.
 Events are ``(t, tid, track, name, kind, dur, payload)`` tuples; ``track=None``
@@ -25,7 +27,7 @@ class Event(NamedTuple):
     tid: int            # OS thread ident at record time
     track: str          # logical timeline name
     name: str           # event name
-    kind: str           # "span" or "instant"
+    kind: str           # "span", "instant" or "counter"
     dur: float | None   # span duration (seconds); None otherwise
     payload: dict | None
 
@@ -131,3 +133,16 @@ def record_span(track: str | None, name: str, t0: float, dur: float,
         return
     _add(Event(t0, threading.get_ident(), track or thread_track(), name,
                "span", dur, payload))
+
+
+def counter(track: str | None, name: str, value, **payload):
+    """Sampled numeric series (``{"value": value}`` plus ``payload``; the
+    request telemetry tags per-tenant samples with ``request_id`` and
+    ``trace_id``)."""
+    if not _enabled:
+        return
+    data = {"value": float(value)}
+    if payload:
+        data.update(payload)
+    _add(Event(_perf(), threading.get_ident(), track or thread_track(), name,
+               "counter", None, data))

@@ -41,6 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..obs import metrics as _metrics
 from ..solvers import admm, cuda_kernels, device_loop, shared_admm
 from ..solvers import integer as integer_solvers
 from ..solvers.sparse import SparseA
@@ -933,5 +934,200 @@ def make_bucketed_wheel_megastep(nonant_idx, settings, n_iters: int = 8,
             else:
                 parts.append(torch.zeros(tail_len, dtype=dt, device=dev))
         return out_states, torch.cat(parts)
+
+    return mega
+
+
+# ---- the refresh step and the tenant window (the service tier) ---------------
+def make_ph_step_pair(nonant_idx, settings):
+    """``(refresh_step, frozen_step)``: one PH iteration with the full
+    adaptive solve, and one on frozen factors (the single-device
+    ``make_ph_step_pair`` of ``tpusppy/parallel/sharded.py:352``; its mesh
+    form waits for the mesh).
+
+    ``refresh_step(state, arr, prox_on) -> (state, out, factors)`` assembles
+    the objective from the carried (W, xbars, rho), runs the factored solve
+    of ``arr.A``'s engine warm from the state's iterate and applies the PH
+    update; ``frozen_step(state, arr, prox_on, factors) -> (state, out)``
+    runs the frozen solve on ``factors`` instead.  Each solve runs its
+    engine's sweep loop (:mod:`..solvers.device_loop`, the hand kernels on
+    the card)."""
+    idx_np = np.asarray(nonant_idx, dtype=np.int64)
+    idx_on = {}
+
+    def _idx(dev):
+        idx = idx_on.get(dev)
+        if idx is None:
+            idx = idx_on[dev] = torch.as_tensor(idx_np, device=dev)
+        return idx
+
+    def refresh_step(state: PHState, arr: PHArrays, prox_on):
+        idx = _idx(arr.c.device)
+        q, q2, W, rho = _ph_objective(arr, state, float(prox_on), idx)
+        shared = isinstance(arr.A, SparseA) or arr.A.ndim == 2
+        solve = (shared_admm.solve_shared_factored if shared
+                 else admm.solve_batch_factored)
+        sol, factors = solve(q, q2, arr.A, arr.cl, arr.cu, arr.lb, arr.ub,
+                             settings=settings,
+                             warm=(state.x, state.z, state.y, state.yx))
+        new_state, out = _ph_finish(arr, state, sol, W, rho, idx)
+        return new_state, out, factors
+
+    def frozen_step(state: PHState, arr: PHArrays, prox_on, factors):
+        idx = _idx(arr.c.device)
+        q, q2, W, rho = _ph_objective(arr, state, float(prox_on), idx)
+        sol = _frozen_fn(arr.A)(q, q2, arr.A, arr.cl, arr.cu, arr.lb,
+                                arr.ub, factors, settings=settings,
+                                warm=(state.x, state.z, state.y, state.yx))
+        return _ph_finish(arr, state, sol, W, rho, idx)
+
+    return refresh_step, frozen_step
+
+
+def tenant_megastep_measure_len(n_iters: int, S: int, n_tenants: int,
+                                bounds: bool = False) -> int:
+    """Length of the packed tenant-window measurement
+    (:func:`make_tenant_megastep`): per tenant, its ``6 * n_iters`` stats,
+    the executed count and the refresh flag, the final ``pri``/``dua``/
+    ``done`` (S each), tenant-major; with ``bounds`` one
+    :data:`BOUND_PACK_LEN` bound pack per tenant after them.  The pack is
+    lean: x, W and xbars stay in the returned per-slot states."""
+    return n_tenants * (6 * n_iters + 2 + 3 * S) \
+        + (n_tenants * BOUND_PACK_LEN if bounds else 0)
+
+
+def tenant_megastep_unpack(vec, n_iters: int, S: int, n_tenants: int,
+                           bounds: bool = False) -> dict:
+    """Split a fetched tenant-window measurement into per-tenant lists
+    (index = slot), the reference's layout: ``conv``/``eobj``/``pri_max``/
+    ``dua_max``/``iters``/``all_done`` (length-``n_iters`` arrays),
+    ``executed``/``refresh_hit`` scalars, ``pri``/``dua``/``done`` (S,);
+    with ``bounds`` ``bound_computed``/``bound_outer``/``bound_inner_obj``/
+    ``bound_inner_feas``/``bound_sweeps``.  A ghost slot reads
+    ``executed == 0``, zero stats and infinite residuals."""
+    vec = np.asarray(vec)
+    N, T = n_iters, n_tenants
+    out = {k: [] for k in ("conv", "eobj", "pri_max", "dua_max", "iters",
+                           "all_done", "executed", "refresh_hit",
+                           "pri", "dua", "done")}
+    off = 0
+    for _t in range(T):
+        per = vec[off:off + 6 * N].reshape(6, N)
+        off += 6 * N
+        out["conv"].append(per[0])
+        out["eobj"].append(per[1])
+        out["pri_max"].append(per[2])
+        out["dua_max"].append(per[3])
+        out["iters"].append(per[4])
+        out["all_done"].append(per[5] != 0.0)
+        out["executed"].append(int(vec[off]))
+        out["refresh_hit"].append(bool(vec[off + 1]))
+        off += 2
+        out["pri"].append(vec[off:off + S])
+        out["dua"].append(vec[off + S:off + 2 * S])
+        out["done"].append(vec[off + 2 * S:off + 3 * S] != 0.0)
+        off += 3 * S
+    if bounds:
+        for k in ("bound_computed", "bound_outer", "bound_inner_obj",
+                  "bound_inner_feas", "bound_sweeps"):
+            out[k] = []
+        for _t in range(T):
+            tail = vec[off:off + BOUND_PACK_LEN]
+            off += BOUND_PACK_LEN
+            out["bound_computed"].append(bool(tail[0]))
+            out["bound_outer"].append(float(tail[1]))
+            out["bound_inner_obj"].append(float(tail[2]))
+            out["bound_inner_feas"].append(float(tail[3]))
+            out["bound_sweeps"].append(float(tail[4]))
+    return out
+
+
+def make_tenant_megastep(nonant_idx, settings, n_iters: int = 8,
+                         bounds: bool = False):
+    """The window of K ISOMORPHIC TENANTS: up to ``n_iters`` frozen PH
+    iterations for each live slot and ONE packed measurement
+    (:func:`tenant_megastep_unpack`), the reference's
+    ``make_tenant_megastep`` (``tpusppy/parallel/sharded.py:1584``).
+
+    Every slot is an independent wheel: its own :class:`PHState`,
+    :class:`PHArrays` and factors, its own ``convthresh``/``n_live``/
+    ``bound_live`` entry, and its window is the solo window of
+    :func:`make_wheel_megastep` on its own state (the
+    :class:`~..solvers.device_loop.Program` steps and the frozen solves
+    through the engine's hand kernel), so a slot's trajectory is exactly
+    its solo window's.  The slots' windows run one after another on the
+    caller's owner, so they share one program and one captured sweep loop
+    a family: a slot's window copies its state into their buffers and
+    captures nothing past the first.  A GHOST slot (``live_mask`` False)
+    runs nothing: its state passes through and its block reads zero stats,
+    infinite residuals and (with ``bounds``) a zero bound pack.  The caller
+    fetches the packed measurement once.
+
+    ``bounds=True`` appends one :data:`BOUND_PACK_LEN` pack a slot, each
+    the slot's own :func:`_bound_pass_terms` where ``bound_live[t]`` (and
+    the slot is live), zeros otherwise (integer families time-slice: the
+    window rounds no candidate).
+
+    Returns ``mega(states, arrs, prox_on, factors, convthresh, n_live,
+    accept_tol, live_mask, bound_live=None, feas_tol=1e-3,
+    slot_launches=None, slot_metrics=None) -> (states, packed)`` over
+    K-tuples of states, arrays and factors and (K,) ``convthresh``/
+    ``n_live``/``live_mask``/``bound_live``; ``slot_launches``: K dicts
+    that receive each slot's kernel launches
+    (:func:`..solvers.cuda_kernels.counts` of the calling thread);
+    ``slot_metrics``: K dicts of registry counter name -> value, each
+    incremented by the counter's delta over the slot's window (the
+    counters are the process's: the caller runs the only device work)."""
+    if n_iters < 1:
+        raise ValueError(f"n_iters ({n_iters}) must be >= 1")
+    solo = make_wheel_megastep(nonant_idx, settings, n_iters=n_iters,
+                               pack="lean", bounds=bounds)
+
+    def mega(states, arrs, prox_on, factors, convthresh, n_live,
+             accept_tol, live_mask, bound_live=None, feas_tol=1e-3,
+             slot_launches=None, slot_metrics=None):
+        T = len(states)
+        head = 6 * n_iters + 2
+        new_states, blocks, packs = [], [], []
+        for t in range(T):
+            arr = arrs[t]
+            dt, dev = arr.c.dtype, arr.c.device
+            S = arr.c.shape[0]
+            if not bool(live_mask[t]):
+                new_states.append(states[t])
+                blocks.append(torch.cat([
+                    torch.zeros(head, dtype=dt, device=dev),
+                    torch.full((2 * S,), float("inf"), dtype=dt,
+                               device=dev),
+                    torch.zeros(S, dtype=dt, device=dev)]))
+                if bounds:
+                    packs.append(torch.zeros(BOUND_PACK_LEN, dtype=dt,
+                                             device=dev))
+                continue
+            extra = {}
+            if bounds:
+                extra = dict(bound_live=bool(
+                    bound_live is not None and bound_live[t]),
+                    feas_tol=feas_tol)
+            before = (cuda_kernels.counts(local=True)
+                      if slot_launches is not None else None)
+            mbefore = ({n: _metrics.value(n) for n in slot_metrics[t]}
+                       if slot_metrics is not None else None)
+            st, packed = solo(states[t], arr, prox_on, factors[t],
+                              float(convthresh[t]), int(n_live[t]),
+                              accept_tol, **extra)
+            if before is not None:
+                for k, v in cuda_kernels.counts(local=True).items():
+                    if v != before[k]:
+                        slot_launches[t][k] = (slot_launches[t].get(k, 0)
+                                               + v - before[k])
+            if mbefore is not None:
+                for n, v0 in mbefore.items():
+                    slot_metrics[t][n] += _metrics.value(n) - v0
+            new_states.append(st)
+            blocks.append(packed[:head + 3 * S])
+            if bounds:
+                packs.append(packed[head + 3 * S:])
+        return tuple(new_states), torch.cat(blocks + packs)
 
     return mega

@@ -233,6 +233,14 @@ class PHBase(SPOpt):
             f"Iter0 trivial bound {self.trivial_bound:.4f} conv {self.conv:.3e}",
             self.options.get("display_progress", False),
         )
+        # the service tier's time-to-first-iteration seam: a hook fault
+        # never costs the run
+        cb = self.options.get("on_iter0_done")
+        if cb is not None:
+            try:
+                cb()
+            except Exception:
+                pass
         return self.trivial_bound
 
     def _apply_resume(self):
@@ -812,6 +820,7 @@ class PHBase(SPOpt):
         executed = meas["executed"]
         if executed == 0:
             return 0, False
+        self._windows_run = getattr(self, "_windows_run", 0) + 1
         self._apply_megastep_meas(k, meas)
         # a window the acceptance test cut short is not convergence
         return executed, bool(self.conv < convthresh)

@@ -85,10 +85,12 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
 
+from ..obs import metrics as _metrics
 from .precision import bf16_parts, bf16_round, canon
 from .sparse import SparseA, ell_matvec, ell_slot_major
 from .structured_kkt import (KernelWoodbury, kinv_apply,
@@ -1034,7 +1036,9 @@ def build(*names) -> list:
     shared library under ``_build/``, named by the source's hash, unless it
     exists; the ``nvcc`` runs start together.  Returns the libraries'
     paths.  The compiler's resource reports (``-Xptxas -v``) land in
-    :data:`build_log`."""
+    :data:`build_log`; ``cuda_kernels.builds`` counts the sources
+    compiled and ``cuda_kernels.build_secs`` their wall time."""
+    t0 = time.perf_counter()
     names = names or tuple(_ENTRY_POINTS)
     outs = [_lib_path(nm) for nm in names]
     jobs = []
@@ -1043,9 +1047,14 @@ def build(*names) -> list:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+        # --split-compile=0: the optimizer's passes run on every core; on
+        # an H100's 8-core host fused_sweeps_sparse builds in 76.7 s
+        # against 186.9 s, with the same registers in every kernel
+        # (scripts/port_build_time.py, PERF.md §6)
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{nm}.cu")]
+               "-std=c++17", "-O3", "--split-compile=0", "-shared",
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
+               str(CSRC / f"{nm}.cu")]
         jobs.append((nm, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failed = []
@@ -1056,6 +1065,9 @@ def build(*names) -> list:
             continue
         build_log[nm] = err
         os.replace(tmp, out)
+    if jobs:
+        _metrics.inc("cuda_kernels.builds", len(jobs))
+        _metrics.inc("cuda_kernels.build_secs", time.perf_counter() - t0)
     if failed:
         raise RuntimeError("\n".join(failed))
     return outs

@@ -2,7 +2,8 @@
 
 The part of ``tpusppy/solvers/flops.py`` that the megastep's billing
 reads (:func:`sweep_flops`, :func:`megastep_flops`,
-:func:`bound_pass_flops`); the reference's TPU peak table and MFU
+:func:`bound_pass_flops`) and the tenant window's attribution
+(:func:`tenant_shares`); the reference's TPU peak table and MFU
 accounting have no use here (the card's window cap is not sized from a
 rate: :func:`.segmented.megastep_cap`).  The model counts the dominant
 matrix work only (a multiply-add is 2 flops): one ADMM sweep per scenario
@@ -35,3 +36,15 @@ def bound_pass_flops(S, n, m, sweeps, sparse_factor=1.0, n_evals=1):
     per-coordinate minima)."""
     return sweep_flops(S, n, m, sparse_factor) \
         * (max(1, int(n_evals)) * max(float(sweeps), 1.0) + 1.0)
+
+
+def tenant_shares(rows):
+    """Live-row-fraction weights of a shared window: K tenants share one
+    window, and its wall and flops split ``rows_t / sum(rows)``, where
+    ``rows_t`` is ``S_t * max(1, executed_t)`` for a live tenant and 0 for
+    a ghost slot.  All zeros gives all-zero shares."""
+    rows = [max(0.0, float(r)) for r in rows]
+    total = sum(rows)
+    if total <= 0.0:
+        return [0.0] * len(rows)
+    return [r / total for r in rows]

@@ -58,7 +58,10 @@ def megastep_cap(bound_pass=False) -> int:
     card's rule: :data:`WINDOW_ITERS`, less one iteration for each frozen
     evaluation of an in-wheel bound pass the window ends with
     (``bound_pass``: False, True for one, or a count), so a window stays
-    at most :data:`WINDOW_ITERS` frozen solves long."""
+    at most :data:`WINDOW_ITERS` frozen solves long.  The rule holds for
+    a window of several problems too (the bucketed and tenant windows,
+    whose cap the reference's ``megastep_cap_multi`` sums over the
+    problems' TPU sweep times): the card has no kill to sum against."""
     return max(0, WINDOW_ITERS - int(bound_pass))
 
 

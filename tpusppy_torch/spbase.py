@@ -1,6 +1,6 @@
 """SPBase: scenario ownership, probabilities, options — the runtime root.
 
-Port of ``tpusppy/spbase.py`` without mesh or canonical ingest: the whole
+Port of ``tpusppy/spbase.py`` without the mesh: the whole
 scenario set is built as ONE batch and the node-grouping index arrays
 replace per-node communicators.  ``bundles_per_rank`` > 0 merges the
 scenarios into that many bundle EFs (:mod:`.bundles`), and
@@ -10,6 +10,8 @@ scenarios into that many bundle EFs (:mod:`.bundles`), and
 cylinders of a wheel that build the same family share one batch.
 ``options["device"]`` picks the device the solves run on (CUDA unless
 ``"cpu"`` is asked for; see :func:`tpusppy_torch.resolve_device`).
+``options["canonical_model"]`` (a :class:`.service.canonical.CanonicalModel`)
+binds a batch the service tier ingested once instead of building one.
 """
 
 from __future__ import annotations
@@ -167,6 +169,15 @@ class SPBase:
         (``tpusppy/spbase.py:181-200``): the solve paths only read it, and
         fixing copies the bounds it changes."""
         self._batch_shared = False
+        cm = self.options.get("canonical_model")
+        if cm is not None:
+            # the service tier ingested the request once
+            # (:func:`.service.canonical.ingest`): every cylinder binds that
+            # batch, shared as a cache hit (in-place writers copy first)
+            self.batch = cm.batch
+            self.all_scenario_names = list(cm.names)
+            self._batch_shared = True
+            return
         if not self.options.get("batch_cache"):
             self.batch, self.all_scenario_names = build_batch(
                 self.all_scenario_names, self.scenario_creator,

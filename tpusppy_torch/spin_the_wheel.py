@@ -11,7 +11,8 @@ On the card every cylinder runs all of its work (its main loop and its
 finalize) inside a CUDA stream of its own, made by the cylinder, so the
 cylinders' solves overlap on the device, and as the owner of what the
 device code keeps between calls (:func:`.solvers.cuda_kernels.owned_by`:
-its captured sweep loops and kernel operands, freed when the wheel ends).
+its captured sweep loops and kernel operands, freed when the wheel ends,
+unless the opt's ``device_owner`` option names a token that outlives it).
 Each cylinder's kernel launches (its thread's view of the counts), host
 syncs (its thread's trackers), solves and host-exact straggler re-solves
 are recorded in :attr:`WheelSpinner.stats`.
@@ -56,7 +57,6 @@ import numpy as np
 import torch
 
 from . import global_toc
-from .cylinders.hub import check_options
 from .cylinders.spcommunicator import WindowFabric
 from .obs import metrics as _metrics
 from .resilience import checkpoint as _ckpt
@@ -75,6 +75,13 @@ class _Cylinder:
         self.launches = {}
         self.host_syncs = 0
         self.crashed = False
+        # the owner of the cylinder's device state: its opt object, freed
+        # when the wheel ends, or a token of the opt's ``device_owner``
+        # option, which outlives the wheel (the solve server keeps one a
+        # family and cylinder role, so the next request of the family
+        # replays the graphs this one captured)
+        self.owner = comm.opt.options.get("device_owner") or comm.opt
+        self.owned = self.owner is comm.opt
 
     @contextlib.contextmanager
     def running(self):
@@ -86,7 +93,7 @@ class _Cylinder:
                 if self.stream is None:
                     self.stream = device_loop.claim_stream(dev)
                 stack.enter_context(torch.cuda.stream(self.stream))
-            stack.enter_context(cuda_kernels.owned_by(self.comm.opt))
+            stack.enter_context(cuda_kernels.owned_by(self.owner))
             tracker = stack.enter_context(hostsync.track())
             before = cuda_kernels.counts(local=True)
             try:
@@ -217,7 +224,6 @@ class WheelSpinner:
         mgr.close()
 
     def run(self):
-        check_options(self._hub_options())
         t_build0 = time.monotonic()
         fabric = WindowFabric()
 
@@ -330,7 +336,8 @@ class WheelSpinner:
             # cylinders' device state is freed
             for t, cyl in [(None, hub_cyl)] + list(zip(threads, spoke_cyls)):
                 if t is None or not t.is_alive():
-                    device_loop.release(cyl.comm.opt)
+                    if cyl.owned:
+                        device_loop.release(cyl.owner)
                     if cyl.stream is not None:
                         device_loop.free_stream(cyl.stream)
 
