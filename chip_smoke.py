@@ -15,9 +15,17 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    f32 (also against the f64 plain version on the same inputs: the kernel
    may lie no further from it than twice the plain f32 does) and f64, with
    CUDA-event times and the card's bound for the same work, each mode
-   checked to have run: ``fused_sweeps`` at farmer crops_multiplier=4
-   (S=1000, m=28, n=44, n_sweeps=4, n_refine=2; its resident mode) and at
-   crops_multiplier=12 (S=64, m=84, n=132; its streamed mode),
+   checked to have run: ``fused_sweeps`` (n_sweeps=4, n_refine=2) at
+   every shape its paths give it (DENSE_SHAPES: farmer-1000's main path,
+   resident with two buffers; bundled farmer-1000's and netdes-1000's
+   buckets; sizes S=3; sslp 10 x 50 S=50; farmer at crops_multiplier=12;
+   a tall shape whose work vectors go to device memory; rows longer than
+   a stage) in the mode its
+   layout picks on this card, each line with the mode, cluster size,
+   kernel, bound, re-stream floor and plain times and the kernel-to-plain
+   ratio, and where one scenario buffer and a cluster of 2 both take the
+   shape the other of the two timed on the same inputs; and at "default"
+   at the paths' shapes (below),
    ``fused_sweeps_shared`` at uc_lite's defaults (m=242, n=132,
    n_sweeps=4, n_refine=2, n_extra=2, with has=1 and has=0) at S=1000
    (the main path: more tiles than the card holds clusters at once, its
@@ -47,7 +55,11 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    factors swapped between two frozen solves on the same captured graphs
    (farmer-1000, uc_lite-1000 in the streamed mode, uc_lite at S=128 in
    the cluster-resident mode, uc-1000 with its structured operand): the
-   second solve captures nothing and matches a fresh capture;
+   second solve captures nothing and matches a fresh capture.  Then
+   three chained ``fused_sweeps`` launches captured in a CUDA graph at a
+   bucket shape (f32 one buffer, f64 a cluster of 2) and at sslp's (f64,
+   the streamed mode), the replay's state equal to direct launches' to
+   the last bit;
 6. main paths at the default solver options, so that PH runs its frozen
    iterations in megastep windows (N = 15: the refresh every 16
    iterations runs in the legacy body), each with the launch counts and
@@ -108,14 +120,13 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    Lagrangian spoke that bounds from donor duals alone (bench_uc.py's
    full-scale settings, the budget cut to 60 s): a finite outer bound
    above the hub's trivial bound, and at least one donor used;
-10. bundles: scenario bundling and shape buckets.  ``fused_sweeps`` at
-   the two bucket shapes of bundled farmer-1000 (S=200, m=84, n=108 and
-   S=100, m=112, n=140) and of bundled netdes-1000 (S=200, m=105, n=100
-   and S=100, m=140, n=125) in f32 and f64 against its plain version, in
-   the mode its layout picks there; bundled farmer-1000 crops_multiplier=4
+10. bundles: scenario bundling and shape buckets (the kernels phase holds
+   ``fused_sweeps`` at the buckets' shapes; every run here must launch
+   the mode its layout picks there and no plain version): bundled
+   farmer-1000 crops_multiplier=4
    (``bundles_per_rank`` 300, ``shape_buckets``: 200 bundles of 3
    scenarios and 100 of 4, two buckets) through ``ph_main()`` at the
-   farmer phase's f32 settings, 6 iterations, in bucketed windows: the
+   farmer phase's f32 settings, 4 iterations, in bucketed windows: the
    two buckets exactly, eobj within 1e-2 of the farmer-1000 EF (bundling
    keeps the EF), the trivial bound at most the EF + 1e-6 |EF|,
    ``fused_sweeps`` launched inside the windows for both buckets and no
@@ -138,10 +149,11 @@ CUDA toolkit (nvcc).  Phases, each printing a line:
    bucket and evaluation printed; and hydro S=9 in 3 proper bundles in
    f64 (the reference's settings) within 1e-2 of the unbundled HiGHS EF;
 11. integer: the integer families in f64 (HiGHS's EF solves in worker
-   processes from the start of the bundles phase).  ``fused_sweeps`` against its plain version at
-   the three families' shapes (netdes-1000 S=1000, m=35, n=50; sizes
-   S=3, m=62, n=150; sslp 10 x 50 S=50, m=60, n=520) in the mode its
-   layout picks; the netdes S=3 golden hub-only in-wheel integer wheel
+   processes from the start of the bundles phase; the kernels phase holds
+   ``fused_sweeps`` at the families' shapes, and each wheel's hub must
+   launch the mode its layout picks: resident at netdes', a cluster of 16
+   at sizes', the streamed mode at sslp's): the netdes S=3 golden hub-only
+   in-wheel integer wheel
    (rho 1, 60 iterations, budget 30 s, rel_gap 0.04: gap <= 0.04, outer
    past the LP EF 376.306 and at most the MIP EF 398.333, feasible hits
    and an escalation); netdes-1000's hub-only integer wheel (outer <=
@@ -373,7 +385,7 @@ def shared_sweep_case(S, m, n, dtype, has, seed=0):
 
 def hold_kernel(label, kern, plain, args, flops, tol, dtype, ref=None,
                 flops_lo=0, ref_factor=2.0, ref_slack=1e-7, exact=None,
-                exact_gate=False):
+                exact_gate=False, reps=30):
     """One kernel call against its plain version on the same inputs, then
     both timed; returns the errors, times and bound.  ``ref`` (f32 cases)
     gives the f64 plain version on the same f32-rounded inputs: the kernel
@@ -384,7 +396,8 @@ def hold_kernel(label, kern, plain, args, flops, tol, dtype, ref=None,
     from the lowered plain version as from the exact one (``rms_dist``).
     ``args`` are the tensors the kernel reads (each counted once);
     ``flops`` run at the working type's peak, ``flops_lo`` (a lowered
-    mode's bf16 products) at the bf16 tensor-core peak."""
+    mode's bf16 products) at the bf16 tensor-core peak.  ``reps``: the
+    timed calls of each (``cuda_time_ms``)."""
     import torch
 
     from tpusppy_torch.solvers.structured_kkt import KernelWoodbury
@@ -427,7 +440,7 @@ def hold_kernel(label, kern, plain, args, flops, tol, dtype, ref=None,
                 + (f"gate {LOW_CTRL_RATIO:.3f})" if exact_gate
                    else "not gated)"))
         del ex
-    ms, plain_ms = cuda_time_ms(kern), cuda_time_ms(plain)
+    ms, plain_ms = cuda_time_ms(kern, reps), cuda_time_ms(plain, reps)
     # bound: each input read once, each output written once, over the HBM
     # rate; the arithmetic (a multiply-add counts 2) over the peak rate
     nbytes = sum(nbytes(a) for a in args) + sum(nbytes(o) for o in got)
@@ -572,32 +585,140 @@ def hold_mode(cuda_kernels, modes, mode, label, *hold_args, **hold_kw):
     return res
 
 
-def phase_kernels(cuda_kernels):
-    """Each kernel against its plain version at its main path's shape, in
-    f32 (also against the f64 plain version) and f64, in the mode the main
-    path runs, and in its streamed mode at a shape that needs it."""
+#: The shapes the paths give ``fused_sweeps`` (label: S, m, n): farmer-1000's
+#: main path, bundled farmer-1000's and bundled netdes-1000's buckets
+#: (BUNDLE_BUCKETS, NETDES_BUCKETS), the integer families' (INT_SHAPES:
+#: netdes-1000, sizes S=3 and sslp 10 x 50 S=50), farmer at
+#: crops_multiplier=12, a tall shape whose work vectors do not fit shared
+#: memory in f64 (the streamed mode's device-memory scratch), and rows
+#: longer than a stage in f64 (the streamed mode's segments).
+DENSE_SHAPES = {"farmer-1000": (1000, 28, 44),
+                "bucket (200, 84, 108)": (200, 84, 108),
+                "bucket (100, 112, 140)": (100, 112, 140),
+                "bucket (200, 105, 100)": (200, 105, 100),
+                "bucket (100, 140, 125)": (100, 140, 125),
+                "netdes-1000": (1000, 35, 50),
+                "sizes S=3": (3, 62, 150), "sslp 10x50 S=50": (50, 60, 520),
+                "farmer cm=12": (64, 84, 132), "tall": (4, 60000, 44),
+                "wide rows": (2, 10, 2500)}
+#: Timed calls of each fused_sweeps check and its plain version: fewer than
+#: the other kernels' 30, for the run's time limit
+DENSE_REPS = 10
+
+
+def dense_case(S, m, n, dtype):
+    """``sweep_case``, and for a tall shape (m >= 100 n) bounds of 0.05 on
+    z and zx: there K^-1 is small, z and zx never meet the case's wider
+    bounds, and y and yx would stay at rounding noise, where a relative
+    error means nothing."""
+    args, sigma = sweep_case(S, m, n, dtype)
+    if m >= 100 * n:
+        for i, b in ((4, -0.05), (5, 0.05), (6, -0.05), (7, 0.05)):
+            args[i].fill_(b)
+    return args, sigma
+
+
+def dense_layout_of(cuda_kernels, S, m, n, dtype, lowered=False):
+    """The layout ``fused_sweeps`` launches for S scenarios of (m, n) on
+    this card."""
     import torch
 
-    out = {"fused_sweeps": {}, "fused_sweeps_shared": {}}
+    return cuda_kernels.dense_launch_layout(
+        S, torch.empty((1, m, n), dtype=dtype, device="cuda"), lowered)
+
+
+def dense_modes_of(cuda_kernels, batch, dtype):
+    """The modes ``fused_sweeps`` may launch in for this batch's shapes (a
+    bucketed batch's buckets) at any scenario count: the layout's pick at
+    one scenario and at a million."""
+    b = batch
+    shapes = ([(sub.num_rows, sub.num_vars) for _, sub in b.buckets]
+              if getattr(b, "buckets", None) else [(b.num_rows, b.num_vars)])
+    return {dense_layout_of(cuda_kernels, S, m, n, dtype)["mode"]
+            for m, n in shapes for S in (1, 10 ** 6)}
+
+
+def ran_dense_modes(launched):
+    """The ``fused_sweeps`` modes a ``cuda_kernels.counts()`` delta ran."""
+    return {k for (t, k), v in launched.items() if t == "dense_modes" and v}
+
+
+def print_dense(label, S, m, n, dtype, lay, res, floor_ms, alt=None):
+    """The line every fused_sweeps check prints: mode, C, kernel, bound,
+    re-stream floor, plain and their ratio (one call)."""
+    print(f"fused_sweeps {label} (S={S}, m={m}, n={n}) "
+          f"{str(dtype).replace('torch.', '')}: mode {lay['mode']} C="
+          f"{lay['C']} buffers={lay['buffers']}"
+          + (f" hold={lay['hold']} ns={lay['ns']} vec_smem="
+             f"{lay['vec_smem']}" if lay["mode"] != "resident" else "")
+          + f"; kernel {res['ms']:.5f} ms, bound {res['bound_ms']:.5f} ms "
+          f"({res['bound_by']}), re-stream floor {floor_ms:.5f} ms, plain "
+          f"{res['plain_ms']:.5f} ms, kernel/plain "
+          f"{res['ms'] / res['plain_ms']:.4f}"
+          + ("" if alt is None else f"; {alt[0]} (C={alt[1]}) "
+             f"{alt[2]:.5f} ms, kernel/plain {alt[2] / res['plain_ms']:.4f}")
+          + f" {CARD}", flush=True)
+
+
+def phase_dense_kernels(cuda_kernels):
+    """``fused_sweeps`` against its plain version at every shape of
+    DENSE_SHAPES in f32 (also against the f64 plain version) and f64, in
+    the mode its layout picks on this card, each launch checked to have
+    run that mode; where another mode takes the shape as the alternative
+    (one scenario buffer against a cluster of 2), that mode is timed on
+    the same inputs.  Keys: (label, dtype)."""
+    import torch
+
+    out = {}
     n_sweeps, n_refine, alpha = 4, 2, 1.6
-    # farmer crops_multiplier=4 (the main path, resident mode), and
-    # crops_multiplier=12 (m=84, n=132; one scenario does not fit two
-    # buffers: the streamed mode, which took over from a raise)
-    for (S, m, n, mode) in ((1000, 28, 44, "resident"),
-                            (64, 84, 132, "streamed")):
+    for label, (S, m, n) in DENSE_SHAPES.items():
         flops = 2 * S * n_sweeps * (2 * m * n + n * n * (1 + 2 * n_refine))
         for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-            args, sigma = sweep_case(S, m, n, dtype)
+            isz = torch.empty((), dtype=dtype).element_size()
+            lay = dense_layout_of(cuda_kernels, S, m, n, dtype)
+            args, sigma = dense_case(S, m, n, dtype)
             fixed = (n_sweeps, n_refine, sigma, alpha)
-            out["fused_sweeps"][(mode, dtype)] = hold_mode(
-                cuda_kernels, cuda_kernels.dense_modes, mode,
-                f"fused_sweeps S={S} m={m} n={n}",
+            res = out[(label, dtype)] = hold_mode(
+                cuda_kernels, cuda_kernels.dense_modes, lay["mode"],
+                f"fused_sweeps {label} S={S} m={m} n={n}",
                 lambda: cuda_kernels.fused_sweeps(*args, *fixed),
                 lambda: cuda_kernels.fused_sweeps_plain(*args, *fixed),
                 args, flops, tol, dtype,
                 ref=f64_ref(lambda *a: cuda_kernels.fused_sweeps_plain(
-                    *a, *fixed), args, dtype))
+                    *a, *fixed), args, dtype), reps=DENSE_REPS)
+            res.update(mode=lay["mode"], C=lay["C"],
+                       floor_ms=cuda_kernels.dense_matrix_reads(
+                           S, m, n, isz, lay, n_sweeps, n_refine)
+                       / HBM_BYTES_PER_S * 1e3)
+            # the alternative: one buffer a block against the least
+            # cluster that takes the scenario
+            other = {"resident": "cluster", "cluster": "resident"}.get(
+                lay["mode"])
+            olay = other and (lay["mode"] == "cluster"
+                              or lay["buffers"] == 1) \
+                and cuda_kernels._dense_mode_layout(m, n, isz, False, other)
+            alt = None
+            if olay:
+                res["alt"] = alt = (other, olay["C"], cuda_time_ms(
+                    lambda: cuda_kernels._launch_dense(olay, *args, *fixed),
+                    DENSE_REPS))
+            print_dense(label, S, m, n, dtype, lay, res, res["floor_ms"],
+                        alt)
             del args
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_kernels(cuda_kernels):
+    """Each kernel against its plain version at its main path's shape, in
+    f32 (also against the f64 plain version) and f64, in the mode the main
+    path runs, and ``fused_sweeps`` in every mode at the shapes its paths
+    give it (:func:`phase_dense_kernels`)."""
+    import torch
+
+    out = {"fused_sweeps": phase_dense_kernels(cuda_kernels),
+           "fused_sweeps_shared": {}}
+    n_sweeps, n_refine, alpha = 4, 2, 1.6
     # uc_lite's defaults, has=1 and has=0: at S=1000 (the main path) its
     # 125 tiles outnumber the clusters the card holds at once and the
     # streamed mode runs; at S=128 every tile has a cluster and the
@@ -678,10 +799,11 @@ LOW_CTRL_RATIO = 1.0 / 3.0
 def phase_lowered_kernels(cuda_kernels):
     """Each kernel at each lowered mode against its plain version at its
     main path's shape, f32 (also against the f64 plain version) and f64:
-    ``fused_sweeps`` at "default" in its resident (farmer-1000) and
-    streamed (S=64, m=84, n=132) modes, ``fused_sweeps_shared`` at
-    "default" and "high" at uc_lite-1000 (has=1, its streamed mode, the one
-    that takes the lowered modes), ``fused_sweeps_sparse`` at "default" and
+    ``fused_sweeps`` at "default" at every shape of DENSE_SHAPES (the
+    streamed mode's bf16 A rows through the ring and bf16 K^-1 rows read
+    from device memory too), in the mode its layout picks there,
+    ``fused_sweeps_shared`` at "default" and "high" at uc_lite-1000 (has=1,
+    its streamed mode, the one that takes the lowered modes), ``fused_sweeps_sparse`` at "default" and
     "high" at uc-1000 (has=1) in its structured and dense modes.  The
     bound counts the matrices at their bf16 bytes and the lowered products
     (three a multiply-add at "high") at the bf16 tensor-core peak.  Keys:
@@ -692,19 +814,21 @@ def phase_lowered_kernels(cuda_kernels):
 
     out = {}
     n_sweeps, n_refine, alpha = 4, 2, 1.6
-    for (S, m, n, kmode) in ((1000, 28, 44, "resident"),
-                             (64, 84, 132, "streamed")):
+    for label, (S, m, n) in DENSE_SHAPES.items():
         lo = 2 * S * n_sweeps * (2 * m * n + n * n * (1 + n_refine))
         hi = 2 * S * n_sweeps * n * n * n_refine
         for dtype in (torch.float32, torch.float64):
-            args, sigma = sweep_case(S, m, n, dtype)
+            isz = torch.empty((), dtype=dtype).element_size()
+            lay = dense_layout_of(cuda_kernels, S, m, n, dtype, True)
+            kmode = lay["mode"]
+            args, sigma = dense_case(S, m, n, dtype)
             op = cuda_kernels.dense_operand(args[1], args[2], "default")
             fixed = (n_sweeps, n_refine, sigma, alpha)
             f32 = dtype == torch.float32
-            out[("fused_sweeps", "default", kmode, dtype)] = hold_lowered(
+            res = hold_lowered(
                 cuda_kernels, "fused_sweeps", "default",
                 cuda_kernels.dense_modes, kmode,
-                f"fused_sweeps[default] S={S} m={m} n={n}",
+                f"fused_sweeps[default] {label} S={S} m={m} n={n}",
                 lambda: cuda_kernels.fused_sweeps(
                     *args, *fixed, precision="default", operand=op),
                 lambda: cuda_kernels.fused_sweeps_plain(
@@ -713,8 +837,15 @@ def phase_lowered_kernels(cuda_kernels):
                 LOW_TOL_F32["default"] if f32 else LOW_TOL_F64, dtype,
                 f64_ref(lambda *a: cuda_kernels.fused_sweeps_plain(
                     *a, *fixed, precision="default"), args, dtype),
-                lambda: cuda_kernels.fused_sweeps_plain(*args, *fixed))
+                lambda: cuda_kernels.fused_sweeps_plain(*args, *fixed),
+                reps=DENSE_REPS)
+            out[("fused_sweeps", "default", label, dtype)] = res
+            print_dense(f"[default] {label}", S, m, n, dtype, lay, res,
+                        cuda_kernels.dense_matrix_reads(
+                            S, m, n, isz, lay, n_sweeps, n_refine, True)
+                        / HBM_BYTES_PER_S * 1e3)
             del args, op
+            torch.cuda.empty_cache()
     S, m, n, n_extra = 1000, 242, 132, 2
     n_pass = n_refine + n_extra
     for prec in ("default", "high"):
@@ -796,7 +927,8 @@ def phase_lowered_kernels(cuda_kernels):
 
 
 def hold_lowered(cuda_kernels, kernel, prec, modes, kmode, label, kern,
-                 plain, reads, flops, flops_lo, tol, dtype, ref, exact):
+                 plain, reads, flops, flops_lo, tol, dtype, ref, exact,
+                 reps=30):
     """``hold_mode`` for a kernel at a lowered precision, with the control
     ``exact`` (the plain version at "highest"; gated as LOW_CTRL_RATIO
     says): its launches in the check must be counted as lowered at
@@ -808,7 +940,7 @@ def hold_lowered(cuda_kernels, kernel, prec, modes, kmode, label, kern,
                     flops, tol, dtype, ref=ref, flops_lo=flops_lo,
                     ref_factor=LOW_REF_FACTOR, ref_slack=LOW_REF_SLACK,
                     exact=exact, exact_gate=dtype == torch.float64
-                    or prec == "default")
+                    or prec == "default", reps=reps)
     ran = {k: v - before[k] for k, v in cuda_kernels.lowered_launches.items()}
     key = f"{kernel}:{prec}"
     check(ran[key] > 0 and sum(ran.values()) == ran[key],
@@ -1193,10 +1325,64 @@ def loop_diff(a, b):
                    [getattr(b, f) for f in fields])
 
 
+def graph_vs_direct(cuda_kernels):
+    """``fused_sweeps`` in its cluster and streamed modes captured in a CUDA
+    graph: three chained launches at a bucket shape of bundled farmer-1000
+    (f32, resident with one buffer; f64, a cluster of 2) and at sslp's
+    (f64, the streamed mode) replayed, against the same three launched
+    directly on the same inputs: the same state to the last bit."""
+    import torch
+
+    n_sweeps, n_refine, alpha = 4, 2, 1.6
+    for S, m, n, dtype in ((200, 84, 108, torch.float32),
+                           (200, 84, 108, torch.float64),
+                           (50, 60, 520, torch.float64)):
+        args, sigma = dense_case(S, m, n, dtype)
+        stop = torch.zeros(1, dtype=torch.int32, device="cuda")
+        fixed = (n_sweeps, n_refine, sigma, alpha)
+
+        def chain():
+            state = args[10:]
+            for _ in range(3):
+                state = list(cuda_kernels.fused_sweeps(
+                    *args[:10], *state, *fixed, stop=stop))
+            return state
+
+        before = dict(cuda_kernels.dense_modes)
+        direct = chain()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            chain()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = chain()
+        graph.replay()
+        torch.cuda.synchronize()
+        ran = {k: cuda_kernels.dense_modes[k] - before[k] for k in before}
+        diff = max(float((c - d).abs().max())
+                   for c, d in zip(captured, direct))
+        mode = dense_layout_of(cuda_kernels, S, m, n, dtype)["mode"]
+        print(f"loop fused_sweeps graph replay (S={S}, m={m}, n={n}) "
+              f"{str(dtype).replace('torch.', '')} [{mode}]: three launches "
+              f"replayed against direct, max abs diff {diff:.3e}; modes "
+              f"launched {ran}", flush=True)
+        check(diff == 0.0, f"loop fused_sweeps (S={S}, m={m}, n={n}) "
+              f"{dtype}: a graph replay parts from direct launches by "
+              f"{diff:.3e}")
+        check(ran[mode] == 9 and sum(ran.values()) == 9,
+              f"loop fused_sweeps (S={S}, m={m}, n={n}): launched modes "
+              f"{ran}, wanted {mode} only")
+        del args, direct, captured, graph
+        torch.cuda.empty_cache()
+
+
 def phase_loop(cuda_kernels):
     """The sweep loop at L=1 against the engine's L: the goldens' shapes
     in f64, a frozen solve of each main path in f32, then the factor
-    swap."""
+    swap, then ``fused_sweeps`` replayed at a bucket and at sslp's shape
+    against direct launches (:func:`graph_vs_direct`)."""
     import torch
 
     for which, S, dtype, adaptive in (
@@ -1235,6 +1421,7 @@ def phase_loop(cuda_kernels):
     for which, S in (("farmer", 1000), ("uc_lite", 1000), ("uc_lite", 128),
                      ("uc", 1000)):
         swap_factors(cuda_kernels, which, S)
+    graph_vs_direct(cuda_kernels)
 
 
 def swap_factors(cuda_kernels, which, S):
@@ -2255,36 +2442,17 @@ def phase_bundles(cuda_kernels, main):
     from tpusppy_torch.spbase import clear_batch_cache
     from tpusppy_torch.xhat_eval import Xhat_Eval
 
-    # fused_sweeps at each bucket's shape (bundled farmer-1000's and
-    # bundled netdes-1000's), the mode the layout picks
-    n_sweeps, n_refine, alpha = 4, 2, 1.6
-    kres = {}
-    for S, m, n in BUNDLE_BUCKETS + NETDES_BUCKETS:
-        flops = 2 * S * n_sweeps * (2 * m * n + n * n * (1 + 2 * n_refine))
-        for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-            mode = cuda_kernels.dense_layout(
-                m, n, torch.empty((), dtype=dtype).element_size())["mode"]
-            args, sigma = sweep_case(S, m, n, dtype)
-            fixed = (n_sweeps, n_refine, sigma, alpha)
-            kres[(S, m, n, dtype)] = res = hold_mode(
-                cuda_kernels, cuda_kernels.dense_modes, mode,
-                f"bucket fused_sweeps S={S} m={m} n={n}",
-                lambda: cuda_kernels.fused_sweeps(*args, *fixed),
-                lambda: cuda_kernels.fused_sweeps_plain(*args, *fixed),
-                args, flops, tol, dtype,
-                ref=f64_ref(lambda *a: cuda_kernels.fused_sweeps_plain(
-                    *a, *fixed), args, dtype))
-            res["mode"] = mode
-            print(f"bucket S={S} m={m} n={n} {dtype}: mode {mode}, "
-                  f"kernel {res['ms']:.5f} ms, bound {res['bound_ms']:.5f} "
-                  f"ms ({res['bound_by']}), plain {res['plain_ms']:.5f} ms "
-                  f"{CARD}", flush=True)
-            del args
-    torch.cuda.empty_cache()
-    modes32 = {kres[(S, m, n, torch.float32)]["mode"]
+    # the mode fused_sweeps' layout picks at each bucket (the kernels
+    # phase holds it there against its plain version): the runs below must
+    # launch that mode only
+    modes32 = {dense_layout_of(cuda_kernels, S, m, n, torch.float32)["mode"]
                for S, m, n in BUNDLE_BUCKETS}
     check(len(modes32) == 1, f"the buckets' f32 modes differ: {modes32}")
     mode32 = modes32.pop()
+    modes64 = {dense_layout_of(cuda_kernels, S, m, n, torch.float64)["mode"]
+               for S, m, n in BUNDLE_BUCKETS + NETDES_BUCKETS}
+    print(f"bundled buckets' fused_sweeps modes: f32 {mode32}, f64 "
+          f"{sorted(modes64)}", flush=True)
 
     ef = main.get("farmer-1000 cm=4", {}).get("ef")
     if ef is None:
@@ -2367,6 +2535,14 @@ def phase_bundles(cuda_kernels, main):
           f"{CARD}", flush=True)
     print_cylinders("bundled wheel", ws, it_done)
     check_cylinders("bundled wheel", ws, "fused_sweeps", "fused_sweeps")
+    # the hub (f32) launches its buckets' mode; the spokes' (f64) printed
+    for name, st in ws.stats.items():
+        ran = ran_dense_modes(st["launches"])
+        print(f"bundled wheel {name}: fused_sweeps modes {sorted(ran)}",
+              flush=True)
+        if name.startswith("hub:"):
+            check(ran == {mode32}, f"bundled wheel {name}: fused_sweeps "
+                  f"modes {sorted(ran)}, wanted {mode32}")
     check(np.isfinite(ob) and ob <= ef + 1e-6 * abs(ef),
           f"bundled wheel: outer bound {ob} not finite and at most EF {ef}")
     check(np.isfinite(ib) and ib >= ef - 1e-4 * abs(ef),
@@ -2387,7 +2563,7 @@ def phase_bundles(cuda_kernels, main):
         netdes_ef = pool.submit(ef_solves, "netdes", 1000,
                                 {"num_scens": 1000,
                                  "relax_integers": False})
-        inwheel = bundled_inwheel_farmer(cuda_kernels, ef)
+        inwheel = bundled_inwheel_farmer(cuda_kernels, ef, modes64)
         netdes = bundled_netdes_wheel(cuda_kernels, netdes_ef)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
@@ -2413,8 +2589,8 @@ def phase_bundles(cuda_kernels, main):
           f"hydro golden eobj {heobj} not within 1e-2 of EF {hef}")
     check(htb <= hef + 1e-6 * abs(hef),
           f"hydro golden trivial bound {htb} above EF {hef}")
-    return {"kernels": kres, "ph": k, "legacy": legacy,
-            "wheel": (ob, ib, ef), "inwheel": inwheel, "netdes": netdes}
+    return {"ph": k, "legacy": legacy, "wheel": (ob, ib, ef),
+            "inwheel": inwheel, "netdes": netdes}
 
 
 def print_bucket_passes(label, opt):
@@ -2435,7 +2611,7 @@ def print_bucket_passes(label, opt):
     return bpl
 
 
-def bundled_inwheel_farmer(cuda_kernels, ef):
+def bundled_inwheel_farmer(cuda_kernels, ef, modes64):
     """Bundled farmer-1000 (both buckets) as a hub-only in-wheel wheel,
     its hub in f64: the bucketed bound pass in every window; outer <= EF
     + 1e-6 |EF|, inner >= EF - 1e-4 |EF|, outer <= inner."""
@@ -2462,7 +2638,11 @@ def bundled_inwheel_farmer(cuda_kernels, ef):
             "megastep.bound_rescues", "dispatch.megasteps")}
     launched = dict(cuda_kernels.launches)
     plain = dict(cuda_kernels.plain_calls)
+    ran = {k for k, v in cuda_kernels.dense_modes.items() if v}
     clear_batch_cache()
+    check(ran and ran <= modes64, f"{label}: fused_sweeps ran the modes "
+          f"{sorted(ran)}, its layout picks {sorted(modes64)} at the "
+          "buckets in f64")
     opt = ws.opt
     b = opt.batch
     buckets = [(int(idx.size), sub.num_rows, sub.num_vars)
@@ -2639,7 +2819,11 @@ def ef_solves(model, S, kw, mip_gap=None, time_limit=EF_MIP_SECS):
 def int_wheel(label, make_kwargs, spokes, hub_options):
     """Spin an integer wheel (hub PH class :func:`wheel_clock`) with the
     integer counters, host syncs and launches read around it; returns
-    (spinner, results)."""
+    (spinner, results).  Every ``fused_sweeps`` launch must run a mode its
+    layout picks for the hub batch's shapes (the cylinders solve in f64),
+    and no plain version may run."""
+    import torch
+
     from tpusppy_torch.obs import metrics
     from tpusppy_torch.solvers import cuda_kernels
     from tpusppy_torch.spbase import clear_batch_cache
@@ -2698,6 +2882,15 @@ def int_wheel(label, make_kwargs, spokes, hub_options):
           f"{label}: spoke errors {ws.spoke_errors}, hung {ws.hung_spokes}")
     check(launched.get(("launches", "fused_sweeps"), 0) > 0,
           f"{label}: fused_sweeps never launched")
+    want = dense_modes_of(cuda_kernels, ws.opt.batch, torch.float64)
+    for name, st in ws.stats.items():
+        ran = ran_dense_modes(st["launches"])
+        print(f"{label} {name}: fused_sweeps modes {sorted(ran)} (the "
+              f"layout picks {sorted(want)} at the hub's shapes)", flush=True)
+        if name.startswith("hub:"):
+            check(ran and ran <= want, f"{label} {name}: fused_sweeps ran "
+                  f"the modes {sorted(ran)}; its layout picks "
+                  f"{sorted(want)}")
     check(not any(v for (t, _), v in launched.items()
                   if t == "plain_calls"),
           f"{label}: a plain version ran on the card ({launched})")
@@ -2757,34 +2950,13 @@ def _integer_runs(cuda_kernels, efs, netdes_kw, sizes_kw):
     from tpusppy_torch.xhat_eval import Xhat_Eval
 
     t_phase = time.perf_counter()
-    # fused_sweeps at each family's shape, the mode its layout picks
-    n_sweeps, n_refine, alpha = 4, 2, 1.6
-    kres = {}
-    for name, (S, m, n) in INT_SHAPES.items():
-        flops = 2 * S * n_sweeps * (2 * m * n + n * n * (1 + 2 * n_refine))
-        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-            mode = cuda_kernels.dense_layout(
-                m, n, torch.empty((), dtype=dtype).element_size())["mode"]
-            args, sigma = sweep_case(S, m, n, dtype)
-            fixed = (n_sweeps, n_refine, sigma, alpha)
-            ref = (None if dtype == torch.float64 else f64_ref(
-                lambda *a: cuda_kernels.fused_sweeps_plain(*a, *fixed),
-                args, dtype))
-            res = kres[(name, dtype)] = hold_mode(
-                cuda_kernels, cuda_kernels.dense_modes, mode,
-                f"{name} fused_sweeps S={S} m={m} n={n}",
-                lambda: cuda_kernels.fused_sweeps(*args, *fixed),
-                lambda: cuda_kernels.fused_sweeps_plain(*args, *fixed),
-                args, flops, tol, dtype, ref=ref)
-            res["mode"] = mode
-            print(f"integer shape {name} (S={S}, m={m}, n={n}) {dtype}: "
-                  f"mode {mode}, kernel {res['ms']:.5f} ms, bound "
-                  f"{res['bound_ms']:.5f} ms ({res['bound_by']}), plain "
-                  f"{res['plain_ms']:.5f} ms {CARD}", flush=True)
-            del args
-    torch.cuda.empty_cache()
+    # the modes fused_sweeps' layout picks at the families' shapes (the
+    # kernels phase holds it there); each wheel checks its launches ran them
+    print("integer families' fused_sweeps modes (f64): " + ", ".join(
+        f"{name} {dense_layout_of(cuda_kernels, S, m, n, torch.float64)['mode']}"
+        for name, (S, m, n) in INT_SHAPES.items()), flush=True)
     cuda_kernels.reset_counts()
-    out = {"kernels": kres}
+    out = {}
     with metrics.window() as phase_w:
         # 1. the netdes S=3 golden: the hub-only in-wheel integer wheel
         label = "integer netdes S=3 golden"
@@ -4009,7 +4181,7 @@ def main(argv=None) -> int:
         kernel_line("fused_sweeps", "tpusppy_torch/csrc/fused_sweeps.cu",
                     "tpusppy/solvers/pallas_kernels.py:57",
                     farmer["launches"],
-                    kres["fused_sweeps"][("resident", f32)]),
+                    kres["fused_sweeps"][("farmer-1000", f32)]),
         kernel_line("fused_sweeps_shared",
                     "tpusppy_torch/csrc/fused_sweeps_shared.cu",
                     "tpusppy/solvers/pallas_kernels.py:265",
@@ -4028,7 +4200,8 @@ def main(argv=None) -> int:
                     prec[(label, mode)]["lowered"][f"{name}:{mode}"],
                     kres["lowered"][(name, mode, kmode, f32)])
         for name, mode, kmode, label, line in (
-            ("fused_sweeps", "default", "resident", "farmer-1000 cm=4", 90),
+            ("fused_sweeps", "default", "farmer-1000", "farmer-1000 cm=4",
+             90),
             ("fused_sweeps_shared", "default", "streamed", "uc_lite-1000",
              276),
             ("fused_sweeps_shared", "high", "streamed", "uc_lite-1000",

@@ -111,9 +111,9 @@ _RESIDENT = {
 # ---- the dense kernel ------------------------------------------------------
 _DENSE = {
     "no_load": [("    for (int a = 0; a < kArrays; ++a) {\n"
-                 "      span_copy(slot(b, a)",
+                 "      if (a < 2) {",
                  "    for (int a = 0; a < 0; ++a) {\n"
-                 "      span_copy(slot(b, a)")],
+                 "      if (a < 2) {")],
     "no_sweeps": [("    for (int sweep = 0; sweep < n_sweeps; ++sweep) {\n"
                    "      // rhs = sigma",
                    "    for (int sweep = 0; sweep < 0; ++sweep) {\n"
@@ -123,9 +123,9 @@ _DENSE = {
                      ("    epi(j, s0 + s1);",
                       "    if (s0 == T(-1.5e-30)) epi(j, s0 + s1);")],
     "no_barriers": [("      __syncthreads();\n", "\n")],
-    "two_buffers": [("      if (2 * nb2 > nb) {", "      if (true) {"),
-                    ("    if (S > static_cast<long long>(nsm) * nb) {",
-                     "    if (true) {")],
+    "two_buffers": [("    if (2 * nb2 > nb) {", "    if (true) {"),
+                    ("  if (S > static_cast<long long>(nsm) * nb && "
+                     "L.total <= kSmemLimit) {", "  if (true) {")],
 }
 
 #: (m, n) of the crossover table: uc_lite's defaults (a cluster of 2 CTAs

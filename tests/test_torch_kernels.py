@@ -120,11 +120,11 @@ def test_usable_gate_sized_to_shared_memory():
     assert cuda_kernels.dense_layout(28, 44, 8)["mode"] == "resident"
     assert cuda_kernels.dense_layout(28, 44, 8)["smem"] == 91152
     assert cuda_kernels.dense_layout(28, 44, 4)["smem"] == 45872
-    # n=100 and n=120 f64: the scenario no longer fits two buffers, and the
-    # streamed mode takes it (n=120 raised before the streamed mode)
+    # n=100 and n=120 f64: the scenario no longer fits one block, and a
+    # cluster takes it (n=120 raised before the streamed mode came)
     assert cuda_kernels.usable(10, 50, 100, torch.float64)
     assert cuda_kernels.usable(10, 50, 120, torch.float64)
-    assert cuda_kernels.dense_layout(50, 120, 8)["mode"] == "streamed"
+    assert cuda_kernels.dense_layout(50, 120, 8)["mode"] == "cluster"
     assert cuda_kernels.usable(10, 50, 120, torch.float32)
     assert not cuda_kernels.usable(10, 5, 5, torch.float16)
     assert not cuda_kernels.usable(0, 5, 5, torch.float32)
@@ -134,7 +134,8 @@ def test_usable_takes_every_tpu_shape():
     """Every (S, m, n) the TPU kernel takes, and every shape the reference
     sends to its XLA sweep instead, ``fused_sweeps`` takes in f32 and f64
     (on the grid of ``test_usable_shared_takes_every_tpu_shape``); the
-    mode follows from whether two of a scenario fit shared memory."""
+    mode follows from whether one scenario fits a block's shared memory,
+    else whether it fits a cluster."""
     taken = 0
     for n in (1, 5, 44, 132, 300, 443):
         for m in (0, 1, 9, 242, 2000, 20000, 120000):
@@ -145,38 +146,60 @@ def test_usable_takes_every_tpu_shape():
                     assert cuda_kernels.usable(S, m, n, dt), (S, m, n, dt)
                     lay = cuda_kernels.dense_layout(m, n, dt.itemsize)
                     assert lay["smem"] <= cuda_kernels.SMEM_LIMIT
-                    assert lay["mode"] == ("resident" if 2 * lay.get(
-                        "buffer", 1 << 40) + lay.get("buf", 0)
-                        <= cuda_kernels.SMEM_LIMIT else "streamed")
+                    one = cuda_kernels._dense_mode_layout(
+                        m, n, dt.itemsize, False, "resident")
+                    cluster = cuda_kernels._dense_mode_layout(
+                        m, n, dt.itemsize, False, "cluster")
+                    assert lay["mode"] == (
+                        "resident" if one is not None
+                        else "cluster" if cluster is not None
+                        else "streamed")
     assert taken > 40
-    assert cuda_kernels.dense_layout(84, 132, 8)["mode"] == "streamed"
+    assert cuda_kernels.dense_layout(84, 132, 8)["mode"] == "cluster"
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,m,n,mode", [
     (1000, 28, 44, "resident"),    # farmer crops_multiplier=4: main path
-    (37, 84, 132, "streamed"),     # farmer crops_multiplier=12 (raised
-                                   # before the streamed mode in f64)
+    (37, 84, 132, ("resident", "cluster")),   # farmer crops_multiplier=12
+                                   # (raised before the streamed mode in f64)
     (3, 0, 7, "resident"),         # no constraint rows
     (5000, 3, 7, "resident"),      # more scenarios than one wave of
                                    # blocks holds: two buffers a block
+    # bundled farmer-1000's and bundled netdes-1000's buckets: one buffer
+    # in f32, a cluster of 2 in f64
+    (200, 84, 108, ("resident", "cluster")),
+    (100, 112, 140, ("resident", "cluster")),
+    (200, 105, 100, ("resident", "cluster")),
+    (100, 140, 125, ("resident", "cluster")),
+    (1000, 35, 50, "resident"),    # netdes-1000: two buffers
+    (3, 62, 150, "cluster"),       # sizes S=3: a cluster of 16
+    # sslp 10 x 50 S=50: a cluster of 16 in f32 where the card places one,
+    # the streamed mode in f64
+    (50, 60, 520, (None, "streamed")),
+    # rows longer than a stage in f64: the streamed mode's segments
+    (2, 10, 2500, "streamed"),
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.float64, 1e-12)])
 def test_cuda_kernel_matches_plain(dtype, tol, S, m, n, mode):
     """The hand-written kernel against its plain version on the card, in
-    the mode each shape is pinned to, with A scaled so cond(K) stays below
-    ~10 (f32 tolerance for its rounding, f64 for summation order)."""
+    the mode each shape is pinned to (a pair: f32's, f64's; None where it
+    rests on the card's largest cluster), with A scaled so cond(K) stays
+    below ~10 (f32 tolerance for its rounding, f64 for summation order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    assert cuda_kernels.dense_layout(m, n, dtype.itemsize)["mode"] == mode
+    if isinstance(mode, tuple):
+        mode = mode[dtype == torch.float64]
     c, sigma = _case(S, m, n, seed=3, a_scale=n ** -0.5)
     args = _torch_args(c, "cuda", dtype)
+    picked = cuda_kernels.dense_launch_layout(S, args[1])["mode"]
+    assert mode is None or picked == mode
     cuda_kernels.reset_counts()
     got = cuda_kernels.fused_sweeps(*args, 4, 2, sigma, 1.6)
     torch.cuda.synchronize()
     assert cuda_kernels.launches["fused_sweeps"] == 1
-    assert cuda_kernels.dense_modes[mode] == 1
+    assert cuda_kernels.dense_modes[picked] == 1
     want = cuda_kernels.fused_sweeps_plain(*args, 4, 2, sigma, 1.6)
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
@@ -514,7 +537,7 @@ def test_cuda_wrappers_raise_on_shapes_they_do_not_take():
 def test_cuda_dense_engine_takes_a_shape_that_raised_before():
     """(S=2, m=50, n=120) in f64, which the reference's engine solves and
     the port raised on before the streamed mode: the dense engine now
-    solves it through the kernel's streamed mode, to the plain path's
+    solves it through the kernel's cluster mode, to the plain path's
     answer."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
@@ -533,7 +556,7 @@ def test_cuda_dense_engine_takes_a_shape_that_raised_before():
             *arrs, tadmm.ADMMSettings(max_iter=200, use_kernel=use_kernel),
             device="cuda")
         if use_kernel:
-            assert cuda_kernels.dense_modes["streamed"] > 0
+            assert cuda_kernels.dense_modes["cluster"] > 0
             assert cuda_kernels.plain_calls["fused_sweeps"] == 0
     xk, xp = (res[k].x.cpu().numpy() for k in (True, False))
     assert np.isfinite(xk).all()

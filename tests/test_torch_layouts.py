@@ -85,30 +85,202 @@ def test_shared_layout_fits_and_partitions(dtype):
     assert resident >= 10
 
 
+#: The shapes the port's paths give ``fused_sweeps`` (S, m, n): farmer-1000's
+#: main path, bundled farmer-1000's and bundled netdes-1000's buckets,
+#: netdes-1000, sizes S=3, sslp 10 x 50 S=50, farmer at crops_multiplier
+#: 12, a tall shape whose work vectors do not fit shared memory in f64, and
+#: rows longer than a stage in f64 (chip_smoke.DENSE_SHAPES).
+_DENSE_TABLE = ((1000, 28, 44), (200, 84, 108), (100, 112, 140),
+                (200, 105, 100), (100, 140, 125), (1000, 35, 50),
+                (3, 62, 150), (50, 60, 520), (64, 84, 132), (4, 60000, 44),
+                (2, 10, 2500))
+
+
+def _check_dense_layout(m, n, isz, lowered, lay):
+    """One ``dense_layout``: within a block's shared memory, C a cluster
+    size, the resident slots as the source lays them out; in the cluster
+    modes the CTAs' row ranges cover every row of A, K^-1 and K exactly once,
+    every buffer and stage starts 16-byte aligned, and every bulk copy's
+    16-byte-aligned span (its source starting anywhere on an element) fits
+    the slot or stage it lands in."""
+    assert lay["smem"] <= cuda_kernels.SMEM_LIMIT, (m, n, isz, lowered)
+    assert lay["C"] in (1, 2, 4, 8, 16)
+    msz = 2 if lowered else isz
+    if lay["mode"] == "resident":
+        assert lay["C"] == 1 and lay["buffers"] in (1, 2)
+        lens = [m * n, n * n, n * n] + [n] * 7 + [m] * 6
+        sizes = [msz, msz] + [isz] * 14
+        assert lay["slots"] == [_r16(L * sz) + 16
+                                for L, sz in zip(lens, sizes)]
+        assert lay["buf"] == 16 + 4 * 16 + 3 * _r16(n * isz) + _r16(m * isz)
+        assert lay["smem"] == lay["buf"] + lay["buffers"] * lay["buffer"]
+        two = lay["buf"] + 2 * lay["buffer"] <= cuda_kernels.SMEM_LIMIT
+        assert lay["buffers"] == (2 if two else 1)
+        return
+    C, nk, mk = lay["C"], lay["nk"], lay["mk"]
+    assert C > 1 and nk == -(-n // C) and mk == -(-m // C)
+    for ranges, total, most in ((lay["rows"], m, mk), (lay["krows"], n, nk)):
+        assert len(ranges) == C
+        covered = []
+        for a, b in ranges:
+            assert 0 <= b - a <= most
+            covered.extend(range(a, b))
+        assert covered == list(range(total))
+    off = lay["offsets"]
+    order = ("bars", "vec", "own", "held", "stage", "total")
+    for x, y in zip(order, order[1:]):
+        assert off[x] % 16 == 0 and off[x] <= off[y]
+    assert off["total"] == lay["smem"]
+    assert off["vec"] >= 8 * (2 + 2 * lay["ns"]) + 32 * lay["ns"]
+    hold = lay["hold"]
+    assert len(hold) == 3 and all(s % 16 == 0 for s in off["slots"])
+    assert off["stage"] == off["held"] + lay["buffers"] * sum(off["slots"])
+    for h, rows, sz, slot in zip(hold, (mk, nk, nk), (msz, msz, isz),
+                                 off["slots"]):
+        assert 0 <= h <= rows
+        assert slot == (_r16(h * n * sz) + 16 if h else 0)
+        for start in range(0, 16, sz):
+            assert not h or _r16(start + h * n * sz) <= slot
+    if lay["vec_smem"]:
+        assert off["held"] - off["own"] == 8 * _r16(nk * isz) \
+            + 7 * _r16(mk * isz)
+        # w, xt and the partial sums, and u in the mixed-precision mode
+        assert off["own"] - off["vec"] == (4 if lowered else 3) \
+            * _r16(n * isz)
+        assert lay["scratch"] == 0
+    else:
+        assert off["held"] == off["vec"] and lay["scratch"] > 0
+    if lay["mode"] == "cluster":
+        assert hold == (mk, nk, nk) and lay["ns"] == 0 and lay["vec_smem"]
+        return
+    assert lay["mode"] == "streamed" and lay["buffers"] == 1
+    # only A's streamed rows pass through the ring (K^-1's and K's are read
+    # from device memory by the products): a ring of 3 to 6 stages where an
+    # A row streams, none where every A row is held
+    if hold[0] == mk:
+        assert lay["ns"] == 0 and off["total"] == off["stage"]
+        return
+    assert 3 <= lay["ns"] <= 6
+    # a stage's payload: whole rows of the working type (bf16 panels twice
+    # as many), or, for longer rows, segments of _STAGE_BYTES that start on
+    # a multiple of the block's 256 threads (each thread keeps its columns)
+    sp, cap = lay["sp"], cuda_kernels._STAGE_BYTES
+    if n * isz <= cap:
+        assert sp % (n * isz) == 0 and cap - n * isz < sp <= cap
+    else:
+        assert sp == cap and (cap // isz) % 256 == 0 \
+            and (cap // msz) % 256 == 0
+    assert off["stage_bytes"] == _r16(sp) + 32
+    assert off["total"] - off["stage"] == lay["ns"] * off["stage_bytes"]
+    for sz in {msz, isz}:
+        per = sp // sz
+        elems = (per // n) * n if n <= per else per
+        assert elems >= 1
+        for start in range(0, 16, sz):
+            assert _r16(start + elems * sz) <= off["stage_bytes"]
+
+
+@pytest.mark.parametrize("lowered", [False, True])
 @pytest.mark.parametrize("dtype", _DTYPES)
-def test_dense_layout_fits(dtype):
+def test_dense_layout_fits(dtype, lowered):
+    """Every shape of the grid and of the paths' table, with the largest
+    cluster at 16 and at 8, and at the table's S on an H100's 132 SMs:
+    the mode the picker gives fits and cuts the matrices as the source
+    does; resident exactly where one scenario fits one block (unless too
+    few scenarios for one buffer's blocks: a cluster), and all three modes
+    occur."""
     isz = dtype.itemsize
     modes = set()
-    for m in _GRID_M:
-        for n in _GRID_N:
-            lay = cuda_kernels.dense_layout(m, n, isz)
+    shapes = [(None, m, n) for m in _GRID_M for n in _GRID_N] \
+        + list(_DENSE_TABLE)
+    for S, m, n in shapes:
+        for mc in (16, 8):
+            lay = cuda_kernels.dense_layout(m, n, isz, lowered, S, 132, mc)
             modes.add(lay["mode"])
-            assert lay["smem"] <= cuda_kernels.SMEM_LIMIT, (m, n)
-            if lay["mode"] == "resident":
-                # two buffers of the scenario's 16 arrays, each slot 16
-                # bytes past its rounded size, beside the work vectors
-                lens = [m * n, n * n, n * n] + [n] * 7 + [m] * 6
-                assert lay["slots"] == [_r16(L * isz) + 16 for L in lens]
-                assert lay["buf"] == 16 + 4 * 16 + 3 * _r16(n * isz) \
-                    + _r16(m * isz)
-                assert lay["smem"] == lay["buf"] + 2 * lay["buffer"]
-                continue
-            assert lay["mode"] == "streamed"
-            work = 4 * _r16(n * isz) + _r16(m * isz)
-            assert lay["vec_smem"] == (lay["work"] + work
-                                       <= cuda_kernels.SMEM_LIMIT)
-            assert lay["scratch"] * isz == (0 if lay["vec_smem"] else work)
-    assert modes == {"resident", "streamed"}
+            _check_dense_layout(m, n, isz, lowered, lay)
+            assert lay["C"] <= mc
+            res = cuda_kernels._dense_mode_layout(m, n, isz, lowered,
+                                                  "resident")
+            few = S is not None and 8 * S <= 132 and res is not None \
+                and res["buffers"] == 1
+            assert (lay["mode"] == "resident") == (res is not None
+                                                   and not few)
+            clusters = [C for C in cuda_kernels.DENSE_CLUSTERS if C <= mc]
+            if lay["mode"] == "streamed":
+                # it streams rows, or keeps its vectors in device memory
+                assert lay["C"] == mc
+                assert lay["hold"] != (lay["mk"], lay["nk"], lay["nk"]) \
+                    or not lay["vec_smem"]
+                assert all(cuda_kernels._dense_mode_layout(
+                    m, n, isz, lowered, "cluster", C) is None
+                    for C in clusters)
+            # every mode and cluster size a caller may force fits too
+            for other, Cs in (("cluster", clusters), ("streamed", (mc,))):
+                for C in Cs:
+                    alt = cuda_kernels._dense_mode_layout(m, n, isz, lowered,
+                                                          other, C)
+                    if alt is not None:
+                        assert (alt["mode"], alt["C"]) == (other, C)
+                        _check_dense_layout(m, n, isz, lowered, alt)
+    assert modes == {"resident", "cluster", "streamed"}
+
+
+def test_dense_layout_picks_at_the_paths_shapes():
+    """The modes the paths' shapes take on an H100 (132 SMs, clusters of 16
+    placed): farmer's (28, 44) and netdes-1000's (35, 50) stay resident with
+    two buffers; bundled
+    farmer's (84, 108) in f32 is resident with one buffer (no longer the
+    one-block streamed mode); the buckets in f64 take a cluster of 2;
+    sizes' S=3 a cluster of 16; sslp's (60, 520) a cluster of 16 in f32 and
+    the streamed mode in f64, holding every K^-1 and A row and 15 of 33 K
+    rows (no ring: the other K rows are read from device memory), or at 8
+    CTAs where the card places no 16."""
+    dl = cuda_kernels.dense_layout
+    for isz in (4, 8):
+        for lowered in (False, True):
+            for m, n in ((28, 44), (35, 50)):   # farmer-1000, netdes-1000
+                lay = dl(m, n, isz, lowered, 1000, 132)
+                assert (lay["mode"], lay["buffers"]) == ("resident", 2)
+    lay = dl(84, 108, 4, False, 200, 132)
+    assert (lay["mode"], lay["buffers"]) == ("resident", 1)
+    for S, m, n in ((200, 84, 108), (100, 112, 140), (200, 105, 100),
+                    (100, 140, 125), (64, 84, 132)):
+        lay = dl(m, n, 8, False, S, 132)
+        assert (lay["mode"], lay["C"]) == ("cluster", 2), (S, m, n)
+    for isz in (4, 8):
+        assert dl(62, 150, isz, False, 3, 132)["C"] == 16
+    lay = dl(60, 520, 4, False, 50, 132)
+    assert (lay["mode"], lay["C"]) == ("cluster", 16)
+    lay = dl(60, 520, 8, False, 50, 132)
+    assert (lay["mode"], lay["C"], lay["hold"]) == ("streamed", 16,
+                                                    (4, 33, 15))
+    assert lay["vec_smem"] and lay["ns"] == 0
+    lay = dl(60, 520, 8, False, 50, 132, 8)
+    assert (lay["mode"], lay["C"]) == ("streamed", 8)
+    assert lay["hold"][1] < lay["nk"]
+    # the tall shape: in f64 its work vectors go to device-memory scratch
+    lay = dl(60000, 44, 8, False, 4, 132)
+    assert lay["mode"] == "streamed" and not lay["vec_smem"]
+
+
+def test_dense_matrix_reads():
+    """The matrices once in the resident and cluster modes; in the streamed
+    mode every row it does not hold once a pass that reads it besides."""
+    S, m, n, ns, nr = 50, 60, 520, 4, 2
+    lay = cuda_kernels.dense_layout(m, n, 8, False, S, 132)
+    once = S * (m * n + 2 * n * n) * 8
+    streamed_k = sum(b - a - lay["hold"][2] for a, b in lay["krows"])
+    assert cuda_kernels.dense_matrix_reads(S, m, n, 8, lay, ns, nr) == \
+        once + S * streamed_k * n * 8 * (nr * ns - 1)
+    for shape in ((28, 44), (84, 108)):
+        lay = cuda_kernels.dense_layout(*shape, 8)
+        m, n = shape
+        assert cuda_kernels.dense_matrix_reads(3, m, n, 8, lay, ns, nr) == \
+            3 * (m * n + 2 * n * n) * 8
+    lay = cuda_kernels.dense_layout(84, 108, 8, True)
+    assert cuda_kernels.dense_matrix_reads(3, 84, 108, 8, lay, ns, nr,
+                                           True) == \
+        3 * (84 * 108 * 2 + 108 * 108 * (2 + 8))
 
 
 #: Clusters of the resident mode an H100 SXM holds at once at uc_lite's
@@ -124,8 +296,8 @@ def test_main_paths_take_the_resident_modes():
     the main path's S=1000 (125 tiles) outnumbers the clusters the card
     holds at once and takes the streamed mode, and S=128 the resident
     mode.  Farmer at crops_multiplier=4 (m=28, n=44) takes the dense
-    resident mode, and at crops_multiplier=12 (m=84, n=132) in f64 the
-    streamed mode."""
+    resident mode, and at crops_multiplier=12 (m=84, n=132) in f64 a
+    cluster."""
     for isz, C in ((4, 2), (8, 5)):
         lay = cuda_kernels.shared_layout(242, 132, isz)
         assert (lay["mode"], lay["C"], lay["sb"]) == ("resident", C, 8)
@@ -136,7 +308,7 @@ def test_main_paths_take_the_resident_modes():
             == "resident"
     for isz in (4, 8):
         assert cuda_kernels.dense_layout(28, 44, isz)["mode"] == "resident"
-    assert cuda_kernels.dense_layout(84, 132, 8)["mode"] == "streamed"
+    assert cuda_kernels.dense_layout(84, 132, 8)["mode"] == "cluster"
     # a wide shared A: the streamed mode
     assert cuda_kernels.shared_layout(242, 2000, 8)["mode"] == "streamed"
 
@@ -242,7 +414,8 @@ def test_counts_by_mode_are_reset_and_untouched_on_cpu():
     others, and a wrapper on CPU tensors (the plain version) adds to none
     of them."""
     assert set(cuda_kernels.shared_modes) == {"resident", "streamed"}
-    assert set(cuda_kernels.dense_modes) == {"resident", "streamed"}
+    assert set(cuda_kernels.dense_modes) == {"resident", "cluster",
+                                             "streamed"}
     cuda_kernels.shared_modes["resident"] = 3
     cuda_kernels.dense_modes["streamed"] = 2
     cuda_kernels.reset_counts()

@@ -2,11 +2,15 @@
 
 ``fused_sweeps`` replaces the TPU Pallas kernel
 ``tpusppy/solvers/pallas_kernels.py:_sweeps_kernel``: ``n_sweeps`` relaxed
-OSQP sweeps per scenario of the dense engine.  Two modes, by
-:func:`dense_layout`: resident (a scenario's A, K^-1 and K sit in shared
-memory, the next scenario's arriving by bulk copies meanwhile) and streamed
-(the matrices pass through staged panels), so it takes every shape
-(source, bound and design notes: ``tpusppy_torch/csrc/fused_sweeps.cu``).
+OSQP sweeps per scenario of the dense engine.  Three modes, by
+:func:`dense_layout`: resident (a scenario's A, K^-1 and K sit in one
+block's shared memory, the next scenario's arriving by bulk copies
+meanwhile), cluster (cut into row blocks across a thread-block cluster,
+the products' outputs handed to every CTA through distributed shared
+memory) and streamed (the cluster mode with the rows that fit no CTA read
+again every pass: K^-1's and K's straight from device memory, A's through
+a ring of stages), so it takes every shape (source, bound and design
+notes: ``tpusppy_torch/csrc/fused_sweeps.cu``).
 
 ``fused_sweeps_shared`` replaces ``pallas_kernels.py:_shared_sweeps_kernel``:
 one ``n_sweeps`` block of the shared-A engine's sweep, with one (m, n) A and
@@ -115,7 +119,7 @@ sparse_modes = {"dense": 0, "structured": 0}
 #: ``fused_sweeps_shared`` launches by mode (:func:`shared_mode`).
 shared_modes = {"resident": 0, "streamed": 0}
 #: ``fused_sweeps`` launches by mode (:func:`dense_layout`).
-dense_modes = {"resident": 0, "streamed": 0}
+dense_modes = {"resident": 0, "cluster": 0, "streamed": 0}
 #: Launches at a lowered precision, by kernel and mode ("kernel:mode"); a
 #: launch at "highest" (and ``fused_sweeps`` at "high", its exact path) is
 #: counted nowhere here.
@@ -131,11 +135,21 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 #: Exported C entry points of each source (f32, f64), with their ctypes
 #: argument types.
 _ENTRY_POINTS = {
-    # (in ptrs, out ptrs, stop, S, m, n, n_sweeps, n_refine, mode, nsm,
-    #  prec, sigma, alpha, stream)
-    "fused_sweeps": [(("tpusppy_fused_sweeps_f32",
-                       "tpusppy_fused_sweeps_f64"),
-                      [_P, _P, _P] + [_I] * 8 + [_D, _D, _P])],
+    "fused_sweeps": [
+        # resident: (in ptrs, out ptrs, stop, S, m, n, n_sweeps, n_refine,
+        # nsm, prec, sigma, alpha, stream)
+        (("tpusppy_fused_sweeps_f32", "tpusppy_fused_sweeps_f64"),
+         [_P, _P, _P] + [_I] * 7 + [_D, _D, _P]),
+        # cluster and streamed: (in ptrs, out+scratch ptrs, stop, S, m, n,
+        # n_sweeps, n_refine, prec, C, hA, hKi, hK, buffers, ns, sp,
+        # vec_smem, max_clusters, sigma, alpha, stream)
+        (("tpusppy_fused_sweeps_cluster_f32",
+          "tpusppy_fused_sweeps_cluster_f64"),
+         [_P, _P, _P] + [_I] * 15 + [_D, _D, _P]),
+        # the clusters the card holds at once: (prec, C, smem, out)
+        (("tpusppy_fused_sweeps_clusters_f32",
+          "tpusppy_fused_sweeps_clusters_f64"),
+         [_I] * 3 + [ctypes.POINTER(ctypes.c_int)])],
     "fused_sweeps_shared": [
         # streamed: (in ptrs, out ptrs, stop, S, m, n, sb, chunk, n_sweeps,
         # n_refine, n_extra, prec, sigma, alpha, stream)
@@ -301,8 +315,28 @@ def _r16(nbytes):
 
 #: Threads per block of ``fused_sweeps`` (``kThreads`` in the source).
 _DENSE_THREADS = 256
-#: Bytes of one stage buffer's panel in its streamed mode (``kStageBytes``).
-_STAGE_BYTES = 32768
+#: Most bytes of one stage of ``fused_sweeps``' streamed ring
+#: (``kStageBytes``).
+_STAGE_BYTES = 16384
+#: Stages of the streamed mode's ring: at least three (two copies in flight
+#: beside the one the warps read), up to six where shared memory is left
+#: once the K^-1 and A rows are held.
+_STAGES = (3, 6)
+
+
+def _stage_payload(n, itemsize):
+    """Bytes of one stage's panel: the whole rows of the working type that
+    fit ``_STAGE_BYTES``, or, for longer rows, ``_STAGE_BYTES`` (segments
+    of a row).  bf16 panels of A and K^-1 take twice the rows."""
+    row = n * itemsize
+    return (_STAGE_BYTES // row) * row if row <= _STAGE_BYTES \
+        else _STAGE_BYTES
+#: Largest cluster of ``fused_sweeps``' cluster modes (``kMaxCluster``);
+#: past 8 it is one of the card's non-portable sizes, taken only where the
+#: card's cluster occupancy shows it (:func:`_dense_max_cluster`).
+MAX_DENSE_CLUSTER = 16
+#: Cluster sizes the cluster modes take, least first.
+DENSE_CLUSTERS = (2, 4, 8, 16)
 
 
 def _dense_array_lens(m, n):
@@ -312,46 +346,229 @@ def _dense_array_lens(m, n):
     return [m * n, n * n, n * n] + [n] * 7 + [m] * 6
 
 
-@functools.lru_cache(maxsize=64)
-def dense_layout(m, n, itemsize, lowered=False) -> dict:
-    """Mode and shared memory of one ``fused_sweeps`` block (mirrors
-    ``ResLayout`` and ``StreamLayout`` in the CUDA source).
-
-    Resident when two scenario buffers fit beside the two mbarriers, the
-    slots' offsets and the work vectors (rhs, xt, r of n and v of m): each
-    buffer holds a scenario's 16 arrays, each
-    in a slot 16 bytes longer than its 16-byte-rounded size (the span a
-    bulk copy brings in may start up to 15 bytes early); ``lowered`` (the
-    "default" mode) holds A and K^-1 in bf16, 2 bytes an entry.  Otherwise
-    streamed: two stage buffers of ``_STAGE_BYTES`` (+32) for the matrix
-    panels, and the work vectors (rhs, xt, r, t and v) in shared memory
-    where they fit (``vec_smem``), else ``scratch`` values a block in
-    device memory.  Cached per shape: the wrapper asks at every launch,
-    so callers must not change the dict."""
+def _resident_dense(m, n, itemsize, lowered):
+    """The resident layout (mirrors ``ResLayout``), or None where one
+    scenario buffer does not fit one block."""
     sizes = [2 if lowered and a < 2 else itemsize for a in range(16)]
     slots = [_r16(L * isz) + 16
              for L, isz in zip(_dense_array_lens(m, n), sizes)]
     work = 16 + 4 * len(slots)
     buf = work + 3 * _r16(n * itemsize) + _r16(m * itemsize)
-    total = buf + 2 * sum(slots)
-    if total <= SMEM_LIMIT:
-        return {"mode": "resident", "smem": total, "buffer": sum(slots),
-                "slots": slots, "work": work, "buf": buf}
-    stage = _STAGE_BYTES + 32
-    work = 16 + 2 * stage
-    work_bytes = 4 * _r16(n * itemsize) + _r16(m * itemsize)
-    vec_smem = work + work_bytes <= SMEM_LIMIT
-    return {"mode": "streamed", "smem": work + work_bytes if vec_smem
-            else work, "stage": stage, "work": work, "vec_smem": vec_smem,
-            "scratch": 0 if vec_smem else work_bytes // itemsize}
+    for buffers in (2, 1):
+        smem = buf + buffers * sum(slots)
+        if smem <= SMEM_LIMIT:
+            return {"mode": "resident", "C": 1, "buffers": buffers,
+                    "smem": smem, "buffer": sum(slots), "slots": slots,
+                    "work": work, "buf": buf}
+    return None
+
+
+def _cluster_offsets(m, n, itemsize, msz, C, hold, buffers, ns, vec_smem):
+    """Byte offsets of one CTA's shared memory in the cluster modes
+    (mirrors ``ClusterLayout``): the mbarriers (two, then two a stage) and
+    the stages' 32-byte panel descriptors, then where ``vec_smem`` the
+    full-length work vectors w, xt, the A'v partial sums and (``msz`` 2, the
+    mixed-precision mode) u, and the CTA's own rows of the state (8 of n's,
+    7 of m's), then ``buffers`` buffers of the held rows ``hold`` = (A's,
+    K^-1's, K's), each in a slot 16 bytes past its rounded size, then
+    ``ns`` stages of :func:`_stage_payload` bytes and 32 of slack."""
+    nk, mk = -(-n // C), -(-m // C)
+    nvec = 4 if msz < itemsize else 3
+    off = {"bars": 0, "vec": _r16(8 * (2 + 2 * ns) + 32 * ns)}
+    off["own"] = off["vec"] + (nvec * _r16(n * itemsize) if vec_smem else 0)
+    off["held"] = off["own"] + (8 * _r16(nk * itemsize)
+                                + 7 * _r16(mk * itemsize) if vec_smem else 0)
+    slots = [_r16(h * n * sz) + 16 if h else 0
+             for h, sz in zip(hold, (msz, msz, itemsize))]
+    off["slots"] = slots
+    off["stage"] = off["held"] + buffers * sum(slots)
+    off["stage_bytes"] = _r16(_stage_payload(n, itemsize)) + 32
+    off["total"] = off["stage"] + ns * off["stage_bytes"]
+    return off
+
+
+def _cluster_dict(mode, m, n, itemsize, msz, C, hold, buffers, ns,
+                  vec_smem):
+    off = _cluster_offsets(m, n, itemsize, msz, C, hold, buffers, ns,
+                           vec_smem)
+    nk, mk = -(-n // C), -(-m // C)
+    vals = lambda k: _r16(k * itemsize) // itemsize
+    return {"mode": mode, "C": C, "buffers": buffers, "hold": tuple(hold),
+            "ns": ns, "sp": _stage_payload(n, itemsize), "vec_smem": vec_smem,
+            "nk": nk, "mk": mk,
+            "rows": [(c * m // C, (c + 1) * m // C) for c in range(C)],
+            "krows": [(c * n // C, (c + 1) * n // C) for c in range(C)],
+            "offsets": off, "smem": off["total"],
+            # device-memory scratch a cluster where the work vectors do not
+            # fit: each CTA's w, xt, u, partial sums (n), rhs (nk), v (mk)
+            "scratch": 0 if vec_smem else C * (4 * vals(n) + vals(nk)
+                                               + vals(mk))}
+
+
+def _cluster_resident(m, n, itemsize, msz, C):
+    """The cluster mode at C CTAs (every row held), or None where it does
+    not fit; two buffers where they fit."""
+    nk, mk = -(-n // C), -(-m // C)
+    for buffers in (2, 1):
+        lay = _cluster_dict("cluster", m, n, itemsize, msz, C, (mk, nk, nk),
+                            buffers, 0, True)
+        if lay["smem"] <= SMEM_LIMIT:
+            return lay
+    return None
+
+
+def _cluster_streamed(m, n, itemsize, msz, C):
+    """The streamed mode at C CTAs: the work vectors in shared memory where
+    they fit beside a ring of three stages, then as many of each CTA's K^-1
+    rows as fit, then of its A rows; where every A row is held the ring
+    goes (the streamed K^-1 and K rows are read from device memory, only
+    A's pass through the ring), else up to three more stages; then as many
+    of its K rows as fit."""
+    nk, mk = -(-n // C), -(-m // C)
+    ns = _STAGES[0]
+    base = lambda vs, k: _cluster_offsets(m, n, itemsize, msz, C, (0, 0, 0),
+                                          1, k, vs)
+    vec_smem = base(True, ns)["total"] <= SMEM_LIMIT
+    off = base(vec_smem, ns)
+    budget = SMEM_LIMIT - off["total"]
+    hold = [0, 0, 0]
+
+    def take(idx, rows, sz):
+        nonlocal budget
+        h = min(rows, max(0, (budget - 16) // (n * sz)))
+        while h and _r16(h * n * sz) + 16 > budget:
+            h -= 1
+        if h:
+            hold[idx] = h
+            budget -= _r16(h * n * sz) + 16
+
+    take(1, nk, msz)
+    take(0, mk, msz)
+    if hold[0] == mk:
+        # no A row streams: no ring
+        budget += off["total"] - base(vec_smem, 0)["total"]
+        ns = 0
+    else:
+        # each stage more also takes 32 bytes of barriers and descriptor
+        extra = min(_STAGES[1] - ns, budget // (off["stage_bytes"] + 48))
+        ns += extra
+        budget -= extra * off["stage_bytes"] + (
+            _r16(8 * (2 + 2 * ns) + 32 * ns) - off["vec"])
+    take(2, nk, itemsize)
+    return _cluster_dict("streamed", m, n, itemsize, msz, C, hold, 1, ns,
+                         vec_smem)
+
+
+@functools.lru_cache(maxsize=256)
+def dense_layout(m, n, itemsize, lowered=False, S=None, nsm=132,
+                 max_cluster=MAX_DENSE_CLUSTER) -> dict:
+    """Mode and shared memory of ``fused_sweeps`` at this shape (mirrors
+    ``ResLayout`` and ``ClusterLayout`` in the CUDA source).  ``lowered``
+    (the "default" mode) holds A and K^-1 in bf16, 2 bytes an entry.
+
+    - **resident** (``C`` 1) where one scenario's 16 arrays fit one block
+      (and, where only one buffer fits, ``S`` fills at least an eighth
+      of ``nsm`` SMs; fewer scenarios take the cluster mode) beside the
+      two mbarriers, the slots' offsets and the work vectors
+      (rhs, xt, r of n and v of m), each array in a slot 16 bytes longer
+      than its 16-byte-rounded size (the span a bulk copy brings in may
+      start up to 15 bytes early); ``buffers`` 2 where two fit (the
+      launcher then keeps the next scenario's copy in flight where that
+      keeps more than half the blocks an SM), else 1.  Bound by the
+      blocks' shared-memory reads and, with one buffer, its copy.
+    - **cluster** where the scenario's arrays cut into C row blocks fit C
+      CTAs (A's rows [c m / C, (c+1) m / C) and K^-1's and K's rows
+      [c n / C, (c+1) n / C) to CTA c: ``rows`` and ``krows``), C the least
+      of :data:`DENSE_CLUSTERS` up to ``max_cluster`` that fits, doubled
+      while ``S`` 2C CTAs still fit ``nsm`` SMs (so a small S fills the
+      card); two buffers where they fit.  Bound by latency: its 3 + 2
+      n_refine cluster barriers a sweep and each product's chain of
+      shared-memory reads (one CTA a cluster an SM).
+    - **streamed** otherwise, at C = ``max_cluster``: each CTA holds as many
+      of its K^-1 rows as fit, then of its A rows, then of its K rows
+      (``hold``, the most any CTA holds), and reads the rest again every
+      pass: K^-1's and K's straight from device memory in the products,
+      A's through a ring of ``ns`` stages of ``sp`` bytes
+      (:func:`_stage_payload`; three to six, before K's rows; none where
+      every A row is held); the work vectors and the CTA's rows
+      of the state in shared memory where they fit beside the ring
+      (``vec_smem``), else in ``scratch`` values a cluster of device
+      memory.  Bound by the rows it re-reads every pass
+      (:func:`dense_matrix_reads`).  No limit comes from m or n.
+
+    Keys of the cluster modes: ``mode``, ``C``, ``buffers``, ``hold``,
+    ``ns``, ``sp``, ``vec_smem``, ``nk`` and ``mk`` (the most K and A
+    rows a CTA owns), ``rows``, ``krows``, ``offsets`` (of the CTA's
+    buffers, and its held slots' sizes), ``smem``, ``scratch``.  Cached per shape: the
+    wrapper asks at every launch, so callers must not change the dict."""
+    msz = 2 if lowered else itemsize
+    res = _resident_dense(m, n, itemsize, lowered)
+    # where only one buffer fits and the scenarios are too few to fill an
+    # eighth of the card's SMs (sizes' S=3), a cluster fills more of them
+    few = S is not None and 8 * S <= nsm and res is not None \
+        and res["buffers"] == 1
+    if res is not None and not few:
+        return res
+    Cs = [C for C in DENSE_CLUSTERS if C <= max_cluster]
+    for i, C in enumerate(Cs):
+        lay = _cluster_resident(m, n, itemsize, msz, C)
+        if lay is None:
+            continue
+        while S is not None and i + 1 < len(Cs) and S * Cs[i + 1] <= nsm:
+            i += 1
+            lay = _cluster_resident(m, n, itemsize, msz, Cs[i])
+        return lay
+    return _cluster_streamed(m, n, itemsize, msz, Cs[-1])
+
+
+def _dense_mode_layout(m, n, itemsize, lowered, mode, C=None):
+    """The layout of one mode of ``fused_sweeps`` at this shape, whether or
+    not :func:`dense_layout` picks it, to hold or time one mode against
+    another (:func:`_launch_dense`): "resident", "cluster" at C CTAs (the
+    least of :data:`DENSE_CLUSTERS` that fits where C is None) or
+    "streamed" at C CTAs; None where the mode does not take the shape."""
+    msz = 2 if lowered else itemsize
+    if mode == "resident":
+        return _resident_dense(m, n, itemsize, lowered)
+    if mode == "streamed":
+        return _cluster_streamed(m, n, itemsize, msz, C or MAX_DENSE_CLUSTER)
+    for c in (C,) if C else DENSE_CLUSTERS:
+        lay = _cluster_resident(m, n, itemsize, msz, c)
+        if lay is not None:
+            return lay
+    return None
+
+
+def dense_matrix_reads(S, m, n, itemsize, lay, n_sweeps, n_refine,
+                       lowered=False) -> int:
+    """Bytes of A, K^-1 and K a ``fused_sweeps`` launch in layout ``lay``
+    reads from device memory (or L2): every held row once, every streamed
+    row at each pass that reads it (A twice a sweep, K^-1 1 + n_refine
+    times, K n_refine times).  Over 3.35 TB/s it is the streamed mode's
+    re-stream floor; in the resident and cluster modes it is the matrices
+    once."""
+    msz = 2 if lowered else itemsize
+    once = S * (m * n * msz + n * n * (msz + itemsize))
+    if lay["mode"] != "streamed":
+        return once
+    hA, hKi, hK = lay["hold"]
+    streamed = [0, 0, 0]
+    for (a0, a1), (k0, k1) in zip(lay["rows"], lay["krows"]):
+        streamed[0] += max(0, a1 - a0 - hA)
+        streamed[1] += max(0, k1 - k0 - hKi)
+        streamed[2] += max(0, k1 - k0 - hK)
+    passes = (2, 1 + n_refine, n_refine)
+    again = sum(r * n * sz * (p * n_sweeps - 1) for r, sz, p in zip(
+        streamed, (msz, msz, itemsize), passes))
+    return once + S * again
 
 
 def usable(S, m, n, dtype) -> bool:
     """Whether ``fused_sweeps`` takes this shape: f32/f64, at least one
     scenario and one variable.  No limit comes from m or n: a scenario
-    that does not fit shared memory runs the streamed mode
-    (:func:`dense_layout`).  Covers every shape ``pallas_kernels.usable``
-    takes and those the reference sends to its XLA sweep."""
+    that fits no cluster runs the streamed mode (:func:`dense_layout`).
+    Covers every shape ``pallas_kernels.usable`` takes and those the
+    reference sends to its XLA sweep."""
     return dtype in (torch.float32, torch.float64) and S >= 1 and n >= 1 \
         and m >= 0
 
@@ -1115,16 +1332,52 @@ def _sm_count(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
+def _dense_clusters(dev, dt, lowered, C, smem) -> int:
+    """Clusters of C CTAs with ``smem`` bytes each that the card ``dev``
+    holds at once for ``fused_sweeps``' cluster kernel
+    (``cudaOccupancyMaxActiveClusters``; 0 where it cannot place one)."""
+    fn = getattr(_load("fused_sweeps"), _ENTRY_POINTS["fused_sweeps"][2][0][
+        dt == torch.float64])
+    out = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = fn(int(lowered), C, smem, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"fused_sweeps: the cluster occupancy query "
+                           f"failed with error {err}")
+    return out.value
+
+
+def _dense_max_cluster(dev, dt, lowered) -> int:
+    """The largest cluster ``fused_sweeps`` takes on ``dev``: 16 where the
+    card holds such clusters at a CTA's full shared memory, else 8."""
+    if _dense_clusters(dev, dt, lowered, 16, SMEM_LIMIT) >= 1:
+        return 16
+    return 8
+
+
+def dense_launch_layout(S, A, lowered=False) -> dict:
+    """The layout ``fused_sweeps`` launches in for ``S`` scenarios of this
+    CUDA A (:func:`dense_layout` with the card's SM count and largest
+    cluster); raises where the kernel does not take the shape."""
+    _, m, n = A.shape
+    if not usable(S, m, n, A.dtype):
+        raise ValueError(f"fused_sweeps: shape (S={S}, m={m}, n={n}) in "
+                         f"{A.dtype} is not taken by the kernel")
+    return dense_layout(m, n, A.element_size(), lowered, S,
+                        _sm_count(A.device),
+                        _dense_max_cluster(A.device, A.dtype, lowered))
+
+
 def fused_sweeps(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
                  x, z, zx, y, yx, Ax, n_sweeps, n_refine, sigma, alpha,
                  precision="highest", operand=None, stop=None):
     """Run ``n_sweeps`` fused ADMM sweeps; same arguments and result as
     :func:`fused_sweeps_plain`.  CUDA tensors launch the kernel in the mode
     of :func:`dense_layout` (or raise); CPU tensors run the plain
-    version.  At "default" the kernel reads ``operand`` (:func:
-    `dense_operand`, made here if not given).  Where ``stop`` is set the
-    kernel returns at once and the outputs are left unwritten."""
-    lowered = _dense_lowered(precision)
+    version.  At "default" the kernel reads ``operand``
+    (:func:`dense_operand`, made here if not given).  Where ``stop`` is set
+    the kernel returns at once and the outputs are left unwritten."""
     if A.device.type == "cpu":
         return fused_sweeps_plain(q, A, Kinv, K, cl, cu, lb, ub, rho_a,
                                   rho_x, x, z, zx, y, yx, Ax, n_sweeps,
@@ -1132,11 +1385,21 @@ def fused_sweeps(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
                                   operand=operand, stop=stop)
     if A.device.type != "cuda":
         raise ValueError(f"fused_sweeps: unsupported device {A.device}")
+    lay = dense_launch_layout(A.shape[0], A, _dense_lowered(precision))
+    return _launch_dense(lay, q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
+                         x, z, zx, y, yx, Ax, n_sweeps, n_refine, sigma,
+                         alpha, precision, operand, stop)
+
+
+def _launch_dense(lay, q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
+                  x, z, zx, y, yx, Ax, n_sweeps, n_refine, sigma, alpha,
+                  precision="highest", operand=None, stop=None):
+    """:func:`fused_sweeps` on CUDA tensors in the layout ``lay``: the one
+    :func:`dense_launch_layout` picks, or (to hold or time one mode against
+    another) one of :func:`_dense_mode_layout`."""
+    lowered = _dense_lowered(precision)
     S, m, n = A.shape
     dt = A.dtype
-    if not usable(S, m, n, dt):
-        raise ValueError(f"fused_sweeps: shape (S={S}, m={m}, n={n}) in "
-                         f"{dt} is not taken by the kernel")
     ins = (q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x, x, z, zx, y, yx, Ax)
     _check_args("fused_sweeps", ins,
                 ((S, n), (S, m, n), (S, n, n), (S, n, n), (S, m), (S, m),
@@ -1148,19 +1411,22 @@ def fused_sweeps(q, A, Kinv, K, cl, cu, lb, ub, rho_a, rho_x,
         _check_args("fused_sweeps", operand, ((S, m, n), (S, n, n)),
                     A.device, torch.bfloat16)
         ins = (q,) + tuple(operand) + ins[3:]
-    lay = dense_layout(m, n, A.element_size(), lowered)
     nsm = _sm_count(A.device)
     outs = tuple(torch.empty_like(t) for t in (x, z, zx, y, yx, Ax))
-    mode, ptrs = 0, outs
-    if lay["mode"] == "streamed":
-        # its work vectors, min(S, nsm) blocks of them, where they do not
-        # fit shared memory
-        mode = 1
-        ptrs += (torch.empty(max(1, min(S, nsm) * lay["scratch"]), dtype=dt,
-                             device=A.device),)
-    _launch("fused_sweeps", dt, ins, ptrs, stop, S, m, n, int(n_sweeps),
-            int(n_refine), mode, nsm, int(lowered), float(sigma),
-            float(alpha))
+    fixed = (S, m, n, int(n_sweeps), int(n_refine))
+    if lay["mode"] == "resident":
+        _launch("fused_sweeps", dt, ins, outs, stop, *fixed, nsm,
+                int(lowered), float(sigma), float(alpha))
+    else:
+        # the work vectors' device-memory scratch, for at most one cluster
+        # an SM, where they do not fit shared memory
+        clusters = min(S, nsm) if lay["scratch"] else 0
+        scratch = torch.empty(max(1, clusters * lay["scratch"]), dtype=dt,
+                              device=A.device)
+        _launch("fused_sweeps", dt, ins, outs + (scratch,), stop, *fixed,
+                int(lowered), lay["C"], *lay["hold"], lay["buffers"],
+                lay["ns"], lay["sp"], int(lay["vec_smem"]), clusters,
+                float(sigma), float(alpha), entry=1)
     bump("dense_modes", lay["mode"])
     if lowered:
         bump("lowered_launches", "fused_sweeps:default")
